@@ -9,14 +9,18 @@ Phases, each printed as it runs:
    versions; TF32 is switched off for float32 matmuls and convolutions;
 2. build — the CUDA kernels compile from ``src/repro_torch/kernels/csrc``
    with nvcc, and the Triton kernel compiles at its first launch;
-3. kernels — every kernel of the serving path against its plain PyTorch
-   version at the serving shapes of qwen3-1.7b (H=16, KVH=8, d=128,
-   page 16, 8 seats with lengths from 1 to 2048; RMSNorm at D=2048 and
-   D=128), with its time, the plain version's time, one PyTorch library
-   call's time as a yardstick, and the least time the card could take;
-   untimed, RMSNorm at the k-norm and prefill-chunk shapes; then the same
-   checks off those shapes (f32 queries and
-   pools, GQA groups 1 and 4, head dims 16 and 64, f32 RMSNorm);
+3. kernels — every kernel of the serving paths against its plain PyTorch
+   version at the serving shapes of qwen3-1.7b (H=16, KVH=8, d=128;
+   paged decode: page 16, 8 seats with lengths from 1 to 2048; dense
+   decode: 8 slots of 545 keys, lengths 1 to 545; flash prefill: one
+   causal prompt of 511 tokens; RMSNorm at D=2048 and D=128), with its
+   time, the plain version's time, one PyTorch library call's time as a
+   yardstick (``F.scaled_dot_product_attention`` pinned to one backend,
+   ``F.rms_norm``), and the least time the card could take; untimed,
+   RMSNorm at the k-norm and prefill-chunk shapes and flash prefill at 64
+   and 37 tokens; then the same checks off those shapes (f32 queries,
+   pools and caches, GQA groups 1 and 4, head dims 16 to 256, odd cache
+   lengths, sliding-window and non-causal flash, f32 RMSNorm);
 4. serve — ``serve_paged`` at the full width of qwen3-1.7b (28 layers,
    d_model 2048, vocab 151936, bf16 compute, weights from a seeded
    torch.Generator), 16 requests with prompts of 64-511 tokens and 32
@@ -28,7 +32,16 @@ Phases, each printed as it runs:
    plain versions, whose logits must agree, and the steady tick's wall
    time, device busy time and top kernels (torch.profiler; bf16 and fp8
    pools);
-5. summary — one JSON line listing the kernels, the card's name and power
+5. serve-fixed — the fixed-slot path at the same width: ``serve`` (the
+   static batch behind ``--engine batch``: 4 prompts of 128 tokens, 16
+   new tokens each), then a ``ServingEngine`` (8 slots, max_len 544) over
+   the same 16 requests as the paged runs, with the same checks and the
+   launch counts of the dense decode and flash kernels; one decode step
+   with the kernels and with the plain versions, whose logits must agree;
+   the steady decode step's wall time, device busy time and idle share;
+   and, as information, how many greedy tokens the fixed-slot and bf16
+   paged engines share;
+6. summary — one JSON line listing the kernels, the card's name and power
    limit, and as the last line ``{"ok": true, "device": {...}}``.
 
 Any failure raises: the script exits non-zero and prints no ``ok`` line.
@@ -47,15 +60,24 @@ sys.path.insert(0, str(ROOT / "src"))
 
 import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
+from torch.nn.attention import SDPBackend, sdpa_kernel  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory rate
 F32_FLOPS = 67e12              # H100 SXM float32 rate outside tensor cores
+BF16_FLOPS = 989e12            # H100 SXM dense bf16 tensor-core rate
 ARCH = "qwen3-1.7b"
 H, KVH, HEAD_DIM, PAGE = 16, 8, 128, 16
 SEAT_LENGTHS = (1, 16, 17, 255, 700, 1024, 1531, 2048)
 N_TABLE = 2048 // PAGE
 PREFILL_CHUNK = 128
+MAX_LEN = 544                  # fixed-slot max_len: prompt <= 511 + 32 new
+# dense decode lengths: a fresh prompt, the spread of a serving wave, a
+# full slot, and an idle slot parked on the scratch index (max_len + 1)
+SLOT_LENGTHS = (1, 64, 65, 200, 333, 511, 544, MAX_LEN + 1)
+PREFILL_S = 511                # the widest prompt of the serving runs
 ITERS = 20
+SDPA_EFF = "sdpa[EFFICIENT_ATTENTION]"    # yardstick names, with backend
+SDPA_FLASH = "sdpa[FLASH_ATTENTION]"
 
 
 def log(phase: str, msg: str) -> None:
@@ -92,10 +114,20 @@ def cuda_ms(fn, flush: torch.Tensor, iters: int = ITERS) -> float:
     return us / 1e3 / iters
 
 
-def bound(nbytes: float, flops: float):
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS
+def bound(nbytes: float, flops: float, rate: float = F32_FLOPS):
+    """Least time in ms: bytes over the memory rate or operations over
+    ``rate``, whichever is larger, and which of the two it is."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / rate
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
+
+
+def sdpa(backend: SDPBackend, *args, **kw):
+    """The yardstick: ``F.scaled_dot_product_attention`` pinned to one
+    backend, so a backend PyTorch cannot take raises instead of falling
+    back to another."""
+    with sdpa_kernel(backend):
+        return F.scaled_dot_product_attention(*args, **kw)
 
 
 def check_close(name: str, got: torch.Tensor, want: torch.Tensor,
@@ -219,8 +251,8 @@ def phase_kernels(flush: torch.Tensor) -> dict:
         vg = vg.reshape(A, -1, KVH, HEAD_DIM).transpose(1, 2)
         kg = kg.repeat_interleave(H // KVH, dim=1).contiguous()
         vg = vg.repeat_interleave(H // KVH, dim=1).contiguous()
-        lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
-            qs, kg, vg, attn_mask=mask), flush)
+        lib_ms = cuda_ms(lambda: sdpa(SDPBackend.EFFICIENT_ATTENTION, qs, kg,
+                                      vg, attn_mask=mask), flush)
 
         item = k.element_size()
         nbytes = (2 * valid * KVH * HEAD_DIM * item
@@ -229,11 +261,12 @@ def phase_kernels(flush: torch.Tensor) -> dict:
                   + table.numel() * 4 + lengths.numel() * 4)
         b_ms, b_by = bound(nbytes, 4.0 * valid * H * HEAD_DIM)
         log("kernels", f"{name}[{dt}] max|err| {err:.3e} kernel {ms:.4f} ms "
-            f"plain {plain_ms:.4f} ms sdpa {lib_ms:.4f} ms bound "
+            f"plain {plain_ms:.4f} ms {SDPA_EFF} {lib_ms:.4f} ms bound "
             f"{b_ms:.4f} ms ({b_by}, {nbytes / 1e6:.2f} MB)")
         results[f"{name}[{dt}]"] = dict(
             name=name, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-            bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+            bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+            library=SDPA_EFF)
 
     # every shape K3 takes on the serving path: ln1/ln2/final at D=2048,
     # q-norm (x H) and k-norm (x KVH) at D=128, over A decode rows or
@@ -265,8 +298,110 @@ def phase_kernels(flush: torch.Tensor) -> dict:
             f"{lib_ms:.4f} ms bound {b_ms:.5f} ms ({b_by})")
         results[f"rmsnorm[D={d}]"] = dict(
             name="rmsnorm", max_abs_err=err, ms=ms, plain_ms=plain_ms,
-            bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+            bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+            library="F.rms_norm")
+    results.update(_dense_decode_kernel(gen, flush))
+    results.update(_flash_kernel(gen, flush))
     return results
+
+
+def _dense_decode_kernel(gen: torch.Generator, flush: torch.Tensor) -> dict:
+    """K4 at the fixed-slot decode shapes: 8 slots of MAX_LEN + 1 keys,
+    lengths SLOT_LENGTHS (the last an idle slot on the scratch index)."""
+    from repro_torch.kernels import ops
+    B, T = len(SLOT_LENGTHS), MAX_LEN + 1
+    lengths = torch.tensor(SLOT_LENGTHS, dtype=torch.int32, device="cuda")
+    q = torch.randn((B, 1, H, HEAD_DIM), generator=gen,
+                    device="cuda").bfloat16()
+    k = torch.randn((B, T, KVH, HEAD_DIM), generator=gen,
+                    device="cuda").bfloat16()
+    v = torch.randn((B, T, KVH, HEAD_DIM), generator=gen,
+                    device="cuda").bfloat16()
+
+    def run(impl):
+        return ops.decode_attention(q, k, v, lengths, impl=impl)
+    got = run("kernel")
+    torch.cuda.synchronize()
+    err = check_close("decode_attention[bf16]", got, run("plain"),
+                      BF16_ATOL, BF16_RTOL)
+    ms = cuda_ms(lambda: run("kernel"), flush)
+    plain_ms = cuda_ms(lambda: run("plain"), flush, iters=5)
+    # yardstick: SDPA on the GQA-expanded cache (expansion excluded)
+    kg = k.transpose(1, 2).repeat_interleave(H // KVH, dim=1).contiguous()
+    vg = v.transpose(1, 2).repeat_interleave(H // KVH, dim=1).contiguous()
+    mask = (torch.arange(T, device="cuda")[None, :]
+            < lengths[:, None].long())[:, None, None, :]
+    qs = q.transpose(1, 2)
+    lib_ms = cuda_ms(lambda: sdpa(SDPBackend.EFFICIENT_ATTENTION, qs, kg, vg,
+                                  attn_mask=mask), flush)
+    valid = sum(SLOT_LENGTHS)
+    nbytes = (2 * valid * KVH * HEAD_DIM * 2 + 2 * q.numel() * 2
+              + lengths.numel() * 4)
+    b_ms, b_by = bound(nbytes, 4.0 * valid * H * HEAD_DIM)
+    log("kernels", f"decode_attention[bf16] max|err| {err:.3e} kernel "
+        f"{ms:.4f} ms plain {plain_ms:.4f} ms {SDPA_EFF} {lib_ms:.4f} ms "
+        f"bound {b_ms:.5f} ms ({b_by}, {nbytes / 1e6:.2f} MB; idle slot "
+        f"walks {MAX_LEN + 1} of {valid} keys)")
+    # the cost of the idle slots' scratch-index walk at a wave's tail: 4
+    # short live slots beside 4 idle ones, which walk their whole cache
+    # (the reference's mask) or, for comparison only, one key
+    tail = []
+    for idle_len in (MAX_LEN + 1, 1):
+        lens = torch.tensor((97, 120, 131, 142) + (idle_len,) * 4,
+                            dtype=torch.int32, device="cuda")
+        tail.append(cuda_ms(lambda: ops.decode_attention(
+            q, k, v, lens, impl="kernel"), flush))
+    log("kernels", f"decode_attention[bf16] wave tail (live 97-142 keys, "
+        f"4 idle slots): {tail[0]:.4f} ms with the idle slots walking "
+        f"{MAX_LEN + 1} keys, {tail[1]:.4f} ms if they walked 1")
+    return {"decode_attention[bf16]": dict(
+        name="decode_attention", max_abs_err=err, ms=ms, plain_ms=plain_ms,
+        bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms, library=SDPA_EFF)}
+
+
+def _flash_kernel(gen: torch.Generator, flush: torch.Tensor) -> dict:
+    """K5 at the prefill shapes: one causal prompt of PREFILL_S tokens
+    timed; 64 and 37 tokens checked."""
+    from repro_torch.kernels import ops
+    out = {}
+    for S in (PREFILL_S, 64, 37):
+        q = torch.randn((1, S, H, HEAD_DIM), generator=gen,
+                        device="cuda").bfloat16()
+        k = torch.randn((1, S, KVH, HEAD_DIM), generator=gen,
+                        device="cuda").bfloat16()
+        v = torch.randn((1, S, KVH, HEAD_DIM), generator=gen,
+                        device="cuda").bfloat16()
+
+        def run(impl, q=q, k=k, v=v):
+            return ops.flash_attention(q, k, v, causal=True, impl=impl)
+        got = run("kernel")
+        torch.cuda.synchronize()
+        err = check_close(f"flash_attention[causal, S={S}]", got,
+                          run("plain"), BF16_ATOL, BF16_RTOL)
+        if S != PREFILL_S:
+            log("kernels", f"flash_attention[causal, S={S}] max|err| "
+                f"{err:.3e}")
+            continue
+        ms = cuda_ms(lambda: run("kernel"), flush)
+        plain_ms = cuda_ms(lambda: run("plain"), flush, iters=5)
+        qs = q.transpose(1, 2).contiguous()
+        kg = k.transpose(1, 2).repeat_interleave(H // KVH, dim=1).contiguous()
+        vg = v.transpose(1, 2).repeat_interleave(H // KVH, dim=1).contiguous()
+        lib_ms = cuda_ms(lambda: sdpa(SDPBackend.FLASH_ATTENTION, qs, kg, vg,
+                                      is_causal=True), flush)
+        nbytes = 2 * (q.numel() + k.numel() + v.numel() + q.numel())
+        kept = S * (S + 1) // 2
+        b_ms, b_by = bound(nbytes, 4.0 * HEAD_DIM * H * kept, BF16_FLOPS)
+        log("kernels", f"flash_attention[causal, S={S}] max|err| {err:.3e} "
+            f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms {SDPA_FLASH} "
+            f"{lib_ms:.4f} ms bound {b_ms:.5f} ms ({b_by}, "
+            f"{nbytes / 1e6:.2f} MB, {4.0 * HEAD_DIM * H * kept / 1e9:.2f} "
+            "GFLOP at the bf16 tensor-core rate)")
+        out["flash_attention[causal]"] = dict(
+            name="flash_attention", max_abs_err=err, ms=ms,
+            plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+            library_ms=lib_ms, library=SDPA_FLASH)
+    return out
 
 
 def phase_variants() -> None:
@@ -312,6 +447,47 @@ def phase_variants() -> None:
                           ops.rmsnorm(x, w, impl="kernel"),
                           ops.rmsnorm(x, w, impl="plain"), *f32_tol)
         log("variants", f"rmsnorm f32 D={d}: max|err| {err:.3e}")
+    dense = [  # (B, T, H, KVH, d, q dtype, cache dtype)
+        (4, 37, 4, 2, 16, torch.float32, torch.float32),
+        (3, 160, 8, 2, 64, torch.float32, torch.float32),
+        (3, 96, 4, 1, 32, torch.bfloat16, torch.bfloat16),
+        (4, 255, 32, 8, 128, torch.bfloat16, torch.bfloat16),
+        (2, 545, 16, 8, 128, torch.float32, torch.bfloat16),
+        (2, 100, 8, 8, 256, torch.float32, torch.float32)]
+    for B, T, H_, KVH_, d, qdt, kdt in dense:
+        q = torch.randn((B, 1, H_, d), generator=gen, device="cuda").to(qdt)
+        k = torch.randn((B, T, KVH_, d), generator=gen, device="cuda").to(kdt)
+        v = torch.randn((B, T, KVH_, d), generator=gen, device="cuda").to(kdt)
+        lengths = torch.randint(1, T + 1, (B,), generator=gen, device="cuda",
+                                dtype=torch.int32)
+        got, want = (ops.decode_attention(q, k, v, lengths, impl=impl)
+                     for impl in ("kernel", "plain"))
+        tol = f32_tol if qdt == torch.float32 else (BF16_ATOL, BF16_RTOL)
+        err = check_close(f"dense[B={B},T={T},H={H_},KVH={KVH_},d={d},"
+                          f"{qdt},{kdt}]", got, want, *tol)
+        log("variants", f"dense decode T={T} H={H_} KVH={KVH_} d={d} "
+            f"q={qdt} cache={kdt}: max|err| {err:.3e}")
+    flash = [  # (B, Sq, Skv, H, KVH, d, dtype, causal, window)
+        (2, 100, 100, 16, 8, 128, torch.float32, True, None),
+        (1, 511, 511, 16, 8, 128, torch.bfloat16, True, 128),
+        (2, 77, 77, 8, 2, 64, torch.float32, True, 32),
+        (2, 64, 64, 4, 4, 32, torch.float32, False, None),
+        (2, 96, 200, 4, 1, 32, torch.bfloat16, False, None),
+        (1, 37, 37, 4, 2, 16, torch.float32, True, None),
+        (1, 300, 300, 4, 4, 256, torch.bfloat16, True, None)]
+    for B, Sq, Skv, H_, KVH_, d, dt, causal, window in flash:
+        q = torch.randn((B, Sq, H_, d), generator=gen, device="cuda").to(dt)
+        k = torch.randn((B, Skv, KVH_, d), generator=gen, device="cuda").to(dt)
+        v = torch.randn((B, Skv, KVH_, d), generator=gen, device="cuda").to(dt)
+        got, want = (ops.flash_attention(q, k, v, causal=causal,
+                                         window=window, impl=impl)
+                     for impl in ("kernel", "plain"))
+        tol = f32_tol if dt == torch.float32 else (BF16_ATOL, BF16_RTOL)
+        err = check_close(f"flash[B={B},Sq={Sq},Skv={Skv},H={H_},"
+                          f"KVH={KVH_},d={d},{dt},causal={causal},"
+                          f"window={window}]", got, want, *tol)
+        log("variants", f"flash Sq={Sq} Skv={Skv} H={H_} KVH={KVH_} d={d} "
+            f"{dt} causal={causal} window={window}: max|err| {err:.3e}")
     torch.cuda.synchronize()
 
 
@@ -380,74 +556,86 @@ def _tick(eng, cache, state, impl):
         s["step"], impl=impl)
 
 
-def _tick_kernel_vs_plain(tag: str, eng) -> float:
-    """One fused tick on one state, with the kernels and with the plain
-    versions; returns max |logits difference|."""
-    state = _tick_state(eng)
-    out = {}
-    for impl in ("kernel", "plain"):
-        cache = {p: {k: t.clone() for k, t in ent.items()}
-                 for p, ent in eng.policy.cache.items()}
-        toks, logits = _tick(eng, cache, state, impl)
-        torch.cuda.synchronize()
-        out[impl] = (toks.clone(), logits.clone())
-        del cache
-    (tk, lk), (tp, lp) = out["kernel"], out["plain"]
+def _clone(cache):
+    return {p: {k: t.clone() for k, t in ent.items()}
+            for p, ent in cache.items()}
+
+
+def _check_logits(phase: str, what: str, lk: torch.Tensor,
+                  lp: torch.Tensor) -> float:
+    """Holds one model step's (rows, V) logits with the kernels ``lk``
+    against the plain versions' ``lp``; returns max |difference|."""
     assert bool(torch.isfinite(lk).all()) and bool(torch.isfinite(lp).all())
     diff = (lk - lp).abs().max().item()
     scale = lp.abs().max().item()
     # bf16 rounding differences of the kernels compound over 28 layers:
     # allow 5% of the largest logit
     assert diff <= 0.05 * scale + 1e-3, \
-        f"{tag}: fused tick logits kernel vs plain differ by {diff:.3e} " \
-        f"(largest logit {scale:.3e})"
-    log("serve", f"{tag}: fused tick kernel vs plain: max|Δlogit| "
-        f"{diff:.3e} (largest |logit| {scale:.3e}), greedy tokens equal "
-        f"{int((tk == tp).sum())}/{len(tk)}")
+        f"{what}: logits kernel vs plain differ by {diff:.3e} (largest " \
+        f"logit {scale:.3e})"
+    same = int((lk.argmax(-1) == lp.argmax(-1)).sum())
+    log(phase, f"{what} kernel vs plain: max|Δlogit| {diff:.3e} (largest "
+        f"|logit| {scale:.3e}), greedy tokens equal {same}/{len(lk)}")
     return diff
 
 
-def _profile_tick(tag: str, eng, ticks: int = 5) -> None:
-    """Wall time of the steady fused tick (8 seats, kernels), its device
-    busy time (the kernels' time under torch.profiler) and the kernels
-    that take it.  The idle share compares the busy time with the wall
-    time measured without the profiler, whose host overhead it would
-    otherwise count."""
-    state = _tick_state(eng)
-    cache = {p: {k: t.clone() for k, t in ent.items()}
-             for p, ent in eng.policy.cache.items()}
+def _profile_steady(phase: str, what: str, step, steps: int = 5) -> None:
+    """Wall time of a steady model ``step()`` (which ends by bringing its
+    tokens to the host, as the engine does), its device busy time (the
+    kernels' time under torch.profiler) and the kernels that take it.
+    The idle share compares the busy time with the wall time measured
+    without the profiler, whose host overhead it would otherwise count."""
     for _ in range(2):
-        _tick(eng, cache, state, "kernel")
+        step()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    for _ in range(ticks):
-        _tick(eng, cache, state, "kernel")[0].cpu()
-    wall = (time.perf_counter() - t0) / ticks * 1e3
+    for _ in range(steps):
+        step()
+    wall = (time.perf_counter() - t0) / steps * 1e3
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
-        for _ in range(ticks):
-            _tick(eng, cache, state, "kernel")[0].cpu()
+        for _ in range(steps):
+            step()
     kernels = [a for a in prof.key_averages()
                if a.device_type == torch.autograd.DeviceType.CUDA
                and a.self_device_time_total > 0]
-    busy = sum(a.self_device_time_total for a in kernels) / ticks / 1e3
+    busy = sum(a.self_device_time_total for a in kernels) / steps / 1e3
     if busy <= 0:
-        raise RuntimeError(f"{tag}: torch.profiler recorded no device time")
+        raise RuntimeError(f"{what}: torch.profiler recorded no device time")
     kernels.sort(key=lambda a: a.self_device_time_total, reverse=True)
-    log("serve", f"{tag}: steady fused tick: wall {wall:.2f} ms, device "
-        f"busy {busy:.3f} ms ({sum(a.count for a in kernels) // ticks} "
-        f"kernels), idle share {1 - busy / wall:.3f}")
+    log(phase, f"{what}: wall {wall:.2f} ms, device busy {busy:.3f} ms "
+        f"({sum(a.count for a in kernels) // steps} kernels), idle share "
+        f"{1 - busy / wall:.3f}")
     for a in kernels[:6]:
-        log("serve", f"{tag}:   "
-            f"{a.self_device_time_total / ticks / 1e3:.4f} ms/tick "
-            f"x{a.count // ticks} {a.key[:80]}")
+        log(phase, f"{what}:   {a.self_device_time_total / steps / 1e3:.4f} "
+            f"ms x{a.count // steps} {a.key[:80]}")
 
 
-def phase_serve() -> dict:
+def _tick_kernel_vs_plain(tag: str, eng) -> float:
+    """One fused tick on one state, with the kernels and with the plain
+    versions; returns max |logits difference|."""
+    state = _tick_state(eng)
+    out = {}
+    for impl in ("kernel", "plain"):
+        out[impl] = _tick(eng, _clone(eng.policy.cache), state, impl)[1]
+        torch.cuda.synchronize()
+    return _check_logits("serve", f"{tag}: fused tick", out["kernel"],
+                         out["plain"])
+
+
+def _profile_tick(tag: str, eng) -> None:
+    """The steady fused tick (8 seats, kernels) under ``_profile_steady``."""
+    state = _tick_state(eng)
+    cache = _clone(eng.policy.cache)
+    _profile_steady("serve", f"{tag}: steady fused tick",
+                    lambda: _tick(eng, cache, state, "kernel")[0].cpu())
+
+
+def phase_serve():
     """Serves the same 16 requests (prompts of 64-511 tokens, 32 new
-    tokens each) with a bf16, an fp8 and an int8 pool; returns the kernel
-    launches of each run, read just after it, by pool."""
+    tokens each) with a bf16, an fp8 and an int8 pool; returns the runs
+    and the kernel launches of each run, read just after it, by pool."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
     from repro_torch.launch.serve import serve_paged
@@ -467,6 +655,114 @@ def phase_serve() -> dict:
         _tick_kernel_vs_plain(f"{tag} pool", r["engine"])
         if tag != "int8":
             _profile_tick(f"{tag} pool", r["engine"])
+    return runs, counts
+
+
+def _decode_state(eng):
+    """Inputs of one fixed-slot decode step: a token per slot and write
+    positions spread from 40 to the scratch index (an idle slot)."""
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    return (torch.randint(0, eng.cfg.vocab_size, (eng.B, 1), generator=gen,
+                          device="cuda", dtype=torch.int32),
+            torch.linspace(40, eng.max_len, eng.B).int().cuda())
+
+
+def _decode_kernel_vs_plain(eng) -> float:
+    """One decode step on the engine's cache with the kernels and with
+    the plain versions; returns max |logits difference|."""
+    from repro_torch.models import model as M
+    tok, pos = _decode_state(eng)
+    out = {}
+    for impl in ("kernel", "plain"):
+        logits, _ = M.decode_step(eng.params, eng.cfg, _clone(eng.cache),
+                                  tok, pos, impl=impl)
+        torch.cuda.synchronize()
+        out[impl] = logits[:, -1]
+    return _check_logits("serve-fixed", "decode step", out["kernel"],
+                         out["plain"])
+
+
+def _profile_decode_step(eng) -> None:
+    """The steady fixed-slot decode step (8 slots, kernels, greedy tokens
+    to the host) under ``_profile_steady``."""
+    from repro_torch.models import model as M
+    tok, pos = _decode_state(eng)
+    cache = _clone(eng.cache)
+
+    def step():
+        logits, _ = M.decode_step(eng.params, eng.cfg, cache, tok, pos)
+        return torch.argmax(logits[:, -1], dim=-1).cpu()
+    _profile_steady("serve-fixed", "steady decode step", step)
+
+
+def phase_serve_fixed(paged: dict) -> dict:
+    """The fixed-slot path at full width: the static batch of ``serve``,
+    then a ``ServingEngine`` over the requests of the bf16 paged run
+    ``paged`` (same weights, prompts and budgets).  Returns the kernel
+    launches of the engine run, read just after it."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import serve
+    from repro_torch.runtime.serving import ServingEngine
+    cfg = get_config(ARCH)
+    r = serve(ARCH, batch=4, prompt_len=128, gen=16, reduced=False,
+              device="cuda")
+    g = r["generated"]
+    assert g.shape == (4, 16), g.shape
+    assert ((g >= 0) & (g < cfg.vocab_size)).all(), \
+        "serve: a token outside the vocabulary"
+    log("serve-fixed", f"[serve] prefill={r['prefill_s'] * 1e3:.0f}ms "
+        f"decode={r['decode_s'] * 1e3:.0f}ms "
+        f"throughput={r['tokens_per_s']:.1f} tok/s (batch 4, prompt 128, "
+        "16 new tokens)")
+
+    reqs = sorted(paged["finished"], key=lambda q: q.rid)
+    eng = ServingEngine(cfg, paged["engine"].params, slots=8,
+                        max_len=MAX_LEN, device="cuda")
+    for q in reqs:
+        eng.submit(q.prompt, max_new_tokens=q.max_new_tokens)
+    ops.reset_launches()                       # the main path starts here
+    done = eng.run()
+    counts = dict(ops.launches)                # ... and ends here
+    assert len(done) == 16, f"fixed-slot: {len(done)} of 16 finished"
+    for q in done:
+        assert len(q.generated) == q.max_new_tokens == 32, q.rid
+        assert all(0 <= t < cfg.vocab_size for t in q.generated), \
+            f"fixed-slot: rid {q.rid} emitted a token outside the vocabulary"
+    assert bool(eng.policy.logits_finite), "fixed-slot: a logit was not finite"
+    ticks = eng.policy.decode_ticks
+    prefills = sum(1 for _, ev, _ in eng.trace if ev == "admit")
+    # per decode step the dense decode kernel once per layer; per prefill
+    # the flash kernel once per layer; per model call ln1 and ln2 per
+    # layer plus the final norm at D=2048, q- and k-norm per layer at
+    # D=128; no other kernel
+    L = cfg.num_layers
+    want = {"decode_attention[bf16]": ticks * L,
+            "flash_attention[causal]": prefills * L,
+            f"rmsnorm[D={cfg.d_model}]": (2 * L + 1) * (ticks + prefills),
+            f"rmsnorm[D={cfg.head_dim}]": 2 * L * (ticks + prefills)}
+    assert counts == want, \
+        f"fixed-slot: launches {counts}, expected {want} for {ticks} " \
+        f"decode steps and {prefills} prefills"
+    m = eng.metrics.snapshot()
+    log("serve-fixed", f"engine: {m['completed']:.0f} requests "
+        f"{m['generated_tokens']:.0f} tokens, {ticks} decode steps, "
+        f"{prefills} prefills, {m['tokens_per_s']:.1f} tokens/s, mean TTFT "
+        f"{m['ttft_avg_s'] * 1e3:.1f} ms, wall {m['wall_s']:.2f} s; "
+        f"launches {json.dumps(counts)}")
+    _decode_kernel_vs_plain(eng)
+    _profile_decode_step(eng)
+    # information, not a gate: whole-prompt and chunked prefill round
+    # bf16 differently, so greedy streams part at near-ties
+    paged_gen = {q.rid: q.generated for q in reqs}
+    equal = sum(a == b for q in done
+                for a, b in zip(q.generated, paged_gen[q.rid]))
+    lead = [next((i for i, (a, b) in enumerate(
+        zip(q.generated, paged_gen[q.rid])) if a != b), 32) for q in done]
+    log("serve-fixed", f"greedy tokens shared with the bf16 paged engine: "
+        f"{equal}/512 position-wise, {sum(x == 32 for x in lead)}/16 "
+        f"streams identical, first divergence at mean token "
+        f"{sum(lead) / 16:.1f}")
     return counts
 
 
@@ -481,7 +777,8 @@ def main() -> int:
     results = phase_kernels(flush)
     del flush
     phase_variants()
-    counts = phase_serve()
+    runs, counts = phase_serve()
+    counts["fixed"] = phase_serve_fixed(runs["bf16"])
     source = "src/repro_torch/kernels/"
     meta = {
         "paged_decode_attention": (
@@ -492,15 +789,22 @@ def main() -> int:
             "src/repro/kernels/decode_attention.py:254"),
         "rmsnorm": ("triton", source + "rmsnorm.py",
                     "src/repro/kernels/rmsnorm.py:25"),
+        "decode_attention": ("cuda", source + "csrc/decode_attention.cu",
+                             "src/repro/kernels/decode_attention.py:63"),
+        "flash_attention": ("cuda", source + "csrc/flash_attention.cu",
+                            "src/repro/kernels/flash_attention.py:79"),
     }
     kernels = []
     # each row's launches come from the serving run that drove it: the
-    # attention kernels from the run with their pool type, RMSNorm (which
-    # every run drives) from the bf16 run
+    # paged attention kernels from the run with their pool type, RMSNorm
+    # (which every run drives) from the bf16 paged run, the dense decode
+    # and flash kernels from the fixed-slot engine run
     for key, run in (("paged_decode_attention[bf16]", "bf16"),
                      ("quantized_paged_decode_attention[fp8]", "fp8"),
                      ("quantized_paged_decode_attention[int8]", "int8"),
-                     ("rmsnorm[D=2048]", "bf16"), ("rmsnorm[D=128]", "bf16")):
+                     ("rmsnorm[D=2048]", "bf16"), ("rmsnorm[D=128]", "bf16"),
+                     ("decode_attention[bf16]", "fixed"),
+                     ("flash_attention[causal]", "fixed")):
         r = results[key]
         route, src, replaces = meta[r["name"]]
         n = counts[run].get(key, 0)
@@ -511,7 +815,8 @@ def main() -> int:
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"],
-                        "library_ms": r["library_ms"]})
+                        "library_ms": r["library_ms"],
+                        "library": r["library"]})
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -33,6 +33,14 @@ SIGNATURES: Dict[str, tuple] = {
     "paged_decode_attention": (_I, _I, _P, _P, _P, _P, _P, _P, _P, _P,
                                _I, _I, _I, _I, _I, _I,
                                _LL, _LL, _LL, _LL, _LL, _LL, _P),
+    # q_dtype, kv_dtype, q, k, v, lengths, out, B, H, KVH, d,
+    # 3 cache strides, stream
+    "decode_attention": (_I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                         _LL, _LL, _LL, _P),
+    # dtype, q, k, v, out, B, Sq, Skv, H, KVH, d, causal, window,
+    # 3 strides each of q, k/v and out, stream
+    "flash_attention": (_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                        _LL, _LL, _LL, _LL, _LL, _LL, _LL, _LL, _LL, _P),
 }
 
 

@@ -1,0 +1,85 @@
+// Dense single-query decode attention for Hopper (sm_90a): the fixed-slot
+// engine's decode over a (B, T, KVH, d) cache.
+//
+// Replaces the Pallas TPU kernel of the JAX package
+//   repro/kernels/decode_attention.py :: decode_attention_pallas
+// for bf16 and f32 caches.  The TPU wrapper (repro/kernels/ops.py ::
+// decode_attention) repeated every kv head G times into a (B·H, T, d)
+// copy and padded T to the key tile; this kernel reads the cache where it
+// lies, through its strides, one block per (seat, kv head) for all G
+// query heads, so each valid key and value is read once and nothing is
+// copied or padded.
+//
+// Bound: memory — the K+V bytes of the valid lengths over 3.35 TB/s.  The
+// token loop stops at lengths[b].  An idle fixed-slot seat parks its
+// write position on the scratch index max_len, so its length is
+// T = max_len + 1 and it walks its whole cache for a row the engine
+// throws away; that is the reference's mask, kept as it is.
+//
+// The loop, the online softmax and the warp merge are shared with the
+// paged kernel (decode_attention.cuh).
+
+#include "decode_attention.cuh"
+
+namespace {
+
+using repro_decode::launch;
+
+struct DenseAddr {
+  long long kv_seat, kv_tok, kv_head;   // cache strides, in elements
+
+  __device__ __forceinline__ void locate(int a, int t, int kvh,
+                                         long long& kv,
+                                         long long& sc) const {
+    kv = a * kv_seat + static_cast<long long>(t) * kv_tok + kvh * kv_head;
+    sc = 0;
+  }
+};
+
+template <typename QT>
+cudaError_t dispatch_kv(int kv_dtype, const void* q, const void* k,
+                        const void* v, const void* lengths, void* out,
+                        int B, int H, int KVH, int d, const DenseAddr& addr,
+                        cudaStream_t stream) {
+  switch (kv_dtype) {
+    case 0:
+      return launch<QT, float, DenseAddr>(q, k, v, nullptr, nullptr,
+                                          lengths, out, B, H, KVH, d, addr,
+                                          stream);
+    case 1:
+      return launch<QT, __nv_bfloat16, DenseAddr>(q, k, v, nullptr, nullptr,
+                                                  lengths, out, B, H, KVH, d,
+                                                  addr, stream);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace
+
+// Plain C entry point, bound with ctypes.  Codes: 0 = f32, 1 = bf16 for
+// q (and out) and for the cache.  q and out are (B, H, d) contiguous;
+// k/v are (B, T, KVH, d) with unit stride in d and the given strides
+// (in elements); lengths (B,) int32.  Returns the launch's
+// cudaGetLastError() (0 = success), or cudaErrorInvalidValue for a
+// combination the kernel does not take.
+extern "C" int decode_attention(int q_dtype, int kv_dtype, const void* q,
+                                const void* k, const void* v,
+                                const void* lengths, void* out, int B, int H,
+                                int KVH, int d, long long kv_seat,
+                                long long kv_tok, long long kv_head,
+                                void* stream) {
+  const DenseAddr addr{kv_seat, kv_tok, kv_head};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  if (q_dtype == 0) {
+    err = dispatch_kv<float>(kv_dtype, q, k, v, lengths, out, B, H, KVH, d,
+                             addr, s);
+  } else if (q_dtype == 1) {
+    err = dispatch_kv<__nv_bfloat16>(kv_dtype, q, k, v, lengths, out, B, H,
+                                     KVH, d, addr, s);
+  } else {
+    err = cudaErrorInvalidValue;
+  }
+  return static_cast<int>(err);
+}

@@ -1,21 +1,27 @@
-"""Paged decode attention: the Hopper CUDA kernel and its plain version.
+"""Decode attention: the Hopper CUDA kernels and their plain versions.
 
-``paged_decode_attention_cuda`` launches ``csrc/paged_decode_attention.cu``,
-which replaces ``repro/kernels/decode_attention.py ::
-paged_decode_attention_pallas`` (bf16/f32 pools) and
-``quantized_paged_decode_attention_pallas`` (fp8/int8 pools with
-per-(token, head) scales).  The kernel is bound by memory: it reads each
-valid token's K and V once (see the note in the source).
+Paged (K1/K2): ``paged_decode_attention_cuda`` launches
+``csrc/paged_decode_attention.cu``, which replaces ``repro/kernels/
+decode_attention.py :: paged_decode_attention_pallas`` (bf16/f32 pools)
+and ``quantized_paged_decode_attention_pallas`` (fp8/int8 pools with
+per-(token, head) scales).  ``paged_decode_attention_plain`` is the JAX
+wrapper's GQA expansion on the page table (``repro/kernels/ops.py ::
+paged_decode_attention``) followed by the oracles of ``kernels/ref.py``.
+Layout: q ``(A, H, d)``, one layer's pools ``(P, page, KVH, d)``, scales
+``(P, page, KVH)`` (quantized pools only), ``page_table (A, n)`` int32 and
+``lengths (A,)`` int32.
 
-``paged_decode_attention_plain`` is the same function in plain PyTorch:
-the JAX wrapper's GQA expansion on the page table
-(``repro/kernels/ops.py :: paged_decode_attention``) followed by the
-oracles of ``kernels/ref.py``.  The CPU path and the checks on the card
-use it; nothing on the serving path calls it for CUDA tensors.
+Dense (K4): ``decode_attention_cuda`` launches ``csrc/decode_attention.cu``,
+which replaces ``decode_attention_pallas`` for the fixed-slot engine's
+``(B, T, KVH, d)`` cache.  ``decode_attention_plain`` is the JAX wrapper's
+GQA repeat (``repro/kernels/ops.py :: decode_attention``) followed by
+``ref.decode_attention_ref``.  Layout: q ``(B, H, d)``, k/v
+``(B, T, KVH, d)``, ``lengths (B,)`` int32.
 
-Both take the port's layout: q ``(A, H, d)``, one layer's pools
-``(P, page, KVH, d)``, scales ``(P, page, KVH)`` (quantized pools only),
-``page_table (A, n)`` int32 and ``lengths (A,)`` int32.
+Both kernels share one per-token loop (``csrc/decode_attention.cuh``) and
+are bound by memory: they read each valid token's K and V once.  The
+plain versions serve CPU tensors and the checks on the card; nothing on
+the serving path calls them for CUDA tensors.
 """
 from __future__ import annotations
 
@@ -85,4 +91,39 @@ def paged_decode_attention_cuda(q, k_pages, v_pages, page_table, lengths,
         torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"paged_decode_attention kernel launch failed: "
+                           f"CUDA error {err}")
+
+
+def decode_attention_plain(q, k, v, lengths):
+    """Plain version: repeat each kv head G times, flatten to
+    ``(B·H, T, d)``, then the dense oracle.  Returns (B, H, d).  (The
+    TPU wrapper also pads T to its key tile; the oracle masks by length,
+    so the padding changes nothing and is left out.)"""
+    B, H, d = q.shape
+    T, KVH = k.shape[1], k.shape[2]
+    rep = H // KVH
+    kf = k.repeat_interleave(rep, dim=2).transpose(1, 2).reshape(B * H, T, d)
+    vf = v.repeat_interleave(rep, dim=2).transpose(1, 2).reshape(B * H, T, d)
+    out = ref.decode_attention_ref(q.reshape(B * H, d), kf, vf,
+                                   lengths.repeat_interleave(H))
+    return out.reshape(B, H, d)
+
+
+def decode_attention_cuda(q, k, v, lengths, out: torch.Tensor) -> None:
+    """Launch the dense kernel on the current stream, writing ``out``
+    (B, H, d).  The caller (``kernels.ops``) has checked devices, dtypes,
+    shapes and strides.
+
+    Raises:
+      RuntimeError: the launch was refused (the CUDA error code)."""
+    B, H, d = q.shape
+    KVH = k.shape[2]
+    lib = _build.library("decode_attention")
+    err = lib.decode_attention(
+        Q_CODES[q.dtype], KV_CODES[k.dtype], q.data_ptr(), k.data_ptr(),
+        v.data_ptr(), lengths.data_ptr(), out.data_ptr(), B, H, KVH, d,
+        k.stride(0), k.stride(1), k.stride(2),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"decode_attention kernel launch failed: "
                            f"CUDA error {err}")

@@ -14,8 +14,8 @@ device, dtype, shape and contiguity first, and nothing falls back to the
 plain version.  Each launch adds one to its variant's entry in
 :data:`launches` (``paged_decode_attention[bf16]``,
 ``quantized_paged_decode_attention[fp8]``, ``rmsnorm[D=2048]``, ...), so a
-run can show which kernels it went through, and at which pool type or
-width.
+run can show which kernels it went through, and at which pool type, mask
+or width (``decode_attention[bf16]``, ``flash_attention[causal]``).
 The kernels are built at their first launch (``kernels._build``,
 ``kernels.rmsnorm``).
 """
@@ -27,6 +27,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import decode_attention as da
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import rmsnorm as rn
 
 IMPLS = ("auto", "kernel", "plain")
@@ -156,4 +157,88 @@ def paged_decode_attention(q, k_pages, v_pages, page_table, lengths, *,
         da.paged_decode_attention_cuda(q[:, 0], k_pages, v_pages, page_table,
                                        lengths, k_scale, v_scale, out[:, 0])
     launches[f"{name}[{_POOL_TAGS[k_pages.dtype]}]"] += 1
+    return out
+
+
+def decode_attention(q, k, v, lengths, *, impl: str = "auto") -> torch.Tensor:
+    """Single-token decode attention against a dense KV cache (the
+    fixed-slot layout).
+
+    q: (B, 1, H, d); k/v: (B, T, KVH, d) one layer's cache; lengths: (B,)
+    int32 valid-key counts (keys ``t < lengths[b]`` attend).  Returns
+    (B, 1, H, d) in q.dtype."""
+    B, C, H, d = q.shape
+    if not use_kernel(impl, q):
+        return da.decode_attention_plain(q[:, 0], k, v, lengths)[:, None]
+    name = "decode_attention"
+    _, T, KVH, dk = k.shape
+    _check(C == 1, f"{name}: one query token per seat, got C={C}")
+    _check(dk == d and v.shape == k.shape and k.shape[0] == B,
+           f"{name}: cache {tuple(k.shape)}/{tuple(v.shape)} does not match "
+           f"q {tuple(q.shape)}")
+    _check(q.dtype in da.Q_CODES, f"{name}: q dtype {q.dtype} not f32/bf16")
+    _check(k.dtype in (torch.float32, torch.bfloat16) and v.dtype == k.dtype,
+           f"{name}: cache dtype {k.dtype}/{v.dtype} not f32/bf16")
+    _check(H % KVH == 0 and H // KVH <= da.MAX_GROUP,
+           f"{name}: H={H}, KVH={KVH}: needs H % KVH == 0 and "
+           f"H / KVH <= {da.MAX_GROUP}")
+    _check(d <= da.MAX_HEAD_DIM, f"{name}: head dim {d} > {da.MAX_HEAD_DIM}")
+    _check(lengths.dtype == torch.int32 and lengths.shape == (B,),
+           f"{name}: lengths must be int32 ({B},), got {lengths.dtype} "
+           f"{tuple(lengths.shape)}")
+    tensors = [q, k, v, lengths]
+    _check(all(t.device == q.device for t in tensors),
+           f"{name}: tensors on {sorted({str(t.device) for t in tensors})}")
+    _check(q.is_contiguous() and lengths.is_contiguous(),
+           f"{name}: q and lengths must be contiguous")
+    _check(k.stride(3) == 1 and k.stride() == v.stride(),
+           f"{name}: the cache needs unit stride in d and equal K/V strides")
+    out = torch.empty_like(q)
+    with torch.cuda.device(q.device):
+        da.decode_attention_cuda(q[:, 0], k, v, lengths, out[:, 0])
+    launches[f"{name}[{_POOL_TAGS[k.dtype]}]"] += 1
+    return out
+
+
+def flash_attention(q, k, v, *, causal: bool = True,
+                    window: Optional[int] = None,
+                    impl: str = "auto") -> torch.Tensor:
+    """Full-sequence attention, the query and key positions both counted
+    from 0: query i keeps keys j <= i when ``causal`` and j > i - window
+    when ``window`` is set.
+
+    q: (B, Sq, H, d); k/v: (B, Skv, KVH, d) (GQA: query head h reads kv
+    head h // (H / KVH)).  Returns (B, Sq, H, d) in q.dtype.  The launch
+    is counted as ``flash_attention[window]`` when a window is set, else
+    ``[causal]`` or ``[full]``."""
+    if not use_kernel(impl, q):
+        return fa.flash_attention_plain(q, k, v, causal=causal,
+                                        window=window)
+    name = "flash_attention"
+    B, Sq, H, d = q.shape
+    _, Skv, KVH, dk = k.shape
+    _check(dk == d and v.shape == k.shape and k.shape[0] == B,
+           f"{name}: k/v {tuple(k.shape)}/{tuple(v.shape)} do not match "
+           f"q {tuple(q.shape)}")
+    _check(q.dtype in fa.CODES and k.dtype == q.dtype and v.dtype == q.dtype,
+           f"{name}: q/k/v dtypes {q.dtype}/{k.dtype}/{v.dtype}; needs one "
+           "of f32/bf16 for all three")
+    _check(KVH > 0 and H % KVH == 0, f"{name}: H={H} not a multiple of "
+           f"KVH={KVH}")
+    _check(d <= fa.MAX_HEAD_DIM, f"{name}: head dim {d} > {fa.MAX_HEAD_DIM}")
+    _check(Skv > 0, f"{name}: no keys")
+    _check(window is None or window >= 1, f"{name}: window {window} < 1")
+    _check(k.device == q.device and v.device == q.device,
+           f"{name}: q/k/v on {q.device}/{k.device}/{v.device}")
+    _check(q.stride(3) == 1 and k.stride(3) == 1
+           and k.stride() == v.stride(),
+           f"{name}: needs unit stride in d and equal K/V strides")
+    out = torch.empty((B, Sq, H, d), dtype=q.dtype, device=q.device)
+    if Sq:
+        with torch.cuda.device(q.device):
+            fa.flash_attention_cuda(q, k, v, out, causal=causal,
+                                    window=window)
+        tag = ("window" if window is not None
+               else "causal" if causal else "full")
+        launches[f"{name}[{tag}]"] += 1
     return out

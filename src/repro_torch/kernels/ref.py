@@ -21,6 +21,25 @@ def rmsnorm_ref(x: torch.Tensor, w: torch.Tensor, *,
     return (y * (1.0 + w.float())).to(x.dtype)
 
 
+def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                  causal: bool = True, window=None) -> torch.Tensor:
+    """Dense-softmax oracle. q: (BH, Sq, d); k/v: (BH, Skv, d); query i
+    keeps keys j <= i (causal) and j > i - window (window), positions
+    counted from 0 on both sides.  Returns (BH, Sq, d) in q.dtype."""
+    d = q.shape[-1]
+    s = torch.einsum("bqd,bkd->bqk", q.float(), k.float()) * (d ** -0.5)
+    qp = torch.arange(q.shape[1], device=q.device)[:, None]
+    kp = torch.arange(k.shape[1], device=q.device)[None, :]
+    keep = torch.ones_like(s[0], dtype=torch.bool)
+    if causal:
+        keep &= kp <= qp
+    if window is not None:
+        keep &= kp > qp - window
+    s = torch.where(keep[None], s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bqk,bkd->bqd", p, v.float()).to(q.dtype)
+
+
 def decode_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          lengths: torch.Tensor) -> torch.Tensor:
     """Oracle for single-query decode. q: (BH, d); k/v: (BH, T, d);

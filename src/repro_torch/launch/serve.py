@@ -1,13 +1,19 @@
-"""Serving driver of the port: the paged continuous-batching engine over a
-request stream (counterpart of ``repro.launch.serve.serve_paged`` and its
-``--engine paged`` command line).
+"""Serving entry points of the port (counterpart of ``repro.launch.serve``):
 
-``serve_paged`` builds the model with weights drawn from a seeded
-``torch.Generator`` on the device, serves a mixed-length request stream
-through ``runtime.serving.PagedServingEngine`` and reports its metrics
-(TTFT, tokens/s, page utilization, prefix-hit rate).  It runs on the card
-unless ``device="cpu"`` (``--device cpu``) is given.
+- ``serve`` (``--engine batch``, the default, as in the JAX CLI): one
+  static batch of prompts through ``models.model.prefill`` and then
+  ``decode_step`` token by token — the fixed-slot path, with the flash
+  prefill and dense decode kernels on the card;
+- ``serve_paged`` (``--engine paged``): a mixed-length request stream
+  through ``runtime.serving.PagedServingEngine``, reporting its metrics
+  (TTFT, tokens/s, page utilization, prefix-hit rate).
 
+Weights are drawn from a ``torch.Generator`` seeded with ``--seed`` on the
+device, prompts from ``numpy.random.default_rng(seed)``.  Both run on the
+card unless ``device="cpu"`` (``--device cpu``) is given.
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-1.7b \\
+      --batch 4 --prompt-len 128 --gen 16
   PYTHONPATH=src python -m repro_torch.launch.serve --engine paged \\
       --arch qwen3-1.7b --requests 8 --gen 16 --temperature 0.8 --top-p 0.95
   PYTHONPATH=src python -m repro_torch.launch.serve --engine paged \\
@@ -16,6 +22,7 @@ unless ``device="cpu"`` (``--device cpu``) is given.
 from __future__ import annotations
 
 import argparse
+import time
 from typing import Dict, Optional
 
 import numpy as np
@@ -24,8 +31,80 @@ import torch
 from repro_torch.configs import get_config, reduced_config, resolve_arch
 from repro_torch.core.mixed_precision import KV_DTYPES
 from repro_torch.models import model as M
-from repro_torch.runtime.sampler import SamplingParams
+from repro_torch.models.convert import cast_for_compute
+from repro_torch.runtime.sampler import Sampler, SamplingParams
 from repro_torch.runtime.serving import PagedServingEngine, resolve_device
+
+
+def _sync(dev: torch.device) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def serve(arch: str, *, batch: int = 4, prompt_len: int = 32, gen: int = 16,
+          reduced: bool = True, seed: int = 0,
+          sampling: Optional[SamplingParams] = None, device=None):
+    """Static-batch generation: prefill ``batch`` random prompts of
+    ``prompt_len`` tokens, then ``gen - 1`` decode steps (the first token
+    comes from the prefill logits).  Greedy unless ``sampling`` says
+    otherwise; stochastic rows go through the host ``Sampler`` with
+    ``rid`` = the batch row and ``step`` = the token index.
+
+    Returns ``{"generated": (batch, gen) int32 numpy array, "prefill_s",
+    "decode_s", "tokens_per_s"}``; the times end in a device synchronize.
+
+    Raises:
+      ValueError: ``batch``, ``prompt_len`` or ``gen`` below 1."""
+    if min(batch, prompt_len, gen) < 1:
+        raise ValueError(f"--batch {batch}, --prompt-len {prompt_len} and "
+                         f"--gen {gen} must all be >= 1")
+    dev = resolve_device(device)
+    cfg = get_config(arch)
+    if reduced:
+        cfg = reduced_config(cfg)
+    opts = M.RunOptions(q_chunk=min(prompt_len, 512))
+    gen_t = torch.Generator(device=dev).manual_seed(seed)
+    params = cast_for_compute(
+        M.init_params(M.param_specs(cfg), gen_t, device=dev),
+        M.compute_dtype(cfg))
+    rng = np.random.default_rng(seed)
+    tokens = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (batch, prompt_len)).astype(np.int32)).to(dev)
+    sampler = Sampler()
+
+    def pick(last: torch.Tensor, step: int) -> torch.Tensor:
+        """(B, V) logits -> (B, 1) int32 tokens on the device."""
+        if sampling is None or sampling.greedy:
+            return torch.argmax(last, dim=-1).to(torch.int32)[:, None]
+        rows = last.float().cpu().numpy()
+        toks = [sampler.sample(rows[b], sampling, rid=b, step=step)
+                for b in range(batch)]
+        return torch.tensor(toks, dtype=torch.int32, device=dev)[:, None]
+
+    t0 = time.perf_counter()
+    logits, cache = M.prefill(params, cfg, {"tokens": tokens}, opts)
+    # grow the cache along the sequence axis to hold the generation
+    cache = {pos: {k: torch.cat([c, c.new_zeros(c.shape[:2] + (gen,)
+                                                + c.shape[3:])], dim=2)
+                   for k, c in ent.items()}
+             for pos, ent in cache.items()}
+    _sync(dev)
+    t_prefill = time.perf_counter() - t0
+
+    tok = pick(logits[:, -1], 0)
+    out = [tok]
+    t0 = time.perf_counter()
+    for i in range(gen - 1):
+        pos = torch.full((batch,), prompt_len + i, dtype=torch.int32,
+                         device=dev)
+        logits, cache = M.decode_step(params, cfg, cache, tok, pos)
+        tok = pick(logits[:, -1], i + 1)
+        out.append(tok)
+    _sync(dev)
+    t_decode = time.perf_counter() - t0
+    return {"generated": torch.cat(out, dim=1).cpu().numpy(),
+            "prefill_s": t_prefill, "decode_s": t_decode,
+            "tokens_per_s": batch * (gen - 1) / max(t_decode, 1e-9)}
 
 
 def serve_paged(arch: str, *, requests: int = 8, gen: int = 16,
@@ -137,17 +216,23 @@ def model_name(name: str) -> str:
 
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
-        description="Serve a request stream on the port's paged engine.")
-    ap.add_argument("--engine", choices=("paged",), default="paged",
-                    help="the port has the paged engine only so far")
+        description="Serve on the port: a static batch (fixed-slot path) "
+                    "or a request stream on the paged engine.")
+    ap.add_argument("--engine", choices=("batch", "paged"), default="batch",
+                    help="batch: one static batch, prefill then decode "
+                         "(default); paged: the paged continuous-batching "
+                         "engine over --requests")
     ap.add_argument("--model", "--arch", dest="arch", type=model_name,
                     default="qwen3-1.7b",
                     help="registry model name (default qwen3-1.7b)")
     ap.add_argument("--device", default=None,
                     help="torch device (default cuda; cpu runs the plain "
                          "versions)")
+    ap.add_argument("--batch", type=int, default=4,
+                    help="static batch size (--engine batch)")
     ap.add_argument("--prompt-len", type=int, default=None,
-                    help="fixed prompt length (sampled when unset)")
+                    help="fixed prompt length (batch default 32; the "
+                         "paged engine samples lengths when unset)")
     ap.add_argument("--gen", type=int, default=16)
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--page-size", type=int, default=16)
@@ -202,23 +287,31 @@ def main(argv=None):
         sampling = SamplingParams(temperature=args.temperature,
                                   top_k=args.top_k, top_p=args.top_p,
                                   seed=args.seed)
-        r = serve_paged(args.arch, requests=args.requests, gen=args.gen,
-                        page_size=args.page_size, num_pages=args.num_pages,
-                        seed=args.seed,
-                        eos_id=args.eos_id, sampling=sampling,
-                        prefix_cache=not args.no_prefix_cache,
-                        max_seq_len=args.max_seq_len,
-                        prompt_len=args.prompt_len,
-                        lazy_pages=args.lazy_pages, watermark=args.watermark,
-                        priority=args.priority, deadline_ms=args.deadline_ms,
-                        tbt_deadline_ms=args.tbt_deadline_ms,
-                        admission=args.admission,
-                        aging_ticks=args.aging_ticks,
-                        kv_dtype=args.kv_dtype,
-                        class_precision=class_precision,
-                        device=args.device)
+        if args.engine == "batch":
+            r = serve(args.arch, batch=args.batch,
+                      prompt_len=args.prompt_len or 32, gen=args.gen,
+                      seed=args.seed, sampling=sampling, device=args.device)
+        else:
+            r = serve_paged(
+                args.arch, requests=args.requests, gen=args.gen,
+                page_size=args.page_size, num_pages=args.num_pages,
+                seed=args.seed, eos_id=args.eos_id, sampling=sampling,
+                prefix_cache=not args.no_prefix_cache,
+                max_seq_len=args.max_seq_len, prompt_len=args.prompt_len,
+                lazy_pages=args.lazy_pages, watermark=args.watermark,
+                priority=args.priority, deadline_ms=args.deadline_ms,
+                tbt_deadline_ms=args.tbt_deadline_ms,
+                admission=args.admission, aging_ticks=args.aging_ticks,
+                kv_dtype=args.kv_dtype, class_precision=class_precision,
+                device=args.device)
     except ValueError as e:
         ap.error(str(e))
+    if args.engine == "batch":
+        print(f"[serve] prefill={r['prefill_s'] * 1e3:.0f}ms "
+              f"decode={r['decode_s'] * 1e3:.0f}ms "
+              f"throughput={r['tokens_per_s']:.1f} tok/s")
+        print("[serve] sample tokens:", r["generated"][0][:12].tolist())
+        return
     m = r["metrics"]
     print(f"[serve.paged] device={r['engine'].device} "
           f"kv_dtype={m['kv_dtype']} page_bytes={m['page_bytes']:.0f}")

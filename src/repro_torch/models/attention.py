@@ -1,12 +1,22 @@
-"""Paged attention of the port (counterpart of the paged subset of
-``repro.models.attention``): GQA with RoPE, optional qk-norm and sliding
-window, against a shared pool of KV pages.
+"""Attention of the port (counterpart of ``repro.models.attention``): GQA
+with RoPE, optional qk-norm and sliding window, over a paged KV pool
+(the paged engine) or a dense per-slot cache (the fixed-slot engine).
 
-Single-token decode on global layers (``C == 1 and kind == "attn"``, the
-JAX model's Pallas condition) goes through ``kernels.ops.
-paged_decode_attention``: the CUDA kernel on the card.  Chunked prefill
-(C > 1) and sliding-window layers gather the pages and attend densely,
-as the JAX model does on every backend.
+- ``paged_attention``: single-token decode on global layers (``C == 1
+  and kind == "attn"``, the JAX model's Pallas condition) goes through
+  ``kernels.ops.paged_decode_attention`` (K1/K2); chunked prefill (C > 1)
+  and sliding-window layers gather the pages and attend densely, as the
+  JAX model does on every backend.
+- ``attention`` (full-sequence prefill): on the card the causal and
+  windowed self-attention run ``kernels.ops.flash_attention`` (K5); on
+  the CPU, or with ``impl="plain"``, the JAX model's query-chunked dense
+  path runs unchanged, ``q_chunk`` included.
+- ``decode_attention`` (fixed-slot decode): global layers run
+  ``kernels.ops.decode_attention`` (K4) with ``lengths = pos + 1``, the
+  JAX mask ``kv_pos <= pos``; sliding-window layers attend densely.
+
+Where the JAX functions return new caches, the port writes K/V in place.
+Cross-attention and the ring-buffer local cache are later slices.
 """
 from __future__ import annotations
 
@@ -80,6 +90,77 @@ def _gqa_attend(q, k, v, keep, scale):
     ct = torch.promote_types(q.dtype, v.dtype)
     out = torch.einsum("bngst,btnd->bsngd", probs.to(ct), v.to(ct))
     return out.reshape(B, Sq, H, hd)
+
+
+def attention(p, cfg, x, *, kind: str = "attn", q_chunk: int = 1024,
+              impl: str = "auto"):
+    """Full-sequence (prefill) causal self-attention over positions
+    ``0..S-1``.
+
+    x: (B, S, D).  kind: ``"attn"`` (global) or ``"attn_local"``
+    (sliding window ``cfg.sliding_window``).  ``impl`` picks the flash
+    kernel (``kernels.ops``; ``auto`` = the kernel on CUDA) or the
+    query-chunked dense path of the JAX model.
+
+    Returns ``(out (B, S, D), (k, v))``, k/v ``(B, S, KVH, hd)`` to seed
+    the cache."""
+    B, S, _ = x.shape
+    positions = torch.arange(S, dtype=torch.int32,
+                             device=x.device).expand(B, S)
+    q, k, v = _project_qkv(p, cfg, x, x, positions, positions, impl=impl)
+    hd = cfg.resolved_head_dim
+    window = cfg.sliding_window if kind == "attn_local" else None
+    if ops.use_kernel(impl, q):
+        out = ops.flash_attention(q, k, v, causal=True, window=window,
+                                  impl=impl)
+    else:
+        def keep(qp, kp):
+            mask = kp[:, None, :] <= qp[:, :, None]
+            if window is not None:
+                mask &= kp[:, None, :] > qp[:, :, None] - window
+            return mask
+
+        n_chunks = S // q_chunk if (S % q_chunk == 0 and S > q_chunk) else 1
+        out = torch.cat([
+            _gqa_attend(qc, k, v, keep(pc, positions), hd ** -0.5)
+            for qc, pc in zip(q.chunk(n_chunks, dim=1),
+                              positions.chunk(n_chunks, dim=1))], dim=1)
+    out = _head_mask(cfg, out)
+    wo = p["wo"].to(x.dtype)
+    return out.reshape(B, S, -1) @ wo.reshape(-1, wo.shape[-1]), (k, v)
+
+
+def decode_attention(p, cfg, x, cache_k, cache_v, pos, *, kind: str = "attn",
+                     impl: str = "auto"):
+    """Single-token decode against a dense cache.
+
+    x: (B, 1, D); cache_k/cache_v: (B, T, KVH, hd) one layer's cache;
+    pos: (B,) int32 write position of each seat.  The new K/V are written
+    at ``pos`` **in place** (the JAX function returns new caches), then
+    every query attends to the keys at positions ``<= pos`` (and inside
+    the window on ``attn_local`` layers).  Returns ``(out (B, 1, D),
+    cache_k, cache_v)``."""
+    B = x.shape[0]
+    T = cache_k.shape[1]
+    q, k_new, v_new = _project_qkv(p, cfg, x, x, pos[:, None], pos[:, None],
+                                   impl=impl)
+    seat = torch.arange(B, device=x.device)
+    cache_k[seat, pos.long()] = k_new[:, 0].to(cache_k.dtype)
+    cache_v[seat, pos.long()] = v_new[:, 0].to(cache_v.dtype)
+    hd = cfg.resolved_head_dim
+    if kind == "attn":
+        out = ops.decode_attention(q, cache_k, cache_v, pos + 1, impl=impl)
+    else:
+        kv_pos = torch.arange(T, dtype=torch.int32, device=x.device)
+        keep = kv_pos[None, None, :] <= pos[:, None, None]          # (B,1,T)
+        if kind == "attn_local" and cfg.sliding_window is not None:
+            keep &= kv_pos[None, None, :] > (pos[:, None, None]
+                                             - cfg.sliding_window)
+        out = _gqa_attend(q, cache_k, cache_v, keep, hd ** -0.5)
+    out = _head_mask(cfg, out.to(x.dtype))
+    wo = p["wo"].to(x.dtype)
+    return (out.reshape(B, 1, -1) @ wo.reshape(-1, wo.shape[-1]),
+            cache_k, cache_v)
 
 
 def paged_attention(p, cfg, x, kv_entry, page_table, qpos, n_valid, *,

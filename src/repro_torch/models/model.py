@@ -1,5 +1,6 @@
-"""Model assembly of the port, the paged serving subset of
-``repro.models.model``: parameter specs, the paged KV pool, the paged
+"""Model assembly of the port, the serving subset of ``repro.models.model``:
+parameter specs; the fixed-slot path (the dense cache, the full-sequence
+backbone, ``prefill`` and ``decode_step``); the paged KV pool, the paged
 model step and the fused decode tick.
 
 Parameters keep the JAX pytree layout — ``embed``, ``blocks/pos{i}/...``
@@ -10,6 +11,7 @@ it.  Where JAX returns a new KV pool, the port writes the pool in place.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Dict, Optional
 
 import torch
@@ -23,6 +25,15 @@ from repro_torch.models.modules import (ParamSpec, init_params, mlp_specs,
 from repro_torch.runtime import sampler as sampler_mod
 
 init_params = init_params          # re-export
+
+
+@dataclasses.dataclass(frozen=True)
+class RunOptions:
+    """Execution options of the fixed-slot path — the one field of the
+    JAX ``RunOptions`` that this path reads.  ``q_chunk``: query rows per
+    chunk of the dense prefill attention (the CPU path; the flash kernel
+    tiles on its own)."""
+    q_chunk: int = 1024
 
 
 def _dtype(name: str) -> torch.dtype:
@@ -79,6 +90,127 @@ def _output_weight(params, cfg):
     if cfg.tie_embeddings:
         return params["embed"].T
     return params["lm_head"]
+
+
+# ---------------------------------------------------------------------------
+# Fixed-slot path: full-sequence forward, dense cache, decode
+# ---------------------------------------------------------------------------
+
+def _layer(tree, g: int):
+    """Views of layer ``g`` of a stacked ``(G, ...)`` tree."""
+    return {k: (_layer(v, g) if isinstance(v, dict) else v[g])
+            for k, v in tree.items()}
+
+
+def _apply_sublayer(p, cfg: ModelConfig, x, kind: str, opts: RunOptions,
+                    *, want_cache: bool = False, impl: str = "auto"):
+    """One (attention + MLP) sublayer in full-sequence mode.  Returns
+    ``(x, cache)`` with ``cache = {"k", "v"}`` (B, S, KVH, hd) when
+    ``want_cache``, else ``{}``."""
+    h = ops.rmsnorm(x, p["ln1"], eps=cfg.norm_eps, impl=impl)
+    mix, (k, v) = attn_mod.attention(p["mixer"], cfg, h, kind=kind,
+                                     q_chunk=opts.q_chunk, impl=impl)
+    x = x + mix
+    h = ops.rmsnorm(x, p["ln2"], eps=cfg.norm_eps, impl=impl)
+    x = x + swiglu(h, p["mlp"]["wg"], p["mlp"]["wu"], p["mlp"]["wd"],
+                   x.dtype)
+    return x, ({"k": k, "v": v} if want_cache else {})
+
+
+def backbone(params_blocks, cfg: ModelConfig, x, opts: RunOptions, *,
+             want_cache: bool = False, impl: str = "auto"):
+    """Forward through the layer stack at positions ``0..S-1``, a Python
+    loop over the stacked ``(G,)`` axis (forward only: no remat, no MoE
+    aux loss).  Returns
+    ``(x, caches)``: ``{posN: {k, v: (G, B, S, KVH, hd)}}`` when
+    ``want_cache``, else None."""
+    kinds = cfg.layer_kinds()
+    per_layer = {f"pos{i}": [] for i in range(len(kinds))}
+    for g in range(cfg.num_layers // cfg.scan_period()):
+        blk = _layer(params_blocks, g)
+        for i, kind in enumerate(kinds):
+            x, c = _apply_sublayer(blk[f"pos{i}"], cfg, x, kind, opts,
+                                   want_cache=want_cache, impl=impl)
+            per_layer[f"pos{i}"].append(c)
+    if not want_cache:
+        return x, None
+    return x, {pos: {key: torch.stack([c[key] for c in cs])
+                     for key in ("k", "v")}
+               for pos, cs in per_layer.items()}
+
+
+def _embed_inputs(params, cfg: ModelConfig, batch):
+    """Token embedding of ``batch["tokens"]`` (B, S): x (B, S, D) in the
+    compute dtype (the port's prompts are tokens only)."""
+    return params["embed"][batch["tokens"].long()].to(compute_dtype(cfg))
+
+
+def prefill(params, cfg: ModelConfig, batch, opts: RunOptions = RunOptions(),
+            *, impl: str = "auto"):
+    """Run the prompts ``batch["tokens"]`` (B, S) through the model.
+    Returns ``(last_logits (B, 1, V) f32, cache)``, the cache
+    ``{posN: {k, v: (G, B, S, KVH, hd)}}`` in the compute dtype."""
+    x = _embed_inputs(params, cfg, batch)
+    x, caches = backbone(params["blocks"], cfg, x, opts, want_cache=True,
+                         impl=impl)
+    x = ops.rmsnorm(x, params["final_norm"], eps=cfg.norm_eps, impl=impl)
+    logits = x[:, -1:] @ _output_weight(params, cfg).to(x.dtype)
+    return logits.float(), caches
+
+
+def cache_entry_shapes(cfg: ModelConfig, pos_idx: int, batch: int, seq: int):
+    """Shape/axes template of one period position's cache entry
+    (attention layers: ``k``/``v`` of (batch, seq, KVH, hd))."""
+    kind = cfg.layer_kinds()[pos_idx]
+    if kind not in ("attn", "attn_local"):
+        raise NotImplementedError(
+            f"{cfg.name}: no dense cache for {kind!r} layers in the port "
+            "yet (SSM state is a later slice)")
+    kvh, hd = cfg.padded_kv_heads, cfg.resolved_head_dim
+    axes = ("batch", "seq_shard", "kv_heads", None)
+    return {"k": ((batch, seq, kvh, hd), axes),
+            "v": ((batch, seq, kvh, hd), axes)}
+
+
+def init_cache(cfg: ModelConfig, batch: int, seq: int, device=None):
+    """Zero dense cache ``{posN: {k, v: (G, batch, seq, KVH, hd)}}`` in the
+    compute dtype."""
+    g = cfg.num_layers // cfg.scan_period()
+    return {f"pos{i}": {
+        key: torch.zeros((g,) + shape, dtype=compute_dtype(cfg),
+                         device=device)
+        for key, (shape, _) in cache_entry_shapes(cfg, i, batch,
+                                                  seq).items()}
+        for i in range(cfg.scan_period())}
+
+
+def decode_step(params, cfg: ModelConfig, cache, tokens, pos, *,
+                impl: str = "auto"):
+    """One token for every slot.  tokens: (B, 1) int32; pos: (B,) int32
+    next write position (the fixed-slot engine parks idle slots on the
+    scratch index ``T - 1``).
+
+    Writes the new K/V into ``cache`` in place and returns
+    ``(logits (B, 1, V) f32, cache)``."""
+    kinds = cfg.layer_kinds()
+    eps = cfg.norm_eps
+    x = params["embed"][tokens.long()].to(compute_dtype(cfg))
+    for g in range(cfg.num_layers // cfg.scan_period()):
+        blk = _layer(params["blocks"], g)
+        for i, kind in enumerate(kinds):
+            p = blk[f"pos{i}"]
+            c = _layer(cache[f"pos{i}"], g)
+            h = ops.rmsnorm(x, p["ln1"], eps=eps, impl=impl)
+            mix, _, _ = attn_mod.decode_attention(
+                p["mixer"], cfg, h, c["k"], c["v"], pos, kind=kind,
+                impl=impl)
+            x = x + mix
+            h = ops.rmsnorm(x, p["ln2"], eps=eps, impl=impl)
+            x = x + swiglu(h, p["mlp"]["wg"], p["mlp"]["wu"],
+                           p["mlp"]["wd"], x.dtype)
+    x = ops.rmsnorm(x, params["final_norm"], eps=eps, impl=impl)
+    logits = x @ _output_weight(params, cfg).to(x.dtype)
+    return logits.float(), cache
 
 
 # ---------------------------------------------------------------------------
@@ -148,12 +280,6 @@ def copy_paged_page(cache, src: int, dst: int):
 # ---------------------------------------------------------------------------
 # Paged model step and fused tick
 # ---------------------------------------------------------------------------
-
-def _layer(tree, g: int):
-    """Views of layer ``g`` of a stacked ``(G, ...)`` tree."""
-    return {k: (_layer(v, g) if isinstance(v, dict) else v[g])
-            for k, v in tree.items()}
-
 
 def paged_decode_step(params, cfg: ModelConfig, cache, tokens, pos,
                       page_table, n_valid, *, impl: str = "auto"):

@@ -1,26 +1,32 @@
-"""Continuous-batching paged serving stack of the port (counterpart of
+"""Continuous-batching serving stack of the port (counterpart of
 ``repro.runtime.serving``: the :class:`Scheduler`, the admission
-policies, :class:`PagedPolicy` and :class:`PagedServingEngine`).
+policies, the fixed-slot :class:`FixedSlotPolicy` /
+:class:`ServingEngine` and the paged :class:`PagedPolicy` /
+:class:`PagedServingEngine`).
 
 One :class:`Scheduler` tick admits queued requests (FCFS or SLO order),
-runs one prefill chunk for the oldest mid-prefill request, and one fused
-decode tick for every seat whose prefill is complete.  The KV cache is a
-shared pool of fixed-size pages (``runtime.paged_kv.BlockManager``) with
-refcounted prefix caching and copy-on-write of the last partially shared
-page, lazy page growth and preempt-and-replay under page pressure.
-Scheduling is deterministic, and the flat ``trace`` of
-``(tick, event, rid)`` tuples equals the JAX engine's on the same
+runs the policy's prefill round and one decode step for every seat whose
+prefill is complete.  Scheduling is deterministic, and the flat ``trace``
+of ``(tick, event, rid)`` tuples equals the JAX engine's on the same
 submissions.
 
-The serving state lives on the device in fixed ``(max_seats,)`` tensors
-that the fused tick (``models.model.fused_decode_tick``) updates in
-place; a steady tick moves exactly one ``(max_seats,)`` int32 token
-vector to the host.  The tick runs eagerly; capturing it as a CUDA graph
-is later work.
+- Fixed slots: every seat owns a dense ``max_len + 1`` cache row (the
+  last index is the scratch position idle slots write to); a whole
+  prompt prefills in its admission tick (``models.model.prefill``, the
+  flash kernel on the card) and is written into its slot in place; a
+  decode tick runs ``models.model.decode_step`` (the dense decode kernel)
+  over all slots and samples on the host side of one transfer.
+- Paged: a shared pool of fixed-size pages
+  (``runtime.paged_kv.BlockManager``) with refcounted prefix caching and
+  copy-on-write of the last partially shared page, lazy page growth and
+  preempt-and-replay under page pressure.  The serving state lives on the
+  device in fixed ``(max_seats,)`` tensors that the fused tick
+  (``models.model.fused_decode_tick``) updates in place; a steady tick
+  moves exactly one ``(max_seats,)`` int32 token vector to the host.
 
-The engine runs on the card unless the caller passes ``device="cpu"``.
-The fixed-slot engine, the telemetry plane and the fleet router are later
-slices of the port.
+Both run eagerly; capturing a tick as a CUDA graph is later work.  The
+engines run on the card unless the caller passes ``device="cpu"``.  The
+telemetry plane and the fleet router are later slices of the port.
 """
 from __future__ import annotations
 
@@ -279,8 +285,8 @@ class Scheduler:
         fresh scheduler.
 
         Args:
-          policy: placement policy (:class:`PagedPolicy`);
-              ``policy.bind(self)`` is called.
+          policy: placement policy (:class:`FixedSlotPolicy` or
+              :class:`PagedPolicy`); ``policy.bind(self)`` is called.
           max_seats: concurrent-request limit (seats ``0..max_seats-1``).
           sampler: host :class:`~repro_torch.runtime.sampler.Sampler`
               for first tokens of stochastic requests.
@@ -440,6 +446,23 @@ class Scheduler:
             if req.max_new_tokens <= 1 or hit_eos:
                 self.finish(req)
 
+    def _sample_decode_batch(self, last_logits: torch.Tensor,
+                             seat_ids: List[int]) -> Dict[int, int]:
+        """Next token per seat from ``(max_seats, V)`` device logits (the
+        fixed-slot path; the paged engine samples inside its fused tick).
+        Only the active seats' rows are reduced or moved: greedy batches
+        move K ints to the host, and the (K, V) active rows cross only
+        when a stochastic seat needs them."""
+        sel = last_logits[torch.tensor(seat_ids, device=last_logits.device)]
+        if all(self.seats[s].sampling.greedy for s in seat_ids):
+            toks = torch.argmax(sel, dim=-1).to(torch.int32).cpu().numpy()
+            return {s: int(toks[i]) for i, s in enumerate(seat_ids)}
+        rows = sel.float().cpu().numpy()
+        return {s: self.sampler.sample(rows[i], self.seats[s].sampling,
+                                       rid=self.seats[s].rid,
+                                       step=len(self.seats[s].generated))
+                for i, s in enumerate(seat_ids)}
+
     def _emit_decode_token(self, req: Request, tok: int) -> None:
         req.generated.append(tok)
         self.metrics.decode_tokens += 1
@@ -555,8 +578,168 @@ class Scheduler:
 
 
 # ---------------------------------------------------------------------------
-# KV placement policy
+# KV placement policies
 # ---------------------------------------------------------------------------
+
+class FixedSlotPolicy:
+    """Dense fixed-slot placement: ``slots`` cache rows of ``max_len``
+    tokens, whole-prompt prefill written into the slot.  Wastes
+    ``max_len - len`` KV tokens per short request, and is the arithmetic
+    oracle for the paged path.
+
+    The cache carries one extra *scratch position* at index ``max_len``
+    (the fixed-slot analogue of the paged pool's scratch page 0): idle
+    slots still ride through the batched ``decode_step``, and parking
+    their write position there keeps them from rewriting KV their
+    previous occupant left behind.  No live query attends to it (live
+    positions are < ``max_len`` and the mask drops keys past the query).
+    An idle slot's query attends to all ``max_len + 1`` keys, and its
+    logits are thrown away.
+
+    Weights move to ``device`` and the matmul weights are cast once to the
+    compute dtype; the cache lives there and is written in place.  The
+    write positions ``pos`` stay on the host and go up with each tick's
+    tokens in one upload."""
+
+    def __init__(self, cfg, params, *, slots: int, max_len: int,
+                 device=None):
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.params = cast_for_compute(
+            {k: _to_device(v, self.device) for k, v in params.items()},
+            M.compute_dtype(cfg))
+        self.slots = slots
+        self.max_len = max_len
+        self.opts = M.RunOptions(q_chunk=min(max_len, 512))
+        self.cache = M.init_cache(cfg, slots, max_len + 1,
+                                  device=self.device)
+        # next write position; max_len = scratch (slot idle)
+        self.pos = np.full((slots,), max_len, np.int32)
+        self.decode_ticks = 0
+        # device-side health flag: stays True while every logit of a live
+        # row was finite (read it after a run; no tick syncs)
+        self.logits_finite = torch.ones((), dtype=torch.bool,
+                                        device=self.device)
+
+    def bind(self, sched: Scheduler) -> None:
+        """Attach the owning :class:`Scheduler` (called once, by its
+        constructor)."""
+        self.sched = sched
+
+    def pages_in_use(self) -> int:
+        """Always 0 — fixed slots are not page-accounted."""
+        return 0
+
+    def cache_stats(self) -> Tuple[int, int]:
+        """(cached reclaimable pages, evictions) — both always 0: the
+        fixed-slot layout has no prefix cache."""
+        return 0, 0
+
+    def validate(self, req: Request) -> None:
+        """Reject a request this layout could never place.
+
+        Raises:
+          ValueError: empty prompt, prompt >= ``max_len``, or
+              ``prompt + max_new_tokens`` > ``max_len`` (decode would
+              write past the slot)."""
+        total = len(req.prompt) + req.max_new_tokens
+        if len(req.prompt) == 0:
+            raise ValueError("empty prompt")
+        if len(req.prompt) >= self.max_len:
+            raise ValueError(f"prompt length {len(req.prompt)} >= "
+                             f"max_len={self.max_len}")
+        if total > self.max_len:
+            raise ValueError(f"request needs {total} tokens > "
+                             f"max_len={self.max_len}; decode would clamp "
+                             "into the last cache slot and corrupt KV")
+
+    def try_admit(self, req: Request, seat: int) -> bool:
+        """Always True: the seat is the only fixed-slot resource."""
+        return True
+
+    def release(self, req: Request) -> None:
+        """Park a finished request's write position on the scratch index,
+        so the idle slot stops touching the KV its occupant wrote."""
+        self.pos[req.slot] = self.max_len
+
+    def preempt(self, req: Request) -> None:
+        """Hook parity with :class:`PagedPolicy` (the fixed-slot engine
+        never preempts on its own, but ``Scheduler.preempt`` works on
+        either policy): the slot goes back to scratch and the request
+        replays ``prompt + generated[:-1]`` on re-admission."""
+        self.pos[req.slot] = self.max_len
+        req.resume_tokens = np.concatenate(
+            [req.prompt, np.asarray(req.generated[:-1], np.int32)])
+        req.prefill_pos = 0
+
+    def prefill_tick(self) -> None:
+        """Whole-prompt prefill for every seat admitted this tick, in rid
+        order, so it decodes in the same tick; the burst's first tokens
+        are sampled in one batched call after all the prefills."""
+        pending = sorted((r for r in self.sched.seats.values()
+                          if r.prefill_pos < len(r.prefill_src)),
+                         key=lambda r: r.rid)
+        ready = []
+        for req in pending:
+            row = self._prefill_one(req)
+            if row is not None:
+                ready.append((req, row))
+        self.sched._emit_first_tokens(ready)
+
+    def _prefill_one(self, req: Request):
+        slot = req.slot
+        src = req.prefill_src
+        P = len(src)
+        tokens = torch.from_numpy(np.asarray(src, np.int32)[None]).to(
+            self.device)
+        logits, row_cache = M.prefill(self.params, self.cfg,
+                                      {"tokens": tokens}, self.opts)
+        # write the single-row cache into the slot in place; the rest of
+        # the row, the scratch position included, is zeroed as the JAX
+        # policy's padded row write does
+        for pos, ent in self.cache.items():
+            for key, full in ent.items():
+                full[:, slot, :P] = row_cache[pos][key][:, 0]
+                full[:, slot, P:] = 0
+        self.logits_finite &= torch.isfinite(logits).all()
+        self.pos[slot] = P
+        req.prefill_pos = P
+        self.sched.metrics.prefill_tokens += P
+        if req.resume_tokens is None:
+            return logits[0, -1]         # first token sampled in the batch
+        # replay after a preemption: the first token was emitted before;
+        # decode resumes by feeding generated[-1]
+        return None
+
+    def decode_tick(self) -> None:
+        """One token for every active slot (prefill completes in the
+        admission tick, so every seat is decode-ready): the tokens and
+        write positions go up in one upload, and the sampled tokens come
+        back in one transfer."""
+        sched = self.sched
+        if not sched.seats:
+            return
+        feed = np.zeros((2, self.slots), np.int32)      # tokens, positions
+        feed[1] = self.pos
+        for slot, req in sched.seats.items():
+            feed[0, slot] = req.generated[-1]
+        feed_dev = torch.from_numpy(feed).to(self.device)
+        logits, _ = M.decode_step(self.params, self.cfg, self.cache,
+                                  feed_dev[0, :, None], feed_dev[1])
+        last = logits[:, -1]
+        # idle rows (parked on scratch) are garbage by contract
+        self.logits_finite &= (torch.isfinite(last).all(dim=-1)
+                               | (feed_dev[1] >= self.max_len)).all()
+        self.decode_ticks += 1
+        toks = sched._sample_decode_batch(last, list(sched.seats))
+        active = list(sched.seats.items())
+        # advance positions before emitting: a token that finishes its
+        # request triggers release(), whose scratch reset must stand
+        for slot, _ in active:
+            self.pos[slot] += 1
+        for slot, req in active:
+            sched._emit_decode_token(req, toks[slot])
+
 
 class PagedPolicy:
     """Paged-KV placement: shared page pool on the device, chunked
@@ -916,8 +1099,53 @@ def _to_device(tree, device):
 
 
 # ---------------------------------------------------------------------------
-# Engine façade (public API)
+# Engine façades (public API)
 # ---------------------------------------------------------------------------
+
+class ServingEngine(Scheduler):
+    """Fixed-slot continuous-batching engine: the Scheduler bound to
+    :class:`FixedSlotPolicy`, the equivalence oracle for the paged engine.
+
+    ``slots`` seats of ``max_len`` tokens each; the dense prefill (the
+    CPU path) chunks queries by ``min(max_len, 512)``.  ``admission``
+    selects the queue policy (``"fcfs"``/``"slo"``) and ``aging_ticks``
+    its anti-starvation bound.  The kernels run on CUDA, the plain
+    versions on the CPU (``kernels.ops``).  ``device`` defaults to
+    ``"cuda"`` and raises when CUDA is absent; pass ``"cpu"`` to run on
+    the CPU."""
+
+    default_max_ticks = 10_000
+
+    def __init__(self, cfg, params, *, slots: int = 4, max_len: int = 256,
+                 sampler: Optional[Sampler] = None,
+                 admission="fcfs", aging_ticks: int = 64,
+                 clock=None, record_trace: bool = True, telemetry=None,
+                 device=None):
+        policy = FixedSlotPolicy(cfg, params, slots=slots, max_len=max_len,
+                                 device=device)
+        super().__init__(policy, max_seats=slots, sampler=sampler,
+                         admission=admission, aging_ticks=aging_ticks,
+                         clock=clock, record_trace=record_trace,
+                         telemetry=telemetry)
+        self.cfg = cfg
+        self.params = policy.params
+        self.B = slots
+        self.max_len = max_len
+        self.opts = policy.opts
+        self.device = policy.device
+
+    @property
+    def active(self) -> Dict[int, Request]:
+        return self.seats
+
+    @property
+    def cache(self):
+        return self.policy.cache
+
+    @property
+    def pos(self) -> np.ndarray:
+        return self.policy.pos
+
 
 class PagedServingEngine(Scheduler):
     """Paged-KV continuous-batching engine: the Scheduler bound to

@@ -43,7 +43,8 @@ def test_every_module_imports_with_jax_and_reference_blocked():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert "imported" in out.stdout
-    assert len(mods) >= 20
+    assert len(mods) >= 21
+    assert "repro_torch.kernels.flash_attention" in mods
 
 
 @pytest.mark.parametrize("path", _port_files() + [ROOT / "chip_smoke.py"],
@@ -92,6 +93,27 @@ def test_serve_paged_defaults_to_cuda_and_raises_without_it(monkeypatch):
     assert bool(r["engine"].policy.logits_finite)
 
 
+def test_fixed_slot_engine_and_serve_default_to_cuda(monkeypatch):
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import model as M
+    from repro_torch.runtime.serving import ServingEngine
+    _no_cuda(monkeypatch)
+    cfg = reduced_config(get_config("qwen3-1.7b"))
+    params = M.init_params(M.param_specs(cfg),
+                           torch.Generator().manual_seed(0))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ServingEngine(cfg, params)
+    eng = ServingEngine(cfg, params, slots=2, max_len=16, device="cpu")
+    assert eng.device.type == "cpu"
+    assert eng.cache["pos0"]["k"].device.type == "cpu"
+    assert eng.cache["pos0"]["k"].shape[2] == 17       # + scratch position
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve("qwen3-1.7b", batch=1, gen=2)
+    r = serve("qwen3-1.7b", batch=2, prompt_len=6, gen=3, device="cpu")
+    assert r["generated"].shape == (2, 3)
+
+
 def test_telemetry_is_refused():
     from repro_torch.configs import get_config, reduced_config
     from repro_torch.models import model as M
@@ -138,10 +160,11 @@ def test_serve_cli_runs_on_cpu_and_rejects_bad_flags(capsys):
     out = capsys.readouterr().out
     assert "device=cpu kv_dtype=int8" in out and "2 requests" in out
     with pytest.raises(SystemExit):
-        main(["--device", "cpu", "--class-precision", "premium=fp4"])
+        main(["--engine", "paged", "--device", "cpu", "--class-precision",
+              "premium=fp4"])
     with pytest.raises(SystemExit):
-        main(["--device", "cpu", "--prompt-len", "40", "--gen", "16",
-              "--max-seq-len", "48"])
+        main(["--engine", "paged", "--device", "cpu", "--prompt-len", "40",
+              "--gen", "16", "--max-seq-len", "48"])
 
 
 def test_serve_paged_draws_prompts_and_budgets_within_bounds():
