@@ -41,7 +41,20 @@ Phases, each printed as it runs:
    the steady decode step's wall time, device busy time and idle share;
    and, as information, how many greedy tokens the fixed-slot and bf16
    paged engines share;
-6. summary — one JSON line listing the kernels, the card's name and power
+6. hpc — the fp8 GEMM kernel (K6) against its plain version through
+   ``ops.fp8_matmul`` (aligned, ragged, bm/bn != 128) and through the
+   per-tensor call at a mid-run HPL trailing-update shape (M = N = 32768,
+   K = 1024), timed there with the plain version and ``torch._scaled_mm``;
+   HPL fp32 and HPL-MxP fp8 and bf16 (8 refinement iterations) at N =
+   65536, NB = 1024 through ``run_hpl``/``run_hplmxp``, with the residual
+   criterion (< 16), the falling refinement history and the launch counts
+   of K6 checked; the fp8 factor without refinement against the fp32
+   factor at n = 256 (> 5x its residual, the reference's test) and,
+   logged, at larger n; the fp8 factorization at N = 8192 with the
+   kernel and with the plain version (first trailing update and refined
+   solutions held); HPCG at 256³ (50 iterations, the true residual
+   recomputed) and at 48³ (90 iterations, converged);
+7. summary — one JSON line listing the kernels, the card's name and power
    limit, and as the last line ``{"ok": true, "device": {...}}``.
 
 Any failure raises: the script exits non-zero and prints no ``ok`` line.
@@ -49,7 +62,9 @@ It never runs on the CPU: without CUDA it stops before any phase.
 """
 from __future__ import annotations
 
+import gc
 import json
+import statistics
 import subprocess
 import sys
 import time
@@ -65,6 +80,7 @@ from torch.nn.attention import SDPBackend, sdpa_kernel  # noqa: E402
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory rate
 F32_FLOPS = 67e12              # H100 SXM float32 rate outside tensor cores
 BF16_FLOPS = 989e12            # H100 SXM dense bf16 tensor-core rate
+FP8_FLOPS = 1979e12            # H100 SXM dense fp8 tensor-core rate
 ARCH = "qwen3-1.7b"
 H, KVH, HEAD_DIM, PAGE = 16, 8, 128, 16
 SEAT_LENGTHS = (1, 16, 17, 255, 700, 1024, 1531, 2048)
@@ -78,6 +94,13 @@ PREFILL_S = 511                # the widest prompt of the serving runs
 ITERS = 20
 SDPA_EFF = "sdpa[EFFICIENT_ATTENTION]"    # yardstick names, with backend
 SDPA_FLASH = "sdpa[FLASH_ATTENTION]"
+# HPC phase: HPL at NB = 1024, the repo's production HPL block
+# (launch/dryrun.py), and N = 65536, half its N for one card (the 16 GiB
+# matrix, its working copy and the first trailing product fill ~48 GiB)
+HPL_N, HPL_NB = 65536, 1024
+K6_M = K6_N = 32768            # a mid-run trailing update of that HPL
+HPL_CHECK_N = 8192             # whole-path kernel-vs-plain factorization
+HPCG_EDGE = 256                # HPCG's customary per-GPU local grid
 
 
 def log(phase: str, msg: str) -> None:
@@ -92,26 +115,92 @@ def smi_line() -> str:
 
 
 def cuda_ms(fn, flush: torch.Tensor, iters: int = ITERS) -> float:
-    """Mean device time of one ``fn()`` in ms, with the 50 MB L2 cache
-    flushed before every call (the serving path reads each layer's pool
-    cold): the device time torch.profiler gives the kernels ``fn``
-    launched.  Raises if the profiler saw no device time."""
+    """Device time of one ``fn()`` in ms, with the 50 MB L2 cache flushed
+    before every call (the serving path reads each layer's pool cold):
+    the median over ``iters`` calls of the span torch.profiler records
+    on the device for each call's ``record_function`` range (from its
+    first kernel's start to its last kernel's end)."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
+
+    def timed():
         for _ in range(iters):
             flush.zero_()
-            with torch.profiler.record_function("chip_smoke.timed"):
+            with torch.profiler.record_function(TIMED):
                 fn()
-        torch.cuda.synchronize()
-    us = sum(a.device_time_total for a in prof.key_averages()
-             if a.key == "chip_smoke.timed")
-    if us <= 0:
-        raise RuntimeError("torch.profiler recorded no device time")
-    return us / 1e3 / iters
+    return statistics.median(profiled(timed, TIMED)[1]) / 1e3
+
+
+def event_ms(fn, flush: torch.Tensor, iters: int) -> float:
+    """Time of one ``fn()`` in ms by CUDA events around each call (L2
+    flushed before it), the median over ``iters`` calls: for calls of
+    milliseconds, whose launch takes microseconds, the events bracket the
+    kernels.  ``cuda_ms`` (the profiler) is for the short kernels, where
+    events would time the host instead; torch 2.11's profiler misreads
+    long ones (it put the fp8 GEMM at 29–31 ms in two runs, faster than
+    the card's f32 peak allows, and at 51–52 ms in two others)."""
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(iters):
+        flush.zero_()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+TIMED = "chip_smoke.timed"
+PROFILE_TRIES = 3
+
+
+def profiled(work, key=None):
+    """``torch.profiler`` over ``work()`` (CPU and CUDA activity, ending in
+    a synchronize).  With ``key``, ``work`` marks each unit with a
+    ``record_function(key)`` range, and the device span (µs) of each
+    range is returned beside the profile.  torch 2.11's profiler now and
+    then loses ranges on the device side: the ones lost are counted in
+    the log, and a profile that lost half or more of them (or, without
+    ``key``, recorded no device time) is taken again, up to
+    PROFILE_TRIES times.
+
+    Raises:
+      RuntimeError: no profile in PROFILE_TRIES kept enough device time."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    cpu = torch.autograd.DeviceType.CPU
+    for attempt in range(PROFILE_TRIES):
+        with torch.profiler.profile(activities=acts) as prof:
+            work()
+            torch.cuda.synchronize()
+        events = prof.events()
+        if key is None:
+            if any(e.device_type != cpu and e.device_time_total > 0
+                   for e in events):
+                return prof, []
+            ranges, spans = 1, []
+        else:
+            ranges = sum(1 for e in events
+                         if e.name == key and e.device_type == cpu)
+            spans = [e.device_time_total for e in events
+                     if e.name == key and e.device_type != cpu
+                     and e.device_time_total > 0]
+            if 2 * len(spans) > ranges:
+                if len(spans) < ranges:
+                    log("profile", f"torch.profiler lost {ranges - len(spans)}"
+                        f" of {ranges} ranges on the device; they are left "
+                        "out")
+                return prof, spans
+        log("profile", f"attempt {attempt + 1}: torch.profiler kept device "
+            f"time for {len(spans)} of {ranges} ranges; profiling again")
+    raise RuntimeError(f"torch.profiler lost most device time in "
+                       f"{PROFILE_TRIES} attempts")
 
 
 def bound(nbytes: float, flops: float, rate: float = F32_FLOPS):
@@ -592,17 +681,14 @@ def _profile_steady(phase: str, what: str, step, steps: int = 5) -> None:
     for _ in range(steps):
         step()
     wall = (time.perf_counter() - t0) / steps * 1e3
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
+
+    def work():
         for _ in range(steps):
             step()
-    kernels = [a for a in prof.key_averages()
+    kernels = [a for a in profiled(work)[0].key_averages()
                if a.device_type == torch.autograd.DeviceType.CUDA
                and a.self_device_time_total > 0]
     busy = sum(a.self_device_time_total for a in kernels) / steps / 1e3
-    if busy <= 0:
-        raise RuntimeError(f"{what}: torch.profiler recorded no device time")
     kernels.sort(key=lambda a: a.self_device_time_total, reverse=True)
     log(phase, f"{what}: wall {wall:.2f} ms, device busy {busy:.3f} ms "
         f"({sum(a.count for a in kernels) // steps} kernels), idle share "
@@ -766,6 +852,258 @@ def phase_serve_fixed(paged: dict) -> dict:
     return counts
 
 
+def check_fp8(name: str, got: torch.Tensor, want: torch.Tensor, a_q, b_q,
+              sa_rows: torch.Tensor, sb_cols: torch.Tensor) -> float:
+    """Holds the fp8 GEMM kernel ``got`` against its plain version
+    ``want`` on the same e4m3 operands.  Every product of two e4m3 values
+    is exact in f32, so the two differ only by the order of their f32
+    sums: |Δ| <= 2·γ_K·(|a_q|·|b_q|)·(sa·sb) with γ_K = K·u/(1 − K·u),
+    u = 2^-24, plus one rounding of the scaling on each side
+    (2^-23·|plain|).  ``sa_rows`` (M,) and ``sb_cols`` (N,) are each
+    row's and column's scale.  Returns max |Δ|, and logs whether the
+    tests' rtol = atol = 1e-5 held as well."""
+    k = a_q.shape[1]
+    u = 2.0 ** -24
+    gamma = k * u / (1 - k * u)
+    mag = (a_q.float().abs() @ b_q.float().abs()).mul_(
+        sa_rows[:, None] * sb_cols[None, :])
+    lim = mag.mul_(2 * gamma).add_(want.abs(), alpha=2.0 ** -23)
+    err = (got - want).abs()
+    if not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"{name}: non-finite kernel output")
+    if bool((err > lim).any()):
+        raise AssertionError(f"{name}: max |kernel - plain| "
+                             f"{err.max().item():.3e} beyond the f32 "
+                             "summation bound 2·γ_K·|a||b|·s")
+    loose = bool((err <= 1e-5 + 1e-5 * want.abs()).all())
+    worst = err.max().item()
+    log("hpc", f"{name}: max|err| {worst:.3e} within 2·γ_K·|a||b|·s "
+        f"(K={k}); within rtol=atol=1e-5: {loose}")
+    return worst
+
+
+def _fp8_kernel(gen: torch.Generator, flush: torch.Tensor) -> dict:
+    """K6 against its plain version: the per-block wrapper at aligned and
+    ragged shapes and at bm/bn != 128; the per-tensor (broadcast-scale)
+    call at a mid-run HPL trailing-update shape, M = N = 32768, K = NB,
+    timed (``event_ms``) with the plain version and the
+    ``torch._scaled_mm`` yardstick."""
+    from repro_torch.core.mixed_precision import quantize_fp8
+    from repro_torch.kernels import ops
+    for m, k, n, (bm, bn, bk) in ((512, 1024, 384, (128, 128, 128)),
+                                  (1000, 700, 300, (128, 128, 128)),
+                                  (320, 512, 448, (64, 256, 64))):
+        a = torch.randn((m, k), generator=gen, device="cuda")
+        b = torch.randn((k, n), generator=gen, device="cuda")
+        a_q, b_q, sa, sb = ops.quantize_blocks(a, b, bm=bm, bn=bn, bk=bk)
+        got = ops.fp8_matmul(a, b, bm=bm, bn=bn, bk=bk, impl="kernel")
+        torch.cuda.synchronize()
+        want = ops.fp8_matmul(a, b, bm=bm, bn=bn, bk=bk, impl="plain")
+        check_fp8(f"fp8_matmul[M={m},K={k},N={n},bm={bm},bn={bn},bk={bk}]",
+                  got, want, a_q[:m], b_q[:, :n],
+                  sa.repeat_interleave(bm)[:m], sb.repeat_interleave(bn)[:n])
+
+    M, N, K = K6_M, K6_N, HPL_NB
+    a = torch.randn((M, K), generator=gen, device="cuda")
+    b = torch.randn((K, N), generator=gen, device="cuda")
+    a_q, sa = quantize_fp8(a)
+    b_q, sb = quantize_fp8(b)
+    del a, b
+
+    def run(impl):
+        return ops.scaled_fp8_matmul(a_q, b_q, sa.reshape(1), sb.reshape(1),
+                                     bm=M, bn=N, bk=K, impl=impl)
+    got = run("kernel")
+    torch.cuda.synchronize()
+    want = run("plain")
+    err = check_fp8(f"fp8_matmul[per-tensor, M={M},K={K},N={N}]", got, want,
+                    a_q, b_q, sa.expand(M), sb.expand(N))
+    del got, want
+    ms = event_ms(lambda: run("kernel"), flush, iters=5)
+    plain_ms = event_ms(lambda: run("plain"), flush, iters=3)
+    b_cm = b_q.t().contiguous().t()            # column-major, as cuBLASLt takes
+    library = "torch._scaled_mm[out f32]"
+    try:
+        lib_ms = event_ms(lambda: torch._scaled_mm(
+            a_q, b_cm, scale_a=sa, scale_b=sb, out_dtype=torch.float32),
+            flush, iters=5)
+    except RuntimeError as e:                  # the yardstick only
+        log("hpc", f"_scaled_mm refused an f32 output ({e}); timing it with "
+            "a bf16 output")
+        library = "torch._scaled_mm[out bf16]"
+        lib_ms = event_ms(lambda: torch._scaled_mm(
+            a_q, b_cm, scale_a=sa, scale_b=sb, out_dtype=torch.bfloat16),
+            flush, iters=5)
+    nbytes = M * K + K * N + 4 * M * N + 8
+    flops = 2.0 * M * N * K
+    # K6 runs scalar f32 FMAs: a reading above the f32 peak is a misread
+    assert flops / (ms * 1e-3) <= F32_FLOPS, \
+        f"fp8_matmul timed at {ms:.3f} ms, above the f32 peak"
+    b_ms, b_by = bound(nbytes, flops, FP8_FLOPS)
+    log("hpc", f"fp8_matmul[e4m3] M=N={M} K={K}: kernel {ms:.3f} ms "
+        f"({flops / ms / 1e9:.1f} TFLOP/s) plain {plain_ms:.3f} ms "
+        f"{library} {lib_ms:.3f} ms bound {b_ms:.4f} ms ({b_by}, "
+        f"{nbytes / 1e9:.2f} GB; operations at the fp8 tensor-core rate "
+        f"{flops / FP8_FLOPS * 1e3:.4f} ms)")
+    return {"fp8_matmul[e4m3]": dict(
+        name="fp8_matmul", max_abs_err=err, ms=ms, plain_ms=plain_ms,
+        bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms, library=library)}
+
+
+def _hpl_runs() -> tuple:
+    """HPL (fp32) and HPL-MxP (fp8, bf16) at HPL_N, HPL_NB through the
+    entry points ``run_hpl``/``run_hplmxp``, each with the kernel launch
+    counts set to 0 just before it and read just after it."""
+    from repro_torch.core.hpl import run_hpl
+    from repro_torch.core.hplmxp import run_hplmxp
+    from repro_torch.kernels import ops
+    n, nb = HPL_N, HPL_NB
+    counts = {}
+    ops.reset_launches()                       # the main path starts here
+    hpl = run_hpl(n, nb, device="cuda")
+    counts["fp32"] = dict(ops.launches)        # ... and ends here
+    assert hpl["passed"] and hpl["residual"] < 16, f"HPL fp32: {hpl}"
+    assert counts["fp32"] == {}, f"HPL fp32 launched {counts['fp32']}"
+    log("hpc", f"HPL fp32 N={n} NB={nb}: {hpl['time_s']:.2f} s "
+        f"{hpl['gflops']:.1f} GFLOP/s residual {hpl['residual']:.3e}")
+    runs = {"fp32": hpl}
+    for prec in ("fp8", "bf16"):
+        ops.reset_launches()                   # the main path starts here
+        r = run_hplmxp(n, nb, lowprec=prec, ir_iters=8, device="cuda")
+        counts[prec] = dict(ops.launches)      # ... and ends here
+        hist = r["ir_history"]
+        assert r["passed"] and r["residual"] < 16, f"HPL-MxP {prec}: {r}"
+        assert hist[-1] < hist[0], f"HPL-MxP {prec}: IR history {hist}"
+        # one trailing update per block step but the last, in the timed
+        # factorization and in the warm-up at 2·NB
+        want = ({"fp8_matmul[e4m3]": n // nb - 1 + 1} if prec == "fp8"
+                else {})
+        assert counts[prec] == want, \
+            f"HPL-MxP {prec}: launches {counts[prec]}, expected {want}"
+        log("hpc", f"HPL-MxP {prec} N={n} NB={nb}: LU {r['lu_time_s']:.2f} s "
+            f"({r['gflops_lu_only']:.1f} GFLOP/s LU only), IR "
+            f"{r['ir_time_s']:.3f} s, {r['gflops']:.1f} GFLOP/s; residual "
+            f"{r['residual']:.3e} after IR, {r['residual_no_ir']:.3e} "
+            f"without; IR history {[f'{h:.1e}' for h in hist]}; launches "
+            f"{json.dumps(counts[prec])}")
+        runs[prec] = r
+    # information: the test matrix's 0.3·N diagonal shift shrinks the
+    # trailing updates, and the fp8 error in them, as N grows;
+    # _fp8_lu_alone holds the reference's criterion at its own size
+    log("hpc", f"fp8 factor without IR at N={n}: residual "
+        f"{runs['fp8']['residual_no_ir'] / hpl['residual']:.2f}x the fp32 "
+        "factor's")
+    return runs, counts
+
+
+def _fp8_lu_alone() -> None:
+    """The reference's ``test_hplmxp_fp8_lu_alone_is_inaccurate`` on the
+    card: at n = 256, nb = 64 the fp8 factor solved without refinement
+    must leave more than 5x the fp32 factor's scaled residual.  Larger n
+    are logged: the test matrix's 0.3·n diagonal shift shrinks the
+    trailing updates, and with them the fp8 error, as 1/n."""
+    from repro_torch.core.hpl import (blocked_lu, hpl_residual, lu_solve,
+                                      make_test_matrix)
+    for n, nb in ((256, 64), (1024, 128), (4096, 512), (16384, 1024)):
+        a, b = make_test_matrix(n, device="cuda")
+        r = {m: float(hpl_residual(a, lu_solve(blocked_lu(
+            a, nb=nb, matmul=m), b), b)) for m in ("fp8", "fp32")}
+        ratio = r["fp8"] / r["fp32"]
+        log("hpc", f"fp8 LU without IR, n={n} nb={nb}: residual "
+            f"{r['fp8']:.3e} = {ratio:.1f}x the fp32 factor's "
+            f"{r['fp32']:.3e}" + (" (must exceed 5x)" if n == 256 else ""))
+        if n == 256:
+            assert ratio > 5, f"fp8 LU without IR only {ratio:.2f}x fp32's"
+
+
+def _hpl_kernel_vs_plain() -> None:
+    """``blocked_lu(matmul="fp8")`` at HPL_CHECK_N with the kernel and with
+    the plain version.  Both factor the first panel identically, so the
+    first trailing update multiplies identical quantized operands: it is
+    held to the f32 summation bound.  Later panels can flip an e4m3
+    rounding, so the refined solutions (8 iterations) are held instead:
+    within 1e-4 of |x|∞, the f32 accuracy IR reaches on this matrix."""
+    from repro_torch.core.hpl import blocked_lu, lu_solve, make_test_matrix
+    from repro_torch.core.mixed_precision import (iterative_refinement,
+                                                  quantize_fp8)
+    from repro_torch.kernels import ops
+    n, nb = HPL_CHECK_N, HPL_NB
+    a, b = make_test_matrix(n, device="cuda")
+    lu = {impl: blocked_lu(a, nb=nb, matmul="fp8", impl=impl)
+          for impl in ("kernel", "plain")}
+    l_col, u_row = lu["kernel"][nb:, :nb], lu["kernel"][:nb, nb:]
+    assert torch.equal(l_col, lu["plain"][nb:, :nb]) and \
+        torch.equal(u_row, lu["plain"][:nb, nb:]), "first panels differ"
+    qa, sa = quantize_fp8(l_col)
+    qb, sb = quantize_fp8(u_row)
+    first = {impl: ops.scaled_fp8_matmul(qa, qb, sa.reshape(1),
+                                         sb.reshape(1), bm=n - nb, bn=n - nb,
+                                         bk=nb, impl=impl)
+             for impl in ("kernel", "plain")}
+    check_fp8(f"first trailing update N={n}", first["kernel"],
+              first["plain"], qa, qb, sa.expand(n - nb), sb.expand(n - nb))
+    x = {}
+    for impl, f in lu.items():
+        x[impl], _ = iterative_refinement(lambda v: a @ v,
+                                          lambda r, f=f: lu_solve(f, r), b,
+                                          iters=8)
+    dx = (x["kernel"] - x["plain"]).abs().max().item()
+    scale = x["plain"].abs().max().item()
+    dlu = (lu["kernel"] - lu["plain"]).abs().max().item()
+    assert dx <= 1e-4 * scale, \
+        f"IR solutions kernel vs plain differ by {dx:.3e} (|x| {scale:.3e})"
+    log("hpc", f"blocked_lu fp8 N={n}: factors kernel vs plain max|Δ| "
+        f"{dlu:.3e}; IR solutions max|Δ| {dx:.3e} (|x|∞ {scale:.3e}, "
+        "limit 1e-4·|x|∞)")
+
+
+def _hpcg_runs() -> None:
+    """HPCG at 256³ (50 iterations, the reference default) with the true
+    residual recomputed against the recurrence's, then the 48³,
+    90-iteration case of ``benchmarks/run.py``, which must converge."""
+    from repro_torch.core.hpcg import run_hpcg
+    e = HPCG_EDGE
+    r = run_hpcg(e, e, e, max_iters=50, device="cuda")
+    ratio = r["true_rel_residual"] / r["rel_residual"]
+    # in f32 the recurrence drifts from the true residual by ~eps·|A||x|,
+    # far below a residual that 50 iterations leave at this size
+    assert 1 / 1.5 < ratio < 1.5, f"HPCG {e}³: true/recurrence {ratio}"
+    log("hpc", f"HPCG {e}³ 50 iterations: {r['time_s'] * 1e3:.1f} ms "
+        f"{r['gflops']:.1f} GFLOP/s {r['bandwidth_gbs']:.1f} GB/s (nominal "
+        f"bytes), relative residual {r['rel_residual']:.3e}, true "
+        f"{r['true_rel_residual']:.3e} (ratio {ratio:.4f}, limit 1.5x)")
+    r = run_hpcg(48, 48, 48, max_iters=90, device="cuda")
+    assert r["converged"], f"HPCG 48³: {r}"
+    log("hpc", f"HPCG 48³ 90 iterations: {r['time_s'] * 1e3:.1f} ms "
+        f"{r['gflops']:.2f} GFLOP/s, relative residual "
+        f"{r['rel_residual']:.3e} (converged < 1e-4)")
+
+
+def phase_hpc() -> tuple:
+    """The HPC path: K6 against its plain version and timed; HPL fp32 and
+    HPL-MxP fp8/bf16 at full size; the fp8 factorization with the kernel
+    against the plain version; HPCG.  Returns K6's results and the
+    launch counts of each HPL run."""
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device="cuda")
+    t0 = time.perf_counter()
+    results = _fp8_kernel(gen, flush)
+    del flush
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    runs, counts = _hpl_runs()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    t2 = time.perf_counter()
+    _fp8_lu_alone()
+    _hpl_kernel_vs_plain()
+    _hpcg_runs()
+    log("hpc", f"phase times: K6 checks {t1 - t0:.1f} s, HPL runs "
+        f"{t2 - t1:.1f} s (peak {peak:.1f} GiB allocated), the rest "
+        f"{time.perf_counter() - t2:.1f} s")
+    return results, counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs the "
@@ -779,6 +1117,12 @@ def main() -> int:
     phase_variants()
     runs, counts = phase_serve()
     counts["fixed"] = phase_serve_fixed(runs["bf16"])
+    del runs                                   # free the serving state
+    gc.collect()
+    torch.cuda.empty_cache()
+    hpc_results, hpc_counts = phase_hpc()
+    results.update(hpc_results)
+    counts["hplmxp_fp8"] = hpc_counts["fp8"]
     source = "src/repro_torch/kernels/"
     meta = {
         "paged_decode_attention": (
@@ -793,6 +1137,8 @@ def main() -> int:
                              "src/repro/kernels/decode_attention.py:63"),
         "flash_attention": ("cuda", source + "csrc/flash_attention.cu",
                             "src/repro/kernels/flash_attention.py:79"),
+        "fp8_matmul": ("cuda", source + "csrc/fp8_matmul.cu",
+                       "src/repro/kernels/fp8_matmul.py:42"),
     }
     kernels = []
     # each row's launches come from the serving run that drove it: the
@@ -804,7 +1150,8 @@ def main() -> int:
                      ("quantized_paged_decode_attention[int8]", "int8"),
                      ("rmsnorm[D=2048]", "bf16"), ("rmsnorm[D=128]", "bf16"),
                      ("decode_attention[bf16]", "fixed"),
-                     ("flash_attention[causal]", "fixed")):
+                     ("flash_attention[causal]", "fixed"),
+                     ("fp8_matmul[e4m3]", "hplmxp_fp8")):
         r = results[key]
         route, src, replaces = meta[r["name"]]
         n = counts[run].get(key, 0)

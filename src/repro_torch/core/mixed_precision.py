@@ -1,14 +1,20 @@
-"""KV-page precision layer: the KV half of ``repro.core.mixed_precision``.
+"""Precision layer of the port: the counterpart of
+``repro.core.mixed_precision``.
 
-fp8 or int8 values with one f32 scale per (token, head) vector, used by the
-quantized paged KV pool.  Values and scales are bit-identical to the JAX
-package's for the same inputs: the amax, the division and the rounding
-(round half to even, both for the e4m3 cast and for ``torch.round``) are
-the same IEEE float32 steps.
+- The KV half: fp8 or int8 values with one f32 scale per (token, head)
+  vector, used by the quantized paged KV pool.
+- The fp8 half (HPL-MxP, paper Table 9): ``quantize_fp8``, the per-tensor
+  ``fp8_matmul`` (e4m3 operands, f32 accumulation) that the HPL-MxP
+  trailing update runs through the fp8 GEMM kernel, ``fp8_einsum_2d`` and
+  ``iterative_refinement``.
+
+Values and scales are bit-identical to the JAX package's for the same
+inputs: the amax, the division and the rounding (round half to even, both
+for the e4m3 cast and for ``torch.round``) are the same IEEE float32 steps.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Callable, Tuple
 
 import torch
 
@@ -103,3 +109,79 @@ def dequantize_kv_page(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     if q.dtype == torch.uint8:
         q = q.view(F8)
     return q.float() * scale[..., None].float()
+
+
+# --- the fp8 half: e4m3 GEMMs with iterative refinement (HPL-MxP) ----------
+
+def quantize_fp8(x: torch.Tensor, *,
+                 axis=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Scale ``x`` into e4m3 range.  Returns ``(x_fp8, scale)`` with
+    ``x ≈ x_fp8.float() * scale``, ``x_fp8`` a ``torch.float8_e4m3fn``
+    tensor and ``scale`` f32.
+
+    Scale-shape contract (as in the JAX package): with ``axis=None`` the
+    reduction is global and ``scale`` is 0-d; with an ``axis`` (an int or
+    a tuple) the reduced dimensions are kept, so ``scale`` broadcasts
+    against ``x``.  The amax, the division and the cast are the same
+    IEEE steps as JAX's, so values and scales are bit-identical:
+    ``x / scale`` peaks at 448.00003, which e4m3 rounds to 448 in both
+    (the two casts differ only past 464)."""
+    if axis is None:
+        amax = x.abs().amax()
+    else:
+        amax = x.abs().amax(dim=axis, keepdim=True)
+    scale = amax.clamp_min(1e-12) / F8_MAX
+    return (x / scale).to(F8), scale.float()
+
+
+def fp8_matmul(a: torch.Tensor, b: torch.Tensor, *,
+               impl: str = "auto") -> torch.Tensor:
+    """``a @ b`` with e4m3 operands and f32 accumulation, one scale per
+    tensor: ``dot(qa, qb) · (sa · sb)`` as in the JAX package.  ``a`` is
+    (..., K), ``b`` (K, N); the result is (..., N) f32.
+
+    On CUDA this is the fp8 GEMM kernel (``kernels.ops.scaled_fp8_matmul``)
+    with one scale block covering each operand (``bm = M``, ``bn = N``),
+    so both scale vectors hold the one per-tensor scale and the kernel's
+    epilogue ``acc · (a_scale[i] · b_scale[j])`` is exactly the
+    reference's ``out · (sa · sb)``.  ``impl`` as in ``kernels.ops``."""
+    from repro_torch.kernels import ops
+    qa, sa = quantize_fp8(a)
+    qb, sb = quantize_fp8(b)
+    # the kernel takes row-major operands; a triangular solve's result
+    # (the HPL column panel) comes back column-major
+    qa2 = qa.reshape(-1, a.shape[-1]).contiguous()
+    qb = qb.contiguous()
+    m, k = qa2.shape
+    n = b.shape[-1]
+    out = ops.scaled_fp8_matmul(qa2, qb, sa.reshape(1), sb.reshape(1),
+                                bm=max(m, 1), bn=max(n, 1), bk=max(k, 1),
+                                impl=impl)
+    return out.reshape(*a.shape[:-1], n)
+
+
+def fp8_einsum_2d(x: torch.Tensor, w: torch.Tensor, *,
+                  impl: str = "auto") -> torch.Tensor:
+    """(..., K) @ (K, N) through the fp8 path (``fp8_matmul`` flattens
+    the leading dimensions, as the reference's reshape to 2-D does)."""
+    return fp8_matmul(x, w, impl=impl)
+
+
+def iterative_refinement(apply_a: Callable, solve_lowprec: Callable,
+                         b: torch.Tensor, *, iters: int = 5):
+    """Solve A x = b given a low-precision solver (Richardson iteration):
+    ``x_{k+1} = x_k + solve_lowprec(b - A x_k)``.  With an fp8/bf16 LU as
+    the inner solver this recovers f32-accurate solutions (the HPL-MxP
+    method).  Returns ``(x, history)``: ``history`` is a tensor of the
+    ``iters`` relative residual norms ``|b - A x_k| / |b|``, each taken
+    before its correction."""
+    bf = b.float()
+    bnorm = torch.linalg.vector_norm(bf).clamp_min(1e-30)
+    x = solve_lowprec(b).float()
+    hist = []
+    for _ in range(iters):
+        r = bf - apply_a(x)
+        x = x + solve_lowprec(r).float()
+        hist.append(torch.linalg.vector_norm(r) / bnorm)
+    return x, (torch.stack(hist) if hist
+               else torch.empty(0, device=b.device))

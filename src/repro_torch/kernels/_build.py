@@ -41,6 +41,8 @@ SIGNATURES: Dict[str, tuple] = {
     # 3 strides each of q, k/v and out, stream
     "flash_attention": (_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                         _LL, _LL, _LL, _LL, _LL, _LL, _LL, _LL, _LL, _P),
+    # a_q, b_q, a_scale, b_scale, out, M, N, K, bm, bn, stream
+    "fp8_matmul": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
 }
 
 

@@ -15,7 +15,8 @@ plain version.  Each launch adds one to its variant's entry in
 :data:`launches` (``paged_decode_attention[bf16]``,
 ``quantized_paged_decode_attention[fp8]``, ``rmsnorm[D=2048]``, ...), so a
 run can show which kernels it went through, and at which pool type, mask
-or width (``decode_attention[bf16]``, ``flash_attention[causal]``).
+or width (``decode_attention[bf16]``, ``flash_attention[causal]``,
+``fp8_matmul[e4m3]``).
 The kernels are built at their first launch (``kernels._build``,
 ``kernels.rmsnorm``).
 """
@@ -26,8 +27,10 @@ from typing import Optional
 
 import torch
 
+from repro_torch.core.mixed_precision import F8, F8_MAX
 from repro_torch.kernels import decode_attention as da
 from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import fp8_matmul as fm
 from repro_torch.kernels import rmsnorm as rn
 
 IMPLS = ("auto", "kernel", "plain")
@@ -242,3 +245,88 @@ def flash_attention(q, k, v, *, causal: bool = True,
                else "causal" if causal else "full")
         launches[f"{name}[{tag}]"] += 1
     return out
+
+
+def scaled_fp8_matmul(a_q: torch.Tensor, b_q: torch.Tensor,
+                      a_scale: torch.Tensor, b_scale: torch.Tensor, *,
+                      bm: int = 128, bn: int = 128, bk: int = 128,
+                      impl: str = "auto") -> torch.Tensor:
+    """The fp8 GEMM on quantized operands (the counterpart of
+    ``fp8_matmul_pallas``): a_q (M, K) @ b_q (K, N), both
+    ``torch.float8_e4m3fn``, with a_scale (M/bm,) and b_scale (N/bn,) f32;
+    returns (M, N) f32 ``acc · (a_scale[i/bm] · b_scale[j/bn])``.
+
+    Raises:
+      ValueError: a ragged dimension or a contraction mismatch (the TPU
+          kernel's contract, ``fp8_matmul.check_shapes``), or, on CUDA,
+          a dtype, scale shape, device or layout the kernel does not take."""
+    if not use_kernel(impl, a_q):
+        return fm.fp8_matmul_plain(a_q, b_q, a_scale, b_scale, bm=bm, bn=bn,
+                                   bk=bk)
+    fm.check_shapes(a_q, b_q, bm, bn, bk)
+    name = "fp8_matmul"
+    m, n = a_q.shape[0], b_q.shape[1]
+    _check(a_q.dtype == F8 and b_q.dtype == F8,
+           f"{name}: operands {a_q.dtype}/{b_q.dtype}, needs {F8}")
+    _check(a_scale.dtype == torch.float32 and b_scale.dtype == torch.float32
+           and a_scale.shape == (m // bm,) and b_scale.shape == (n // bn,),
+           f"{name}: scales must be f32 ({m // bm},) and ({n // bn},), got "
+           f"{a_scale.dtype} {tuple(a_scale.shape)} and {b_scale.dtype} "
+           f"{tuple(b_scale.shape)}")
+    tensors = [a_q, b_q, a_scale, b_scale]
+    _check(all(t.device == a_q.device for t in tensors),
+           f"{name}: tensors on {sorted({str(t.device) for t in tensors})}")
+    _check(all(t.is_contiguous() for t in tensors),
+           f"{name}: operands and scales must be contiguous")
+    _check(max(m, n, a_q.shape[1]) < 2 ** 31,
+           f"{name}: a dimension of {tuple(a_q.shape)}/{tuple(b_q.shape)} "
+           "does not fit the kernel's int")
+    out = torch.empty((m, n), dtype=torch.float32, device=a_q.device)
+    with torch.cuda.device(a_q.device):
+        fm.fp8_matmul_cuda(a_q, b_q, a_scale, b_scale, out, bm=bm, bn=bn)
+    launches[f"{name}[e4m3]"] += 1
+    return out
+
+
+def _pad_to(x: torch.Tensor, mult: int, axis: int):
+    pad = (-x.shape[axis]) % mult
+    if pad == 0:
+        return x, 0
+    widths = [0, 0] * x.dim()
+    widths[2 * (x.dim() - 1 - axis) + 1] = pad
+    return torch.nn.functional.pad(x, widths), pad
+
+
+def quantize_blocks(a: torch.Tensor, b: torch.Tensor, *, bm: int = 128,
+                    bn: int = 128, bk: int = 128):
+    """The per-block quantization of the JAX ``ops.fp8_matmul``: pads
+    ``a`` (M, K) and ``b`` (K, N) with zeros to block multiples, takes one
+    scale per bm-row block of ``a`` and per bn-column block of ``b``
+    (amax / 448) and casts to e4m3.  Returns ``(a_q, b_q, a_scale,
+    b_scale)`` with f32 scales, bit-identical to the JAX wrapper's."""
+    a, _ = _pad_to(a, bm, 0)
+    a, _ = _pad_to(a, bk, 1)
+    b, _ = _pad_to(b, bk, 0)
+    b, _ = _pad_to(b, bn, 1)
+    m, k = a.shape
+    n = b.shape[1]
+    am = a.reshape(m // bm, bm, k).abs().amax(dim=(1, 2))
+    bmax = b.reshape(k, n // bn, bn).abs().amax(dim=(0, 2))
+    sa = am.clamp_min(1e-12) / F8_MAX
+    sb = bmax.clamp_min(1e-12) / F8_MAX
+    a_q = (a / sa.repeat_interleave(bm)[:, None]).to(F8).contiguous()
+    b_q = (b / sb.repeat_interleave(bn)[None, :]).to(F8).contiguous()
+    return a_q, b_q, sa.float(), sb.float()
+
+
+def fp8_matmul(a: torch.Tensor, b: torch.Tensor, *, bm: int = 128,
+               bn: int = 128, bk: int = 128,
+               impl: str = "auto") -> torch.Tensor:
+    """f32/bf16 (M, K) @ (K, N) through the fp8 GEMM with one scale per
+    bm-row block of ``a`` and per bn-column block of ``b``, as the JAX
+    ``ops.fp8_matmul`` does: pads, quantizes (``quantize_blocks``),
+    multiplies and crops.  Returns (M, N) f32."""
+    a_q, b_q, sa, sb = quantize_blocks(a, b, bm=bm, bn=bn, bk=bk)
+    out = scaled_fp8_matmul(a_q, b_q, sa, sb, bm=bm, bn=bn, bk=bk,
+                            impl=impl)
+    return out[:a.shape[0], :b.shape[1]]

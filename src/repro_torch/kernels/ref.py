@@ -12,6 +12,32 @@ import torch
 NEG_INF = -1e30
 
 
+def fp8_matmul_ref(a_q: torch.Tensor, b_q: torch.Tensor,
+                   a_scale: torch.Tensor, b_scale: torch.Tensor, *,
+                   bm: int = 128, bn: int = 128) -> torch.Tensor:
+    """Dequantize-then-matmul oracle of the fp8 GEMM: ``a_scale[i]``
+    applies to rows ``[i*bm, (i+1)*bm)`` and ``b_scale[j]`` to columns
+    ``[j*bn, (j+1)*bn)``, so M and N must be exact multiples of the block
+    sizes.  a_q (M, K) and b_q (K, N) e4m3; returns (M, N) f32, the f32
+    product times ``(sa · sb)``.
+
+    Raises:
+      ValueError: M or N is not a multiple of its block."""
+    m, n = a_q.shape[0], b_q.shape[1]
+    for dim_name, dim, blk_name, blk in (("M", m, "bm", bm),
+                                         ("N", n, "bn", bn)):
+        if dim % blk != 0:
+            raise ValueError(
+                f"fp8_matmul_ref: {dim_name}={dim} is not a multiple of "
+                f"{blk_name}={blk} (shapes a_q={tuple(a_q.shape)}, "
+                f"b_q={tuple(b_q.shape)}); the per-block scale layout cannot "
+                "cover a ragged edge — pad to block multiples first")
+    sa = a_scale.float().repeat_interleave(bm)[:, None]
+    sb = b_scale.float().repeat_interleave(bn)[None, :]
+    out = a_q.float() @ b_q.float()
+    return out * (sa * sb)
+
+
 def rmsnorm_ref(x: torch.Tensor, w: torch.Tensor, *,
                 eps: float = 1e-6) -> torch.Tensor:
     """``x·rsqrt(mean(x²)+eps)·(1+w)`` in f32, cast back to ``x.dtype``."""

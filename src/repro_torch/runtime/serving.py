@@ -55,7 +55,7 @@ def resolve_device(device=None) -> torch.device:
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
-            "the port serves on a CUDA device by default and none is "
+            "the port runs on a CUDA device by default and none is "
             "available; pass device='cpu' to run the plain versions on "
             "the CPU")
     return dev
