@@ -8,7 +8,9 @@ Phases, each printed as it runs:
 1. device — the card's name and power limit (nvidia-smi), torch and CUDA
    versions; TF32 is switched off for float32 matmuls and convolutions;
 2. build — the CUDA kernels compile from ``src/repro_torch/kernels/csrc``
-   with nvcc, and the Triton kernel compiles at its first launch;
+   with nvcc, and the Triton kernel compiles at its first launch; the fp8
+   GEMM's registers and spills are logged (no spill allowed) and its SASS
+   must hold warpgroup MMAs on e4m3 operands (``cuobjdump``);
 3. kernels — every kernel of the serving paths against its plain PyTorch
    version at the serving shapes of qwen3-1.7b (H=16, KVH=8, d=128;
    paged decode: page 16, 8 seats with lengths from 1 to 2048; dense
@@ -41,10 +43,15 @@ Phases, each printed as it runs:
    the steady decode step's wall time, device busy time and idle share;
    and, as information, how many greedy tokens the fixed-slot and bf16
    paged engines share;
-6. hpc — the fp8 GEMM kernel (K6) against its plain version through
-   ``ops.fp8_matmul`` (aligned, ragged, bm/bn != 128) and through the
-   per-tensor call at a mid-run HPL trailing-update shape (M = N = 32768,
-   K = 1024), timed there with the plain version and ``torch._scaled_mm``;
+6. hpc — the fp8 GEMM kernel (K6) against its plain version, held to
+   ``fp8_matmul.error_bound`` (f32 sums plus the tensor-core term of sums
+   promoted every 128 products), through ``ops.fp8_matmul`` (aligned,
+   ragged, bm/bn != 128) and through the per-tensor call at the n = 256,
+   nb = 64 LU's first update (M = N = 192, K = 64), at a K the wrapper
+   pads to 16, on one-sign operands and at a mid-run HPL trailing-update
+   shape (M = N = 32768, K = 1024), timed there with the plain version
+   and ``torch._scaled_mm``; planted faults (a scale of the wrong block,
+   a dropped k-step, sums never promoted) must fail the same bound;
    HPL fp32 and HPL-MxP fp8 and bf16 (8 refinement iterations) at N =
    65536, NB = 1024 through ``run_hpl``/``run_hplmxp``, with the residual
    criterion (< 16), the falling refinement history and the launch counts
@@ -64,6 +71,8 @@ from __future__ import annotations
 
 import gc
 import json
+import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -261,13 +270,43 @@ def phase_build() -> None:
         for ln in text.splitlines():
             if "registers" in ln or "spill" in ln:
                 log("build", f"{name}: {ln.strip()}")
+    _check_fp8_build(logs)
     t1 = time.perf_counter()
     for d in (2048, HEAD_DIM):
         x = torch.ones((2, d), dtype=torch.bfloat16, device="cuda")
         ops.rmsnorm(x, torch.zeros(d, device="cuda"), impl="kernel")
     torch.cuda.synchronize()
-    log("build", f"nvcc {t_nvcc:.1f} s ({len(logs)} sources built), "
+    log("build", f"nvcc {t_nvcc:.1f} s ({len(logs)} sources), "
         f"triton {time.perf_counter() - t1:.1f} s")
+
+
+def _check_fp8_build(logs: dict) -> None:
+    """K6's build: ptxas (``-Xptxas=-v``) must report no spill, and its
+    warnings are logged; the library's SASS (``cuobjdump --dump-sass``)
+    must hold warpgroup MMAs on e4m3 operands (``QGMMA ... .E4M3.E4M3``;
+    HGMMA is the 16-bit form), the fp8 tensor-core path.
+
+    Raises:
+      AssertionError: a spill, or no e4m3 warpgroup MMA in the SASS."""
+    from repro_torch.kernels import _build
+    text = logs["fp8_matmul"]
+    for ln in text.splitlines():
+        if "warning" in ln.lower():
+            log("build", f"fp8_matmul: {ln.strip()}")
+    spills = [int(n) for n in re.findall(r"(\d+) bytes spill", text)]
+    assert spills and not any(spills), \
+        f"fp8_matmul: ptxas reports spills {spills}"
+    path = _build.library("fp8_matmul")._name
+    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([cuobjdump, "--dump-sass", path], check=True,
+                          capture_output=True, text=True).stdout
+    # the warpgroup MMAs: HGMMA for 16-bit operands, QGMMA for fp8
+    gmma = [ln.strip() for ln in sass.splitlines()
+            if re.search(r"\b[HQ]GMMA\.", ln)]
+    e4m3 = [ln for ln in gmma if ".E4M3.E4M3" in ln]
+    log("build", f"fp8_matmul SASS: {len(gmma)} warpgroup MMAs, "
+        f"{len(e4m3)} on E4M3 operands; first: {e4m3[0] if e4m3 else None}")
+    assert e4m3, "fp8_matmul: no warpgroup MMA on E4M3 operands in the SASS"
 
 
 def _paged_inputs(gen: torch.Generator):
@@ -853,43 +892,86 @@ def phase_serve_fixed(paged: dict) -> dict:
 
 
 def check_fp8(name: str, got: torch.Tensor, want: torch.Tensor, a_q, b_q,
-              sa_rows: torch.Tensor, sb_cols: torch.Tensor) -> float:
+              sa_rows: torch.Tensor, sb_cols: torch.Tensor,
+              faults: dict | None = None) -> float:
     """Holds the fp8 GEMM kernel ``got`` against its plain version
-    ``want`` on the same e4m3 operands.  Every product of two e4m3 values
-    is exact in f32, so the two differ only by the order of their f32
-    sums: |Δ| <= 2·γ_K·(|a_q|·|b_q|)·(sa·sb) with γ_K = K·u/(1 − K·u),
-    u = 2^-24, plus one rounding of the scaling on each side
-    (2^-23·|plain|).  ``sa_rows`` (M,) and ``sb_cols`` (N,) are each
-    row's and column's scale.  Returns max |Δ|, and logs whether the
-    tests' rtol = atol = 1e-5 held as well."""
+    ``want`` on the same e4m3 operands, to ``fp8_matmul.error_bound``:
+    the f32 summation bound ``2·γ_K·(|a_q|·|b_q|)·(sa·sb) +
+    2^-23·|plain|`` plus the tensor-core term ``2^-9·(|a_q|·|b_q|)·(sa·sb)``
+    of sums promoted into f32 every 128 products.  ``sa_rows`` (M,) and
+    ``sb_cols`` (N,) are each row's and column's scale.  Logs the largest
+    ``|Δ| / ((|a_q|·|b_q|)·sa·sb)`` and whether the f32 bound alone (that
+    of a kernel summing in f32) held as well.
+
+    ``faults`` maps a planted fault's name to ``(make, must_fail)``:
+    ``make()`` returns a wrong result for the same product, which is held
+    to the same limit and its ratio logged; where ``must_fail``, the
+    limit must reject it.  Returns the kernel's ratio."""
+    from repro_torch.kernels import fp8_matmul as fm
     k = a_q.shape[1]
-    u = 2.0 ** -24
-    gamma = k * u / (1 - k * u)
-    mag = (a_q.float().abs() @ b_q.float().abs()).mul_(
-        sa_rows[:, None] * sb_cols[None, :])
-    lim = mag.mul_(2 * gamma).add_(want.abs(), alpha=2.0 ** -23)
-    err = (got - want).abs()
     if not bool(torch.isfinite(got).all()):
         raise AssertionError(f"{name}: non-finite kernel output")
-    if bool((err > lim).any()):
-        raise AssertionError(f"{name}: max |kernel - plain| "
-                             f"{err.max().item():.3e} beyond the f32 "
-                             "summation bound 2·γ_K·|a||b|·s")
-    loose = bool((err <= 1e-5 + 1e-5 * want.abs()).all())
-    worst = err.max().item()
-    log("hpc", f"{name}: max|err| {worst:.3e} within 2·γ_K·|a||b|·s "
-        f"(K={k}); within rtol=atol=1e-5: {loose}")
-    return worst
+    mag = fm.magnitude(a_q, b_q, sa_rows, sb_cols)
+    lim = fm.error_bound(mag, want, k)
+
+    def held(res):
+        err = (res - want).abs()
+        ratio = torch.where(mag > 0, err / mag, 0.0).max().item()
+        return err, ratio, bool((err <= lim).all())
+    err, ratio, ok = held(got)
+    if not ok:
+        raise AssertionError(
+            f"{name}: max |kernel - plain| {err.max().item():.3e} beyond "
+            f"the tensor-core bound (largest |Δ|/mag {ratio:.3e}, limit "
+            f"2·γ_K + {fm.TC_LIMIT:.3e})")
+    f32_ok = bool((err <= fm.error_bound(mag, want, k,
+                                         tensor_core=False)).all())
+    log("hpc", f"{name}: max|err| {err.max().item():.3e}, largest "
+        f"|Δ|/((|a||b|)·s) {ratio:.3e} within the tensor-core bound "
+        f"(2·γ_K + 2^-9, K={k}); within the f32 summation bound alone: "
+        f"{f32_ok}")
+    del err
+    for fault, (make, must_fail) in (faults or {}).items():
+        _, r, passed = held(make())
+        log("hpc", f"{name}: planted fault [{fault}]: largest |Δ|/mag "
+            f"{r:.3e}, {'passes' if passed else 'fails'} the bound")
+        assert not (must_fail and passed), \
+            f"{name}: the bound passes the planted fault [{fault}]"
+    return ratio
+
+
+def _dropped_kstep(a_q: torch.Tensor) -> torch.Tensor:
+    """a_q with its second wgmma k-step (columns 32–63) zeroed: the result
+    of a kernel that skips one k-step of its first chunk."""
+    bad = a_q.clone()
+    bad[:, 32:64] = 0
+    return bad
+
+
+def _no_promotion(a_q, b_q, sa, sb):
+    """``torch._scaled_mm`` with fast accumulation: Hopper's fp8 tensor-core
+    sums kept across all of K, never promoted (b_q column-major)."""
+    return lambda: torch._scaled_mm(a_q, b_q, scale_a=sa, scale_b=sb,
+                                    out_dtype=torch.float32,
+                                    use_fast_accum=True)
 
 
 def _fp8_kernel(gen: torch.Generator, flush: torch.Tensor) -> dict:
     """K6 against its plain version: the per-block wrapper at aligned and
     ragged shapes and at bm/bn != 128; the per-tensor (broadcast-scale)
-    call at a mid-run HPL trailing-update shape, M = N = 32768, K = NB,
-    timed (``event_ms``) with the plain version and the
-    ``torch._scaled_mm`` yardstick."""
+    call at the n = 256, nb = 64 LU's first trailing update, at a K the
+    wrapper pads (b column-major, as the LU's row panel is), on operands
+    of one sign (every product positive, so no truncation cancels
+    another: the shape that shows promotion), and at a mid-run HPL
+    trailing-update shape, M = N = 32768, K = NB, timed (``event_ms``)
+    with the plain version and the ``torch._scaled_mm`` yardstick.  At
+    each shape planted faults are held to the same bound and must fail
+    it: a dropped k-step everywhere, a scale of the wrong block where
+    there are blocks, and sums never promoted on the one-sign operands
+    (logged on signed operands, where promotion changes little)."""
     from repro_torch.core.mixed_precision import quantize_fp8
     from repro_torch.kernels import ops
+    ratios = []
     for m, k, n, (bm, bn, bk) in ((512, 1024, 384, (128, 128, 128)),
                                   (1000, 700, 300, (128, 128, 128)),
                                   (320, 512, 448, (64, 256, 64))):
@@ -899,9 +981,44 @@ def _fp8_kernel(gen: torch.Generator, flush: torch.Tensor) -> dict:
         got = ops.fp8_matmul(a, b, bm=bm, bn=bn, bk=bk, impl="kernel")
         torch.cuda.synchronize()
         want = ops.fp8_matmul(a, b, bm=bm, bn=bn, bk=bk, impl="plain")
-        check_fp8(f"fp8_matmul[M={m},K={k},N={n},bm={bm},bn={bn},bk={bk}]",
-                  got, want, a_q[:m], b_q[:, :n],
-                  sa.repeat_interleave(bm)[:m], sb.repeat_interleave(bn)[:n])
+
+        def bad(aq, sa_, sb_, b_q=b_q, bm=bm, bn=bn, bk=bk, m=m, n=n):
+            return lambda: ops.scaled_fp8_matmul(
+                aq, b_q, sa_, sb_, bm=bm, bn=bn, bk=bk,
+                impl="kernel")[:m, :n]
+        ratios.append(check_fp8(
+            f"fp8_matmul[M={m},K={k},N={n},bm={bm},bn={bn},bk={bk}]", got,
+            want, a_q[:m], b_q[:, :n], sa.repeat_interleave(bm)[:m],
+            sb.repeat_interleave(bn)[:n], faults={
+                "a scale of the wrong block": (bad(a_q, sa.roll(1), sb),
+                                               True),
+                "b scale of the wrong block": (bad(a_q, sa, sb.roll(1)),
+                                               True),
+                "dropped k-step": (bad(_dropped_kstep(a_q), sa, sb), True)}))
+    # K = 200 reaches the kernel padded to 208 (TMA's 16-byte rows); the
+    # one-sign operands come last
+    for m, k, n, draw in ((192, 64, 192, torch.randn),
+                          (384, 200, 320, torch.randn),
+                          (512, 1024, 512, torch.rand)):
+        a_q, sa = quantize_fp8(draw((m, k), generator=gen, device="cuda"))
+        b_q, sb = quantize_fp8(draw((n, k), generator=gen,
+                                    device="cuda").t())
+        assert b_q.t().is_contiguous(), "b_q is not column-major"
+
+        def run(aq, impl="kernel", b_q=b_q, sa=sa, sb=sb, m=m, n=n, k=k):
+            return ops.scaled_fp8_matmul(aq, b_q, sa.reshape(1),
+                                         sb.reshape(1), bm=m, bn=n, bk=k,
+                                         impl=impl)
+        faults = {"dropped k-step":
+                  (lambda run=run, a_q=a_q: run(_dropped_kstep(a_q)), True)}
+        if k % 16 == 0:                        # _scaled_mm's contract
+            faults["no promotion"] = (_no_promotion(a_q, b_q, sa, sb),
+                                      draw is torch.rand)
+        sign = "one-sign operands" if draw is torch.rand else "b column-major"
+        ratios.append(check_fp8(
+            f"fp8_matmul[per-tensor, M={m},K={k},N={n},{sign}]", run(a_q),
+            run(a_q, "plain"), a_q, b_q, sa.expand(m), sb.expand(n),
+            faults=faults))
 
     M, N, K = K6_M, K6_N, HPL_NB
     a = torch.randn((M, K), generator=gen, device="cuda")
@@ -916,12 +1033,22 @@ def _fp8_kernel(gen: torch.Generator, flush: torch.Tensor) -> dict:
     got = run("kernel")
     torch.cuda.synchronize()
     want = run("plain")
-    err = check_fp8(f"fp8_matmul[per-tensor, M={M},K={K},N={N}]", got, want,
-                    a_q, b_q, sa.expand(M), sb.expand(N))
+    err = (got - want).abs().max().item()
+    b_cm = b_q.t().contiguous().t()            # column-major, as cuBLASLt takes
+    ratios.append(check_fp8(
+        f"fp8_matmul[per-tensor, M={M},K={K},N={N}]", got, want, a_q, b_q,
+        sa.expand(M), sb.expand(N), faults={
+            "dropped k-step": (lambda: ops.scaled_fp8_matmul(
+                _dropped_kstep(a_q), b_q, sa.reshape(1), sb.reshape(1),
+                bm=M, bn=N, bk=K, impl="kernel"), True),
+            "no promotion": (_no_promotion(a_q, b_cm, sa, sb), False)}))
     del got, want
+    log("hpc", f"fp8_matmul: largest |Δ|/((|a||b|)·s) over the checks "
+        f"{max(ratios):.3e} (one-sign operands {ratios[-2]:.3e}, signed "
+        f"{max(ratios[:-2] + ratios[-1:]):.3e}); limit 2^-9 = "
+        f"{2.0 ** -9:.3e} plus 2·γ_K")
     ms = event_ms(lambda: run("kernel"), flush, iters=5)
     plain_ms = event_ms(lambda: run("plain"), flush, iters=3)
-    b_cm = b_q.t().contiguous().t()            # column-major, as cuBLASLt takes
     library = "torch._scaled_mm[out f32]"
     try:
         lib_ms = event_ms(lambda: torch._scaled_mm(
@@ -936,9 +1063,9 @@ def _fp8_kernel(gen: torch.Generator, flush: torch.Tensor) -> dict:
             flush, iters=5)
     nbytes = M * K + K * N + 4 * M * N + 8
     flops = 2.0 * M * N * K
-    # K6 runs scalar f32 FMAs: a reading above the f32 peak is a misread
-    assert flops / (ms * 1e-3) <= F32_FLOPS, \
-        f"fp8_matmul timed at {ms:.3f} ms, above the f32 peak"
+    # a reading above the fp8 tensor-core peak is a misread timer
+    assert flops / (ms * 1e-3) <= FP8_FLOPS, \
+        f"fp8_matmul timed at {ms:.3f} ms, above the fp8 tensor-core peak"
     b_ms, b_by = bound(nbytes, flops, FP8_FLOPS)
     log("hpc", f"fp8_matmul[e4m3] M=N={M} K={K}: kernel {ms:.3f} ms "
         f"({flops / ms / 1e9:.1f} TFLOP/s) plain {plain_ms:.3f} ms "
@@ -1020,7 +1147,8 @@ def _hpl_kernel_vs_plain() -> None:
     """``blocked_lu(matmul="fp8")`` at HPL_CHECK_N with the kernel and with
     the plain version.  Both factor the first panel identically, so the
     first trailing update multiplies identical quantized operands: it is
-    held to the f32 summation bound.  Later panels can flip an e4m3
+    held to ``check_fp8``'s bound, with a dropped k-step planted.  Later
+    panels can flip an e4m3
     rounding, so the refined solutions (8 iterations) are held instead:
     within 1e-4 of |x|∞, the f32 accuracy IR reaches on this matrix."""
     from repro_torch.core.hpl import blocked_lu, lu_solve, make_test_matrix
@@ -1036,12 +1164,24 @@ def _hpl_kernel_vs_plain() -> None:
         torch.equal(u_row, lu["plain"][:nb, nb:]), "first panels differ"
     qa, sa = quantize_fp8(l_col)
     qb, sb = quantize_fp8(u_row)
+    # the real path's row panel, as blocked_lu makes it: a triangular
+    # solve's result, whose e4m3 copy the kernel reads without a transpose
+    # when it is column-major
+    u_solve = torch.linalg.solve_triangular(
+        lu["kernel"][:nb, :nb], a[:nb, nb:], upper=False, unitriangular=True)
+    log("hpc", f"row panel from solve_triangular: strides "
+        f"{u_solve.stride()}, its e4m3 copy column-major (no transpose "
+        f"copy): {quantize_fp8(u_solve)[0].t().is_contiguous()}")
+    del u_solve
     first = {impl: ops.scaled_fp8_matmul(qa, qb, sa.reshape(1),
                                          sb.reshape(1), bm=n - nb, bn=n - nb,
                                          bk=nb, impl=impl)
              for impl in ("kernel", "plain")}
     check_fp8(f"first trailing update N={n}", first["kernel"],
-              first["plain"], qa, qb, sa.expand(n - nb), sb.expand(n - nb))
+              first["plain"], qa, qb, sa.expand(n - nb), sb.expand(n - nb),
+              faults={"dropped k-step": (lambda: ops.scaled_fp8_matmul(
+                  _dropped_kstep(qa), qb, sa.reshape(1), sb.reshape(1),
+                  bm=n - nb, bn=n - nb, bk=nb, impl="kernel"), True)})
     x = {}
     for impl, f in lu.items():
         x[impl], _ = iterative_refinement(lambda v: a @ v,

@@ -148,10 +148,11 @@ def fp8_matmul(a: torch.Tensor, b: torch.Tensor, *,
     from repro_torch.kernels import ops
     qa, sa = quantize_fp8(a)
     qb, sb = quantize_fp8(b)
-    # the kernel takes row-major operands; a triangular solve's result
-    # (the HPL column panel) comes back column-major
-    qa2 = qa.reshape(-1, a.shape[-1]).contiguous()
-    qb = qb.contiguous()
+    # the kernel's wrapper lays both operands out K-major
+    # (``fp8_matmul.kernel_operands``): the HPL column panel, column-major
+    # out of a triangular solve, is copied; the row panel, column-major
+    # too, is read as it lies
+    qa2 = qa.reshape(-1, a.shape[-1])
     m, k = qa2.shape
     n = b.shape[-1]
     out = ops.scaled_fp8_matmul(qa2, qb, sa.reshape(1), sb.reshape(1),

@@ -41,7 +41,8 @@ SIGNATURES: Dict[str, tuple] = {
     # 3 strides each of q, k/v and out, stream
     "flash_attention": (_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                         _LL, _LL, _LL, _LL, _LL, _LL, _LL, _LL, _LL, _P),
-    # a_q, b_q, a_scale, b_scale, out, M, N, K, bm, bn, stream
+    # a (M, K), bt (N, K) (both K-major e4m3, K a multiple of 16), a_scale,
+    # b_scale, out, M, N, K, bm, bn, stream
     "fp8_matmul": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
 }
 
@@ -67,19 +68,25 @@ def _library_path(name: str) -> Path:
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
+def _log_path(name: str) -> Path:
+    return _library_path(name).with_suffix(".log")
+
+
 def build_all() -> Dict[str, str]:
-    """Compile every source whose library is missing, all ``nvcc``
-    processes started together.  Returns each source's compiler output
-    (``-Xptxas=-v`` register and shared-memory report) for the sources
-    built now.
+    """Compile every source whose library (or its compiler report) is
+    missing, all ``nvcc`` processes started together.  Returns every
+    source's compiler output (``-Xptxas=-v`` register, spill and
+    shared-memory report), kept beside its library, so a library built by
+    an earlier run reports the same as a fresh one.
 
     Raises:
       RuntimeError: no ``nvcc``, or a compile failed (its stderr is in
           the message)."""
     todo = {name: _library_path(name) for name in SIGNATURES}
-    todo = {n: p for n, p in todo.items() if not p.exists()}
+    todo = {n: p for n, p in todo.items()
+            if not (p.exists() and _log_path(n).exists())}
     if not todo:
-        return {}
+        return {n: _log_path(n).read_text() for n in SIGNATURES}
     nvcc = _nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
@@ -96,9 +103,10 @@ def build_all() -> Dict[str, str]:
             failed.append(f"{name}.cu (exit {proc.returncode}):\n{logs[name]}")
             continue
         os.replace(tmp, out)
+        _log_path(name).write_text(logs[name])
     if failed:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))
-    return logs
+    return {n: _log_path(n).read_text() for n in SIGNATURES}
 
 
 @functools.cache

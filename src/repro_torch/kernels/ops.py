@@ -254,7 +254,10 @@ def scaled_fp8_matmul(a_q: torch.Tensor, b_q: torch.Tensor,
     """The fp8 GEMM on quantized operands (the counterpart of
     ``fp8_matmul_pallas``): a_q (M, K) @ b_q (K, N), both
     ``torch.float8_e4m3fn``, with a_scale (M/bm,) and b_scale (N/bn,) f32;
-    returns (M, N) f32 ``acc · (a_scale[i/bm] · b_scale[j/bn])``.
+    returns (M, N) f32 ``acc · (a_scale[i/bm] · b_scale[j/bn])``.  On
+    CUDA the operands may have any layout: ``fp8_matmul.kernel_operands``
+    copies them K-major where they are not (a column-major b_q already
+    is).
 
     Raises:
       ValueError: a ragged dimension or a contraction mismatch (the TPU
@@ -276,8 +279,8 @@ def scaled_fp8_matmul(a_q: torch.Tensor, b_q: torch.Tensor,
     tensors = [a_q, b_q, a_scale, b_scale]
     _check(all(t.device == a_q.device for t in tensors),
            f"{name}: tensors on {sorted({str(t.device) for t in tensors})}")
-    _check(all(t.is_contiguous() for t in tensors),
-           f"{name}: operands and scales must be contiguous")
+    _check(a_scale.is_contiguous() and b_scale.is_contiguous(),
+           f"{name}: the scales must be contiguous")
     _check(max(m, n, a_q.shape[1]) < 2 ** 31,
            f"{name}: a dimension of {tuple(a_q.shape)}/{tuple(b_q.shape)} "
            "does not fit the kernel's int")

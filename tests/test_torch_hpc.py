@@ -179,8 +179,8 @@ def test_scaled_fp8_matmul_rejects_ragged_shapes():
                                impl="kernel")
     a = torch.randn((100, 70))
     assert tops.fp8_matmul(a, torch.randn((70, 50))).shape == (100, 50)
-    # column-major inputs (a triangular solve's result) quantize to the
-    # row-major operands the kernel takes
+    # column-major inputs (a triangular solve's result) quantize to
+    # row-major operands
     aq, bq, _, _ = tops.quantize_blocks(torch.randn((128, 128)).t(),
                                         torch.randn((128, 128)).t())
     assert aq.is_contiguous() and bq.is_contiguous()

@@ -255,3 +255,36 @@ def test_kernel_impl_refuses_cpu_tensors_and_bad_args():
         tops.paged_decode_attention(*args, k_scale=torch.ones(1))
     with pytest.raises(ValueError, match="CUDA"):
         tops.paged_decode_attention(*args, impl="kernel")
+
+
+def test_build_all_keeps_each_report_beside_its_library(monkeypatch,
+                                                        tmp_path):
+    """A library built by an earlier run reports what its compile did
+    (the spill check reads it every run); a library without its report
+    is built again.  A stand-in compiler writes the libraries here."""
+    import sys
+
+    from repro_torch.kernels import _build
+    calls = tmp_path / "calls"
+    fake = tmp_path / "nvcc.py"
+    fake.write_text(
+        "import sys\n"
+        "out = sys.argv[sys.argv.index('-o') + 1]\n"
+        "open(out, 'wb').close()\n"
+        f"open({str(calls)!r}, 'a').write(sys.argv[-1] + '\\n')\n"
+        "print('ptxas info : 0 bytes spill stores, 0 bytes spill loads', "
+        "sys.argv[-1])\n")
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(_build, "_nvcc", lambda: sys.executable)
+    monkeypatch.setattr(_build, "NVCC_FLAGS", (str(fake),) + _build.NVCC_FLAGS)
+    first = _build.build_all()
+    assert set(first) == set(_build.SIGNATURES)
+    assert all("0 bytes spill" in t and f"{n}.cu" in t
+               for n, t in first.items())
+    assert len(calls.read_text().splitlines()) == len(_build.SIGNATURES)
+    assert _build.build_all() == first          # cached: no compile
+    assert len(calls.read_text().splitlines()) == len(_build.SIGNATURES)
+    _build._log_path("fp8_matmul").unlink()
+    assert _build.build_all() == first
+    assert calls.read_text().splitlines()[-1].endswith("fp8_matmul.cu")
+    assert len(calls.read_text().splitlines()) == len(_build.SIGNATURES) + 1
