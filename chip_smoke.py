@@ -9,8 +9,9 @@ Phases, each printed as it runs:
    versions; TF32 is switched off for float32 matmuls and convolutions;
 2. build — the CUDA kernels compile from ``src/repro_torch/kernels/csrc``
    with nvcc, and the Triton kernel compiles at its first launch; the fp8
-   GEMM's registers and spills are logged (no spill allowed) and its SASS
-   must hold warpgroup MMAs on e4m3 operands (``cuobjdump``);
+   GEMM's and the flash kernel's registers and spills are logged (no spill
+   allowed) and their SASS must hold warpgroup MMAs (``cuobjdump``): on
+   e4m3 operands for the fp8 GEMM, on bf16 ones (HGMMA) for flash;
 3. kernels — every kernel of the serving paths against its plain PyTorch
    version at the serving shapes of qwen3-1.7b (H=16, KVH=8, d=128;
    paged decode: page 16, 8 seats with lengths from 1 to 2048; dense
@@ -19,10 +20,14 @@ Phases, each printed as it runs:
    time, the plain version's time, one PyTorch library call's time as a
    yardstick (``F.scaled_dot_product_attention`` pinned to one backend,
    ``F.rms_norm``), and the least time the card could take; untimed,
-   RMSNorm at the k-norm and prefill-chunk shapes and flash prefill at 64
-   and 37 tokens; then the same checks off those shapes (f32 queries,
-   pools and caches, GQA groups 1 and 4, head dims 16 to 256, odd cache
-   lengths, sliding-window and non-causal flash, f32 RMSNorm);
+   RMSNorm at the k-norm and prefill-chunk shapes, flash prefill at 64
+   and 37 tokens, and paged decode with every pool type at the edges of
+   its split-K plan (lengths chunk - 1, chunk, chunk + 1, seats whose
+   later splits are all empty, the full table; the tickets must be back
+   at zero after the launches); then the same checks off those shapes
+   (f32 queries, pools and caches, GQA groups 1 and 4, head dims 16 to
+   256, odd cache lengths, sliding-window and non-causal flash on both
+   routes, f32 RMSNorm);
 4. serve — ``serve_paged`` at the full width of qwen3-1.7b (28 layers,
    d_model 2048, vocab 151936, bf16 compute, weights from a seeded
    torch.Generator), 16 requests with prompts of 64-511 tokens and 32
@@ -271,6 +276,7 @@ def phase_build() -> None:
             if "registers" in ln or "spill" in ln:
                 log("build", f"{name}: {ln.strip()}")
     _check_fp8_build(logs)
+    _check_flash_build(logs)
     t1 = time.perf_counter()
     for d in (2048, HEAD_DIM):
         x = torch.ones((2, d), dtype=torch.bfloat16, device="cuda")
@@ -278,6 +284,15 @@ def phase_build() -> None:
     torch.cuda.synchronize()
     log("build", f"nvcc {t_nvcc:.1f} s ({len(logs)} sources), "
         f"triton {time.perf_counter() - t1:.1f} s")
+
+
+def _sass(name: str) -> str:
+    """The SASS of the built library of ``csrc/<name>.cu``."""
+    from repro_torch.kernels import _build
+    path = _build.library(name)._name
+    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    return subprocess.run([cuobjdump, "--dump-sass", path], check=True,
+                          capture_output=True, text=True).stdout
 
 
 def _check_fp8_build(logs: dict) -> None:
@@ -288,7 +303,6 @@ def _check_fp8_build(logs: dict) -> None:
 
     Raises:
       AssertionError: a spill, or no e4m3 warpgroup MMA in the SASS."""
-    from repro_torch.kernels import _build
     text = logs["fp8_matmul"]
     for ln in text.splitlines():
         if "warning" in ln.lower():
@@ -296,10 +310,7 @@ def _check_fp8_build(logs: dict) -> None:
     spills = [int(n) for n in re.findall(r"(\d+) bytes spill", text)]
     assert spills and not any(spills), \
         f"fp8_matmul: ptxas reports spills {spills}"
-    path = _build.library("fp8_matmul")._name
-    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    sass = subprocess.run([cuobjdump, "--dump-sass", path], check=True,
-                          capture_output=True, text=True).stdout
+    sass = _sass("fp8_matmul")
     # the warpgroup MMAs: HGMMA for 16-bit operands, QGMMA for fp8
     gmma = [ln.strip() for ln in sass.splitlines()
             if re.search(r"\b[HQ]GMMA\.", ln)]
@@ -309,9 +320,39 @@ def _check_fp8_build(logs: dict) -> None:
     assert e4m3, "fp8_matmul: no warpgroup MMA on E4M3 operands in the SASS"
 
 
-def _paged_inputs(gen: torch.Generator):
-    """8 seats at the serving shapes, pages scattered over the pool."""
-    need = [-(-n // PAGE) for n in SEAT_LENGTHS]
+def _check_flash_build(logs: dict) -> None:
+    """K5's build: ptxas must report no spill in any of its kernels, and
+    the registers of the tensor-core kernel (``flash_tc_kernel``, one
+    instantiation per head dim) are logged; the library's SASS must hold
+    bf16 warpgroup MMAs (``HGMMA ... .BF16``), the tensor-core route.
+
+    Raises:
+      AssertionError: a spill, or no bf16 warpgroup MMA in the SASS."""
+    text = logs["flash_attention"]
+    spills = [int(n) for n in re.findall(r"(\d+) bytes spill", text)]
+    assert spills and not any(spills), \
+        f"flash_attention: ptxas reports spills {spills}"
+    entry, regs = "", {}
+    for ln in text.splitlines():
+        if "Compiling entry function" in ln:
+            entry = ln
+        elif "registers" in ln and "flash_tc_kernel" in entry:
+            d = re.search(r"flash_tc_kernelILi(\d+)E", entry)
+            regs[int(d.group(1))] = re.search(r"Used (\d+) registers",
+                                              ln).group(1)
+    log("build", "flash_attention tensor cores, registers by head dim: "
+        + ", ".join(f"d={d}: {r}" for d, r in sorted(regs.items())))
+    sass = _sass("flash_attention")
+    hgmma = sorted({m for m in re.findall(r"\bHGMMA\.[\w.]+", sass)
+                    if m.endswith(".BF16")})
+    log("build", f"flash_attention SASS: bf16 warpgroup MMAs {hgmma}")
+    assert hgmma, "flash_attention: no bf16 warpgroup MMA in the SASS"
+
+
+def _paged_inputs(gen: torch.Generator, seat_lengths=SEAT_LENGTHS):
+    """Seats of ``seat_lengths`` tokens (8 at the serving shapes) in
+    tables of N_TABLE pages, pages scattered over the pool."""
+    need = [-(-n // PAGE) for n in seat_lengths]
     P = 1 + sum(need)
     perm = (torch.randperm(P - 1, generator=gen, device="cuda") + 1).int()
     table = torch.zeros((len(need), N_TABLE), dtype=torch.int32,
@@ -320,7 +361,7 @@ def _paged_inputs(gen: torch.Generator):
     for a, k in enumerate(need):
         table[a, :k] = perm[at:at + k]
         at += k
-    lengths = torch.tensor(SEAT_LENGTHS, dtype=torch.int32, device="cuda")
+    lengths = torch.tensor(seat_lengths, dtype=torch.int32, device="cuda")
     q = torch.randn((len(need), 1, H, HEAD_DIM), generator=gen,
                     device="cuda").bfloat16()
     return P, table, lengths, q
@@ -428,9 +469,49 @@ def phase_kernels(flush: torch.Tensor) -> dict:
             name="rmsnorm", max_abs_err=err, ms=ms, plain_ms=plain_ms,
             bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
             library="F.rms_norm")
+    _paged_split_edges(gen)
     results.update(_dense_decode_kernel(gen, flush))
     results.update(_flash_kernel(gen, flush))
     return results
+
+
+def _paged_split_edges(gen: torch.Generator) -> None:
+    """K1/K2 with every pool type at the edges of the split-K plan of the
+    timed shape (8 seats, 8 kv heads, a table of N_TABLE pages): lengths
+    chunk - 1, chunk and chunk + 1, seats whose later splits are all empty
+    (1, 17), 2·chunk + 1, 3·chunk - 1 and the full table, each against the
+    plain version; after the launches every ticket must be back at 0."""
+    from repro_torch.core.mixed_precision import quantize_kv_page
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import ops
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    splits, chunk = da.split_plan(len(SEAT_LENGTHS), KVH, N_TABLE * PAGE,
+                                  sms)
+    lens = (chunk - 1, chunk, chunk + 1, 1, 2 * chunk + 1, N_TABLE * PAGE,
+            17, 3 * chunk - 1)
+    P, table, lengths, q = _paged_inputs(gen, lens)
+    shape = (P, PAGE, KVH, HEAD_DIM)
+    for dt in ("bf16", "fp8", "int8"):
+        k = torch.randn(shape, generator=gen, device="cuda")
+        v = torch.randn(shape, generator=gen, device="cuda")
+        ks = vs = None
+        if dt == "bf16":
+            k, v = k.bfloat16(), v.bfloat16()
+        else:
+            (k, ks), (v, vs) = (quantize_kv_page(k, dt),
+                                quantize_kv_page(v, dt))
+        got, want = (ops.paged_decode_attention(
+            q, k, v, table, lengths, k_scale=ks, v_scale=vs, impl=impl)
+            for impl in ("kernel", "plain"))
+        torch.cuda.synchronize()
+        err = check_close(f"paged split edges[{dt}]", got, want, BF16_ATOL,
+                          BF16_RTOL)
+        tickets = da._tickets[q.device]
+        assert not bool(tickets.any()), \
+            f"paged split edges[{dt}]: tickets left at {tickets.nonzero()}"
+        log("kernels", f"paged decode split edges [{dt}]: {splits} splits "
+            f"of {chunk} tokens, lengths {lens}: max|err| {err:.3e}; "
+            "tickets back at 0")
 
 
 def _dense_decode_kernel(gen: torch.Generator, flush: torch.Tensor) -> dict:
@@ -490,7 +571,10 @@ def _dense_decode_kernel(gen: torch.Generator, flush: torch.Tensor) -> dict:
 def _flash_kernel(gen: torch.Generator, flush: torch.Tensor) -> dict:
     """K5 at the prefill shapes: one causal prompt of PREFILL_S tokens
     timed; 64 and 37 tokens checked."""
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops
+    assert fa.route(torch.bfloat16, HEAD_DIM) == "tensor cores", \
+        "the prefill shape does not take the tensor-core route"
     out = {}
     for S in (PREFILL_S, 64, 37):
         q = torch.randn((1, S, H, HEAD_DIM), generator=gen,
@@ -537,6 +621,7 @@ def phase_variants() -> None:
     shapes: f32 queries and pools, GQA groups 1 and 4 (llama3-8b),
     smaller head dims (the reduced configs), f32 RMSNorm."""
     from repro_torch.core.mixed_precision import quantize_kv_page
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops
     gen = torch.Generator(device="cuda").manual_seed(3)
     # f32 outputs: online vs dense softmax, sums in another order
@@ -615,7 +700,8 @@ def phase_variants() -> None:
                           f"KVH={KVH_},d={d},{dt},causal={causal},"
                           f"window={window}]", got, want, *tol)
         log("variants", f"flash Sq={Sq} Skv={Skv} H={H_} KVH={KVH_} d={d} "
-            f"{dt} causal={causal} window={window}: max|err| {err:.3e}")
+            f"{dt} causal={causal} window={window} "
+            f"({fa.route(dt, d)}): max|err| {err:.3e}")
     torch.cuda.synchronize()
 
 

@@ -26,24 +26,35 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 
-#: C signature of every entry point, by source name.
+_FLASH = (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+          _LL, _LL, _LL, _LL, _LL, _LL, _LL, _LL, _LL, _P)
+
+#: C signature of every entry point, by source name; a source with more
+#: than one entry point lists the others in EXTRA_ENTRIES.
 SIGNATURES: Dict[str, tuple] = {
     # q_dtype, kv_dtype, q, k, v, ks, vs, page_table, lengths, out,
-    # A, H, KVH, d, page_size, n_table, 6 strides, stream
+    # A, H, KVH, d, page_size, n_table, 6 strides, part, tickets, splits,
+    # chunk, stream
     "paged_decode_attention": (_I, _I, _P, _P, _P, _P, _P, _P, _P, _P,
                                _I, _I, _I, _I, _I, _I,
-                               _LL, _LL, _LL, _LL, _LL, _LL, _P),
+                               _LL, _LL, _LL, _LL, _LL, _LL,
+                               _P, _P, _I, _I, _P),
     # q_dtype, kv_dtype, q, k, v, lengths, out, B, H, KVH, d,
     # 3 cache strides, stream
     "decode_attention": (_I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                          _LL, _LL, _LL, _P),
     # dtype, q, k, v, out, B, Sq, Skv, H, KVH, d, causal, window,
-    # 3 strides each of q, k/v and out, stream
-    "flash_attention": (_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
-                        _LL, _LL, _LL, _LL, _LL, _LL, _LL, _LL, _LL, _P),
+    # 3 strides each of q, k/v and out, stream (the CUDA-core route)
+    "flash_attention": (_I,) + _FLASH,
     # a (M, K), bt (N, K) (both K-major e4m3, K a multiple of 16), a_scale,
     # b_scale, out, M, N, K, bm, bn, stream
     "fp8_matmul": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+}
+
+#: Further entry points of a source: name -> C signature.
+EXTRA_ENTRIES: Dict[str, Dict[str, tuple]] = {
+    # the tensor-core route: flash_attention's arguments without dtype
+    "flash_attention": {"flash_attention_tc": _FLASH},
 }
 
 
@@ -112,10 +123,12 @@ def build_all() -> Dict[str, str]:
 @functools.cache
 def library(name: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``, built first if needed,
-    with ``argtypes``/``restype`` declared for its entry point."""
+    with ``argtypes``/``restype`` declared for its entry points."""
     build_all()
     lib = ctypes.CDLL(str(_library_path(name)))
-    fn = getattr(lib, name)
-    fn.argtypes = list(SIGNATURES[name])
-    fn.restype = ctypes.c_int
+    for entry, sig in {name: SIGNATURES[name],
+                       **EXTRA_ENTRIES.get(name, {})}.items():
+        fn = getattr(lib, entry)
+        fn.argtypes = list(sig)
+        fn.restype = ctypes.c_int
     return lib

@@ -17,7 +17,8 @@
 // throws away; that is the reference's mask, kept as it is.
 //
 // The loop, the online softmax and the warp merge are shared with the
-// paged kernel (decode_attention.cuh).
+// paged kernel (decode_attention.cuh); this kernel runs them single-pass,
+// one block per (seat, kv head), without the paged kernel's split-K.
 
 #include "decode_attention.cuh"
 

@@ -17,12 +17,15 @@
 // Bound: memory.  Each valid token's K and V vectors are read once; the
 // arithmetic is 4·d flops per (token, query head), far below the card's
 // rate, so the least time is the K+V bytes of the valid lengths over
-// 3.35 TB/s.
+// 3.35 TB/s.  What keeps a kernel from it is too few loads in flight: at
+// the paged smoke shape (8 seats of 1..2048 tokens, 8 kv heads) one block
+// per (kv head, seat) gives 64 blocks on 132 SMs, and the longest seat
+// walks 2048 tokens alone.
 //
-// Design (simple and right first):
-//   * one block per (kv head, seat) serves all G = H/KVH query heads of
-//     the group, so each K/V vector is read once (the TPU wrappers
-//     expanded GQA and re-streamed every vector G times);
+// Design:
+//   * each block serves all G = H/KVH query heads of its kv head, so each
+//     K/V vector is read once (the TPU wrappers expanded GQA and
+//     re-streamed every vector G times);
 //   * the token loop is bounded by the seat's length, never by the width
 //     of the cache or page table: dead tokens are never touched;
 //   * each warp takes a slice of kUnroll consecutive tokens per step, with
@@ -31,7 +34,24 @@
 //     the head dimension, and the dot product is a warp shuffle reduction;
 //   * each warp keeps its own (m, l, acc) per query head; the warps merge
 //     in shared memory at the end.
-// Split-K over the sequence, TMA and wgmma are later work.
+// Split-K over the sequence (the paged kernel, kSplit): the grid is
+// (KVH, seats, splits) and block s walks tokens [s·chunk, (s+1)·chunk) of
+// its seat, cut at the length.  splits and chunk come from host-known
+// shapes only (seats, kv heads, table width: kernels/decode_attention.py
+// :: split_plan), so the host never reads the lengths, which live on the
+// card.  Each block writes its partial (m, l, acc) per query head to a
+// scratch buffer; a block whose range starts at or past the length writes
+// the empty state (m = -1e30, l = 0, acc = 0) without walking.  The last
+// block of each (seat, kv head) to finish, found by a __threadfence +
+// atomicAdd ticket, merges the partials in split order (so the result
+// does not depend on which block came last), writes out and resets its
+// ticket for the next launch: one launch per call, as before.  -1e30 and
+// not -inf keeps a seat whose every split is empty at out = 0 (all
+// weights exp(0) = 1 times l = 0) where exp(-inf - -inf) would be NaN.
+// The split kernel's register arrays are sized for the real group G (one
+// instantiation each for G <= 1, 2, 4, 8): sized for 8 they held the
+// kernel to one 256-thread block per SM.  The dense
+// kernel (decode_attention.cu, K4) stays single-pass, sized for 8.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -93,13 +113,43 @@ __device__ __forceinline__ float warp_sum(float x) {
 // E: elements of the head dimension held by one lane (d <= 32 * E).
 // ks/vs are null for unquantized storage.  q and out are (A, H, d)
 // contiguous.
-template <typename QT, typename KT, int E, typename Addr>
+// Merges the splits' partial states of one (seat, kv head) in split order
+// and writes out; run by the last block to finish.  `part` holds, per
+// split, G·d accumulators, then G maxima, then G sums.
+template <typename QT>
+__device__ __forceinline__ void merge_splits(const float* part, int splits,
+                                             int G, int d, QT* out) {
+  const int stride = G * (d + 2);
+  for (int i = threadIdx.x; i < G * d; i += blockDim.x) {
+    const int g = i / d;
+    float mx = kNegInf;
+    for (int s = 0; s < splits; ++s)
+      mx = fmaxf(mx, __ldcg(part + s * stride + G * d + g));
+    float lsum = 0.f, o = 0.f;
+    for (int s = 0; s < splits; ++s) {
+      const float* p = part + s * stride;
+      const float c = expf(__ldcg(p + G * d + g) - mx);
+      lsum += __ldcg(p + G * d + G + g) * c;
+      o += __ldcg(p + i) * c;
+    }
+    out[i] = from_f32<QT>(o / fmaxf(lsum, 1e-30f));
+  }
+}
+
+// MG: the largest group size G the instantiation serves (its register
+// arrays hold MG query heads).  kSplit: split-K over the sequence,
+// `chunk` tokens per block along gridDim.z, partial states in `part`, one
+// ticket per (seat, kv head) in `tickets` (zero between launches);
+// otherwise part and tickets are null.
+template <typename QT, typename KT, int E, typename Addr, int MG,
+          bool kSplit>
 __global__ void __launch_bounds__(kWarps * 32)
 decode_kernel(const QT* __restrict__ q, const KT* __restrict__ k,
               const KT* __restrict__ v, const float* __restrict__ ks,
               const float* __restrict__ vs, const int* __restrict__ lengths,
               QT* __restrict__ out, int H, int KVH, int d, Addr addr,
-              float scale) {
+              float scale, float* __restrict__ part, int* tickets,
+              int chunk) {
   const int kvh = blockIdx.x;
   const int a = blockIdx.y;
   const int G = H / KVH;
@@ -107,154 +157,216 @@ decode_kernel(const QT* __restrict__ q, const KT* __restrict__ k,
   const int lane = threadIdx.x & 31;
   const int length = lengths[a];
   const bool quantized = ks != nullptr;
-
-  // q of the group's heads, pre-scaled by d^-0.5
-  float qr[kMaxG][E];
-  float m[kMaxG], l[kMaxG], acc[kMaxG][E];
-#pragma unroll
-  for (int g = 0; g < kMaxG; ++g) {
-    m[g] = kNegInf;
-    l[g] = 0.f;
-#pragma unroll
-    for (int e = 0; e < E; ++e) {
-      const int idx = lane * E + e;
-      acc[g][e] = 0.f;
-      qr[g][e] = (g < G && idx < d)
-          ? to_f32(q[(static_cast<long long>(a) * H + kvh * G + g) * d + idx])
-                * scale
-          : 0.f;
-    }
+  // this block's tokens [start, end)
+  int start = 0, end = length;
+  float* mine = nullptr;                    // this split's partial state
+  if constexpr (kSplit) {
+    start = blockIdx.z * chunk;
+    end = min(start + chunk, length);
+    mine = part + (static_cast<long long>(a * KVH + kvh) * gridDim.z +
+                   blockIdx.z) * (G * (d + 2));
   }
-
-  for (int t0 = warp * kUnroll; t0 < length; t0 += kWarps * kUnroll) {
-    float kf[kUnroll][E], vf[kUnroll][E];
-    bool live[kUnroll];
+  if (!kSplit || start < end) {
+    // q of the group's heads, pre-scaled by d^-0.5
+    float qr[MG][E];
+    float m[MG], l[MG], acc[MG][E];
 #pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      const int t = t0 + u;
-      live[u] = t < length;
-      float ksc = 1.f, vsc = 1.f;
-      long long base = 0, sbase = 0;
-      if (live[u]) {
-        addr.locate(a, t, kvh, base, sbase);
-        if (quantized) {
-          ksc = ks[sbase];
-          vsc = vs[sbase];
-        }
-      }
+    for (int g = 0; g < MG; ++g) {
+      m[g] = kNegInf;
+      l[g] = 0.f;
 #pragma unroll
       for (int e = 0; e < E; ++e) {
         const int idx = lane * E + e;
-        const bool ok = live[u] && idx < d;
-        kf[u][e] = ok ? to_f32(k[base + idx]) * ksc : 0.f;
-        vf[u][e] = ok ? to_f32(v[base + idx]) * vsc : 0.f;
+        acc[g][e] = 0.f;
+        qr[g][e] = (g < G && idx < d)
+            ? to_f32(q[(static_cast<long long>(a) * H + kvh * G + g) * d + idx])
+                  * scale
+            : 0.f;
       }
     }
+
+    for (int t0 = start + warp * kUnroll; t0 < end;
+         t0 += kWarps * kUnroll) {
+      float kf[kUnroll][E], vf[kUnroll][E];
+      bool live[kUnroll];
 #pragma unroll
-    for (int g = 0; g < kMaxG; ++g) {
+      for (int u = 0; u < kUnroll; ++u) {
+        const int t = t0 + u;
+        live[u] = t < end;
+        float ksc = 1.f, vsc = 1.f;
+        long long base = 0, sbase = 0;
+        if (live[u]) {
+          addr.locate(a, t, kvh, base, sbase);
+          if (quantized) {
+            ksc = ks[sbase];
+            vsc = vs[sbase];
+          }
+        }
+#pragma unroll
+        for (int e = 0; e < E; ++e) {
+          const int idx = lane * E + e;
+          const bool ok = live[u] && idx < d;
+          kf[u][e] = ok ? to_f32(k[base + idx]) * ksc : 0.f;
+          vf[u][e] = ok ? to_f32(v[base + idx]) * vsc : 0.f;
+        }
+      }
+#pragma unroll
+      for (int g = 0; g < MG; ++g) {
+        if (g < G) {
+          float s[kUnroll];
+          float mx = m[g];
+#pragma unroll
+          for (int u = 0; u < kUnroll; ++u) {
+            float dot = 0.f;
+#pragma unroll
+            for (int e = 0; e < E; ++e) dot += qr[g][e] * kf[u][e];
+            dot = warp_sum(dot);
+            s[u] = live[u] ? dot : kNegInf;
+            mx = fmaxf(mx, s[u]);
+          }
+          const float alpha = expf(m[g] - mx);
+          l[g] *= alpha;
+#pragma unroll
+          for (int e = 0; e < E; ++e) acc[g][e] *= alpha;
+#pragma unroll
+          for (int u = 0; u < kUnroll; ++u) {
+            const float p = expf(s[u] - mx);
+            l[g] += p;
+#pragma unroll
+            for (int e = 0; e < E; ++e) acc[g][e] += p * vf[u][e];
+          }
+          m[g] = mx;
+        }
+      }
+    }
+
+    // merge the warps' partial softmax states in shared memory
+    extern __shared__ float smem[];
+    const int dp = 32 * E;
+    float* sm_m = smem;                       // [kWarps][G]
+    float* sm_l = sm_m + kWarps * G;          // [kWarps][G]
+    float* sm_acc = sm_l + kWarps * G;        // [kWarps][G][dp]
+#pragma unroll
+    for (int g = 0; g < MG; ++g) {
       if (g < G) {
-        float s[kUnroll];
-        float mx = m[g];
-#pragma unroll
-        for (int u = 0; u < kUnroll; ++u) {
-          float part = 0.f;
-#pragma unroll
-          for (int e = 0; e < E; ++e) part += qr[g][e] * kf[u][e];
-          part = warp_sum(part);
-          s[u] = live[u] ? part : kNegInf;
-          mx = fmaxf(mx, s[u]);
+        if (lane == 0) {
+          sm_m[warp * G + g] = m[g];
+          sm_l[warp * G + g] = l[g];
         }
-        const float alpha = expf(m[g] - mx);
-        l[g] *= alpha;
 #pragma unroll
-        for (int e = 0; e < E; ++e) acc[g][e] *= alpha;
-#pragma unroll
-        for (int u = 0; u < kUnroll; ++u) {
-          const float p = expf(s[u] - mx);
-          l[g] += p;
-#pragma unroll
-          for (int e = 0; e < E; ++e) acc[g][e] += p * vf[u][e];
+        for (int e = 0; e < E; ++e) {
+          sm_acc[(warp * G + g) * dp + lane * E + e] = acc[g][e];
         }
-        m[g] = mx;
       }
     }
+    __syncthreads();
+    for (int i = threadIdx.x; i < G * d; i += blockDim.x) {
+      const int g = i / d;
+      const int idx = i % d;
+      float mx = kNegInf;
+      for (int w = 0; w < kWarps; ++w) mx = fmaxf(mx, sm_m[w * G + g]);
+      float lsum = 0.f, o = 0.f;
+      for (int w = 0; w < kWarps; ++w) {
+        const float c = expf(sm_m[w * G + g] - mx);
+        lsum += sm_l[w * G + g] * c;
+        o += sm_acc[(w * G + g) * dp + idx] * c;
+      }
+      if constexpr (kSplit) {
+        mine[i] = o;
+        if (idx == 0) {
+          mine[G * d + g] = mx;
+          mine[G * d + G + g] = lsum;
+        }
+      } else {
+        // the address is formed here: a pointer held across the walk
+        // cost the dense kernel registers and a tenth of its time
+        out[(static_cast<long long>(a) * H + kvh * G + g) * d + idx] =
+            from_f32<QT>(o / fmaxf(lsum, 1e-30f));
+      }
+    }
+  } else if constexpr (kSplit) {
+    // past the seat's length: the empty state
+    for (int i = threadIdx.x; i < G * (d + 2); i += blockDim.x)
+      mine[i] = i < G * d ? 0.f : i < G * d + G ? kNegInf : 0.f;
   }
 
-  // merge the warps' partial softmax states in shared memory
-  extern __shared__ float smem[];
-  const int dp = 32 * E;
-  float* sm_m = smem;                       // [kWarps][G]
-  float* sm_l = sm_m + kWarps * G;          // [kWarps][G]
-  float* sm_acc = sm_l + kWarps * G;        // [kWarps][G][dp]
-#pragma unroll
-  for (int g = 0; g < kMaxG; ++g) {
-    if (g < G) {
-      if (lane == 0) {
-        sm_m[warp * G + g] = m[g];
-        sm_l[warp * G + g] = l[g];
-      }
-#pragma unroll
-      for (int e = 0; e < E; ++e) {
-        sm_acc[(warp * G + g) * dp + lane * E + e] = acc[g][e];
-      }
+  if constexpr (kSplit) {
+    __shared__ int last;
+    __threadfence();                        // the partial is visible ...
+    __syncthreads();
+    if (threadIdx.x == 0) {                 // ... before the ticket counts it
+      int* ticket = tickets + a * KVH + kvh;
+      last = atomicAdd(ticket, 1) == static_cast<int>(gridDim.z) - 1;
+      if (last) *ticket = 0;                // every split has arrived
     }
-  }
-  __syncthreads();
-  for (int i = threadIdx.x; i < G * d; i += blockDim.x) {
-    const int g = i / d;
-    const int idx = i % d;
-    float mx = kNegInf;
-    for (int w = 0; w < kWarps; ++w) mx = fmaxf(mx, sm_m[w * G + g]);
-    float lsum = 0.f, o = 0.f;
-    for (int w = 0; w < kWarps; ++w) {
-      const float c = expf(sm_m[w * G + g] - mx);
-      lsum += sm_l[w * G + g] * c;
-      o += sm_acc[(w * G + g) * dp + idx] * c;
-    }
-    out[(static_cast<long long>(a) * H + kvh * G + g) * d + idx] =
-        from_f32<QT>(o / fmaxf(lsum, 1e-30f));
+    __syncthreads();
+    if (!last) return;
+    __threadfence();
+    merge_splits(part + static_cast<long long>(a * KVH + kvh) * gridDim.z *
+                            (G * (d + 2)),
+                 gridDim.z, G, d,
+                 out + (static_cast<long long>(a) * H + kvh * G) * d);
   }
 }
 
-template <typename QT, typename KT, int E, typename Addr>
+// kSplit: split-K over gridDim.z = splits blocks of `chunk` tokens, with
+// the scratch `part` (A·KVH·splits·G·(d + 2) f32) and `tickets` (A·KVH
+// int32, zero), the register arrays sized for the group G (MG = 1, 2, 4
+// or 8); otherwise the single-pass kernel, its arrays sized for kMaxG.
+template <typename QT, typename KT, int E, typename Addr, bool kSplit>
 cudaError_t launch_e(const void* q, const void* k, const void* v,
                      const void* ks, const void* vs, const void* lengths,
                      void* out, int A, int H, int KVH, int d, Addr addr,
+                     float* part, int* tickets, int splits, int chunk,
                      cudaStream_t stream) {
   const int G = H / KVH;
   const size_t smem =
       sizeof(float) * static_cast<size_t>(kWarps) * G * (2 + 32 * E);
-  auto kernel = decode_kernel<QT, KT, E, Addr>;
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
+  const float scale = 1.0f / sqrtf(static_cast<float>(d));
+  auto run = [&](auto kernel, dim3 grid) {
+    if (smem > 48 * 1024) {
+      cudaError_t err = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          static_cast<int>(smem));
+      if (err != cudaSuccess) return err;
+    }
+    kernel<<<grid, kWarps * 32, smem, stream>>>(
+        static_cast<const QT*>(q), static_cast<const KT*>(k),
+        static_cast<const KT*>(v), static_cast<const float*>(ks),
+        static_cast<const float*>(vs), static_cast<const int*>(lengths),
+        static_cast<QT*>(out), H, KVH, d, addr, scale, part, tickets, chunk);
+    return cudaGetLastError();
+  };
+  if constexpr (kSplit) {
+    const dim3 grid(KVH, A, splits);
+    if (G <= 1) return run(decode_kernel<QT, KT, E, Addr, 1, true>, grid);
+    if (G <= 2) return run(decode_kernel<QT, KT, E, Addr, 2, true>, grid);
+    if (G <= 4) return run(decode_kernel<QT, KT, E, Addr, 4, true>, grid);
+    return run(decode_kernel<QT, KT, E, Addr, kMaxG, true>, grid);
+  } else {
+    return run(decode_kernel<QT, KT, E, Addr, kMaxG, false>, dim3(KVH, A));
   }
-  const dim3 grid(KVH, A);
-  kernel<<<grid, kWarps * 32, smem, stream>>>(
-      static_cast<const QT*>(q), static_cast<const KT*>(k),
-      static_cast<const KT*>(v), static_cast<const float*>(ks),
-      static_cast<const float*>(vs), static_cast<const int*>(lengths),
-      static_cast<QT*>(out), H, KVH, d, addr,
-      1.0f / sqrtf(static_cast<float>(d)));
-  return cudaGetLastError();
 }
 
-// Launches the instantiation for head dim d (up to 256) on `stream`;
-// returns the launch's cudaGetLastError(), or cudaErrorInvalidValue for a
-// shape the kernel does not take.
-template <typename QT, typename KT, typename Addr>
+// Launches the instantiation for head dim d (up to 256) on `stream`,
+// split-K when kSplit (see launch_e); returns the launch's
+// cudaGetLastError(), or cudaErrorInvalidValue for a shape the kernel
+// does not take.
+template <typename QT, typename KT, typename Addr, bool kSplit = false>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const void* ks, const void* vs, const void* lengths,
                    void* out, int A, int H, int KVH, int d, Addr addr,
-                   cudaStream_t stream) {
-  if (KVH <= 0 || H % KVH != 0 || H / KVH > kMaxG || A <= 0) {
+                   cudaStream_t stream, float* part = nullptr,
+                   int* tickets = nullptr, int splits = 0, int chunk = 0) {
+  if (KVH <= 0 || H % KVH != 0 || H / KVH > kMaxG || A <= 0 ||
+      (kSplit && (part == nullptr || tickets == nullptr || chunk <= 0 ||
+                  splits <= 0 || splits > 65535))) {
     return cudaErrorInvalidValue;
   }
 #define REPRO_LAUNCH(E_)                                                    \
-  return launch_e<QT, KT, E_, Addr>(q, k, v, ks, vs, lengths, out, A, H,    \
-                                    KVH, d, addr, stream)
+  return launch_e<QT, KT, E_, Addr, kSplit>(q, k, v, ks, vs, lengths, out,  \
+                                            A, H, KVH, d, addr, part,       \
+                                            tickets, splits, chunk, stream)
   if (d <= 32) REPRO_LAUNCH(1);
   if (d <= 64) REPRO_LAUNCH(2);
   if (d <= 128) REPRO_LAUNCH(4);

@@ -60,7 +60,11 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 namespace {
+
+using namespace repro_hopper;
 
 constexpr int CONSUMERS = 3;                    // warpgroups of 64 rows
 constexpr int BM = 64 * CONSUMERS, BN = 128, BK = 128;   // tile, K chunk
@@ -80,62 +84,6 @@ constexpr int STAGE_BYTES = TILE_A + TILE_B;
 // the barriers after the ring
 constexpr int SMEM_BYTES = STAGES * STAGE_BYTES + 1024 + 2 * STAGES * 8;
 static_assert(SMEM_BYTES <= 232448, "shared memory of one block");
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_addr(bar)),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  const uint32_t addr = smem_addr(bar);
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}"
-        : "=r"(done)
-        : "r"(addr), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(smem_addr(bar))
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
-                   smem_addr(bar)),
-               "r"(bytes)
-               : "memory");
-}
-
-// 2-D TMA load of one box at (inner, outer) element coordinates
-__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
-                                         uint64_t* bar, int inner, int outer) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::"
-      "bytes [%0], [%1, {%3, %4}], [%2];" ::"r"(smem_addr(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(inner),
-      "r"(outer)
-      : "memory");
-}
-
-// wgmma shared-memory descriptor of a K-major tile with 128-byte swizzle:
-// rows of 128 bytes, 8-row atoms 1024 bytes apart (stride byte offset);
-// the leading byte offset is unused for this layout
-__device__ __forceinline__ uint64_t sw128_desc(const void* p) {
-  const uint64_t addr = smem_addr(p);
-  return ((addr & 0x3FFFF) >> 4) | (uint64_t{1} << 16) |
-         (uint64_t{1024 >> 4} << 32) | (uint64_t{1} << 62);
-}
 
 // d(64x128, f32) (+)= a(64x32, e4m3) * b(32x128, e4m3), both from shared
 // memory; scale_d = 0 starts the sum from zero
@@ -209,12 +157,8 @@ fp8_matmul_kernel(const __grid_constant__ CUtensorMap map_a,
     // ---- producer: one thread keeps the ring full --------------------
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(PRODUCER_REGS));
     if (threadIdx.x == CONSUMERS * 128) {
-      asm volatile("prefetch.tensormap [%0];" ::"l"(
-                       reinterpret_cast<uint64_t>(&map_a))
-                   : "memory");
-      asm volatile("prefetch.tensormap [%0];" ::"l"(
-                       reinterpret_cast<uint64_t>(&map_b))
-                   : "memory");
+      prefetch_tensormap(&map_a);
+      prefetch_tensormap(&map_b);
       int stage = 0;
       uint32_t phase = 0;
       for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
@@ -251,15 +195,15 @@ fp8_matmul_kernel(const __grid_constant__ CUtensorMap map_a,
       for (int c = 0; c < chunks; ++c) {
         mbar_wait(&full[stage], phase);
         const uint8_t* tile = smem + stage * STAGE_BYTES;
-        const uint64_t da = sw128_desc(tile + wg * 64 * BK);
-        const uint64_t db = sw128_desc(tile + TILE_A);
-        asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+        const uint64_t da = sw_desc(tile + wg * 64 * BK, 128);
+        const uint64_t db = sw_desc(tile + TILE_A, 128);
+        wgmma_fence();
         // 4 k-steps of 32 bytes along the swizzled 128-byte rows
 #pragma unroll
         for (int kk = 0; kk < BK / 32; ++kk)
           wgmma_e4m3(part, da + 2 * kk, db + 2 * kk, kk);
-        asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-        asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+        wgmma_commit();
+        wgmma_wait_all();
         if (tid == 0) mbar_arrive(&empty[stage]);
         if (++stage == STAGES) {
           stage = 0;
@@ -316,28 +260,6 @@ fp8_matmul_kernel(const __grid_constant__ CUtensorMap map_a,
       }
     }
   }
-}
-
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                 void*, const cuuint64_t*, const cuuint64_t*,
-                                 const cuuint32_t*, const cuuint32_t*,
-                                 CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled, looked up through the runtime so that the
-// library needs no -lcuda
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found = cudaDriverEntryPointSymbolNotFound;
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
 }
 
 // (rows, K) row-major e4m3 bytes, boxes of box_rows x BK, 128-byte

@@ -9,8 +9,9 @@
 //
 // Token t of seat a lives in physical page page_table[a, t / page] at
 // slot t % page of the shared pool.  The kernel itself, its bound (the
-// K+V bytes of the valid lengths) and its design are in
-// decode_attention.cuh, which it shares with the dense fixed-slot kernel.
+// K+V bytes of the valid lengths) and its design, split-K over the
+// sequence with the merge in the same launch, are in decode_attention.cuh,
+// which it shares with the dense fixed-slot kernel.
 
 #include "decode_attention.cuh"
 
@@ -40,10 +41,12 @@ cudaError_t dispatch_kv(int kv_dtype, const void* q, const void* k,
                         const void* v, const void* ks, const void* vs,
                         const void* lengths, void* out, int A, int H,
                         int KVH, int d, const PagedAddr& addr,
+                        float* part, int* tickets, int splits, int chunk,
                         cudaStream_t stream) {
 #define REPRO_KV(KT_)                                                        \
-  return launch<QT, KT_, PagedAddr>(q, k, v, ks, vs, lengths, out, A, H,     \
-                                    KVH, d, addr, stream)
+  return launch<QT, KT_, PagedAddr, true>(q, k, v, ks, vs, lengths, out, A, \
+                                          H, KVH, d, addr, stream, part,     \
+                                          tickets, splits, chunk)
   switch (kv_dtype) {
     case 0: REPRO_KV(float);
     case 1: REPRO_KV(__nv_bfloat16);
@@ -59,7 +62,11 @@ cudaError_t dispatch_kv(int kv_dtype, const void* q, const void* k,
 // Plain C entry point, bound with ctypes.  Codes: q_dtype 0 = f32,
 // 1 = bf16; kv_dtype 0 = f32, 1 = bf16, 2 = fp8 e4m3 bits (uint8),
 // 3 = int8.  ks/vs are null for unquantized pools.  Strides are in
-// elements.  Returns the launch's cudaGetLastError() (0 = success), or
+// elements.  Split-K: `splits` blocks of `chunk` tokens per (seat, kv
+// head), partial states in `part` (A·KVH·splits·(H/KVH)·(d + 2) f32) and
+// one ticket per (seat, kv head) in `tickets` (A·KVH int32, zero before
+// the launch and after it; launches that share them must not overlap).
+// Returns the launch's cudaGetLastError() (0 = success), or
 // cudaErrorInvalidValue for a combination the kernel does not take.
 extern "C" int paged_decode_attention(
     int q_dtype, int kv_dtype, const void* q, const void* k, const void* v,
@@ -67,7 +74,8 @@ extern "C" int paged_decode_attention(
     const void* lengths, void* out, int A, int H, int KVH, int d,
     int page_size, int n_table, long long pool_page, long long pool_tok,
     long long pool_head, long long sc_page, long long sc_tok,
-    long long sc_head, void* stream) {
+    long long sc_head, void* part, void* tickets, int splits, int chunk,
+    void* stream) {
   const PagedAddr addr{static_cast<const int*>(page_table), page_size,
                        n_table, pool_page, pool_tok, pool_head,
                        sc_page, sc_tok, sc_head};
@@ -75,10 +83,14 @@ extern "C" int paged_decode_attention(
   cudaError_t err;
   if (q_dtype == 0) {
     err = dispatch_kv<float>(kv_dtype, q, k, v, ks, vs, lengths, out, A, H,
-                             KVH, d, addr, s);
+                             KVH, d, addr, static_cast<float*>(part),
+                             static_cast<int*>(tickets), splits, chunk, s);
   } else if (q_dtype == 1) {
     err = dispatch_kv<__nv_bfloat16>(kv_dtype, q, k, v, ks, vs, lengths,
-                                     out, A, H, KVH, d, addr, s);
+                                     out, A, H, KVH, d, addr,
+                                     static_cast<float*>(part),
+                                     static_cast<int*>(tickets), splits,
+                                     chunk, s);
   } else {
     err = cudaErrorInvalidValue;
   }

@@ -20,12 +20,16 @@ GQA repeat (``repro/kernels/ops.py :: decode_attention``) followed by
 
 Both kernels share one per-token loop (``csrc/decode_attention.cuh``) and
 are bound by memory: they read each valid token's K and V once.  The
-plain versions serve CPU tensors and the checks on the card; nothing on
-the serving path calls them for CUDA tensors.
+paged kernel splits each seat's sequence over ``split_plan``'s blocks and
+merges their partial softmax states in the same launch (split-K); the
+dense kernel runs single-pass.  The plain versions serve CPU tensors and
+the checks on the card; nothing on the serving path calls them for CUDA
+tensors.
 """
 from __future__ import annotations
 
-from typing import Optional
+import functools
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -37,6 +41,47 @@ KV_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.uint8: 2,
             torch.int8: 3}
 MAX_GROUP = 8          # query heads per kv head one block serves
 MAX_HEAD_DIM = 256
+#: Split-K plan of the paged kernel: blocks per SM aimed at, the token
+#: step of one block's loop (8 warps x 4 tokens: a chunk is a multiple of
+#: it) and the least chunk worth a block.
+BLOCKS_PER_SM = 4
+SPLIT_ALIGN = 32
+MIN_CHUNK = 64
+
+
+def split_plan(seats: int, kv_heads: int, width: int,
+               sms: int) -> Tuple[int, int]:
+    """``(splits, chunk)`` of the paged kernel's split-K: block ``s`` of a
+    (seat, kv head) walks tokens ``[s·chunk, (s+1)·chunk)`` cut at the
+    seat's length.  From host-known shapes only (seats, kv heads, the page
+    table's width in tokens and the card's SM count), never the lengths,
+    which live on the card: ``BLOCKS_PER_SM`` blocks per SM if every seat
+    filled its table, chunks a multiple of ``SPLIT_ALIGN`` and at least
+    ``MIN_CHUNK`` tokens."""
+    per_row = -(-BLOCKS_PER_SM * sms // max(1, seats * kv_heads))
+    chunk = -(-max(1, width) // per_row)
+    chunk = max(MIN_CHUNK, -(-chunk // SPLIT_ALIGN) * SPLIT_ALIGN)
+    return max(1, -(-width // chunk)), chunk
+
+
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+#: One zeroed int32 ticket per (seat, kv head), per device: the kernel's
+#: last split of each pair resets its ticket, so it stays zero between
+#: launches.  Launches on one stream, as the port makes them, never share
+#: them at the same time.
+_tickets: Dict[torch.device, torch.Tensor] = {}
+
+
+def _ticket_buffer(device: torch.device, n: int) -> torch.Tensor:
+    buf = _tickets.get(device)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(max(n, 256), dtype=torch.int32, device=device)
+        _tickets[device] = buf
+    return buf
 
 
 def paged_decode_attention_plain(q, k_pages, v_pages, page_table, lengths,
@@ -68,16 +113,24 @@ def paged_decode_attention_cuda(q, k_pages, v_pages, page_table, lengths,
                                 k_scale: Optional[torch.Tensor],
                                 v_scale: Optional[torch.Tensor],
                                 out: torch.Tensor) -> None:
-    """Launch the kernel on the current stream, writing ``out`` (A, H, d).
-    The caller (``kernels.ops``) has checked devices, dtypes, shapes and
+    """Launch the kernel on the current stream, writing ``out`` (A, H, d),
+    split over the sequence as ``split_plan`` says, with the partial
+    states in scratch allocated here and the per-device tickets.  The
+    caller (``kernels.ops``) has checked devices, dtypes, shapes and
     strides.
 
     Raises:
       RuntimeError: the launch was refused (the CUDA error code)."""
     A, H, d = q.shape
     _, page, KVH, _ = k_pages.shape
+    n_table = page_table.shape[1]
     quantized = k_scale is not None
     sc = k_scale.stride() if quantized else (0, 0, 0)
+    splits, chunk = split_plan(A, KVH, n_table * page,
+                               _sm_count(q.device.index))
+    part = torch.empty(A * KVH * splits * (H // KVH) * (d + 2),
+                       dtype=torch.float32, device=q.device)
+    tickets = _ticket_buffer(q.device, A * KVH)
     lib = _build.library("paged_decode_attention")
     err = lib.paged_decode_attention(
         Q_CODES[q.dtype], KV_CODES[k_pages.dtype], q.data_ptr(),
@@ -85,10 +138,10 @@ def paged_decode_attention_cuda(q, k_pages, v_pages, page_table, lengths,
         k_scale.data_ptr() if quantized else None,
         v_scale.data_ptr() if quantized else None,
         page_table.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-        A, H, KVH, d, page, page_table.shape[1],
+        A, H, KVH, d, page, n_table,
         k_pages.stride(0), k_pages.stride(1), k_pages.stride(2),
-        sc[0], sc[1], sc[2],
-        torch.cuda.current_stream(q.device).cuda_stream)
+        sc[0], sc[1], sc[2], part.data_ptr(), tickets.data_ptr(), splits,
+        chunk, torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"paged_decode_attention kernel launch failed: "
                            f"CUDA error {err}")

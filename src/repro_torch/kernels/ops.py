@@ -213,7 +213,9 @@ def flash_attention(q, k, v, *, causal: bool = True,
     q: (B, Sq, H, d); k/v: (B, Skv, KVH, d) (GQA: query head h reads kv
     head h // (H / KVH)).  Returns (B, Sq, H, d) in q.dtype.  The launch
     is counted as ``flash_attention[window]`` when a window is set, else
-    ``[causal]`` or ``[full]``."""
+    ``[causal]`` or ``[full]``, whichever route ``flash_attention.route``
+    takes (bf16 at d 32/64/128/256 on the tensor cores, the rest on the
+    CUDA cores)."""
     if not use_kernel(impl, q):
         return fa.flash_attention_plain(q, k, v, causal=causal,
                                         window=window)
@@ -236,6 +238,10 @@ def flash_attention(q, k, v, *, causal: bool = True,
     _check(q.stride(3) == 1 and k.stride(3) == 1
            and k.stride() == v.stride(),
            f"{name}: needs unit stride in d and equal K/V strides")
+    if fa.route(q.dtype, d) == "tensor cores":
+        problem = fa.tma_problem(q, k, v)
+        _check(problem is None, f"{name}: the tensor-core route (bf16, d "
+               f"{d}) reads through TMA, but {problem}")
     out = torch.empty((B, Sq, H, d), dtype=q.dtype, device=q.device)
     if Sq:
         with torch.cuda.device(q.device):
