@@ -8,26 +8,32 @@ Phases, each printed as it runs:
 1. device — the card's name and power limit (nvidia-smi), torch and CUDA
    versions; TF32 is switched off for float32 matmuls and convolutions;
 2. build — the CUDA kernels compile from ``src/repro_torch/kernels/csrc``
-   with nvcc, and the Triton kernel compiles at its first launch; the fp8
-   GEMM's and the flash kernel's registers and spills are logged (no spill
-   allowed) and their SASS must hold warpgroup MMAs (``cuobjdump``): on
-   e4m3 operands for the fp8 GEMM, on bf16 ones (HGMMA) for flash;
+   with nvcc, and the Triton kernels compile at their first launch; the
+   fp8 GEMM's and the flash kernel's registers and spills are logged (no
+   spill allowed) and their SASS must hold warpgroup MMAs (``cuobjdump``):
+   on e4m3 operands for the fp8 GEMM, on bf16 ones (HGMMA) for flash; every
+   instantiation of the decode kernel (paged and dense libraries) is named
+   from ptxas's report and none may spill, and the widths of the serving
+   instantiations' loads are counted in the SASS;
 3. kernels — every kernel of the serving paths against its plain PyTorch
    version at the serving shapes of qwen3-1.7b (H=16, KVH=8, d=128;
    paged decode: page 16, 8 seats with lengths from 1 to 2048; dense
-   decode: 8 slots of 545 keys, lengths 1 to 545; flash prefill: one
-   causal prompt of 511 tokens; RMSNorm at D=2048 and D=128), with its
-   time, the plain version's time, one PyTorch library call's time as a
-   yardstick (``F.scaled_dot_product_attention`` pinned to one backend,
-   ``F.rms_norm``), and the least time the card could take; untimed,
-   RMSNorm at the k-norm and prefill-chunk shapes, flash prefill at 64
-   and 37 tokens, and paged decode with every pool type at the edges of
-   its split-K plan (lengths chunk - 1, chunk, chunk + 1, seats whose
-   later splits are all empty, the full table; the tickets must be back
-   at zero after the launches); then the same checks off those shapes
-   (f32 queries, pools and caches, GQA groups 1 and 4, head dims 16 to
-   256, odd cache lengths, sliding-window and non-causal flash on both
-   routes, f32 RMSNorm);
+   decode: 8 slots of 545 keys, lengths 1 to 545, split over the sequence;
+   flash prefill: one causal prompt of 511 tokens; RMSNorm at D=2048 and
+   D=128; the fused add + RMSNorm at M=8, D=2048, whose sum must be
+   bit-equal to torch's add; the q/k norm in one launch at 128 + 64 rows
+   of D=128), with its time, the plain version's time, one PyTorch
+   library call's time as a yardstick (``F.scaled_dot_product_attention``
+   pinned to one backend, ``F.rms_norm``; none for the fused norms), and
+   the least time the card could take; untimed,
+   the norms at the k-norm and prefill-chunk shapes, flash prefill at 64
+   and 37 tokens, and paged (every pool type) and dense (bf16 and f32)
+   decode at the edges of their split-K plans (lengths chunk - 1, chunk,
+   chunk + 1, seats whose later splits are all empty, the full width; the
+   tickets must be back at zero after the launches); then the same checks
+   off those shapes (f32 queries, pools and caches, GQA groups 1 and 4,
+   head dims 16 to 256, odd cache lengths, sliding-window and non-causal
+   flash on both routes, f32 RMSNorm);
 4. serve — ``serve_paged`` at the full width of qwen3-1.7b (28 layers,
    d_model 2048, vocab 151936, bf16 compute, weights from a seeded
    torch.Generator), 16 requests with prompts of 64-511 tokens and 32
@@ -37,8 +43,8 @@ Phases, each printed as it runs:
    path (launch counts, set to 0 before the run and read after it);
    then one fused tick on the same state with the kernels and with the
    plain versions, whose logits must agree, and the steady tick's wall
-   time, device busy time and top kernels (torch.profiler; bf16 and fp8
-   pools);
+   time, device busy time, kernels and top kernels (torch.profiler; bf16
+   and fp8 pools);
 5. serve-fixed — the fixed-slot path at the same width: ``serve`` (the
    static batch behind ``--engine batch``: 4 prompts of 128 tokens, 16
    new tokens each), then a ``ServingEngine`` (8 slots, max_len 544) over
@@ -48,7 +54,15 @@ Phases, each printed as it runs:
    the steady decode step's wall time, device busy time and idle share;
    and, as information, how many greedy tokens the fixed-slot and bf16
    paged engines share;
-6. hpc — the fp8 GEMM kernel (K6) against its plain version, held to
+6. f32 — the same model computing in f32 (f32 weights, pool and cache;
+   flash prefill on its CUDA-core route): 8 greedy streams teacher-forced
+   through the fused tick and through ``prefill`` + ``decode_step``, each
+   with the kernels and with the plain versions, whose top-1 must agree
+   at every decided position (the plain top-2 gap above twice the largest
+   logit difference there) with at least 90% of the positions decided;
+   then the paged engine and ``ServingEngine`` on the same 8 requests,
+   whose streams must be equal up to their first top-2 gap <= 1e-3;
+7. hpc — the fp8 GEMM kernel (K6) against its plain version, held to
    ``fp8_matmul.error_bound`` (f32 sums plus the tensor-core term of sums
    promoted every 128 products), through ``ops.fp8_matmul`` (aligned,
    ragged, bm/bn != 128) and through the per-tensor call at the n = 256,
@@ -66,7 +80,7 @@ Phases, each printed as it runs:
    kernel and with the plain version (first trailing update and refined
    solutions held); HPCG at 256³ (50 iterations, the true residual
    recomputed) and at 48³ (90 iterations, converged);
-7. summary — one JSON line listing the kernels, the card's name and power
+8. summary — one JSON line listing the kernels, the card's name and power
    limit, and as the last line ``{"ok": true, "device": {...}}``.
 
 Any failure raises: the script exits non-zero and prints no ``ok`` line.
@@ -82,11 +96,13 @@ import statistics
 import subprocess
 import sys
 import time
+from collections import Counter
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
+import numpy as np  # noqa: E402
 import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 from torch.nn.attention import SDPBackend, sdpa_kernel  # noqa: E402
@@ -96,7 +112,7 @@ F32_FLOPS = 67e12              # H100 SXM float32 rate outside tensor cores
 BF16_FLOPS = 989e12            # H100 SXM dense bf16 tensor-core rate
 FP8_FLOPS = 1979e12            # H100 SXM dense fp8 tensor-core rate
 ARCH = "qwen3-1.7b"
-H, KVH, HEAD_DIM, PAGE = 16, 8, 128, 16
+H, KVH, HEAD_DIM, PAGE, D_MODEL = 16, 8, 128, 16, 2048
 SEAT_LENGTHS = (1, 16, 17, 255, 700, 1024, 1531, 2048)
 N_TABLE = 2048 // PAGE
 PREFILL_CHUNK = 128
@@ -250,6 +266,12 @@ def check_close(name: str, got: torch.Tensor, want: torch.Tensor,
 # may differ by one bf16 rounding step (2^-8 relative, up to 2^-7 just
 # under a power of two) plus f32 summation-order noise near zero
 BF16_ATOL, BF16_RTOL = 1e-3, 2.0 ** -7
+# f32 outputs: online vs dense softmax, sums in another order
+F32_TOL = (2e-5, 1e-4)
+
+
+def _sms() -> int:
+    return torch.cuda.get_device_properties(0).multi_processor_count
 
 
 def phase_device() -> str:
@@ -266,17 +288,23 @@ def phase_device() -> str:
     return line
 
 
+DECODE_LIBS = ("paged_decode_attention", "decode_attention")
+
+
 def phase_build() -> None:
     from repro_torch.kernels import _build, ops
     t0 = time.perf_counter()
     logs = _build.build_all()
     t_nvcc = time.perf_counter() - t0
     for name, text in logs.items():
+        if name in DECODE_LIBS:             # _check_decode_build names them
+            continue
         for ln in text.splitlines():
             if "registers" in ln or "spill" in ln:
                 log("build", f"{name}: {ln.strip()}")
     _check_fp8_build(logs)
     _check_flash_build(logs)
+    _check_decode_build(logs)
     t1 = time.perf_counter()
     for d in (2048, HEAD_DIM):
         x = torch.ones((2, d), dtype=torch.bfloat16, device="cuda")
@@ -347,6 +375,130 @@ def _check_flash_build(logs: dict) -> None:
                     if m.endswith(".BF16")})
     log("build", f"flash_attention SASS: bf16 warpgroup MMAs {hgmma}")
     assert hgmma, "flash_attention: no bf16 warpgroup MMA in the SASS"
+
+
+def _ptxas_entries(text: str) -> dict:
+    """Each entry function of a ptxas ``-v`` report, by mangled name:
+    its registers and its spill bytes (stores, loads)."""
+    entries, entry, props = {}, None, None
+    for ln in text.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", ln)
+        if m:
+            entry = m.group(1)
+            entries.setdefault(entry, {"regs": None, "spill": (0, 0)})
+            continue
+        m = re.search(r"Function properties for (\w+)", ln)
+        if m:
+            props = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      ln)
+        if m and props in entries:
+            entries[props]["spill"] = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and entry is not None:
+            entries[entry]["regs"] = int(m.group(1))
+    return entries
+
+
+_MANGLED_TYPES = {"f": "f32", "13__nv_bfloat16": "bf16", "h": "uint8",
+                  "a": "int8"}
+
+
+def _decode_instantiation(name: str):
+    """``(q type, storage type, E, layout, MG)`` of a mangled
+    ``repro_decode::decode_kernel<QT, KT, E, Addr, MG>``, or None for
+    another function.  A storage type equal to bf16 q is mangled as a
+    substitution (``S1_``); only bf16 is substituted (f32 is a builtin)."""
+    m = re.search(r"decode_kernelI(f|13__nv_bfloat16)"
+                  r"(f|13__nv_bfloat16|S\d*_|h|a)Li(\d+)E.*?"
+                  r"(PagedAddr|DenseAddr)ELi(\d+)E", name)
+    if m is None:
+        return None
+    q, kv, e, addr, mg = m.groups()
+    kv = "bf16" if kv.startswith("S") else _MANGLED_TYPES[kv]
+    return _MANGLED_TYPES[q], kv, int(e), addr, int(mg)
+
+
+def group_arrays(g: int) -> int:
+    """MG, the group size the register arrays of group g are sized for."""
+    return 1 if g <= 1 else 2 if g <= 2 else 4 if g <= 4 else 8
+
+
+def serving_decode_instantiations() -> set:
+    """The decode-kernel instantiations the serving paths of this script
+    run at qwen3-1.7b's head dim and group, by library: bf16 queries over
+    the bf16, fp8 (uint8 bits) and int8 pools and f32 over an f32 pool
+    (phase f32) in the paged library; bf16 and f32 caches in the dense."""
+    from repro_torch.kernels import decode_attention as da
+    e, mg = da.lane_elems(HEAD_DIM), group_arrays(H // KVH)
+    paged = [("bf16", kv) for kv in ("bf16", "uint8", "int8")]
+    paged.append(("f32", "f32"))
+    dense = [("bf16", "bf16"), ("f32", "f32")]
+    return ({(lib, (q, kv, e, addr, mg))
+             for lib, addr, pairs in (
+                 ("paged_decode_attention", "PagedAddr", paged),
+                 ("decode_attention", "DenseAddr", dense))
+             for q, kv in pairs})
+
+
+def _check_decode_build(logs: dict) -> None:
+    """K1/K2's and K4's builds: every instantiation of the shared decode
+    kernel is read from ptxas's report by name, and none may spill: the
+    phases of this script launch instantiations of every head dim (E),
+    group (MG) and storage type, and the wrappers reach all of them.  In
+    the SASS of the serving instantiations (``serving_decode_
+    instantiations``) the loads are counted by width (a lane reads its
+    4 bf16 elements of a K/V row as one 64-bit load).
+
+    Raises:
+      AssertionError: an entry that is not a decode kernel, a serving
+          instantiation missing from the report, or any that spills."""
+    serving = serving_decode_instantiations()
+    spills = []
+    for lib in DECODE_LIBS:
+        found = {}
+        for name, ent in _ptxas_entries(logs[lib]).items():
+            inst = _decode_instantiation(name)
+            assert inst is not None, f"{lib}: unexpected entry {name}"
+            found[inst] = dict(ent, name=name)
+        spilled = sorted(i for i, ent in found.items() if any(ent["spill"]))
+        regs = sorted(ent["regs"] for ent in found.values())
+        log("build", f"{lib}: {len(found)} instantiations, {len(spilled)} "
+            f"spill; registers {regs[0]}-{regs[-1]}")
+        for i in spilled:
+            ent = found[i]
+            log("build", f"{lib}: spill {ent['spill'][0]}/{ent['spill'][1]} "
+                f"bytes (stores/loads) at {ent['regs']} registers: q {i[0]}, "
+                f"storage {i[1]}, E={i[2]}, {i[3]}, MG={i[4]}")
+            spills.append((lib, i))
+        mine = sorted(i for lb, i in serving if lb == lib)
+        for i in mine:
+            assert i in found, f"{lib}: no instantiation {i} in the report"
+        sass = _sass_functions(lib, {found[i]["name"] for i in mine})
+        for i in mine:
+            ent = found[i]
+            loads = Counter(re.findall(r"\bLDG\.[\w.]+", sass[ent["name"]]))
+            log("build", f"{lib} serving instantiation q {i[0]}, storage "
+                f"{i[1]}, E={i[2]}, MG={i[4]}: {ent['regs']} registers; "
+                f"loads {dict(sorted(loads.items()))}")
+    assert not spills, f"decode instantiations spill: {spills}"
+
+
+def _sass_functions(lib: str, names: set) -> dict:
+    """The SASS of the named functions of ``csrc/<lib>.cu``'s library."""
+    out, cur = {}, None
+    for ln in _sass(lib).splitlines():
+        m = re.search(r"Function : (\w+)", ln)
+        if m:
+            cur = m.group(1) if m.group(1) in names else None
+            if cur is not None:
+                out[cur] = ""
+        elif cur is not None:
+            out[cur] += ln + "\n"
+    missing = names - set(out)
+    assert not missing, f"{lib}: no SASS for {sorted(missing)}"
+    return out
 
 
 def _paged_inputs(gen: torch.Generator, seat_lengths=SEAT_LENGTHS):
@@ -469,8 +621,10 @@ def phase_kernels(flush: torch.Tensor) -> dict:
             name="rmsnorm", max_abs_err=err, ms=ms, plain_ms=plain_ms,
             bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
             library="F.rms_norm")
+    results.update(_norm_kernels(gen, flush))
     _paged_split_edges(gen)
     results.update(_dense_decode_kernel(gen, flush))
+    _dense_split_edges(gen)
     results.update(_flash_kernel(gen, flush))
     return results
 
@@ -484,9 +638,8 @@ def _paged_split_edges(gen: torch.Generator) -> None:
     from repro_torch.core.mixed_precision import quantize_kv_page
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import ops
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
     splits, chunk = da.split_plan(len(SEAT_LENGTHS), KVH, N_TABLE * PAGE,
-                                  sms)
+                                  _sms())
     lens = (chunk - 1, chunk, chunk + 1, 1, 2 * chunk + 1, N_TABLE * PAGE,
             17, 3 * chunk - 1)
     P, table, lengths, q = _paged_inputs(gen, lens)
@@ -516,7 +669,9 @@ def _paged_split_edges(gen: torch.Generator) -> None:
 
 def _dense_decode_kernel(gen: torch.Generator, flush: torch.Tensor) -> dict:
     """K4 at the fixed-slot decode shapes: 8 slots of MAX_LEN + 1 keys,
-    lengths SLOT_LENGTHS (the last an idle slot on the scratch index)."""
+    lengths SLOT_LENGTHS (the last an idle slot on the scratch index),
+    split over the cache width as ``split_plan`` says."""
+    from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import ops
     B, T = len(SLOT_LENGTHS), MAX_LEN + 1
     lengths = torch.tensor(SLOT_LENGTHS, dtype=torch.int32, device="cuda")
@@ -547,10 +702,11 @@ def _dense_decode_kernel(gen: torch.Generator, flush: torch.Tensor) -> dict:
     nbytes = (2 * valid * KVH * HEAD_DIM * 2 + 2 * q.numel() * 2
               + lengths.numel() * 4)
     b_ms, b_by = bound(nbytes, 4.0 * valid * H * HEAD_DIM)
+    splits, chunk = da.split_plan(B, KVH, T, _sms())
     log("kernels", f"decode_attention[bf16] max|err| {err:.3e} kernel "
         f"{ms:.4f} ms plain {plain_ms:.4f} ms {SDPA_EFF} {lib_ms:.4f} ms "
         f"bound {b_ms:.5f} ms ({b_by}, {nbytes / 1e6:.2f} MB; idle slot "
-        f"walks {MAX_LEN + 1} of {valid} keys)")
+        f"walks {MAX_LEN + 1} of {valid} keys; {splits} splits of {chunk})")
     # the cost of the idle slots' scratch-index walk at a wave's tail: 4
     # short live slots beside 4 idle ones, which walk their whole cache
     # (the reference's mask) or, for comparison only, one key
@@ -566,6 +722,112 @@ def _dense_decode_kernel(gen: torch.Generator, flush: torch.Tensor) -> dict:
     return {"decode_attention[bf16]": dict(
         name="decode_attention", max_abs_err=err, ms=ms, plain_ms=plain_ms,
         bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms, library=SDPA_EFF)}
+
+
+def _dense_split_edges(gen: torch.Generator) -> None:
+    """K4 with bf16 and f32 caches at the edges of the split-K plan of
+    the fixed-slot shape (8 slots, 8 kv heads, MAX_LEN + 1 keys): lengths
+    chunk - 1, chunk and chunk + 1, slots whose later splits are all
+    empty (1, 17), 2·chunk + 1, 3·chunk - 1 and an idle slot walking the
+    whole cache, each against the plain version at the tolerance of its
+    dtype; after the launches every ticket must be back at 0."""
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import ops
+    B, T = 8, MAX_LEN + 1
+    splits, chunk = da.split_plan(B, KVH, T, _sms())
+    lens = (chunk - 1, chunk, chunk + 1, 1, 2 * chunk + 1, T, 17,
+            3 * chunk - 1)
+    lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    for dt, tol in ((torch.bfloat16, (BF16_ATOL, BF16_RTOL)),
+                    (torch.float32, F32_TOL)):
+        q, k, v = (torch.randn(shape, generator=gen, device="cuda").to(dt)
+                   for shape in ((B, 1, H, HEAD_DIM), (B, T, KVH, HEAD_DIM),
+                                 (B, T, KVH, HEAD_DIM)))
+        got, want = (ops.decode_attention(q, k, v, lengths, impl=impl)
+                     for impl in ("kernel", "plain"))
+        torch.cuda.synchronize()
+        err = check_close(f"dense split edges[{dt}]", got, want, *tol)
+        tickets = da._tickets[q.device]
+        assert not bool(tickets.any()), \
+            f"dense split edges[{dt}]: tickets left at {tickets.nonzero()}"
+        log("kernels", f"dense decode split edges [{dt}]: {splits} splits of "
+            f"{chunk} tokens, lengths {lens}: max|err| {err:.3e}; tickets "
+            "back at 0")
+
+
+def _norm_kernels(gen: torch.Generator, flush: torch.Tensor) -> dict:
+    """K3's fused forms against their plain versions, bf16: ``add_rmsnorm``
+    at the decode rows (M = 8, D = 2048) and the prefill-chunk rows (M =
+    PREFILL_CHUNK), where ``s`` must be bit-equal to torch's own add and
+    the norm within the bf16 tolerance; ``rmsnorm_qk`` at the decode
+    rows (q 8·H and k 8·KVH rows of D = 128) and the prefill-chunk rows.
+    The decode shapes are timed beside K3 on the same rows (for q and k,
+    the two K3 launches they replace, each timed alone and summed) with
+    their bound; no single PyTorch call computes either, so no library
+    time."""
+    from repro_torch.kernels import ops
+    out = {}
+    for rows, timed in ((len(SEAT_LENGTHS), True), (PREFILL_CHUNK, False)):
+        x, y = (torch.randn((rows, D_MODEL), generator=gen,
+                            device="cuda").bfloat16() for _ in range(2))
+        w = 0.1 * torch.randn((D_MODEL,), generator=gen, device="cuda")
+        (s, n), (s_p, n_p) = (ops.add_rmsnorm(x, y, w, impl=impl)
+                              for impl in ("kernel", "plain"))
+        torch.cuda.synchronize()
+        same = (s.view(torch.int16) == (x + y).view(torch.int16)).all()
+        assert bool(same) and torch.equal(s_p, x + y), \
+            f"add_rmsnorm[M={rows}]: s is not bit-equal to x + y"
+        err = check_close(f"add_rmsnorm[D={D_MODEL}, M={rows}]", n, n_p,
+                          BF16_ATOL, BF16_RTOL)
+        if not timed:
+            log("kernels", f"add_rmsnorm[D={D_MODEL}, M={rows}] s bit-equal, "
+                f"max|err| {err:.3e}")
+            continue
+        ms = cuda_ms(lambda: ops.add_rmsnorm(x, y, w, impl="kernel"), flush)
+        plain_ms = cuda_ms(lambda: ops.add_rmsnorm(x, y, w, impl="plain"),
+                           flush)
+        k3_ms = cuda_ms(lambda: ops.rmsnorm(x, w, impl="kernel"), flush)
+        # read x, y and w, write s and the norm; add, square, sum, scale
+        # and weight per element
+        b_ms, b_by = bound(4 * x.numel() * 2 + D_MODEL * 4, 5.0 * x.numel())
+        log("kernels", f"add_rmsnorm[D={D_MODEL}, M={rows}] s bit-equal, "
+            f"max|err| {err:.3e} kernel {ms:.4f} ms plain {plain_ms:.4f} ms "
+            f"(K3 alone on the same rows {k3_ms:.4f} ms) bound {b_ms:.5f} ms "
+            f"({b_by})")
+        out[f"add_rmsnorm[D={D_MODEL}]"] = dict(
+            name="add_rmsnorm", max_abs_err=err, ms=ms, plain_ms=plain_ms,
+            bound_ms=b_ms, bound_by=b_by, library_ms=None, library=None)
+    for rows, timed in ((len(SEAT_LENGTHS), True), (PREFILL_CHUNK, False)):
+        q = torch.randn((rows, H, HEAD_DIM), generator=gen,
+                        device="cuda").bfloat16()
+        k = torch.randn((rows, KVH, HEAD_DIM), generator=gen,
+                        device="cuda").bfloat16()
+        wq, wk = (0.1 * torch.randn((HEAD_DIM,), generator=gen,
+                                    device="cuda") for _ in range(2))
+        (qn, kn), (qp, kp) = (ops.rmsnorm_qk(q, k, wq, wk, impl=impl)
+                              for impl in ("kernel", "plain"))
+        torch.cuda.synchronize()
+        tag = f"rmsnorm_qk[D={HEAD_DIM}, q {rows * H} + k {rows * KVH} rows]"
+        err = max(check_close(tag + " q", qn, qp, BF16_ATOL, BF16_RTOL),
+                  check_close(tag + " k", kn, kp, BF16_ATOL, BF16_RTOL))
+        if not timed:
+            log("kernels", f"{tag} max|err| {err:.3e}")
+            continue
+        ms = cuda_ms(lambda: ops.rmsnorm_qk(q, k, wq, wk, impl="kernel"),
+                     flush)
+        plain_ms = cuda_ms(lambda: ops.rmsnorm_qk(q, k, wq, wk,
+                                                  impl="plain"), flush)
+        k3_ms = (cuda_ms(lambda: ops.rmsnorm(q, wq, impl="kernel"), flush)
+                 + cuda_ms(lambda: ops.rmsnorm(k, wk, impl="kernel"), flush))
+        elems = q.numel() + k.numel()
+        b_ms, b_by = bound(2 * elems * 2 + 2 * HEAD_DIM * 4, 4.0 * elems)
+        log("kernels", f"{tag} max|err| {err:.3e} kernel {ms:.4f} ms plain "
+            f"{plain_ms:.4f} ms (K3 on q and K3 on k, the sum of the two "
+            f"kernels' times, {k3_ms:.4f} ms) bound {b_ms:.5f} ms ({b_by})")
+        out[f"rmsnorm_qk[D={HEAD_DIM}]"] = dict(
+            name="rmsnorm_qk", max_abs_err=err, ms=ms, plain_ms=plain_ms,
+            bound_ms=b_ms, bound_by=b_by, library_ms=None, library=None)
+    return out
 
 
 def _flash_kernel(gen: torch.Generator, flush: torch.Tensor) -> dict:
@@ -624,8 +886,6 @@ def phase_variants() -> None:
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops
     gen = torch.Generator(device="cuda").manual_seed(3)
-    # f32 outputs: online vs dense softmax, sums in another order
-    f32_tol = (2e-5, 1e-4)
     cases = [  # (H, KVH, d, q dtype, pool)
         (16, 8, 128, torch.float32, "f32"), (16, 8, 128, torch.bfloat16, "f32"),
         (32, 8, 128, torch.bfloat16, "bf16"), (8, 8, 64, torch.float32, "fp8"),
@@ -648,7 +908,7 @@ def phase_variants() -> None:
         got, want = (ops.paged_decode_attention(
             q, k, v, table, lengths, k_scale=ks, v_scale=vs, impl=impl)
             for impl in ("kernel", "plain"))
-        tol = f32_tol if qdt == torch.float32 else (BF16_ATOL, BF16_RTOL)
+        tol = F32_TOL if qdt == torch.float32 else (BF16_ATOL, BF16_RTOL)
         err = check_close(f"paged[H={H_},KVH={KVH_},d={d},{qdt},{pool}]",
                           got, want, *tol)
         log("variants", f"paged decode H={H_} KVH={KVH_} d={d} q={qdt} "
@@ -658,7 +918,7 @@ def phase_variants() -> None:
         w = torch.randn((d,), generator=gen, device="cuda")
         err = check_close(f"rmsnorm[f32,D={d}]",
                           ops.rmsnorm(x, w, impl="kernel"),
-                          ops.rmsnorm(x, w, impl="plain"), *f32_tol)
+                          ops.rmsnorm(x, w, impl="plain"), *F32_TOL)
         log("variants", f"rmsnorm f32 D={d}: max|err| {err:.3e}")
     dense = [  # (B, T, H, KVH, d, q dtype, cache dtype)
         (4, 37, 4, 2, 16, torch.float32, torch.float32),
@@ -675,7 +935,7 @@ def phase_variants() -> None:
                                 dtype=torch.int32)
         got, want = (ops.decode_attention(q, k, v, lengths, impl=impl)
                      for impl in ("kernel", "plain"))
-        tol = f32_tol if qdt == torch.float32 else (BF16_ATOL, BF16_RTOL)
+        tol = F32_TOL if qdt == torch.float32 else (BF16_ATOL, BF16_RTOL)
         err = check_close(f"dense[B={B},T={T},H={H_},KVH={KVH_},d={d},"
                           f"{qdt},{kdt}]", got, want, *tol)
         log("variants", f"dense decode T={T} H={H_} KVH={KVH_} d={d} "
@@ -695,7 +955,7 @@ def phase_variants() -> None:
         got, want = (ops.flash_attention(q, k, v, causal=causal,
                                          window=window, impl=impl)
                      for impl in ("kernel", "plain"))
-        tol = f32_tol if dt == torch.float32 else (BF16_ATOL, BF16_RTOL)
+        tol = F32_TOL if dt == torch.float32 else (BF16_ATOL, BF16_RTOL)
         err = check_close(f"flash[B={B},Sq={Sq},Skv={Skv},H={H_},"
                           f"KVH={KVH_},d={d},{dt},causal={causal},"
                           f"window={window}]", got, want, *tol)
@@ -703,6 +963,17 @@ def phase_variants() -> None:
             f"{dt} causal={causal} window={window} "
             f"({fa.route(dt, d)}): max|err| {err:.3e}")
     torch.cuda.synchronize()
+
+
+def norm_launches(cfg, steps: int) -> dict:
+    """The norm kernels' launches over ``steps`` model steps: per step
+    layer 0's ln1 alone (K3), per layer the attention add fused into ln2
+    and the MLP add into the next ln1 or the final norm (``add_rmsnorm``),
+    and the q- and k-norm in one launch (``rmsnorm_qk``)."""
+    L = cfg.num_layers
+    return {f"rmsnorm[D={cfg.d_model}]": steps,
+            f"add_rmsnorm[D={cfg.d_model}]": 2 * L * steps,
+            f"rmsnorm_qk[D={cfg.head_dim}]": L * steps}
 
 
 def _check_run(tag: str, r: dict, cfg, counts: dict) -> None:
@@ -720,14 +991,10 @@ def _check_run(tag: str, r: dict, cfg, counts: dict) -> None:
     assert bool(eng.policy.logits_finite), f"{tag}: a logit was not finite"
     ticks = eng.policy.decode_ticks
     chunks = sum(1 for _, ev, _ in eng.trace if ev == "prefill_chunk")
-    # the attention kernel of the pool once per layer per decode tick; per
-    # model step (decode tick or prefill chunk) ln1 and ln2 per layer plus
-    # the final norm at D=2048, q-norm and k-norm per layer at D=128; no
-    # other kernel
+    # the attention kernel of the pool once per layer per decode tick;
+    # per model step (decode tick or prefill chunk) the norms
     L, steps = cfg.num_layers, ticks + chunks
-    want = {kernel: ticks * L,
-            f"rmsnorm[D={cfg.d_model}]": (2 * L + 1) * steps,
-            f"rmsnorm[D={cfg.head_dim}]": 2 * L * steps}
+    want = {kernel: ticks * L, **norm_launches(cfg, steps)}
     assert counts == want, \
         f"{tag}: launches {counts}, expected {want} for {ticks} decode " \
         f"ticks and {chunks} prefill chunks"
@@ -821,6 +1088,14 @@ def _profile_steady(phase: str, what: str, step, steps: int = 5) -> None:
     for a in kernels[:6]:
         log(phase, f"{what}:   {a.self_device_time_total / steps / 1e3:.4f} "
             f"ms x{a.count // steps} {a.key[:80]}")
+    for label, pick in (("norm kernels (K3 and its fused forms)",
+                         lambda key: "rmsnorm" in key),
+                        ("decode attention (K1/K2/K4)",
+                         lambda key: "decode_kernel" in key)):
+        sel = [a for a in kernels if pick(a.key)]
+        log(phase, f"{what}: {label} "
+            f"{sum(a.self_device_time_total for a in sel) / steps / 1e3:.4f} "
+            f"ms x{sum(a.count for a in sel) // steps}")
 
 
 def _tick_kernel_vs_plain(tag: str, eng) -> float:
@@ -944,14 +1219,12 @@ def phase_serve_fixed(paged: dict) -> dict:
     ticks = eng.policy.decode_ticks
     prefills = sum(1 for _, ev, _ in eng.trace if ev == "admit")
     # per decode step the dense decode kernel once per layer; per prefill
-    # the flash kernel once per layer; per model call ln1 and ln2 per
-    # layer plus the final norm at D=2048, q- and k-norm per layer at
-    # D=128; no other kernel
+    # the flash kernel once per layer; per model call the norms; no other
+    # kernel
     L = cfg.num_layers
     want = {"decode_attention[bf16]": ticks * L,
             "flash_attention[causal]": prefills * L,
-            f"rmsnorm[D={cfg.d_model}]": (2 * L + 1) * (ticks + prefills),
-            f"rmsnorm[D={cfg.head_dim}]": 2 * L * (ticks + prefills)}
+            **norm_launches(cfg, ticks + prefills)}
     assert counts == want, \
         f"fixed-slot: launches {counts}, expected {want} for {ticks} " \
         f"decode steps and {prefills} prefills"
@@ -974,6 +1247,232 @@ def phase_serve_fixed(paged: dict) -> dict:
         f"{equal}/512 position-wise, {sum(x == 32 for x in lead)}/16 "
         f"streams identical, first divergence at mean token "
         f"{sum(lead) / 16:.1f}")
+    return counts
+
+
+# phase f32: a position is decided when the plain version's top-2 gap
+# exceeds twice the largest |kernel - plain| logit difference there (the
+# workload-7 method of docs/benchmarks.md): there the two must pick the
+# same token.  In f32 the differences are summation order, ~1e-5 against
+# top-2 gaps of ~1e-2 at random weights, so nearly every position is
+# decided; a wrong split merge (differences of ~1e-1) would leave few.
+F32_MIN_DECIDED = 0.9
+F32_GAP = 1e-3          # engines: streams must agree up to a gap this small
+F32_GEN = 32
+
+
+def _hold_decided(stats: dict, lk: torch.Tensor, lp: torch.Tensor) -> None:
+    """Adds one model step's (rows, V) logits with the kernels ``lk`` and
+    the plain versions ``lp`` to ``stats``: rows, decided rows, decided
+    rows whose top-1 agree, the largest |Δlogit|."""
+    assert bool(torch.isfinite(lk).all()) and bool(torch.isfinite(lp).all())
+    delta = (lk - lp).abs().amax(dim=-1)
+    top = lp.topk(2, dim=-1)
+    decided = top.values[:, 0] - top.values[:, 1] > 2 * delta
+    agree = lk.argmax(dim=-1) == top.indices[:, 0]
+    stats["rows"] += len(lp)
+    stats["decided"] += int(decided.sum())
+    stats["agree"] += int((decided & agree).sum())
+    stats["max_delta"] = max(stats["max_delta"], delta.max().item())
+
+
+def _report_decided(what: str, stats: dict) -> None:
+    """Every decided position must agree, and at least F32_MIN_DECIDED of
+    the positions must be decided."""
+    frac = stats["decided"] / stats["rows"]
+    log("f32", f"{what} kernel vs plain, teacher-forced: top-1 equal at "
+        f"{stats['agree']}/{stats['decided']} decided positions; decided "
+        f"{stats['decided']}/{stats['rows']} = {frac:.4f}; max|Δlogit| "
+        f"{stats['max_delta']:.3e}")
+    assert stats["agree"] == stats["decided"], \
+        f"{what}: top-1 differs at {stats['decided'] - stats['agree']} " \
+        "decided positions"
+    assert frac >= F32_MIN_DECIDED, \
+        f"{what}: only {frac:.3f} of the positions are decided"
+
+
+def _new_stats() -> dict:
+    return {"rows": 0, "decided": 0, "agree": 0, "max_delta": 0.0}
+
+
+def _f32_paged_teacher_forced(cfg, params, prompts) -> None:
+    """The fused tick with the kernels and with the plain versions on one
+    greedy stream per seat: each prompt prefilled in chunks of
+    PREFILL_CHUNK (``paged_decode_step``, as the engine does), then
+    F32_GEN - 1 fused ticks over 8 seats, every input token the plain
+    version's top-1 (teacher forcing), each on its own f32 pool."""
+    from repro_torch.models import model as M
+    A = len(prompts)
+    n_tables = -(-MAX_LEN // PAGE)
+    table = (torch.arange(A * n_tables, dtype=torch.int32, device="cuda")
+             + 1).reshape(A, n_tables)
+    impls = ("plain", "kernel")
+    caches = {impl: M.init_paged_cache(cfg, 1 + A * n_tables, PAGE,
+                                       device="cuda") for impl in impls}
+    stats = _new_stats()
+    first = {impl: [] for impl in impls}
+    for a, prompt in enumerate(prompts):
+        for impl in impls:
+            for start in range(0, len(prompt), PREFILL_CHUNK):
+                c = len(prompt[start:start + PREFILL_CHUNK])
+                tok = torch.zeros((1, PREFILL_CHUNK), dtype=torch.int32)
+                tok[0, :c] = torch.from_numpy(prompt[start:start + c])
+                meta = torch.tensor([start, c], dtype=torch.int32)
+                logits, _ = M.paged_decode_step(
+                    params, cfg, caches[impl], tok.cuda(), meta[:1].cuda(),
+                    table[a:a + 1], meta[1:].cuda(), impl=impl)
+            first[impl].append(logits[0, c - 1])
+    lp = torch.stack(first["plain"])
+    _hold_decided(stats, torch.stack(first["kernel"]), lp)
+    teacher = lp.argmax(dim=-1).int()
+    lens = torch.tensor([len(p) for p in prompts], dtype=torch.int32,
+                        device="cuda")
+    state = {impl: dict(
+        last=teacher.clone(), pos=lens.clone(),
+        nv=torch.ones(A, dtype=torch.int32, device="cuda"),
+        temp=torch.zeros(A, device="cuda"),
+        top_k=torch.zeros(A, dtype=torch.int32, device="cuda"),
+        top_p=torch.ones(A, device="cuda"),
+        seed=torch.zeros(A, dtype=torch.int64, device="cuda"),
+        rid=torch.arange(A, dtype=torch.int64, device="cuda"),
+        step=torch.ones(A, dtype=torch.int64, device="cuda"))
+        for impl in impls}
+    for _ in range(F32_GEN - 1):
+        out = {}
+        for impl in impls:
+            st = state[impl]
+            st["last"].copy_(teacher)
+            out[impl] = M.fused_decode_tick(
+                params, cfg, caches[impl], st["last"], st["pos"], table,
+                st["nv"], st["temp"], st["top_k"], st["top_p"], st["seed"],
+                st["rid"], st["step"], impl=impl)[1]
+        _hold_decided(stats, out["kernel"], out["plain"])
+        teacher = out["plain"].argmax(dim=-1).int()
+    _report_decided("fused tick (paged, f32 pool)", stats)
+
+
+def _f32_fixed_teacher_forced(cfg, params, prompts) -> None:
+    """``prefill`` and ``decode_step`` with the kernels and with the plain
+    versions on the same streams as ``_f32_paged_teacher_forced``: each
+    prompt prefilled whole into its slot of an f32 cache of MAX_LEN + 1,
+    then F32_GEN - 1 decode steps over the 8 slots, teacher-forced."""
+    from repro_torch.models import model as M
+    A = len(prompts)
+    impls = ("plain", "kernel")
+    caches = {impl: M.init_cache(cfg, A, MAX_LEN + 1, device="cuda")
+              for impl in impls}
+    opts = M.RunOptions(q_chunk=min(MAX_LEN, 512))
+    stats = _new_stats()
+    first = {impl: [] for impl in impls}
+    for a, prompt in enumerate(prompts):
+        tokens = torch.from_numpy(prompt)[None].cuda()
+        for impl in impls:
+            logits, rows = M.prefill(params, cfg, {"tokens": tokens}, opts,
+                                     impl=impl)
+            for pos, ent in caches[impl].items():
+                for key, full in ent.items():
+                    full[:, a, :len(prompt)] = rows[pos][key][:, 0]
+            first[impl].append(logits[0, -1])
+    lp = torch.stack(first["plain"])
+    _hold_decided(stats, torch.stack(first["kernel"]), lp)
+    teacher = lp.argmax(dim=-1).int()
+    pos = torch.tensor([len(p) for p in prompts], dtype=torch.int32,
+                       device="cuda")
+    for _ in range(F32_GEN - 1):
+        out = {impl: M.decode_step(params, cfg, caches[impl], teacher[:, None],
+                                   pos, impl=impl)[0][:, -1]
+               for impl in impls}
+        _hold_decided(stats, out["kernel"], out["plain"])
+        teacher = out["plain"].argmax(dim=-1).int()
+        pos = pos + 1
+    _report_decided("prefill + decode step (fixed-slot, f32 cache)", stats)
+
+
+def _f32_engines(cfg, params, prompts) -> dict:
+    """The paged engine and ``ServingEngine`` (the reference's equivalence
+    oracle) on the same greedy requests, f32 pool and cache.  Each stream
+    must equal the other engine's up to its first position where the
+    top-2 gap is at most F32_GAP; the gaps come from a whole-sequence
+    re-score of the paged stream (``backbone`` over prompt + stream, the
+    logits of every generated position), which is the same context as
+    either engine's up to the streams' first difference.  Returns the
+    kernel launches of each engine's run."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as M
+    from repro_torch.runtime.serving import PagedServingEngine, ServingEngine
+    streams, counts = {}, {}
+    for name in ("paged", "fixed"):
+        eng = (PagedServingEngine(cfg, params, page_size=PAGE,
+                                  num_pages=16 * 34 + 16, max_seats=8,
+                                  max_seq_len=MAX_LEN,
+                                  prefill_chunk=PREFILL_CHUNK, device="cuda")
+               if name == "paged" else
+               ServingEngine(cfg, params, slots=8, max_len=MAX_LEN,
+                             device="cuda"))
+        rids = [eng.submit(p, max_new_tokens=F32_GEN) for p in prompts]
+        ops.reset_launches()                   # the main path starts here
+        done = {q.rid: q.generated for q in eng.run()}
+        counts[name] = dict(ops.launches)      # ... and ends here
+        assert sorted(done) == rids and bool(eng.policy.logits_finite), \
+            f"f32 {name} engine: finished {sorted(done)}"
+        streams[name] = [done[r] for r in rids]
+        log("f32", f"{name} engine: {len(done)} requests, launches "
+            f"{json.dumps(counts[name])}")
+        del eng
+    for name, key in (("paged", "paged_decode_attention[f32]"),
+                      ("fixed", "decode_attention[f32]"),
+                      ("fixed", "flash_attention[causal]")):
+        assert counts[name].get(key, 0) > 0, f"f32 {name}: {key} never ran"
+    out_w = M._output_weight(params, cfg)
+    opts = M.RunOptions(q_chunk=512)
+    compared, equal_streams = 0, 0
+    for a, prompt in enumerate(prompts):
+        gp, gf = streams["paged"][a], streams["fixed"][a]
+        seq = torch.from_numpy(np.concatenate(
+            [prompt, np.asarray(gp[:-1], np.int32)]))[None].cuda()
+        h, _ = M.backbone(params, cfg, M._embed_inputs(
+            params, cfg, {"tokens": seq}), opts)
+        top = (h[0, len(prompt) - 1:] @ out_w).topk(2, dim=-1).values
+        gaps = (top[:, 0] - top[:, 1]).tolist()
+        undecided = next((i for i, g in enumerate(gaps) if g <= F32_GAP),
+                         len(gp))
+        first_diff = next((i for i, (x, y) in enumerate(zip(gp, gf))
+                           if x != y), len(gp))
+        assert first_diff >= undecided, \
+            f"f32 request {a}: the engines part at token {first_diff}, " \
+            f"before the first gap <= {F32_GAP} (token {undecided}; gaps " \
+            f"{[f'{g:.2e}' for g in gaps[:first_diff + 1]]})"
+        compared += undecided
+        equal_streams += first_diff == len(gp)
+    log("f32", f"paged engine vs ServingEngine: {compared}/"
+        f"{len(prompts) * F32_GEN} tokens compared (each stream up to its "
+        f"first top-2 gap <= {F32_GAP}), all equal; {equal_streams}/"
+        f"{len(prompts)} streams identical throughout")
+    return counts
+
+
+def phase_f32(prompts) -> dict:
+    """qwen3-1.7b at its published width computing in f32 (f32 weights
+    from the seed of the bf16 runs, f32 pool and cache; K5 on its CUDA-
+    core route, K1 on an f32 pool, K4 on an f32 cache) over ``prompts``
+    (the first 8 requests of the paged runs): kernels against plain
+    versions teacher-forced on both paths, then the paged engine against
+    ``ServingEngine``.  Returns the engines' launch counts."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+    cfg = dataclasses.replace(get_config(ARCH), compute_dtype="float32")
+    params = M.init_params(M.param_specs(cfg), torch.Generator(
+        device="cuda").manual_seed(0), device="cuda")
+    t0 = time.perf_counter()
+    _f32_paged_teacher_forced(cfg, params, prompts)
+    _f32_fixed_teacher_forced(cfg, params, prompts)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    counts = _f32_engines(cfg, params, prompts)
+    log("f32", f"phase times: teacher-forced {t1 - t0:.1f} s, engines "
+        f"{time.perf_counter() - t1:.1f} s")
     return counts
 
 
@@ -1343,7 +1842,12 @@ def main() -> int:
     phase_variants()
     runs, counts = phase_serve()
     counts["fixed"] = phase_serve_fixed(runs["bf16"])
+    prompts = [q.prompt for q in sorted(runs["bf16"]["finished"],
+                                        key=lambda q: q.rid)[:8]]
     del runs                                   # free the serving state
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_f32(prompts)
     gc.collect()
     torch.cuda.empty_cache()
     hpc_results, hpc_counts = phase_hpc()
@@ -1359,6 +1863,10 @@ def main() -> int:
             "src/repro/kernels/decode_attention.py:254"),
         "rmsnorm": ("triton", source + "rmsnorm.py",
                     "src/repro/kernels/rmsnorm.py:25"),
+        "add_rmsnorm": ("triton", source + "rmsnorm.py",
+                        "src/repro/kernels/rmsnorm.py:25"),
+        "rmsnorm_qk": ("triton", source + "rmsnorm.py",
+                       "src/repro/kernels/rmsnorm.py:25"),
         "decode_attention": ("cuda", source + "csrc/decode_attention.cu",
                              "src/repro/kernels/decode_attention.py:63"),
         "flash_attention": ("cuda", source + "csrc/flash_attention.cu",
@@ -1368,13 +1876,15 @@ def main() -> int:
     }
     kernels = []
     # each row's launches come from the serving run that drove it: the
-    # paged attention kernels from the run with their pool type, RMSNorm
-    # (which every run drives) from the bf16 paged run, the dense decode
-    # and flash kernels from the fixed-slot engine run
+    # paged attention kernels from the run with their pool type, the norm
+    # kernels (which every run drives) from the bf16 paged run, the dense
+    # decode and flash kernels from the fixed-slot engine run
     for key, run in (("paged_decode_attention[bf16]", "bf16"),
                      ("quantized_paged_decode_attention[fp8]", "fp8"),
                      ("quantized_paged_decode_attention[int8]", "int8"),
-                     ("rmsnorm[D=2048]", "bf16"), ("rmsnorm[D=128]", "bf16"),
+                     ("rmsnorm[D=2048]", "bf16"),
+                     ("add_rmsnorm[D=2048]", "bf16"),
+                     ("rmsnorm_qk[D=128]", "bf16"),
                      ("decode_attention[bf16]", "fixed"),
                      ("flash_attention[causal]", "fixed"),
                      ("fp8_matmul[e4m3]", "hplmxp_fp8")):

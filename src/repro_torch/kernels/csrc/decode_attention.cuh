@@ -17,10 +17,10 @@
 // Bound: memory.  Each valid token's K and V vectors are read once; the
 // arithmetic is 4·d flops per (token, query head), far below the card's
 // rate, so the least time is the K+V bytes of the valid lengths over
-// 3.35 TB/s.  What keeps a kernel from it is too few loads in flight: at
-// the paged smoke shape (8 seats of 1..2048 tokens, 8 kv heads) one block
-// per (kv head, seat) gives 64 blocks on 132 SMs, and the longest seat
-// walks 2048 tokens alone.
+// 3.35 TB/s.  What keeps a kernel from it is too few loads in flight: one
+// block per (kv head, seat) gives 64 blocks on 132 SMs at the serving
+// shapes (8 seats, 8 kv heads), and the longest seat walks its tokens
+// alone.
 //
 // Design:
 //   * each block serves all G = H/KVH query heads of its kv head, so each
@@ -28,30 +28,39 @@
 //     re-streamed every vector G times);
 //   * the token loop is bounded by the seat's length, never by the width
 //     of the cache or page table: dead tokens are never touched;
-//   * each warp takes a slice of kUnroll consecutive tokens per step, with
+//   * each warp takes a slice of kUnroll consecutive tokens per step (half
+//     as many where a lane's E elements of a row pass 16 bytes, E = 8 over
+//     f32, so that a lane holds at most 64 bytes of K and 64 of V per
+//     step: with four tokens that instantiation spilled), with
 //     all their K and V loads started before the arithmetic so several
 //     loads are in flight per warp; a lane holds E consecutive elements of
 //     the head dimension, and the dot product is a warp shuffle reduction;
+//     a lane reads its E elements of a K or V row as one load of
+//     E·sizeof(KT) bytes (in 16-byte words above 16), not E loads of one
+//     element (at d = 128 on an H100 that cut K1 from 0.038 to 0.030
+//     ms: the load instructions, not the bytes, were the limit).  It needs
+//     d a multiple of E and the rows aligned to the load's word, which the
+//     wrappers check and launch_e refuses otherwise;
 //   * each warp keeps its own (m, l, acc) per query head; the warps merge
 //     in shared memory at the end.
-// Split-K over the sequence (the paged kernel, kSplit): the grid is
-// (KVH, seats, splits) and block s walks tokens [s·chunk, (s+1)·chunk) of
-// its seat, cut at the length.  splits and chunk come from host-known
-// shapes only (seats, kv heads, table width: kernels/decode_attention.py
-// :: split_plan), so the host never reads the lengths, which live on the
-// card.  Each block writes its partial (m, l, acc) per query head to a
-// scratch buffer; a block whose range starts at or past the length writes
-// the empty state (m = -1e30, l = 0, acc = 0) without walking.  The last
-// block of each (seat, kv head) to finish, found by a __threadfence +
-// atomicAdd ticket, merges the partials in split order (so the result
-// does not depend on which block came last), writes out and resets its
-// ticket for the next launch: one launch per call, as before.  -1e30 and
-// not -inf keeps a seat whose every split is empty at out = 0 (all
-// weights exp(0) = 1 times l = 0) where exp(-inf - -inf) would be NaN.
-// The split kernel's register arrays are sized for the real group G (one
-// instantiation each for G <= 1, 2, 4, 8): sized for 8 they held the
-// kernel to one 256-thread block per SM.  The dense
-// kernel (decode_attention.cu, K4) stays single-pass, sized for 8.
+// Split-K over the sequence: the grid is (KVH, seats, splits) and block s
+// walks tokens [s·chunk, (s+1)·chunk) of its seat, cut at the length.
+// splits and chunk come from host-known shapes only (seats, kv heads,
+// table or cache width: kernels/decode_attention.py :: split_plan), so the
+// host never reads the lengths, which live on the card.  Each block
+// writes its partial (m, l, acc) per query head to a scratch buffer; a
+// block whose range starts at or past the length writes the empty state
+// (m = -1e30, l = 0, acc = 0) without walking.  The last block of each
+// (seat, kv head) to finish, found by a __threadfence + atomicAdd ticket,
+// merges the partials in split order (so the result does not depend on
+// which block came last), writes out and resets its ticket for the next
+// launch: one launch per call.  -1e30 and not -inf keeps a seat whose
+// every split is empty at out = 0 (all weights exp(0) = 1 times l = 0)
+// where exp(-inf - -inf) would be NaN.  The output address is formed only
+// in the merge: a pointer held across the token walk cost the dense
+// kernel registers and a tenth of its time.  The register arrays are
+// sized for the real group G (one instantiation each for G <= 1, 2, 4,
+// 8): sized for 8 they held the kernel to one 256-thread block per SM.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -59,11 +68,18 @@
 #include <cuda_fp16.h>
 #include <cuda_fp8.h>
 #include <stdint.h>
+#include <string.h>
 
 namespace repro_decode {
 
 constexpr int kWarps = 8;
 constexpr int kUnroll = 4;
+
+// Tokens per warp and step of an instantiation (see the design above).
+template <typename KT, int E>
+__host__ __device__ constexpr int unroll() {
+  return E * sizeof(KT) > 16 ? kUnroll / 2 : kUnroll;
+}
 constexpr int kMaxG = 8;
 constexpr float kNegInf = -1e30f;
 
@@ -110,9 +126,38 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-// E: elements of the head dimension held by one lane (d <= 32 * E).
-// ks/vs are null for unquantized storage.  q and out are (A, H, d)
-// contiguous.
+// The unsigned word of N bytes, N = 1, 2, 4, 8 or 16.
+template <int N> struct Word;
+template <> struct Word<1> { using T = uint8_t; };
+template <> struct Word<2> { using T = uint16_t; };
+template <> struct Word<4> { using T = uint32_t; };
+template <> struct Word<8> { using T = uint2; };
+template <> struct Word<16> { using T = uint4; };
+
+// The E elements [idx0, idx0 + E) of one K or V row at p, times sc, in
+// f32; zeros where the token is not live or past d (a zero word is 0 in
+// every storage type).  One load of E·sizeof(KT) bytes (in 16-byte words
+// above 16), which needs p + idx0 aligned to it and d a multiple of E
+// (launch_e checks both).  The loads are predicated, with no branch, so
+// the loads of every token of a step issue before the first conversion.
+template <typename KT, int E>
+__device__ __forceinline__ void load_lane(const KT* p, int idx0, int d,
+                                          bool live, float sc,
+                                          float (&out)[E]) {
+  constexpr int kBytes = E * static_cast<int>(sizeof(KT));
+  constexpr int kWord = kBytes < 16 ? kBytes : 16;
+  using W = typename Word<kWord>::T;
+  const bool ok = live && idx0 < d;
+  W w[kBytes / kWord];
+#pragma unroll
+  for (int c = 0; c < kBytes / kWord; ++c)
+    w[c] = ok ? reinterpret_cast<const W*>(p + idx0)[c] : W{};
+  KT x[E];
+  memcpy(x, w, kBytes);
+#pragma unroll
+  for (int e = 0; e < E; ++e) out[e] = to_f32(x[e]) * sc;
+}
+
 // Merges the splits' partial states of one (seat, kv head) in split order
 // and writes out; run by the last block to finish.  `part` holds, per
 // split, G·d accumulators, then G maxima, then G sums.
@@ -136,13 +181,14 @@ __device__ __forceinline__ void merge_splits(const float* part, int splits,
   }
 }
 
+// E: elements of the head dimension held by one lane (d <= 32 * E).
 // MG: the largest group size G the instantiation serves (its register
-// arrays hold MG query heads).  kSplit: split-K over the sequence,
-// `chunk` tokens per block along gridDim.z, partial states in `part`, one
-// ticket per (seat, kv head) in `tickets` (zero between launches);
-// otherwise part and tickets are null.
-template <typename QT, typename KT, int E, typename Addr, int MG,
-          bool kSplit>
+// arrays hold MG query heads).  ks/vs are null for unquantized storage.
+// q and out are (A, H, d) contiguous.  Block (kvh, a, s) walks tokens
+// [s·chunk, (s+1)·chunk) of seat a, writes its partial state to `part`
+// and counts itself on the ticket of (a, kvh) in `tickets` (zero between
+// launches); the last of the gridDim.z splits merges.
+template <typename QT, typename KT, int E, typename Addr, int MG>
 __global__ void __launch_bounds__(kWarps * 32)
 decode_kernel(const QT* __restrict__ q, const KT* __restrict__ k,
               const KT* __restrict__ v, const float* __restrict__ ks,
@@ -155,18 +201,16 @@ decode_kernel(const QT* __restrict__ q, const KT* __restrict__ k,
   const int G = H / KVH;
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  const int length = lengths[a];
   const bool quantized = ks != nullptr;
-  // this block's tokens [start, end)
-  int start = 0, end = length;
-  float* mine = nullptr;                    // this split's partial state
-  if constexpr (kSplit) {
-    start = blockIdx.z * chunk;
-    end = min(start + chunk, length);
-    mine = part + (static_cast<long long>(a * KVH + kvh) * gridDim.z +
+  // this block's tokens [start, end); its partial state `mine` is
+  // addressed only after the walk, so no pointer is held across it
+  const int start = blockIdx.z * chunk;
+  const int end = min(start + chunk, lengths[a]);
+  auto partial = [&]() {
+    return part + (static_cast<long long>(a * KVH + kvh) * gridDim.z +
                    blockIdx.z) * (G * (d + 2));
-  }
-  if (!kSplit || start < end) {
+  };
+  if (start < end) {
     // q of the group's heads, pre-scaled by d^-0.5
     float qr[MG][E];
     float m[MG], l[MG], acc[MG][E];
@@ -185,12 +229,13 @@ decode_kernel(const QT* __restrict__ q, const KT* __restrict__ k,
       }
     }
 
-    for (int t0 = start + warp * kUnroll; t0 < end;
-         t0 += kWarps * kUnroll) {
-      float kf[kUnroll][E], vf[kUnroll][E];
-      bool live[kUnroll];
+    constexpr int kU = unroll<KT, E>();
+    for (int t0 = start + warp * kU; t0 < end;
+         t0 += kWarps * kU) {
+      float kf[kU][E], vf[kU][E];
+      bool live[kU];
 #pragma unroll
-      for (int u = 0; u < kUnroll; ++u) {
+      for (int u = 0; u < kU; ++u) {
         const int t = t0 + u;
         live[u] = t < end;
         float ksc = 1.f, vsc = 1.f;
@@ -202,21 +247,16 @@ decode_kernel(const QT* __restrict__ q, const KT* __restrict__ k,
             vsc = vs[sbase];
           }
         }
-#pragma unroll
-        for (int e = 0; e < E; ++e) {
-          const int idx = lane * E + e;
-          const bool ok = live[u] && idx < d;
-          kf[u][e] = ok ? to_f32(k[base + idx]) * ksc : 0.f;
-          vf[u][e] = ok ? to_f32(v[base + idx]) * vsc : 0.f;
-        }
+        load_lane<KT, E>(k + base, lane * E, d, live[u], ksc, kf[u]);
+        load_lane<KT, E>(v + base, lane * E, d, live[u], vsc, vf[u]);
       }
 #pragma unroll
       for (int g = 0; g < MG; ++g) {
         if (g < G) {
-          float s[kUnroll];
+          float s[kU];
           float mx = m[g];
 #pragma unroll
-          for (int u = 0; u < kUnroll; ++u) {
+          for (int u = 0; u < kU; ++u) {
             float dot = 0.f;
 #pragma unroll
             for (int e = 0; e < E; ++e) dot += qr[g][e] * kf[u][e];
@@ -229,7 +269,7 @@ decode_kernel(const QT* __restrict__ q, const KT* __restrict__ k,
 #pragma unroll
           for (int e = 0; e < E; ++e) acc[g][e] *= alpha;
 #pragma unroll
-          for (int u = 0; u < kUnroll; ++u) {
+          for (int u = 0; u < kU; ++u) {
             const float p = expf(s[u] - mx);
             l[g] += p;
 #pragma unroll
@@ -260,6 +300,7 @@ decode_kernel(const QT* __restrict__ q, const KT* __restrict__ k,
       }
     }
     __syncthreads();
+    float* mine = partial();
     for (int i = threadIdx.x; i < G * d; i += blockDim.x) {
       const int g = i / d;
       const int idx = i % d;
@@ -271,49 +312,44 @@ decode_kernel(const QT* __restrict__ q, const KT* __restrict__ k,
         lsum += sm_l[w * G + g] * c;
         o += sm_acc[(w * G + g) * dp + idx] * c;
       }
-      if constexpr (kSplit) {
-        mine[i] = o;
-        if (idx == 0) {
-          mine[G * d + g] = mx;
-          mine[G * d + G + g] = lsum;
-        }
-      } else {
-        // the address is formed here: a pointer held across the walk
-        // cost the dense kernel registers and a tenth of its time
-        out[(static_cast<long long>(a) * H + kvh * G + g) * d + idx] =
-            from_f32<QT>(o / fmaxf(lsum, 1e-30f));
+      mine[i] = o;
+      if (idx == 0) {
+        mine[G * d + g] = mx;
+        mine[G * d + G + g] = lsum;
       }
     }
-  } else if constexpr (kSplit) {
+  } else {
     // past the seat's length: the empty state
+    float* mine = partial();
     for (int i = threadIdx.x; i < G * (d + 2); i += blockDim.x)
       mine[i] = i < G * d ? 0.f : i < G * d + G ? kNegInf : 0.f;
   }
 
-  if constexpr (kSplit) {
-    __shared__ int last;
-    __threadfence();                        // the partial is visible ...
-    __syncthreads();
-    if (threadIdx.x == 0) {                 // ... before the ticket counts it
-      int* ticket = tickets + a * KVH + kvh;
-      last = atomicAdd(ticket, 1) == static_cast<int>(gridDim.z) - 1;
-      if (last) *ticket = 0;                // every split has arrived
-    }
-    __syncthreads();
-    if (!last) return;
-    __threadfence();
-    merge_splits(part + static_cast<long long>(a * KVH + kvh) * gridDim.z *
-                            (G * (d + 2)),
-                 gridDim.z, G, d,
-                 out + (static_cast<long long>(a) * H + kvh * G) * d);
+  __shared__ int last;
+  __threadfence();                          // the partial is visible ...
+  __syncthreads();
+  if (threadIdx.x == 0) {                   // ... before the ticket counts it
+    int* ticket = tickets + a * KVH + kvh;
+    last = atomicAdd(ticket, 1) == static_cast<int>(gridDim.z) - 1;
+    if (last) *ticket = 0;                  // every split has arrived
   }
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  merge_splits(part + static_cast<long long>(a * KVH + kvh) * gridDim.z *
+                          (G * (d + 2)),
+               gridDim.z, G, d,
+               out + (static_cast<long long>(a) * H + kvh * G) * d);
 }
 
-// kSplit: split-K over gridDim.z = splits blocks of `chunk` tokens, with
-// the scratch `part` (A·KVH·splits·G·(d + 2) f32) and `tickets` (A·KVH
-// int32, zero), the register arrays sized for the group G (MG = 1, 2, 4
-// or 8); otherwise the single-pass kernel, its arrays sized for kMaxG.
-template <typename QT, typename KT, int E, typename Addr, bool kSplit>
+// Launches the instantiation for E lanes' elements and the group G =
+// H/KVH (register arrays for MG = 1, 2, 4 or 8) over gridDim.z = splits
+// blocks of `chunk` tokens, with the scratch `part` (A·KVH·splits·G·(d + 2)
+// f32) and `tickets` (A·KVH int32, zero).  The layout must allow one
+// load per lane (load_lane): d a multiple of E, every K/V stride of
+// `addr` a multiple of E, and k and v aligned to the load's word;
+// otherwise cudaErrorInvalidValue.
+template <typename QT, typename KT, int E, typename Addr>
 cudaError_t launch_e(const void* q, const void* k, const void* v,
                      const void* ks, const void* vs, const void* lengths,
                      void* out, int A, int H, int KVH, int d, Addr addr,
@@ -323,50 +359,52 @@ cudaError_t launch_e(const void* q, const void* k, const void* v,
   const size_t smem =
       sizeof(float) * static_cast<size_t>(kWarps) * G * (2 + 32 * E);
   const float scale = 1.0f / sqrtf(static_cast<float>(d));
-  auto run = [&](auto kernel, dim3 grid) {
+  constexpr size_t kBytes = E * sizeof(KT);
+  constexpr size_t kWord = kBytes < 16 ? kBytes : 16;
+  if (d % E != 0 || !addr.strides_divisible_by(E) ||
+      reinterpret_cast<uintptr_t>(k) % kWord != 0 ||
+      reinterpret_cast<uintptr_t>(v) % kWord != 0) {
+    return cudaErrorInvalidValue;
+  }
+  auto run = [&](auto kernel) {
     if (smem > 48 * 1024) {
       cudaError_t err = cudaFuncSetAttribute(
           kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
           static_cast<int>(smem));
       if (err != cudaSuccess) return err;
     }
-    kernel<<<grid, kWarps * 32, smem, stream>>>(
+    kernel<<<dim3(KVH, A, splits), kWarps * 32, smem, stream>>>(
         static_cast<const QT*>(q), static_cast<const KT*>(k),
         static_cast<const KT*>(v), static_cast<const float*>(ks),
         static_cast<const float*>(vs), static_cast<const int*>(lengths),
-        static_cast<QT*>(out), H, KVH, d, addr, scale, part, tickets, chunk);
+        static_cast<QT*>(out), H, KVH, d, addr, scale, part, tickets,
+        chunk);
     return cudaGetLastError();
   };
-  if constexpr (kSplit) {
-    const dim3 grid(KVH, A, splits);
-    if (G <= 1) return run(decode_kernel<QT, KT, E, Addr, 1, true>, grid);
-    if (G <= 2) return run(decode_kernel<QT, KT, E, Addr, 2, true>, grid);
-    if (G <= 4) return run(decode_kernel<QT, KT, E, Addr, 4, true>, grid);
-    return run(decode_kernel<QT, KT, E, Addr, kMaxG, true>, grid);
-  } else {
-    return run(decode_kernel<QT, KT, E, Addr, kMaxG, false>, dim3(KVH, A));
-  }
+  if (G <= 1) return run(decode_kernel<QT, KT, E, Addr, 1>);
+  if (G <= 2) return run(decode_kernel<QT, KT, E, Addr, 2>);
+  if (G <= 4) return run(decode_kernel<QT, KT, E, Addr, 4>);
+  return run(decode_kernel<QT, KT, E, Addr, kMaxG>);
 }
 
-// Launches the instantiation for head dim d (up to 256) on `stream`,
-// split-K when kSplit (see launch_e); returns the launch's
-// cudaGetLastError(), or cudaErrorInvalidValue for a shape the kernel
-// does not take.
-template <typename QT, typename KT, typename Addr, bool kSplit = false>
+// Launches the instantiation for head dim d (up to 256) on `stream` (see
+// launch_e); returns the launch's cudaGetLastError(), or
+// cudaErrorInvalidValue for a shape the kernel does not take.
+template <typename QT, typename KT, typename Addr>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const void* ks, const void* vs, const void* lengths,
                    void* out, int A, int H, int KVH, int d, Addr addr,
-                   cudaStream_t stream, float* part = nullptr,
-                   int* tickets = nullptr, int splits = 0, int chunk = 0) {
+                   float* part, int* tickets, int splits, int chunk,
+                   cudaStream_t stream) {
   if (KVH <= 0 || H % KVH != 0 || H / KVH > kMaxG || A <= 0 ||
-      (kSplit && (part == nullptr || tickets == nullptr || chunk <= 0 ||
-                  splits <= 0 || splits > 65535))) {
+      part == nullptr || tickets == nullptr || chunk <= 0 || splits <= 0 ||
+      splits > 65535) {
     return cudaErrorInvalidValue;
   }
 #define REPRO_LAUNCH(E_)                                                    \
-  return launch_e<QT, KT, E_, Addr, kSplit>(q, k, v, ks, vs, lengths, out,  \
-                                            A, H, KVH, d, addr, part,       \
-                                            tickets, splits, chunk, stream)
+  return launch_e<QT, KT, E_, Addr>(q, k, v, ks, vs, lengths, out, A, H,    \
+                                    KVH, d, addr, part, tickets, splits,    \
+                                    chunk, stream)
   if (d <= 32) REPRO_LAUNCH(1);
   if (d <= 64) REPRO_LAUNCH(2);
   if (d <= 128) REPRO_LAUNCH(4);

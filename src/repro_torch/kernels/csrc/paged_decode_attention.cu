@@ -34,6 +34,10 @@ struct PagedAddr {
     kv = page * kv_page + slot * kv_tok + kvh * kv_head;
     sc = page * sc_page + slot * sc_tok + kvh * sc_head;
   }
+
+  bool strides_divisible_by(int e) const {
+    return kv_page % e == 0 && kv_tok % e == 0 && kv_head % e == 0;
+  }
 };
 
 template <typename QT>
@@ -44,9 +48,9 @@ cudaError_t dispatch_kv(int kv_dtype, const void* q, const void* k,
                         float* part, int* tickets, int splits, int chunk,
                         cudaStream_t stream) {
 #define REPRO_KV(KT_)                                                        \
-  return launch<QT, KT_, PagedAddr, true>(q, k, v, ks, vs, lengths, out, A, \
-                                          H, KVH, d, addr, stream, part,     \
-                                          tickets, splits, chunk)
+  return launch<QT, KT_, PagedAddr>(q, k, v, ks, vs, lengths, out, A, H,    \
+                                    KVH, d, addr, part, tickets, splits,    \
+                                    chunk, stream)
   switch (kv_dtype) {
     case 0: REPRO_KV(float);
     case 1: REPRO_KV(__nv_bfloat16);
@@ -66,6 +70,8 @@ cudaError_t dispatch_kv(int kv_dtype, const void* q, const void* k,
 // head), partial states in `part` (A·KVH·splits·(H/KVH)·(d + 2) f32) and
 // one ticket per (seat, kv head) in `tickets` (A·KVH int32, zero before
 // the launch and after it; launches that share them must not overlap).
+// d, the strides and the k/v addresses must allow one load per lane
+// (decode_attention.cuh :: launch_e).
 // Returns the launch's cudaGetLastError() (0 = success), or
 // cudaErrorInvalidValue for a combination the kernel does not take.
 extern "C" int paged_decode_attention(

@@ -19,12 +19,12 @@ GQA repeat (``repro/kernels/ops.py :: decode_attention``) followed by
 ``(B, T, KVH, d)``, ``lengths (B,)`` int32.
 
 Both kernels share one per-token loop (``csrc/decode_attention.cuh``) and
-are bound by memory: they read each valid token's K and V once.  The
-paged kernel splits each seat's sequence over ``split_plan``'s blocks and
-merges their partial softmax states in the same launch (split-K); the
-dense kernel runs single-pass.  The plain versions serve CPU tensors and
-the checks on the card; nothing on the serving path calls them for CUDA
-tensors.
+are bound by memory: they read each valid token's K and V once.  Both
+split each seat's sequence over ``split_plan``'s blocks and merge their
+partial softmax states in the same launch (split-K), with per-call
+scratch and one per-device ticket buffer that the two kernels share.
+The plain versions serve CPU tensors and the checks on the card; nothing
+on the serving path calls them for CUDA tensors.
 """
 from __future__ import annotations
 
@@ -41,20 +41,39 @@ KV_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.uint8: 2,
             torch.int8: 3}
 MAX_GROUP = 8          # query heads per kv head one block serves
 MAX_HEAD_DIM = 256
-#: Split-K plan of the paged kernel: blocks per SM aimed at, the token
-#: step of one block's loop (8 warps x 4 tokens: a chunk is a multiple of
-#: it) and the least chunk worth a block.
+#: Split-K plan of both kernels: blocks per SM aimed at, the token step
+#: of one block's loop (8 warps x 4 tokens: a chunk is a multiple of it)
+#: and the least chunk worth a block.
 BLOCKS_PER_SM = 4
 SPLIT_ALIGN = 32
 MIN_CHUNK = 64
 
 
+def lane_elems(d: int) -> int:
+    """E, the head-dim elements one lane of the decode kernels holds and
+    reads as one load (``csrc/decode_attention.cuh``)."""
+    return 1 if d <= 32 else 2 if d <= 64 else 4 if d <= 128 else 8
+
+
+def one_load_per_lane(kv: torch.Tensor) -> bool:
+    """Whether the kernels can read a K or V tensor ``(..., d)`` (unit
+    stride in d) as they do, each lane's E elements of a row in one load:
+    d and every other stride a multiple of E, and the first element
+    aligned to the load's word (E elements, at most 16 bytes)."""
+    e = lane_elems(kv.shape[-1])
+    word = min(16, e * kv.element_size())
+    return (kv.shape[-1] % e == 0
+            and all(s % e == 0 for s in kv.stride()[:-1])
+            and kv.data_ptr() % word == 0)
+
+
 def split_plan(seats: int, kv_heads: int, width: int,
                sms: int) -> Tuple[int, int]:
-    """``(splits, chunk)`` of the paged kernel's split-K: block ``s`` of a
-    (seat, kv head) walks tokens ``[s·chunk, (s+1)·chunk)`` cut at the
+    """``(splits, chunk)`` of the decode kernels' split-K: block ``s`` of
+    a (seat, kv head) walks tokens ``[s·chunk, (s+1)·chunk)`` cut at the
     seat's length.  From host-known shapes only (seats, kv heads, the page
-    table's width in tokens and the card's SM count), never the lengths,
+    table's or the dense cache's width in tokens and the card's SM
+    count), never the lengths,
     which live on the card: ``BLOCKS_PER_SM`` blocks per SM if every seat
     filled its table, chunks a multiple of ``SPLIT_ALIGN`` and at least
     ``MIN_CHUNK`` tokens."""
@@ -69,10 +88,11 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-#: One zeroed int32 ticket per (seat, kv head), per device: the kernel's
-#: last split of each pair resets its ticket, so it stays zero between
-#: launches.  Launches on one stream, as the port makes them, never share
-#: them at the same time.
+#: One zeroed int32 ticket per (seat, kv head), per device, shared by the
+#: paged and the dense kernel: the last split of each pair resets its
+#: ticket, so it stays zero between launches.  Launches on one stream, as
+#: the port makes them, never use them at the same time; launches on two
+#: streams at once would.
 _tickets: Dict[torch.device, torch.Tensor] = {}
 
 
@@ -109,6 +129,17 @@ def paged_decode_attention_plain(q, k_pages, v_pages, page_table, lengths,
     return out.reshape(A, H, d)
 
 
+def _split_scratch(q: torch.Tensor, kv_heads: int, width: int):
+    """``(splits, chunk, part, tickets)`` of one split-K launch: the
+    plan for ``width`` tokens, the partial states' scratch (allocated
+    here, per call) and the per-device tickets."""
+    A, H, d = q.shape
+    splits, chunk = split_plan(A, kv_heads, width, _sm_count(q.device.index))
+    part = torch.empty(A * kv_heads * splits * (H // kv_heads) * (d + 2),
+                       dtype=torch.float32, device=q.device)
+    return splits, chunk, part, _ticket_buffer(q.device, A * kv_heads)
+
+
 def paged_decode_attention_cuda(q, k_pages, v_pages, page_table, lengths,
                                 k_scale: Optional[torch.Tensor],
                                 v_scale: Optional[torch.Tensor],
@@ -116,8 +147,8 @@ def paged_decode_attention_cuda(q, k_pages, v_pages, page_table, lengths,
     """Launch the kernel on the current stream, writing ``out`` (A, H, d),
     split over the sequence as ``split_plan`` says, with the partial
     states in scratch allocated here and the per-device tickets.  The
-    caller (``kernels.ops``) has checked devices, dtypes, shapes and
-    strides.
+    caller (``kernels.ops``) has checked devices, dtypes, shapes, strides
+    and ``one_load_per_lane``.
 
     Raises:
       RuntimeError: the launch was refused (the CUDA error code)."""
@@ -126,11 +157,7 @@ def paged_decode_attention_cuda(q, k_pages, v_pages, page_table, lengths,
     n_table = page_table.shape[1]
     quantized = k_scale is not None
     sc = k_scale.stride() if quantized else (0, 0, 0)
-    splits, chunk = split_plan(A, KVH, n_table * page,
-                               _sm_count(q.device.index))
-    part = torch.empty(A * KVH * splits * (H // KVH) * (d + 2),
-                       dtype=torch.float32, device=q.device)
-    tickets = _ticket_buffer(q.device, A * KVH)
+    splits, chunk, part, tickets = _split_scratch(q, KVH, n_table * page)
     lib = _build.library("paged_decode_attention")
     err = lib.paged_decode_attention(
         Q_CODES[q.dtype], KV_CODES[k_pages.dtype], q.data_ptr(),
@@ -164,18 +191,24 @@ def decode_attention_plain(q, k, v, lengths):
 
 def decode_attention_cuda(q, k, v, lengths, out: torch.Tensor) -> None:
     """Launch the dense kernel on the current stream, writing ``out``
-    (B, H, d).  The caller (``kernels.ops``) has checked devices, dtypes,
-    shapes and strides.
+    (B, H, d), split over the sequence as ``split_plan`` says for the
+    cache width T (known here, so the lengths stay on the card), with
+    the partial states in scratch allocated here and the per-device
+    tickets it shares with the paged kernel (safe on one stream: see
+    ``_tickets``).  The caller (``kernels.ops``) has checked devices,
+    dtypes, shapes, strides and ``one_load_per_lane``.
 
     Raises:
       RuntimeError: the launch was refused (the CUDA error code)."""
     B, H, d = q.shape
-    KVH = k.shape[2]
+    T, KVH = k.shape[1], k.shape[2]
+    splits, chunk, part, tickets = _split_scratch(q, KVH, T)
     lib = _build.library("decode_attention")
     err = lib.decode_attention(
         Q_CODES[q.dtype], KV_CODES[k.dtype], q.data_ptr(), k.data_ptr(),
         v.data_ptr(), lengths.data_ptr(), out.data_ptr(), B, H, KVH, d,
-        k.stride(0), k.stride(1), k.stride(2),
+        k.stride(0), k.stride(1), k.stride(2), part.data_ptr(),
+        tickets.data_ptr(), splits, chunk,
         torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"decode_attention kernel launch failed: "

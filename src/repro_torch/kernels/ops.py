@@ -16,7 +16,7 @@ plain version.  Each launch adds one to its variant's entry in
 ``quantized_paged_decode_attention[fp8]``, ``rmsnorm[D=2048]``, ...), so a
 run can show which kernels it went through, and at which pool type, mask
 or width (``decode_attention[bf16]``, ``flash_attention[causal]``,
-``fp8_matmul[e4m3]``).
+``add_rmsnorm[D=2048]``, ``rmsnorm_qk[D=128]``, ``fp8_matmul[e4m3]``).
 The kernels are built at their first launch (``kernels._build``,
 ``kernels.rmsnorm``).
 """
@@ -70,20 +70,30 @@ def _check(cond: bool, msg: str) -> None:
         raise ValueError(msg)
 
 
+_NORM_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
+
+
+def _check_norm(name: str, x: torch.Tensor, w: torch.Tensor) -> None:
+    """The RMSNorm kernels' contract for rows ``x`` (..., D) and weight
+    ``w`` (D,): one device, f32/bf16/f16 rows, contiguous."""
+    d = x.shape[-1]
+    _check(w.device == x.device, f"{name}: w on {w.device}, x on {x.device}")
+    _check(x.dtype in _NORM_DTYPES, f"{name}: x dtype {x.dtype} not "
+           "f32/bf16/f16")
+    _check(w.dtype.is_floating_point, f"{name}: w dtype {w.dtype}")
+    _check(w.shape == (d,), f"{name}: w shape {tuple(w.shape)} != ({d},)")
+    _check(x.is_contiguous() and w.is_contiguous(),
+           f"{name}: x and w must be contiguous")
+
+
 def rmsnorm(x: torch.Tensor, w: torch.Tensor, *, eps: float = 1e-6,
             impl: str = "auto") -> torch.Tensor:
     """RMSNorm over the last axis of ``x`` (..., D) with weight ``w`` (D,)
     applied as ``1 + w``; the result is in ``x.dtype``."""
     if not use_kernel(impl, x):
         return rn.rmsnorm_plain(x, w, eps=eps)
+    _check_norm("rmsnorm", x, w)
     d = x.shape[-1]
-    _check(w.device == x.device, f"rmsnorm: w on {w.device}, x on {x.device}")
-    _check(x.dtype in (torch.float32, torch.bfloat16, torch.float16),
-           f"rmsnorm: x dtype {x.dtype} not f32/bf16/f16")
-    _check(w.dtype.is_floating_point, f"rmsnorm: w dtype {w.dtype}")
-    _check(w.shape == (d,), f"rmsnorm: w shape {tuple(w.shape)} != ({d},)")
-    _check(x.is_contiguous() and w.is_contiguous(),
-           "rmsnorm: x and w must be contiguous")
     x2 = x.view(-1, d)
     out = torch.empty_like(x2)
     if x2.shape[0]:
@@ -91,6 +101,53 @@ def rmsnorm(x: torch.Tensor, w: torch.Tensor, *, eps: float = 1e-6,
             rn.rmsnorm_triton(x2, w, out, eps)
         launches[f"rmsnorm[D={d}]"] += 1
     return out.view(x.shape)
+
+
+def add_rmsnorm(x: torch.Tensor, y: torch.Tensor, w: torch.Tensor, *,
+                eps: float = 1e-6, impl: str = "auto"):
+    """A residual add and the RMSNorm that reads its result: returns
+    ``(s, n)`` with ``s = x + y`` (x and y of one shape (..., D) and
+    dtype, so ``s`` rounds as the add alone would) and ``n = rmsnorm(s,
+    w)``, the norm of the rounded ``s``, in ``x.dtype``."""
+    if not use_kernel(impl, x):
+        return rn.add_rmsnorm_plain(x, y, w, eps=eps)
+    _check_norm("add_rmsnorm", x, w)
+    _check(y.shape == x.shape and y.dtype == x.dtype
+           and y.device == x.device and y.is_contiguous(),
+           f"add_rmsnorm: y {tuple(y.shape)} {y.dtype} on {y.device} must "
+           f"be contiguous and match x {tuple(x.shape)} {x.dtype}")
+    d = x.shape[-1]
+    x2, y2 = x.view(-1, d), y.view(-1, d)
+    s, n = torch.empty_like(x2), torch.empty_like(x2)
+    if x2.shape[0]:
+        with torch.cuda.device(x.device):
+            rn.add_rmsnorm_triton(x2, y2, w, s, n, eps)
+        launches[f"add_rmsnorm[D={d}]"] += 1
+    return s.view(x.shape), n.view(x.shape)
+
+
+def rmsnorm_qk(q: torch.Tensor, k: torch.Tensor, wq: torch.Tensor,
+               wk: torch.Tensor, *, eps: float = 1e-6, impl: str = "auto"):
+    """Attention's q-norm and k-norm in one launch: returns
+    ``(rmsnorm(q, wq), rmsnorm(k, wk))`` for q (..., D) and k (..., D) of
+    one dtype, each row normed with its own tensor's weight."""
+    if not use_kernel(impl, q):
+        return rn.rmsnorm_qk_plain(q, k, wq, wk, eps=eps)
+    _check_norm("rmsnorm_qk", q, wq)
+    _check_norm("rmsnorm_qk", k, wk)
+    d = q.shape[-1]
+    _check(k.shape[-1] == d and k.dtype == q.dtype and k.device == q.device
+           and wk.dtype == wq.dtype,
+           f"rmsnorm_qk: k {tuple(k.shape)} {k.dtype} (weight {wk.dtype}) "
+           f"does not match q {tuple(q.shape)} {q.dtype} (weight "
+           f"{wq.dtype})")
+    q2, k2 = q.view(-1, d), k.view(-1, d)
+    qn, kn = torch.empty_like(q2), torch.empty_like(k2)
+    if q2.shape[0] + k2.shape[0]:
+        with torch.cuda.device(q.device):
+            rn.rmsnorm_qk_triton(q2, k2, wq, wk, qn, kn, eps)
+        launches[f"rmsnorm_qk[D={d}]"] += 1
+    return qn.view(q.shape), kn.view(k.shape)
 
 
 def paged_decode_attention(q, k_pages, v_pages, page_table, lengths, *,
@@ -155,6 +212,9 @@ def paged_decode_attention(q, k_pages, v_pages, page_table, lengths, *,
            f"{name}: q, page_table and lengths must be contiguous")
     _check(k_pages.stride(3) == 1 and k_pages.stride() == v_pages.stride(),
            f"{name}: pools need unit stride in d and equal strides")
+    _check(da.one_load_per_lane(k_pages) and da.one_load_per_lane(v_pages),
+           f"{name}: head dim {d}, pool strides {k_pages.stride()} and "
+           f"addresses must allow {da.lane_elems(d)} elements per load")
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
         da.paged_decode_attention_cuda(q[:, 0], k_pages, v_pages, page_table,
@@ -196,6 +256,9 @@ def decode_attention(q, k, v, lengths, *, impl: str = "auto") -> torch.Tensor:
            f"{name}: q and lengths must be contiguous")
     _check(k.stride(3) == 1 and k.stride() == v.stride(),
            f"{name}: the cache needs unit stride in d and equal K/V strides")
+    _check(da.one_load_per_lane(k) and da.one_load_per_lane(v),
+           f"{name}: head dim {d}, cache strides {k.stride()} and "
+           f"addresses must allow {da.lane_elems(d)} elements per load")
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
         da.decode_attention_cuda(q[:, 0], k, v, lengths, out[:, 0])

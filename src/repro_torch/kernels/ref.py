@@ -47,6 +47,22 @@ def rmsnorm_ref(x: torch.Tensor, w: torch.Tensor, *,
     return (y * (1.0 + w.float())).to(x.dtype)
 
 
+def add_rmsnorm_ref(x: torch.Tensor, y: torch.Tensor, w: torch.Tensor, *,
+                    eps: float = 1e-6):
+    """A residual add and the RMSNorm that reads its result, as the JAX
+    model writes them (``x = x + mix; h = rms_norm(x)``): returns
+    ``(s, rmsnorm_ref(s, w))`` with ``s = x + y``."""
+    s = x + y
+    return s, rmsnorm_ref(s, w, eps=eps)
+
+
+def rmsnorm_qk_ref(q: torch.Tensor, k: torch.Tensor, wq: torch.Tensor,
+                   wk: torch.Tensor, *, eps: float = 1e-6):
+    """The q-norm and the k-norm of attention: ``(rmsnorm_ref(q, wq),
+    rmsnorm_ref(k, wk))``."""
+    return rmsnorm_ref(q, wq, eps=eps), rmsnorm_ref(k, wk, eps=eps)
+
+
 def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                   causal: bool = True, window=None) -> torch.Tensor:
     """Dense-softmax oracle. q: (BH, Sq, d); k/v: (BH, Skv, d); query i

@@ -67,8 +67,8 @@ def _project_qkv(p, cfg, xq, xkv, positions_q, positions_kv, *,
     k = _proj(xkv, p["wk"])
     v = _proj(xkv, p["wv"])
     if "q_norm" in p:
-        q = ops.rmsnorm(q, p["q_norm"], eps=cfg.norm_eps, impl=impl)
-        k = ops.rmsnorm(k, p["k_norm"], eps=cfg.norm_eps, impl=impl)
+        q, k = ops.rmsnorm_qk(q, k, p["q_norm"], p["k_norm"],
+                              eps=cfg.norm_eps, impl=impl)
     if use_rope:
         q = rope(q, positions_q, cfg.rope_theta)
         k = rope(k, positions_kv, cfg.rope_theta)

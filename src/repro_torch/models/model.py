@@ -102,39 +102,62 @@ def _layer(tree, g: int):
             for k, v in tree.items()}
 
 
-def _apply_sublayer(p, cfg: ModelConfig, x, kind: str, opts: RunOptions,
-                    *, want_cache: bool = False, impl: str = "auto"):
-    """One (attention + MLP) sublayer in full-sequence mode.  Returns
-    ``(x, cache)`` with ``cache = {"k", "v"}`` (B, S, KVH, hd) when
-    ``want_cache``, else ``{}``."""
-    h = ops.rmsnorm(x, p["ln1"], eps=cfg.norm_eps, impl=impl)
-    mix, (k, v) = attn_mod.attention(p["mixer"], cfg, h, kind=kind,
-                                     q_chunk=opts.q_chunk, impl=impl)
-    x = x + mix
-    h = ops.rmsnorm(x, p["ln2"], eps=cfg.norm_eps, impl=impl)
-    x = x + swiglu(h, p["mlp"]["wg"], p["mlp"]["wu"], p["mlp"]["wd"],
-                   x.dtype)
-    return x, ({"k": k, "v": v} if want_cache else {})
-
-
-def backbone(params_blocks, cfg: ModelConfig, x, opts: RunOptions, *,
-             want_cache: bool = False, impl: str = "auto"):
-    """Forward through the layer stack at positions ``0..S-1``, a Python
-    loop over the stacked ``(G,)`` axis (forward only: no remat, no MoE
-    aux loss).  Returns
-    ``(x, caches)``: ``{posN: {k, v: (G, B, S, KVH, hd)}}`` when
-    ``want_cache``, else None."""
+def _layers(params, cfg: ModelConfig):
+    """``(g, i, kind, p)`` of every layer in order: ``p`` holds the views
+    of period position ``i`` of stacked layer group ``g``."""
     kinds = cfg.layer_kinds()
-    per_layer = {f"pos{i}": [] for i in range(len(kinds))}
+    out = []
     for g in range(cfg.num_layers // cfg.scan_period()):
-        blk = _layer(params_blocks, g)
-        for i, kind in enumerate(kinds):
-            x, c = _apply_sublayer(blk[f"pos{i}"], cfg, x, kind, opts,
-                                   want_cache=want_cache, impl=impl)
-            per_layer[f"pos{i}"].append(c)
+        blk = _layer(params["blocks"], g)
+        out += [(g, i, kind, blk[f"pos{i}"]) for i, kind in enumerate(kinds)]
+    return out
+
+
+def _residual_stream(params, cfg: ModelConfig, x, mixer, *, impl: str):
+    """Run the residual stream ``x`` (..., D) through every layer and the
+    final norm; ``mixer(g, i, kind, p, h)`` returns the attention output
+    of layer ``(g, i)`` for its normed input ``h``.
+
+    The ops are the JAX model's (``h = ln1(x); x = x + attn(h); h =
+    ln2(x); x = x + mlp(h)``, then ``final_norm``), with each residual add
+    fused into the norm that reads its result (``ops.add_rmsnorm``): the
+    attention add into ln2, the MLP add into the next layer's ln1 or,
+    after the last layer, into ``final_norm``.  Only layer 0's ln1 is a
+    lone norm.  Returns the final norm's output."""
+    eps = cfg.norm_eps
+    layers = _layers(params, cfg)
+    h = ops.rmsnorm(x, layers[0][3]["ln1"], eps=eps, impl=impl)
+    for j, (g, i, kind, p) in enumerate(layers):
+        x, h = ops.add_rmsnorm(x, mixer(g, i, kind, p, h), p["ln2"],
+                               eps=eps, impl=impl)
+        w_next = (layers[j + 1][3]["ln1"] if j + 1 < len(layers)
+                  else params["final_norm"])
+        mlp = p["mlp"]
+        x, h = ops.add_rmsnorm(
+            x, swiglu(h, mlp["wg"], mlp["wu"], mlp["wd"], x.dtype), w_next,
+            eps=eps, impl=impl)
+    return h
+
+
+def backbone(params, cfg: ModelConfig, x, opts: RunOptions, *,
+             want_cache: bool = False, impl: str = "auto"):
+    """Forward through the layer stack at positions ``0..S-1`` and the
+    final norm (``_residual_stream``; forward only: no remat, no MoE aux
+    loss).  Returns ``(h, caches)``: ``h`` the final norm's output (B, S,
+    D), ``caches`` ``{posN: {k, v: (G, B, S, KVH, hd)}}`` when
+    ``want_cache``, else None."""
+    per_layer = {f"pos{i}": [] for i in range(cfg.scan_period())}
+
+    def mixer(g, i, kind, p, h):
+        mix, (k, v) = attn_mod.attention(p["mixer"], cfg, h, kind=kind,
+                                         q_chunk=opts.q_chunk, impl=impl)
+        if want_cache:
+            per_layer[f"pos{i}"].append({"k": k, "v": v})
+        return mix
+    h = _residual_stream(params, cfg, x, mixer, impl=impl)
     if not want_cache:
-        return x, None
-    return x, {pos: {key: torch.stack([c[key] for c in cs])
+        return h, None
+    return h, {pos: {key: torch.stack([c[key] for c in cs])
                      for key in ("k", "v")}
                for pos, cs in per_layer.items()}
 
@@ -151,10 +174,8 @@ def prefill(params, cfg: ModelConfig, batch, opts: RunOptions = RunOptions(),
     Returns ``(last_logits (B, 1, V) f32, cache)``, the cache
     ``{posN: {k, v: (G, B, S, KVH, hd)}}`` in the compute dtype."""
     x = _embed_inputs(params, cfg, batch)
-    x, caches = backbone(params["blocks"], cfg, x, opts, want_cache=True,
-                         impl=impl)
-    x = ops.rmsnorm(x, params["final_norm"], eps=cfg.norm_eps, impl=impl)
-    logits = x[:, -1:] @ _output_weight(params, cfg).to(x.dtype)
+    h, caches = backbone(params, cfg, x, opts, want_cache=True, impl=impl)
+    logits = h[:, -1:] @ _output_weight(params, cfg).to(h.dtype)
     return logits.float(), caches
 
 
@@ -192,24 +213,14 @@ def decode_step(params, cfg: ModelConfig, cache, tokens, pos, *,
 
     Writes the new K/V into ``cache`` in place and returns
     ``(logits (B, 1, V) f32, cache)``."""
-    kinds = cfg.layer_kinds()
-    eps = cfg.norm_eps
     x = params["embed"][tokens.long()].to(compute_dtype(cfg))
-    for g in range(cfg.num_layers // cfg.scan_period()):
-        blk = _layer(params["blocks"], g)
-        for i, kind in enumerate(kinds):
-            p = blk[f"pos{i}"]
-            c = _layer(cache[f"pos{i}"], g)
-            h = ops.rmsnorm(x, p["ln1"], eps=eps, impl=impl)
-            mix, _, _ = attn_mod.decode_attention(
-                p["mixer"], cfg, h, c["k"], c["v"], pos, kind=kind,
-                impl=impl)
-            x = x + mix
-            h = ops.rmsnorm(x, p["ln2"], eps=eps, impl=impl)
-            x = x + swiglu(h, p["mlp"]["wg"], p["mlp"]["wu"],
-                           p["mlp"]["wd"], x.dtype)
-    x = ops.rmsnorm(x, params["final_norm"], eps=eps, impl=impl)
-    logits = x @ _output_weight(params, cfg).to(x.dtype)
+
+    def mixer(g, i, kind, p, h):
+        c = _layer(cache[f"pos{i}"], g)
+        return attn_mod.decode_attention(p["mixer"], cfg, h, c["k"], c["v"],
+                                         pos, kind=kind, impl=impl)[0]
+    h = _residual_stream(params, cfg, x, mixer, impl=impl)
+    logits = h @ _output_weight(params, cfg).to(h.dtype)
     return logits.float(), cache
 
 
@@ -291,32 +302,23 @@ def paged_decode_step(params, cfg: ModelConfig, cache, tokens, pos,
     n_valid: (A,) int32 valid tokens per seat (0 = idle seat; its writes
     go to the scratch page and its logits are garbage).
     ``impl`` selects kernel or plain version for the norms and the decode
-    attention (see ``kernels.ops``).
+    attention (see ``kernels.ops``).  Each residual add is fused into the
+    norm that reads it (``_residual_stream``).
 
     Writes the new K/V into ``cache`` in place and returns
     ``(logits (A, C, V) f32, cache)``.
     """
-    kinds = cfg.layer_kinds()
-    dt = compute_dtype(cfg)
-    A, C = tokens.shape
-    eps = cfg.norm_eps
-    x = params["embed"][tokens.long()].to(dt)
+    C = tokens.shape[1]
+    x = params["embed"][tokens.long()].to(compute_dtype(cfg))
     qpos = pos[:, None] + torch.arange(C, dtype=torch.int32,
                                        device=tokens.device)[None, :]
-    for g in range(cfg.num_layers // cfg.scan_period()):
-        blk = _layer(params["blocks"], g)
-        for i, kind in enumerate(kinds):
-            p = blk[f"pos{i}"]
-            c = _layer(cache[f"pos{i}"], g)
-            h = ops.rmsnorm(x, p["ln1"], eps=eps, impl=impl)
-            x = x + attn_mod.paged_attention(
-                p["mixer"], cfg, h, c, page_table, qpos, n_valid,
-                kind=kind, impl=impl)
-            hh = ops.rmsnorm(x, p["ln2"], eps=eps, impl=impl)
-            x = x + swiglu(hh, p["mlp"]["wg"], p["mlp"]["wu"],
-                           p["mlp"]["wd"], x.dtype)
-    x = ops.rmsnorm(x, params["final_norm"], eps=eps, impl=impl)
-    logits = x @ _output_weight(params, cfg).to(x.dtype)
+
+    def mixer(g, i, kind, p, h):
+        return attn_mod.paged_attention(
+            p["mixer"], cfg, h, _layer(cache[f"pos{i}"], g), page_table,
+            qpos, n_valid, kind=kind, impl=impl)
+    h = _residual_stream(params, cfg, x, mixer, impl=impl)
+    logits = h @ _output_weight(params, cfg).to(h.dtype)
     return logits.float(), cache
 
 

@@ -19,6 +19,11 @@ shown to admit it and to reject a planted fault:
   the empty state (-1e30, 0, 0) for a chunk past the length, merged in
   split order; against the Pallas paged kernels in interpret mode.
   Dropping one split must fail.
+- K4: the same split-K on the dense fixed-slot cache, planned from the
+  cache width, for GQA groups 1, 2, 4 and 8 in bf16 and f32, with an
+  idle slot parked on the scratch index walking the whole cache; against
+  ``decode_attention_pallas`` in interpret mode and the jnp oracle.
+  Dropping one split must fail.
 """
 import math
 
@@ -324,3 +329,156 @@ def test_split_plan_at_the_serving_shapes():
     the serving tick's (tables of 34 pages of 16) on 132 SMs."""
     assert tda.split_plan(8, 8, 2048, 132) == (8, 256)
     assert tda.split_plan(8, 8, 34 * 16, 132) == (9, 64)
+
+
+# -- K4: split-K on the dense fixed-slot cache ---------------------------
+
+MAX_LEN = 199                     # a fixed-slot engine's max_len
+T_DENSE = MAX_LEN + 1             # the cache holds the scratch index too
+DENSE_SEATS, DENSE_KVH = 6, 2
+DENSE_SPLITS, DENSE_CHUNK = tda.split_plan(DENSE_SEATS, DENSE_KVH, T_DENSE,
+                                           sms=132)
+# 1, the edges of a chunk, a full slot, and an idle slot parked on the
+# scratch index (length max_len + 1: it walks its whole cache)
+DENSE_LENGTHS = (1, DENSE_CHUNK - 1, DENSE_CHUNK, DENSE_CHUNK + 1, MAX_LEN,
+                 MAX_LEN + 1)
+
+
+def _dense_case(seed, group, dtype):
+    """Six slots of a (B, T, KVH, d) cache at ``DENSE_LENGTHS``, q of
+    ``group`` heads per kv head; bf16 or f32 values."""
+    rng = np.random.default_rng(seed)
+    cast = ((lambda a: a.astype(ml_dtypes.bfloat16)) if dtype == "bf16"
+            else (lambda a: a))
+    q = cast(rng.normal(size=(DENSE_SEATS, 1, DENSE_KVH * group, D))
+             .astype(np.float32))
+    k, v = (cast(rng.normal(size=(DENSE_SEATS, T_DENSE, DENSE_KVH, D))
+                 .astype(np.float32)) for _ in range(2))
+    return q, k, v, np.array(DENSE_LENGTHS, np.int32)
+
+
+def emulate_dense_split_k(q, k, v, lengths, *, splits=DENSE_SPLITS,
+                          chunk=DENSE_CHUNK, drop=None):
+    """K4's split-K in torch: per (slot, split) the partial (m, l, acc) of
+    tokens [s·chunk, min((s+1)·chunk, length)) of the slot's own cache
+    for every query head, the empty state past the length, merged in
+    split order, rounded once to q's dtype.  ``drop``: a split left out
+    of the merge (the planted fault)."""
+    B, _, H, d = q.shape
+    G = H // k.shape[2]
+    qt = torch.from_numpy(_f32(q)[:, 0])                      # (B, H, d)
+    kt = torch.from_numpy(_f32(k)).repeat_interleave(G, dim=2)  # (B, T, H, d)
+    vt = torch.from_numpy(_f32(v)).repeat_interleave(G, dim=2)
+    out = torch.empty((B, H, d))
+    for b in range(B):
+        n = int(lengths[b])
+        parts = []
+        for s in range(splits):
+            lo, hi = s * chunk, min((s + 1) * chunk, n)
+            if lo >= hi:
+                parts.append((torch.full((H,), NEG_INF), torch.zeros(H),
+                              torch.zeros((H, d))))
+                continue
+            sc = torch.einsum("hd,thd->ht", qt[b], kt[b, lo:hi]) / math.sqrt(d)
+            m = sc.amax(-1)
+            p = torch.exp(sc - m[:, None])
+            parts.append((m, p.sum(-1), torch.einsum("ht,thd->hd", p,
+                                                     vt[b, lo:hi])))
+        parts = [pt for s, pt in enumerate(parts) if s != drop]
+        mx = torch.stack([m for m, _, _ in parts]).amax(0)
+        lsum, o = torch.zeros(H), torch.zeros((H, d))
+        for m, l, acc in parts:                               # split order
+            c = torch.exp(m - mx)
+            lsum = lsum + l * c
+            o = o + acc * c[:, None]
+        out[b] = o / torch.clamp(lsum, min=1e-30)[:, None]
+    out = out[:, None]
+    return out.to(torch.bfloat16).float().numpy() if q.dtype != np.float32 \
+        else out.numpy()
+
+
+def _dense_wants(q, k, v, lengths):
+    """``decode_attention_pallas`` (interpret mode) through the JAX ops
+    wrapper, and the jnp oracle on the wrapper's GQA repeat."""
+    pallas = jops.decode_attention(q, k, v, lengths, bk=64, interpret=True)
+    B, _, H, d = q.shape
+    rep = H // k.shape[2]
+    kf, vf = (np.repeat(a, rep, axis=2).transpose(0, 2, 1, 3).reshape(
+        B * H, -1, d) for a in (k, v))
+    oracle = jref.decode_attention_ref(q[:, 0].reshape(B * H, d), kf, vf,
+                                       np.repeat(lengths, H))
+    return _f32(pallas), _f32(oracle).reshape(B, 1, H, d)
+
+
+def _dense_within(got, want, dtype):
+    """Elements outside the chip's tolerance of the dtype (bf16: 1e-3 +
+    2^-7·|want|; f32: 2e-5 + 1e-4·|want|)."""
+    atol, rtol = (BF16_ATOL, BF16_RTOL) if dtype == "bf16" else (2e-5, 1e-4)
+    err = np.abs(_f32(got) - want)
+    return int((err > atol + rtol * np.abs(want)).sum())
+
+
+@pytest.mark.parametrize("dtype", ["bf16", "f32"])
+@pytest.mark.parametrize("group", [1, 2, 4, 8])
+def test_dense_split_k_matches_the_pallas_decode_kernel(group, dtype):
+    assert DENSE_SPLITS > 2 and DENSE_CHUNK < MAX_LEN     # the case splits
+    case = _dense_case(20 + group, group, dtype)
+    got = emulate_dense_split_k(*case)
+    assert got.shape == case[0].shape and np.isfinite(got).all()
+    for want in _dense_wants(*case):
+        assert _dense_within(got, want, dtype) == 0
+    # the idle slot's row is the softmax over its whole cache: a convex
+    # combination of v rows, as every other row
+    assert np.abs(got).max() <= np.abs(_f32(case[2])).max()
+
+
+@pytest.mark.parametrize("dtype", ["bf16", "f32"])
+@pytest.mark.parametrize("drop", [0, 1, DENSE_SPLITS - 1])
+def test_dense_split_k_check_rejects_a_dropped_split(drop, dtype):
+    case = _dense_case(31, 2, dtype)
+    pallas, _ = _dense_wants(*case)
+    bad = emulate_dense_split_k(*case, drop=drop)
+    # the slots whose tokens reach the dropped split fail the tolerance,
+    # the others still pass it
+    reach = [b for b, n in enumerate(DENSE_LENGTHS) if n > drop * DENSE_CHUNK]
+    assert reach
+    for b in range(len(DENSE_LENGTHS)):
+        beyond = _dense_within(bad[b], pallas[b], dtype)
+        assert (beyond > 0) == (b in reach)
+
+
+@pytest.mark.parametrize("seats,kv_heads,width,want", [
+    (8, 8, 545, (9, 64)),          # the fixed-slot smoke shape, qwen3-1.7b
+    (8, 8, 33, (1, 64)),           # a short cache: one split
+    (4, 8, 4097, (17, 256)),       # llama3-8b's kv heads, a long cache
+    (DENSE_SEATS, DENSE_KVH, T_DENSE, (4, 64))])
+def test_split_plan_at_the_dense_widths(seats, kv_heads, width, want):
+    """The dense kernel plans from the cache width T = max_len + 1, which
+    the host knows, so the idle slot's walk to T is spread over splits."""
+    assert tda.split_plan(seats, kv_heads, width, 132) == want
+
+
+@pytest.mark.parametrize("d,elems", [(16, 1), (32, 1), (48, 2), (64, 2),
+                                     (96, 4), (128, 4), (256, 8)])
+def test_lane_elems_covers_the_head_dim_in_one_warp(d, elems):
+    assert tda.lane_elems(d) == elems and 32 * elems >= d
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32,
+                                   torch.uint8, torch.int8])
+def test_one_load_per_lane_refuses_what_the_decode_kernels_cannot_read(
+        dtype):
+    """The decode kernels read a lane's E elements of a K/V row as one
+    word: a pool, a cache or one layer of a stacked pool can be read so;
+    a head dim that E does not divide, a stride that E does not divide
+    and a row that starts off the word cannot."""
+    pools = torch.zeros((3, 5, 16, 2, 128), dtype=dtype)
+    assert tda.one_load_per_lane(pools[1])
+    cache = torch.zeros((4, 37, 2, 128), dtype=dtype)
+    assert tda.one_load_per_lane(cache)
+    assert not tda.one_load_per_lane(torch.zeros((4, 37, 2, 66),
+                                                 dtype=dtype))
+    assert not tda.one_load_per_lane(
+        torch.zeros((4, 37, 2, 130), dtype=dtype)[..., :128])
+    flat = torch.zeros(4 * 37 * 2 * 128 + 1, dtype=dtype)
+    assert not tda.one_load_per_lane(flat[1:].view(4, 37, 2, 128))
