@@ -40,18 +40,29 @@ Phases, each printed as it runs:
    new tokens each, served with a bf16, an fp8 and an int8 KV pool;
    checks for each run that every request finished, every token is in
    the vocabulary, no logit was NaN, and that the kernels carried the
-   path (launch counts, set to 0 before the run and read after it);
-   then one fused tick on the same state with the kernels and with the
-   plain versions, whose logits must agree, and the steady tick's wall
-   time, device busy time, kernels and top kernels (torch.profiler; bf16
-   and fp8 pools);
+   path (launch counts, set to 0 before the run and read after it; the
+   engine replays the fused tick and the prefill chunk as CUDA graphs
+   captured at construction, and each replay adds the launches its
+   capture recorded); the same requests through the ``fused=False``
+   engine (eager, host-side sampling), whose greedy streams and trace
+   must equal the graphed run's; each graph replayed against the
+   function it captured, run eagerly on the same inputs and a copy of
+   the pool, bit for bit (tokens, logits, pool bytes, the advanced
+   state); the split tickets back at 0; then one fused tick on the same
+   state with the kernels and with the plain versions, whose logits must
+   agree, and the steady tick's wall time, device busy time, kernels and
+   top kernels (torch.profiler; bf16 and fp8 pools), run eagerly and as
+   a graph replay;
 5. serve-fixed — the fixed-slot path at the same width: ``serve`` (the
    static batch behind ``--engine batch``: 4 prompts of 128 tokens, 16
    new tokens each), then a ``ServingEngine`` (8 slots, max_len 544) over
    the same 16 requests as the paged runs, with the same checks and the
-   launch counts of the dense decode and flash kernels; one decode step
+   launch counts of the dense decode and flash kernels (the decode step
+   a graph replay, the whole-prompt prefill eager); one decode step
    with the kernels and with the plain versions, whose logits must agree;
-   the steady decode step's wall time, device busy time and idle share;
+   the captured decode step against the eager one, bit for bit (logits,
+   cache); the split tickets back at 0; the steady decode step's wall
+   time, device busy time and idle share, eager and as a graph replay;
    and, as information, how many greedy tokens the fixed-slot and bf16
    paged engines share;
 6. f32 — the same model computing in f32 (f32 weights, pool and cache;
@@ -1111,11 +1122,144 @@ def _tick_kernel_vs_plain(tag: str, eng) -> float:
 
 
 def _profile_tick(tag: str, eng) -> None:
-    """The steady fused tick (8 seats, kernels) under ``_profile_steady``."""
+    """The steady fused tick (8 seats, kernels), run eagerly, under
+    ``_profile_steady``."""
     state = _tick_state(eng)
     cache = _clone(eng.policy.cache)
-    _profile_steady("serve", f"{tag}: steady fused tick",
+    _profile_steady("serve", f"{tag}: steady fused tick, eager",
                     lambda: _tick(eng, cache, state, "kernel")[0].cpu())
+
+
+def _profile_graph_tick(tag: str, eng) -> None:
+    """The engine's captured fused tick replayed from the state of
+    ``_profile_tick`` under ``_profile_steady``; ``pos`` and ``step`` are
+    put back before each replay (two copies of 32 and 64 bytes among the
+    kernels counted), so no seat runs past its table."""
+    pol = eng.policy
+    state = _tick_state(eng)
+    for key, t in state.items():
+        pol._dev[key].copy_(t)
+
+    def step():
+        pol._dev["pos"].copy_(state["pos"])
+        pol._dev["step"].copy_(state["step"])
+        return pol._tick_fn()[0].cpu()
+    _profile_steady("serve", f"{tag}: steady fused tick, graph replay", step)
+
+
+def _bits_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
+    return a.shape == b.shape and a.dtype == b.dtype and torch.equal(
+        a.contiguous().view(torch.uint8), b.contiguous().view(torch.uint8))
+
+
+def _assert_bits(what: str, pairs: dict) -> None:
+    """Every ``name: (replayed, eager)`` pair must be bit-equal."""
+    torch.cuda.synchronize()
+    bad = [name for name, (got, want) in pairs.items()
+           if not _bits_equal(got, want)]
+    assert not bad, f"{what}: graph replay and eager run differ in {bad}"
+
+
+def _pools(cache, skip_scratch: bool = False) -> dict:
+    """Every pool tensor of a paged cache by name; ``skip_scratch`` drops
+    page 0, which takes the padding's writes in no fixed order."""
+    return {f"{p}.{k}": t[:, 1:] if skip_scratch else t
+            for p, ent in cache.items() for k, t in ent.items()}
+
+
+def _graph_vs_eager(tag: str, eng) -> None:
+    """The paged engine's two graphs replayed against the functions they
+    captured, run eagerly on the same inputs and a copy of the same pool:
+    the fused tick (8 seats at spread lengths, greedy, temperature,
+    top-k and top-p) in its tokens, logits, every pool byte and the
+    advanced ``last``, ``pos`` and ``step``; the prefill chunk (77 of
+    128 tokens from position 200) in its logits and every pool byte
+    outside the scratch page.  All must be bit-equal."""
+    from repro_torch.models import model as M
+    pol, cfg = eng.policy, eng.cfg
+    state = _tick_state(eng)
+    state["temp"][1::2] = 0.8
+    state["top_k"][1::4] = 50
+    state["top_p"][3::4] = 0.9
+    state["seed"][:] = 7
+    eager = {k: t.clone() for k, t in state.items()}
+    cache = _clone(pol.cache)
+    toks, logits = M.fused_decode_tick(
+        pol.params, cfg, cache, eager["last"], eager["pos"], eager["table"],
+        eager["nv"], eager["temp"], eager["top_k"], eager["top_p"],
+        eager["seed"], eager["rid"], eager["step"], impl=pol.impl)
+    for key, t in state.items():
+        pol._dev[key].copy_(t)
+    g_toks, g_logits = pol._tick_fn()
+    pairs = {"tokens": (g_toks, toks), "logits": (g_logits, logits),
+             **{key: (pol._dev[key], eager[key])
+                for key in ("last", "pos", "step")}}
+    got_pool, want_pool = _pools(pol.cache), _pools(cache)
+    pairs.update({k: (got_pool[k], want_pool[k]) for k in got_pool})
+    _assert_bits(f"{tag}: fused tick", pairs)
+    stochastic = int((state["temp"] > 0).sum())
+    log("serve", f"{tag}: fused tick graph replay == eager, bit for bit "
+        f"(tokens, logits, {len(got_pool)} pool tensors, last/pos/step; "
+        f"{stochastic} of {len(toks)} seats sampling)")
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    C, c, start = pol.prefill_chunk, 77, 200
+    tok = torch.zeros((1, C), dtype=torch.int32, device="cuda")
+    tok[0, :c] = torch.randint(0, cfg.vocab_size, (c,), generator=gen,
+                               device="cuda", dtype=torch.int32)
+    meta = torch.tensor([start, c], dtype=torch.int32, device="cuda")
+    row = state["table"][:1].clone()
+    cache = _clone(pol.cache)
+    logits, _ = M.paged_decode_step(pol.params, cfg, cache, tok, meta[:1],
+                                    row, meta[1:], impl=pol.impl)
+    buf = pol._prefill.dev
+    buf["tokens"].copy_(tok)
+    buf["meta"].copy_(meta)
+    buf["row"].copy_(row)
+    g_logits = pol._prefill_fn()
+    got_pool = _pools(pol.cache, skip_scratch=True)
+    want_pool = _pools(cache, skip_scratch=True)
+    pairs = {"logits": (g_logits, logits),
+             **{k: (got_pool[k], want_pool[k]) for k in got_pool}}
+    _assert_bits(f"{tag}: prefill chunk", pairs)
+    log("serve", f"{tag}: prefill chunk graph replay == eager, bit for bit "
+        f"({c} of {C} tokens from position {start}: logits, "
+        f"{len(got_pool)} pool tensors outside the scratch page)")
+
+
+def _check_tickets(what: str, tickets) -> None:
+    """The decode kernels' split tickets must all be back at 0."""
+    for buf in tickets:
+        assert not bool(buf.any()), \
+            f"{what}: tickets left at {buf.nonzero().flatten().tolist()}"
+
+
+def _eager_engine(tag: str, r: dict, cfg, kw: dict) -> None:
+    """The paged engine with ``fused=False`` (eager model step, host-side
+    sampling, no graph) over the requests of the graphed run ``r``, on
+    the same weights: the greedy streams and the traces must be equal."""
+    from repro_torch.runtime.serving import PagedServingEngine
+    eng = PagedServingEngine(
+        cfg, r["engine"].params, page_size=kw["page_size"],
+        num_pages=kw["num_pages"], max_seats=kw["max_seats"],
+        max_seq_len=kw["max_seq_len"], prefill_chunk=kw["prefill_chunk"],
+        kv_dtype=None if tag == "bf16" else tag, fused=False, device="cuda")
+    for q in sorted(r["finished"], key=lambda q: q.rid):
+        eng.submit(q.prompt, max_new_tokens=q.max_new_tokens)
+    eager = {q.rid: q.generated for q in eng.run()}
+    graphed = {q.rid: q.generated for q in r["finished"]}
+    diff = [rid for rid in graphed if eager.get(rid) != graphed[rid]]
+    assert not diff and len(eager) == len(graphed), \
+        f"{tag}: fused=True and fused=False streams differ for rids {diff}"
+    assert eng.trace == r["engine"].trace, f"{tag}: traces differ"
+    m = eng.metrics.snapshot()
+    log("serve", f"{tag}: fused=False engine (eager, host sampling) over "
+        f"the same 16 requests: streams and trace equal to the graphed "
+        f"run's; {eng.policy.decode_ticks} decode ticks, "
+        f"{m['tokens_per_s']:.1f} tokens/s, mean TTFT "
+        f"{m['ttft_avg_s'] * 1e3:.1f} ms, wall {m['wall_s']:.2f} s "
+        f"(graphed: {r['metrics']['tokens_per_s']:.1f} tokens/s, wall "
+        f"{r['metrics']['wall_s']:.2f} s)")
 
 
 def phase_serve():
@@ -1123,6 +1267,7 @@ def phase_serve():
     tokens each) with a bf16, an fp8 and an int8 pool; returns the runs
     and the kernel launches of each run, read just after it, by pool."""
     from repro_torch.configs import get_config
+    from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import ops
     from repro_torch.launch.serve import serve_paged
     cfg = get_config(ARCH)
@@ -1137,10 +1282,18 @@ def phase_serve():
                                 else tag, **kw)
         counts[tag] = dict(ops.launches)       # ... and ends here
         _check_run(tag, runs[tag], cfg, counts[tag])
+        _eager_engine(tag, runs[tag], cfg, kw)
+        gc.collect()
+        torch.cuda.empty_cache()
+        _graph_vs_eager(tag, runs[tag]["engine"])
+        _check_tickets(f"{tag}: after the graphed runs",
+                       [runs[tag]["engine"].policy._tickets,
+                        *da._tickets.values()])
     for tag, r in runs.items():
         _tick_kernel_vs_plain(f"{tag} pool", r["engine"])
         if tag != "int8":
             _profile_tick(f"{tag} pool", r["engine"])
+            _profile_graph_tick(f"{tag} pool", r["engine"])
     return runs, counts
 
 
@@ -1178,7 +1331,39 @@ def _profile_decode_step(eng) -> None:
     def step():
         logits, _ = M.decode_step(eng.params, eng.cfg, cache, tok, pos)
         return torch.argmax(logits[:, -1], dim=-1).cpu()
-    _profile_steady("serve-fixed", "steady decode step", step)
+    _profile_steady("serve-fixed", "steady decode step, eager", step)
+
+
+def _fixed_graph_vs_eager(eng) -> None:
+    """The fixed-slot engine's captured decode step replayed against
+    ``M.decode_step`` run eagerly on the inputs of
+    ``_decode_kernel_vs_plain`` and a copy of the same cache: logits and
+    every cache byte must be bit-equal."""
+    from repro_torch.models import model as M
+    pol = eng.policy
+    tok, pos = _decode_state(eng)
+    cache = _clone(pol.cache)
+    logits, _ = M.decode_step(pol.params, eng.cfg, cache, tok, pos)
+    pol._feed.dev["tokens"].copy_(tok[:, 0])
+    pol._feed.dev["pos"].copy_(pos)
+    got = pol._decode_fn()
+    pairs = {"logits": (got, logits[:, -1])}
+    pairs.update({f"{p}.{k}": (pol.cache[p][k], cache[p][k])
+                  for p in cache for k in cache[p]})
+    _assert_bits("fixed-slot decode step", pairs)
+    log("serve-fixed", f"decode step graph replay == eager, bit for bit "
+        f"(logits, {len(pairs) - 1} cache tensors)")
+
+
+def _profile_graph_decode_step(eng) -> None:
+    """The fixed-slot engine's captured decode step replayed on the inputs
+    of ``_profile_decode_step`` under ``_profile_steady``."""
+    pol = eng.policy
+    tok, pos = _decode_state(eng)
+    pol._feed.dev["tokens"].copy_(tok[:, 0])
+    pol._feed.dev["pos"].copy_(pos)
+    _profile_steady("serve-fixed", "steady decode step, graph replay",
+                    lambda: torch.argmax(pol._decode_fn(), dim=-1).cpu())
 
 
 def phase_serve_fixed(paged: dict) -> dict:
@@ -1187,6 +1372,7 @@ def phase_serve_fixed(paged: dict) -> dict:
     ``paged`` (same weights, prompts and budgets).  Returns the kernel
     launches of the engine run, read just after it."""
     from repro_torch.configs import get_config
+    from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import ops
     from repro_torch.launch.serve import serve
     from repro_torch.runtime.serving import ServingEngine
@@ -1235,7 +1421,11 @@ def phase_serve_fixed(paged: dict) -> dict:
         f"{m['ttft_avg_s'] * 1e3:.1f} ms, wall {m['wall_s']:.2f} s; "
         f"launches {json.dumps(counts)}")
     _decode_kernel_vs_plain(eng)
+    _fixed_graph_vs_eager(eng)
+    _check_tickets("fixed-slot: after the graphed run",
+                   [eng.policy._tickets, *da._tickets.values()])
     _profile_decode_step(eng)
+    _profile_graph_decode_step(eng)
     # information, not a gate: whole-prompt and chunked prefill round
     # bf16 differently, so greedy streams part at near-ties
     paged_gen = {q.rid: q.generated for q in reqs}
@@ -1847,6 +2037,11 @@ def main() -> int:
     del runs                                   # free the serving state
     gc.collect()
     torch.cuda.empty_cache()
+    # the engines' pools, weights and graphs (with their private memory)
+    # go with them
+    log("serve", f"serving state freed: "
+        f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB allocated, "
+        f"{torch.cuda.memory_reserved() / 2 ** 30:.2f} GiB reserved")
     phase_f32(prompts)
     gc.collect()
     torch.cuda.empty_cache()

@@ -96,9 +96,26 @@ def _sm_count(index: int) -> int:
 _tickets: Dict[torch.device, torch.Tensor] = {}
 
 
-def _ticket_buffer(device: torch.device, n: int) -> torch.Tensor:
+def reserve_tickets(device: torch.device, n: int) -> torch.Tensor:
+    """The device's ticket buffer, grown to at least ``n`` tickets.  A
+    caller that captures the decode kernels in a CUDA graph reserves its
+    largest ``seats × kv heads`` first and keeps the returned buffer: the
+    graph holds its address, and a later growth for a wider caller
+    replaces only the eager launches' buffer.
+
+    Raises:
+      RuntimeError: the buffer would grow during a stream capture, where
+          it would live in the graph's private memory."""
+    if device.index is None:              # the key of "cuda" is "cuda:i"
+        device = torch.device(device.type, torch.cuda.current_device())
     buf = _tickets.get(device)
     if buf is None or buf.numel() < n:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                f"the decode kernels' ticket buffer on {device} holds "
+                f"{0 if buf is None else buf.numel()} tickets and would "
+                f"grow to {n} during a CUDA graph capture; call "
+                "reserve_tickets before capturing")
         buf = torch.zeros(max(n, 256), dtype=torch.int32, device=device)
         _tickets[device] = buf
     return buf
@@ -137,7 +154,7 @@ def _split_scratch(q: torch.Tensor, kv_heads: int, width: int):
     splits, chunk = split_plan(A, kv_heads, width, _sm_count(q.device.index))
     part = torch.empty(A * kv_heads * splits * (H // kv_heads) * (d + 2),
                        dtype=torch.float32, device=q.device)
-    return splits, chunk, part, _ticket_buffer(q.device, A * kv_heads)
+    return splits, chunk, part, reserve_tickets(q.device, A * kv_heads)
 
 
 def paged_decode_attention_cuda(q, k_pages, v_pages, page_table, lengths,

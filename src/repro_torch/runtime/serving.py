@@ -24,22 +24,33 @@ submissions.
   (``models.model.fused_decode_tick``) updates in place; a steady tick
   moves exactly one ``(max_seats,)`` int32 token vector to the host.
 
-Both run eagerly; capturing a tick as a CUDA graph is later work.  The
-engines run on the card unless the caller passes ``device="cpu"``.  The
-telemetry plane and the fleet router are later slices of the port.
+The counterpart of the reference's jitted steps over donated buffers is
+a CUDA graph over fixed device buffers (:class:`_Step`): on a CUDA
+device the paged engine captures its fused decode tick and its prefill
+chunk, and the fixed-slot engine its decode step, once, at construction;
+every tick replays them, and churn copies the host's state into the
+same buffers (:class:`_Staged`).  ``PagedServingEngine(fused=False)`` is
+the eager per-tick oracle (host-side sampling, no graph).  Whole-prompt
+prefill of the fixed-slot engine runs eagerly: its shape changes with
+every prompt.  On the CPU the same functions run eagerly over the same
+buffers.  The engines run on the card unless the caller passes
+``device="cpu"``.  The telemetry plane and the fleet router are later
+slices of the port.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
 import time
-from collections import deque
-from typing import Deque, Dict, List, Optional, Tuple
+from collections import Counter, deque
+from typing import Callable, Deque, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.core import mixed_precision
+from repro_torch.kernels import decode_attention as da
+from repro_torch.kernels import ops
 from repro_torch.models import model as M
 from repro_torch.models.convert import cast_for_compute
 from repro_torch.runtime.paged_kv import BlockManager, EngineMetrics, PrefixMatch
@@ -578,6 +589,99 @@ class Scheduler:
 
 
 # ---------------------------------------------------------------------------
+# Fixed device buffers and captured steps
+# ---------------------------------------------------------------------------
+
+class _Staged:
+    """Fixed device buffers of one dtype, named views into one tensor
+    (``dev``), with a host twin to stage their values in (numpy views
+    from :meth:`stage`; pinned memory on a CUDA device), so that an upload
+    is one copy for all of them.  ``layout`` lists ``(name, shape)`` in order.  The
+    device views never move: a captured step reads them by address."""
+
+    def __init__(self, layout: Sequence[Tuple[str, tuple]],
+                 dtype: torch.dtype, device: torch.device):
+        sizes = [math.prod(shape) for _, shape in layout]
+        self._dev = torch.zeros(sum(sizes), dtype=dtype, device=device)
+        cuda = self._dev.is_cuda
+        self._buf = torch.zeros(sum(sizes), dtype=dtype, pin_memory=cuda)
+        self.dev: Dict[str, torch.Tensor] = {}
+        self._host: Dict[str, np.ndarray] = {}
+        self._ends: Dict[str, int] = {}
+        at = 0
+        for (name, shape), size in zip(layout, sizes):
+            self.dev[name] = self._dev[at:at + size].view(shape)
+            self._host[name] = self._buf[at:at + size].numpy().reshape(shape)
+            at += size
+            self._ends[name] = at
+        # recorded after each upload: the host twin is written again
+        # only once the copy that reads it has run
+        self._read = torch.cuda.Event() if cuda else None
+
+    def stage(self) -> Dict[str, np.ndarray]:
+        """The host views, to be filled, once the last upload has read
+        them."""
+        if self._read is not None:
+            self._read.synchronize()
+        return self._host
+
+    def upload(self, through: Optional[str] = None) -> None:
+        """Copy the host twin into the device buffers: all of them, or
+        those up to and including ``through``; asynchronous on a CUDA
+        device."""
+        n = self._ends[through] if through else self._dev.numel()
+        self._dev[:n].copy_(self._buf[:n], non_blocking=True)
+        if self._read is not None:
+            self._read.record()
+
+
+class _Step:
+    """A model step over fixed tensors, run by calling it.
+
+    With ``capture`` (a CUDA device), ``fn`` runs once on a side stream,
+    which builds the kernels' libraries, compiles the Triton kernels and
+    sets up the CUDA libraries, and is then captured there as a CUDA
+    graph (``torch.cuda.graph``); each call replays the graph and returns
+    the tensors the capture returned.  Without, each call runs ``fn``.
+    Both the warm-up and the capture run ``fn`` for real, so the caller
+    puts its inputs in an idle state first, one that changes no live
+    state.  A failed capture or replay raises.
+
+    The kernel wrappers count their launches in Python
+    (``kernels.ops.launches``), which a replay does not run: the counts
+    the capture recorded (``launches``) are added at each replay, and
+    those of the warm-up and the capture, set-up rather than serving,
+    are taken back out."""
+
+    def __init__(self, fn: Callable, capture: bool):
+        self.fn = fn
+        self.graph: Optional[torch.cuda.CUDAGraph] = None
+        self.launches: Counter = Counter()
+        if not capture:
+            return
+        before = Counter(ops.launches)
+        stream = torch.cuda.Stream()
+        stream.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(stream):
+            fn()
+        warm = Counter(ops.launches)
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph, stream=stream):
+            self.out = fn()
+        torch.cuda.current_stream().wait_stream(stream)
+        self.launches = ops.launches - warm
+        ops.launches.clear()
+        ops.launches.update(before)
+
+    def __call__(self):
+        if self.graph is None:
+            return self.fn()
+        self.graph.replay()
+        ops.launches.update(self.launches)
+        return self.out
+
+
+# ---------------------------------------------------------------------------
 # KV placement policies
 # ---------------------------------------------------------------------------
 
@@ -599,7 +703,10 @@ class FixedSlotPolicy:
     Weights move to ``device`` and the matmul weights are cast once to the
     compute dtype; the cache lives there and is written in place.  The
     write positions ``pos`` stay on the host and go up with each tick's
-    tokens in one upload."""
+    tokens in one upload into a fixed ``(2, slots)`` feed buffer, over
+    which the decode step is captured as a CUDA graph on a CUDA device
+    (:class:`_Step`; warm-up and capture with every slot on the scratch
+    position, the idle slot)."""
 
     def __init__(self, cfg, params, *, slots: int, max_len: int,
                  device=None):
@@ -620,6 +727,27 @@ class FixedSlotPolicy:
         # row was finite (read it after a run; no tick syncs)
         self.logits_finite = torch.ones((), dtype=torch.bool,
                                         device=self.device)
+        # the decode step's input: tokens and write positions
+        self._feed = _Staged([("tokens", (slots,)), ("pos", (slots,))],
+                             torch.int32, self.device)
+        self._feed.dev["pos"].fill_(max_len)      # idle: every slot parked
+        cuda = self.device.type == "cuda"
+        if cuda:
+            self._tickets = da.reserve_tickets(
+                self.device, slots * cfg.padded_kv_heads)
+        self._decode_fn = _Step(self._decode_body, capture=cuda)
+
+    def _decode_body(self) -> torch.Tensor:
+        """One decode step over the feed buffer; returns the ``(slots,
+        V)`` logits."""
+        feed = self._feed.dev
+        logits, _ = M.decode_step(self.params, self.cfg, self.cache,
+                                  feed["tokens"][:, None], feed["pos"])
+        last = logits[:, -1]
+        # idle rows (parked on scratch) are garbage by contract
+        self.logits_finite &= (torch.isfinite(last).all(dim=-1)
+                               | (feed["pos"] >= self.max_len)).all()
+        return last
 
     def bind(self, sched: Scheduler) -> None:
         """Attach the owning :class:`Scheduler` (called once, by its
@@ -714,22 +842,19 @@ class FixedSlotPolicy:
     def decode_tick(self) -> None:
         """One token for every active slot (prefill completes in the
         admission tick, so every seat is decode-ready): the tokens and
-        write positions go up in one upload, and the sampled tokens come
-        back in one transfer."""
+        write positions go up in one upload, the decode step runs (a
+        graph replay on a CUDA device), and the sampled tokens come back
+        in one transfer."""
         sched = self.sched
         if not sched.seats:
             return
-        feed = np.zeros((2, self.slots), np.int32)      # tokens, positions
-        feed[1] = self.pos
+        feed = self._feed.stage()
+        feed["tokens"][:] = 0
+        feed["pos"][:] = self.pos
         for slot, req in sched.seats.items():
-            feed[0, slot] = req.generated[-1]
-        feed_dev = torch.from_numpy(feed).to(self.device)
-        logits, _ = M.decode_step(self.params, self.cfg, self.cache,
-                                  feed_dev[0, :, None], feed_dev[1])
-        last = logits[:, -1]
-        # idle rows (parked on scratch) are garbage by contract
-        self.logits_finite &= (torch.isfinite(last).all(dim=-1)
-                               | (feed_dev[1] >= self.max_len)).all()
+            feed["tokens"][slot] = req.generated[-1]
+        self._feed.upload()
+        last = self._decode_fn()
         self.decode_ticks += 1
         toks = sched._sample_decode_batch(last, list(sched.seats))
         active = list(sched.seats.items())
@@ -746,12 +871,19 @@ class PagedPolicy:
     prefill, page-table decode, refcounted prefix caching with
     copy-on-write of the last partially shared page, and — with
     ``lazy_pages`` (default) — on-demand page growth with
-    preempt-and-recompute under pressure."""
+    preempt-and-recompute under pressure.
+
+    ``fused`` (default) runs each decode tick as one fused step over
+    fixed device buffers — the model step, the batched sampler and the
+    state's advance — captured with the prefill chunk as CUDA graphs on
+    a CUDA device; ``fused=False`` is the eager per-tick oracle (model
+    step, then host-side sampling)."""
 
     def __init__(self, cfg, params, *, page_size: int, num_pages: int,
                  max_seats: int, max_seq_len: int, prefill_chunk: int,
                  prefix_cache: bool = True, lazy_pages: bool = True,
-                 watermark: float = 0.05, kv_dtype: Optional[str] = None,
+                 watermark: float = 0.05, fused: bool = True,
+                 kv_dtype: Optional[str] = None,
                  class_precision: Optional[Dict[str, str]] = None,
                  impl: str = "auto", device=None):
         if not M.paged_cache_supported(cfg):
@@ -805,19 +937,100 @@ class PagedPolicy:
                 "lazy_pages=False")
         self.page_table = np.zeros((max_seats, self.n_tables), np.int32)
         self.pos = np.zeros((max_seats,), np.int32)     # next write position
-        self._prefill_row: Optional[Tuple[int, torch.Tensor]] = None
-        # device mirrors of the serving state, rebuilt only on churn
-        # (self._dirty); between churn events decode ticks run entirely
-        # off the tensors the previous fused tick updated in place
-        self._dev: Optional[Dict[str, torch.Tensor]] = None
+        self.fused = fused
+        # the request whose table row the prefill buffers hold
+        self._prefill_rid: Optional[int] = None
+        # the device copies of the serving state are refilled only on
+        # churn (self._dirty); between churn events decode ticks run
+        # entirely off the buffers the previous fused tick updated in place
         self._dirty = True
         self.decode_ticks = 0
         # device-side health flag: stays True while every logit the
         # engine computed was finite (read it after a run; no tick syncs)
         self.logits_finite = torch.ones((), dtype=torch.bool,
                                         device=self.device)
-        self.cache = M.init_paged_cache(cfg, num_pages, page_size,
-                                        kv_dtype=kv_dtype, device=self.device)
+        self._init_model_state(num_pages)
+
+    def _init_model_state(self, num_pages: int) -> None:
+        """Allocate the device KV pool and the tick's fixed device
+        buffers, and on a CUDA device with ``fused`` capture the fused
+        decode tick and the prefill chunk as CUDA graphs over them.
+        Split out of ``__init__`` as the reference splits it, so that a
+        model-free policy can keep the placement bookkeeping and replace
+        the device state.
+
+        The buffers start in the all-idle state, in which both steps
+        change no live state (every valid count 0: writes go to the
+        scratch page, ``pos`` and ``step`` advance by 0, ``last`` keeps
+        its tokens), so the warm-up and the capture run on them as they
+        are."""
+        cfg, dev = self.cfg, self.device
+        A, n, C = self.max_seats, self.n_tables, self.prefill_chunk
+        self.cache = M.init_paged_cache(cfg, num_pages, self.page_size,
+                                        kv_dtype=self.kv_dtype, device=dev)
+        # the fused tick's state, one buffer per dtype (the dtypes of
+        # M.fused_decode_tick), so a churn sync is three copies
+        self._i32 = _Staged([("last", (A,)), ("pos", (A,)), ("nv", (A,)),
+                             ("top_k", (A,)), ("table", (A, n))],
+                            torch.int32, dev)
+        self._f32 = _Staged([("temp", (A,)), ("top_p", (A,))],
+                            torch.float32, dev)
+        self._i64 = _Staged([("seed", (A,)), ("rid", (A,)), ("step", (A,))],
+                            torch.int64, dev)
+        self._f32.dev["top_p"].fill_(1.0)
+        self._dev = {**self._i32.dev, **self._f32.dev, **self._i64.dev}
+        # the prefill chunk's input: tokens, (start, valid count) and the
+        # seat's page-table row
+        self._prefill = _Staged([("tokens", (1, C)), ("meta", (2,)),
+                                 ("row", (1, n))], torch.int32, dev)
+        self._chunk_cols = torch.arange(C, dtype=torch.int32, device=dev)
+        graphs = self.fused and dev.type == "cuda"
+        if dev.type == "cuda":
+            self._tickets = da.reserve_tickets(dev, A * cfg.padded_kv_heads)
+        self._tick_fn = _Step(self._tick_body, capture=graphs)
+        self._prefill_fn = _Step(self._prefill_body, capture=graphs)
+
+    def _note_finite(self, logits: torch.Tensor,
+                     ignore: torch.Tensor) -> None:
+        """Fold ``logits`` (rows, V) into the health flag on the device;
+        rows where ``ignore`` holds (idle seats, chunk padding) are
+        garbage by contract.  A masked reduction, no boolean indexing,
+        so no host sync."""
+        self.logits_finite &= (torch.isfinite(logits).all(dim=-1)
+                               | ignore).all()
+
+    def _tick_body(self):
+        """The fused tick over the state buffers; returns ``(tokens,
+        logits (A, V))``, ``tokens`` being the ``last`` buffer."""
+        d = self._dev
+        toks, logits = M.fused_decode_tick(
+            self.params, self.cfg, self.cache, d["last"], d["pos"],
+            d["table"], d["nv"], d["temp"], d["top_k"], d["top_p"],
+            d["seed"], d["rid"], d["step"], impl=self.impl)
+        self._note_finite(logits, d["nv"] == 0)
+        return toks, logits
+
+    def _prefill_body(self) -> torch.Tensor:
+        """One prefill chunk over the prefill buffers; returns its
+        logits (1, C, V)."""
+        b = self._prefill.dev
+        meta = b["meta"]
+        logits, _ = M.paged_decode_step(
+            self.params, self.cfg, self.cache, b["tokens"], meta[:1],
+            b["row"], meta[1:], impl=self.impl)
+        self._note_finite(logits[0], self._chunk_cols >= meta[1])
+        return logits
+
+    def _step_body(self) -> torch.Tensor:
+        """The unfused decode step (``fused=False``) over the state
+        buffers; returns the logits (A, V)."""
+        d = self._dev
+        logits, _ = M.paged_decode_step(
+            self.params, self.cfg, self.cache, d["last"][:, None], d["pos"],
+            d["table"], d["nv"], impl=self.impl)
+        logits = logits[:, 0]
+        self._note_finite(logits, d["nv"] == 0)
+        return logits
 
     def bind(self, sched: Scheduler) -> None:
         """Attach the owning :class:`Scheduler` (called once, by its
@@ -925,7 +1138,7 @@ class PagedPolicy:
         self.page_table[req.slot] = 0
         self.pos[req.slot] = 0
         self._dirty = True
-        self._prefill_row = None
+        self._prefill_rid = None
 
     def preempt(self, req: Request) -> None:
         """Free the request's placement for replay: it will re-prefill
@@ -935,7 +1148,7 @@ class PagedPolicy:
         self.page_table[req.slot] = 0
         self.pos[req.slot] = 0
         self._dirty = True
-        self._prefill_row = None
+        self._prefill_rid = None
         req.resume_tokens = np.concatenate(
             [req.prompt, np.asarray(req.generated[:-1], np.int32)])
         req.pages = []
@@ -946,11 +1159,11 @@ class PagedPolicy:
 
     # -- prefill / decode ------------------------------------------------------
 
-    def _upload(self, a: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(a).to(self.device)
-
     def prefill_tick(self) -> None:
-        """One prompt chunk for the oldest mid-prefill request."""
+        """One prompt chunk for the oldest mid-prefill request: the chunk
+        and its (start, count) go up in one copy into the prefill
+        buffers, and the prefill step runs (a graph replay on a CUDA
+        device with ``fused``)."""
         cands = [r for r in self.sched.seats.values()
                  if r.prefill_pos < len(r.prefill_src)]
         if not cands:
@@ -961,18 +1174,22 @@ class PagedPolicy:
         start = req.prefill_pos
         chunk = src[start:start + self.prefill_chunk]
         c = len(chunk)
-        tok = np.zeros((1, self.prefill_chunk), np.int32)
-        tok[0, :c] = chunk
-        meta = self._upload(np.asarray([start, c], np.int32))
-        if self._prefill_row is None or self._prefill_row[0] != req.rid:
+        buf = self._prefill.stage()
+        buf["tokens"][:] = 0
+        buf["tokens"][0, :c] = chunk
+        buf["meta"][:] = (start, c)
+        if self._prefill_rid != req.rid:
             # the seat's table row cannot change mid-prefill: upload it
             # once per request, not per chunk
-            self._prefill_row = (
-                req.rid, self._upload(self.page_table[seat:seat + 1].copy()))
-        logits, _ = M.paged_decode_step(
-            self.params, self.cfg, self.cache, self._upload(tok), meta[:1],
-            self._prefill_row[1], meta[1:], impl=self.impl)
-        self.logits_finite &= torch.isfinite(logits[0, :c]).all()
+            buf["row"][0] = self.page_table[seat]
+            self._prefill.upload()
+            self._prefill_rid = req.rid
+        else:
+            self._prefill.upload(through="meta")
+        # on a CUDA device the logits are the graph's output buffer, which
+        # the next replay overwrites; the first token is read from it in
+        # this tick, ahead of any later replay on the stream
+        logits = self._prefill_fn()
         req.prefill_pos += c
         self.sched.metrics.prefill_tokens += c
         self.sched._trace("prefill_chunk", req.rid)
@@ -1029,44 +1246,45 @@ class PagedPolicy:
                 self._dirty = True       # table row changed on host
 
     def _sync_device(self) -> None:
-        """Rebuild the device-resident tick state from the host mirrors
+        """Refill the device-resident tick state from the host mirrors
         after a churn event (admit / finish / preempt / page growth /
-        prefill completion).  Every tensor keeps a fixed
-        ``(max_seats,)``-based shape."""
-        A = self.max_seats
-        last = np.zeros((A,), np.int32)
-        nv = np.zeros((A,), np.int32)
-        temp = np.zeros((A,), np.float32)
-        top_k = np.zeros((A,), np.int32)
-        top_p = np.ones((A,), np.float32)
-        seed = np.zeros((A,), np.int64)
-        rid = np.zeros((A,), np.int64)
-        step = np.zeros((A,), np.int64)
+        prefill completion): staged on the host, then one copy per dtype
+        into the fixed buffers, which keep their shapes and addresses."""
+        i32, f32, i64 = (self._i32.stage(), self._f32.stage(),
+                         self._i64.stage())
+        for a in (*i32.values(), *i64.values()):
+            a[:] = 0
+        f32["temp"][:] = 0
+        f32["top_p"][:] = 1
+        i32["pos"][:] = self.pos
+        i32["table"][:] = self.page_table
         for s, r in self.sched.seats.items():
             if r.prefill_pos < len(r.prefill_src):
                 continue                 # still prefilling: stays masked
-            nv[s] = 1
-            last[s] = r.generated[-1]
+            i32["nv"][s] = 1
+            i32["last"][s] = r.generated[-1]
             sp = r.sampling
-            temp[s] = sp.temperature
-            top_k[s] = sp.top_k
-            top_p[s] = sp.top_p
-            seed[s] = sp.seed & 0xFFFFFFFF
-            rid[s] = r.rid & 0xFFFFFFFF
-            step[s] = len(r.generated)
-        self._dev = {
-            "last": last, "pos": self.pos.copy(),
-            "table": self.page_table.copy(), "nv": nv, "temp": temp,
-            "top_k": top_k, "top_p": top_p, "seed": seed, "rid": rid,
-            "step": step}
-        self._dev = {k: self._upload(v) for k, v in self._dev.items()}
+            f32["temp"][s] = sp.temperature
+            i32["top_k"][s] = sp.top_k
+            f32["top_p"][s] = sp.top_p
+            i64["seed"][s] = sp.seed & 0xFFFFFFFF
+            i64["rid"][s] = r.rid & 0xFFFFFFFF
+            i64["step"][s] = len(r.generated)
+        for staged in (self._i32, self._f32, self._i64):
+            staged.upload()
         self._dirty = False
 
     def decode_tick(self) -> None:
         """One token for every seat whose prefill is complete (growing
-        page tables first in lazy mode): one fused tick over the
-        device-resident state, and one ``(max_seats,)`` int32 token
-        vector back to the host."""
+        page tables first in lazy mode).
+
+        Fused (default): one fused tick over the device-resident state
+        (a graph replay on a CUDA device), and one ``(max_seats,)`` int32
+        token vector back to the host.  ``fused=False``: the token and
+        position vectors go up, the model step runs eagerly, and the
+        sampler runs on the host side of the logits' transfer
+        (``Scheduler._sample_decode_batch``), as the reference's
+        pre-fusion path does."""
         sched = self.sched
         if self.lazy:
             self._grow_tick()
@@ -1075,17 +1293,20 @@ class PagedPolicy:
             return
         if self._dirty:
             self._sync_device()
-        d = self._dev
-        toks_dev, logits = M.fused_decode_tick(
-            self.params, self.cfg, self.cache, d["last"], d["pos"],
-            d["table"], d["nv"], d["temp"], d["top_k"], d["top_p"],
-            d["seed"], d["rid"], d["step"], impl=self.impl)
-        # idle seats' rows are garbage by contract; a masked reduction
-        # (no boolean indexing) keeps the check free of host syncs
-        self.logits_finite &= (torch.isfinite(logits).all(dim=-1)
-                               | (d["nv"] == 0)).all()
+        elif not self.fused:
+            # the eager step advances nothing on the device
+            feed = self._i32.stage()
+            feed["last"][:] = 0
+            for s in decoding:
+                feed["last"][s] = sched.seats[s].generated[-1]
+            feed["pos"][:] = self.pos
+            self._i32.upload(through="pos")
+        if self.fused:
+            toks_dev, _ = self._tick_fn()
+            toks = toks_dev.cpu().numpy()  # the tick's one device->host sync
+        else:
+            toks = sched._sample_decode_batch(self._step_body(), decoding)
         self.decode_ticks += 1
-        toks = toks_dev.cpu().numpy()     # the tick's one device->host sync
         for s in decoding:
             req = sched.seats[s]
             self.pos[s] += 1
@@ -1155,6 +1376,13 @@ class PagedServingEngine(Scheduler):
     True) reserves only prompt pages at admission and grows on demand,
     preempting under page pressure; ``watermark`` is the lazy admission
     gate's free-page headroom as a fraction of pool capacity.
+    ``fused`` (default True) runs each decode tick as one fused step —
+    model step, batched on-device sampling and the state's advance over
+    fixed device buffers — captured, with the prefill chunk, as a CUDA
+    graph at construction on a CUDA device, so a steady tick is one
+    graph replay and one ``(max_seats,)`` token vector back to the
+    host; ``fused=False`` is the eager per-tick path with host-side
+    sampling (the equivalence oracle).
     ``admission`` selects the queue policy (``"fcfs"``/``"slo"``) and
     ``aging_ticks`` its anti-starvation bound.  ``kv_dtype`` picks the
     pool's storage precision (``f32``/``bf16``/``fp8``/``int8``; None =
@@ -1172,7 +1400,7 @@ class PagedServingEngine(Scheduler):
                  max_seq_len: int = 256, prefill_chunk: int = 32,
                  sampler: Optional[Sampler] = None,
                  prefix_cache: bool = True, lazy_pages: bool = True,
-                 watermark: float = 0.05,
+                 watermark: float = 0.05, fused: bool = True,
                  admission="fcfs", aging_ticks: int = 64,
                  kv_dtype: Optional[str] = None,
                  class_precision: Optional[Dict[str, str]] = None,
@@ -1182,8 +1410,9 @@ class PagedServingEngine(Scheduler):
             cfg, params, page_size=page_size, num_pages=num_pages,
             max_seats=max_seats, max_seq_len=max_seq_len,
             prefill_chunk=prefill_chunk, prefix_cache=prefix_cache,
-            lazy_pages=lazy_pages, watermark=watermark, kv_dtype=kv_dtype,
-            class_precision=class_precision, impl=impl, device=device)
+            lazy_pages=lazy_pages, watermark=watermark, fused=fused,
+            kv_dtype=kv_dtype, class_precision=class_precision, impl=impl,
+            device=device)
         super().__init__(policy, max_seats=max_seats, sampler=sampler,
                          page_capacity=policy.bm.capacity,
                          admission=admission, aging_ticks=aging_ticks,
