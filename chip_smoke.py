@@ -73,7 +73,24 @@ Phases, each printed as it runs:
    logit difference there) with at least 90% of the positions decided;
    then the paged engine and ``ServingEngine`` on the same 8 requests,
    whose streams must be equal up to their first top-2 gap <= 1e-3;
-7. hpc — the fp8 GEMM kernel (K6) against its plain version, held to
+7. train — the training path, which runs the plain PyTorch versions on
+   purpose (no kernel has a backward, in the port or in the reference):
+   ``train()`` on qwen3-1.7b at its published width (f32 master weights
+   and AdamW state, bf16 compute, remat, batch 8 x seq 1024 from the
+   token pipeline, 30 steps), whose losses must be finite and fall by
+   the reference's criterion (mean of the last 5 below the mean of the
+   first 5 by 0.05) with every kernel launch counter at 0, reporting
+   wall time and peak memory; then steady steps through the train cell
+   (step time by CUDA events, tokens/s), one of them profiled (device
+   busy time, idle share, kernel groups) and its parts timed (forward,
+   forward + backward, AdamW); three train steps of the reduced f32
+   config on the card and on the CPU from the same params and batches,
+   held to the CPU parity tests' tolerances; a checkpoint restart on the
+   card (an injected failure at step 6 after the step-4 checkpoint, the
+   resumed losses and final params, mu, nu and count against an
+   uninterrupted run, and a ``save_async`` whose restored tensors equal
+   the saved ones bit for bit);
+8. hpc — the fp8 GEMM kernel (K6) against its plain version, held to
    ``fp8_matmul.error_bound`` (f32 sums plus the tensor-core term of sums
    promoted every 128 products), through ``ops.fp8_matmul`` (aligned,
    ragged, bm/bn != 128) and through the per-tensor call at the n = 256,
@@ -91,7 +108,7 @@ Phases, each printed as it runs:
    kernel and with the plain version (first trailing update and refined
    solutions held); HPCG at 256³ (50 iterations, the true residual
    recomputed) and at 48³ (90 iterations, converged);
-8. summary — one JSON line listing the kernels, the card's name and power
+9. summary — one JSON line listing the kernels, the card's name and power
    limit, and as the last line ``{"ok": true, "device": {...}}``.
 
 Any failure raises: the script exits non-zero and prints no ``ok`` line.
@@ -1071,10 +1088,18 @@ def _check_logits(phase: str, what: str, lk: torch.Tensor,
     return diff
 
 
-def _profile_steady(phase: str, what: str, step, steps: int = 5) -> None:
+SERVING_GROUPS = (("norm kernels (K3 and its fused forms)",
+                   lambda key: "rmsnorm" in key),
+                  ("decode attention (K1/K2/K4)",
+                   lambda key: "decode_kernel" in key))
+
+
+def _profile_steady(phase: str, what: str, step, steps: int = 5,
+                    groups=SERVING_GROUPS, top: int = 6) -> None:
     """Wall time of a steady model ``step()`` (which ends by bringing its
     tokens to the host, as the engine does), its device busy time (the
-    kernels' time under torch.profiler) and the kernels that take it.
+    kernels' time under torch.profiler), the kernels that take it, and
+    the time of each of ``groups`` (label, pick(kernel name)).
     The idle share compares the busy time with the wall time measured
     without the profiler, whose host overhead it would otherwise count."""
     for _ in range(2):
@@ -1096,13 +1121,10 @@ def _profile_steady(phase: str, what: str, step, steps: int = 5) -> None:
     log(phase, f"{what}: wall {wall:.2f} ms, device busy {busy:.3f} ms "
         f"({sum(a.count for a in kernels) // steps} kernels), idle share "
         f"{1 - busy / wall:.3f}")
-    for a in kernels[:6]:
+    for a in kernels[:top]:
         log(phase, f"{what}:   {a.self_device_time_total / steps / 1e3:.4f} "
-            f"ms x{a.count // steps} {a.key[:80]}")
-    for label, pick in (("norm kernels (K3 and its fused forms)",
-                         lambda key: "rmsnorm" in key),
-                        ("decode attention (K1/K2/K4)",
-                         lambda key: "decode_kernel" in key)):
+            f"ms x{a.count // steps} {a.key[:110]}")
+    for label, pick in groups:
         sel = [a for a in kernels if pick(a.key)]
         log(phase, f"{what}: {label} "
             f"{sum(a.self_device_time_total for a in sel) / steps / 1e3:.4f} "
@@ -1149,7 +1171,8 @@ def _profile_graph_tick(tag: str, eng) -> None:
 
 def _bits_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
     return a.shape == b.shape and a.dtype == b.dtype and torch.equal(
-        a.contiguous().view(torch.uint8), b.contiguous().view(torch.uint8))
+        a.contiguous().reshape(-1).view(torch.uint8),
+        b.contiguous().reshape(-1).view(torch.uint8))
 
 
 def _assert_bits(what: str, pairs: dict) -> None:
@@ -1666,6 +1689,304 @@ def phase_f32(prompts) -> dict:
     return counts
 
 
+# full-width training: 30 steps, as the reference's system test
+# (tests/test_system.py), at train()'s default peak lr of 1e-3, the
+# reference's; 12 steps leave the loss at its uniform level (ln V = 11.93)
+# or above it
+TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_LR = 30, 8, 1024, 1e-3
+# the CPU parity tests' tolerances for three f32 train steps
+# (tests/test_torch_train.py): losses rtol 1e-5, grad norms rtol 1e-3, lr
+# rtol 1e-6, params within 5e-5 and the update (p_3 - p_0) within 1e-3
+# of its norm
+TRAIN_F32_TOL = {"loss": 1e-5, "grad_norm": 1e-3, "lr": 1e-6,
+                 "param": 5e-5, "update": 1e-3}
+# a resumed run against an uninterrupted one (bf16 compute): losses
+# within 1e-3, and the final params, AdamW moments mu and nu each within
+# 1e-3 of their norm (the params: of their update p_8 - p_0), count equal.
+# A restore that dropped the moments or reset count misses these by
+# orders of magnitude; the card read 0 for the losses (PERF.md §6)
+RESUME_LOSS_ATOL, RESUME_STATE_RTOL = 1e-3, 1e-3
+
+
+def _train_full_width() -> None:
+    """``train()`` on qwen3-1.7b at its published width: losses finite
+    and falling by the reference's criterion, no kernel launched, wall
+    time and peak memory."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import train
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    losses = train(ARCH, steps=TRAIN_STEPS, batch=TRAIN_BATCH,
+                   seq=TRAIN_SEQ, reduced=False, log_every=10,
+                   lr_peak=TRAIN_LR, device="cuda")
+    wall = time.perf_counter() - t0
+    launched = {k: n for k, n in ops.launches.items() if n}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    log("train", "losses " + " ".join(f"{x:.4f}" for x in losses))
+    if launched:
+        raise AssertionError(f"kernels launched by the train step: "
+                             f"{launched}")
+    if not all(np.isfinite(losses)) or len(losses) != TRAIN_STEPS:
+        raise AssertionError(f"losses {losses}")
+    first, last = np.mean(losses[:5]), np.mean(losses[-5:])
+    if not last < first - 0.05:
+        raise AssertionError(f"loss did not fall: mean of the first 5 "
+                             f"{first:.4f}, of the last 5 {last:.4f}")
+    log("train", f"qwen3-1.7b full width (f32 master weights + AdamW, "
+        f"bf16 compute, remat) through train(), batch {TRAIN_BATCH} x seq "
+        f"{TRAIN_SEQ}, {TRAIN_STEPS} steps in {wall:.1f} s, peak lr "
+        f"{TRAIN_LR}: loss {first:.4f} -> {last:.4f} (means of the first "
+        f"and last 5); peak {peak:.2f} GiB allocated; kernel launches 0")
+
+
+def _kernel_kind(key: str) -> str:
+    """The group of a kernel of the train step, by its name."""
+    key = key.lower()
+    for kind, marks in (("matmul", ("gemm", "xmma", "cutlass", "cublas",
+                                    "nvjet")),
+                        ("softmax", ("softmax",)),
+                        ("reduction", ("reduce",)),
+                        ("index, gather, scatter", ("index", "gather",
+                                                    "scatter")),
+                        ("copy, fill", ("copy", "memcpy", "memset", "fill",
+                                        "cat"))):
+        if any(m in key for m in marks):
+            return kind
+    return "elementwise, other"
+
+
+TRAIN_GROUPS = tuple(
+    (kind, lambda key, kind=kind: _kernel_kind(key) == kind)
+    for kind in ("matmul", "softmax", "reduction", "index, gather, scatter",
+                 "copy, fill", "elementwise, other"))
+
+
+def _profile_train_step() -> None:
+    """Steady full-width train steps through ``build_cell(...).fn``: step
+    time by CUDA events, tokens/s, then one step profiled (wall, device
+    busy time, idle share, top kernels, the time of each kernel group)
+    and the forward / forward + backward / AdamW parts."""
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.launch.steps import build_cell, value_and_grad
+    from repro_torch.launch.train import make_train_state
+    from repro_torch.models import model as M
+    from repro_torch.optim.adamw import adamw_update
+    cfg = get_config(ARCH)
+    params, opt = make_train_state(
+        cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    opts = M.RunOptions(q_chunk=min(TRAIN_SEQ, 512),
+                        xent_chunk=min(TRAIN_SEQ, 512))
+    cell = build_cell(
+        cfg, ShapeConfig("custom", TRAIN_SEQ, TRAIN_BATCH, "train"), opts,
+        lr_peak=TRAIN_LR, total_steps=10 * TRAIN_STEPS)
+    batch = TokenPipeline(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH,
+                          device="cuda").get_batch(0)
+
+    def events(fn, iters: int = 3) -> float:
+        """Median ms of ``fn()`` by CUDA events, after one warm-up."""
+        fn()
+        times = []
+        for _ in range(iters):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+        return statistics.median(times)
+    steady = events(lambda: cell.fn(params, opt, batch), iters=5)
+    n_params = M.count_params(M.param_specs(cfg))
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    log("train", f"steady train step (full width, {n_params / 1e9:.3f} B "
+        f"params, batch {TRAIN_BATCH} x seq {TRAIN_SEQ}): {steady:.1f} ms "
+        f"(CUDA events, median of 5 after one warm-up), "
+        f"{tokens / steady * 1e3:.0f} tokens/s; information: "
+        f"6·N·tokens/time = {6 * n_params * tokens / steady / 1e9:.1f} "
+        f"TFLOP/s, {6 * n_params * tokens / steady * 1e3 / BF16_FLOPS:.3f} "
+        "of the bf16 peak")
+
+    def step():
+        cell.fn(params, opt, batch)
+        torch.cuda.synchronize()
+    _profile_steady("train", "steady train step (full width)", step,
+                    steps=2, groups=TRAIN_GROUPS, top=12)
+    with torch.no_grad():
+        fwd = events(lambda: M.lm_loss(params, cfg, batch, opts))
+    fwd_bwd = events(lambda: value_and_grad(params, cfg, batch, opts))
+    _, grads = value_and_grad(params, cfg, batch, opts)
+    lr = torch.tensor(TRAIN_LR, device="cuda")
+    adam = events(lambda: adamw_update(grads, opt, params, lr))
+    log("train", f"steady train step parts (CUDA events, median of 3): "
+        f"forward {fwd:.1f} ms (no grad), forward + backward with remat "
+        f"{fwd_bwd:.1f} ms, AdamW {adam:.1f} ms")
+
+
+def _train_card_vs_cpu() -> None:
+    """Three train steps of the reduced f32 qwen3-1.7b on the card and on
+    the CPU from the same params and batches."""
+    from repro_torch.configs import ShapeConfig, get_config, reduced_config
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.launch.steps import build_cell
+    from repro_torch.launch.train import make_train_state
+    from repro_torch.models import model as M
+    from repro_torch.tree import tree_leaves, tree_map
+    cfg = reduced_config(get_config(ARCH), compute_dtype="float32")
+    batch, seq = 8, 64
+    cell = build_cell(cfg, ShapeConfig("custom", seq, batch, "train"),
+                      M.RunOptions(q_chunk=seq, xent_chunk=seq),
+                      lr_peak=3e-3, total_steps=300)
+    p0, _ = make_train_state(cfg, torch.Generator().manual_seed(0), "cpu")
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        params, opt = make_train_state(cfg, torch.Generator().manual_seed(0),
+                                       "cpu")
+        params = tree_map(lambda t: t.to(dev), params)
+        opt = tree_map(lambda t: t.to(dev), opt)
+        pipe = TokenPipeline(cfg.vocab_size, seq, batch, device=dev)
+        metrics = []
+        for step in range(3):
+            params, opt, m = cell.fn(params, opt, pipe.get_batch(step))
+            metrics.append({k: float(m[k]) for k in
+                            ("loss", "grad_norm", "lr")})
+        runs[dev] = (metrics, [t.cpu() for t in tree_leaves(params)])
+    (mc, pc), (mg, pg) = runs["cpu"], runs["cuda"]
+    tol = TRAIN_F32_TOL
+    for step, (a, b) in enumerate(zip(mc, mg)):
+        for key in ("loss", "grad_norm", "lr"):
+            if abs(a[key] - b[key]) > tol[key] * abs(a[key]):
+                raise AssertionError(f"step {step} {key}: cpu {a[key]} "
+                                     f"cuda {b[key]}")
+    worst_p = worst_u = 0.0
+    for c, g, start in zip(pc, pg, tree_leaves(p0)):
+        worst_p = max(worst_p, float((c - g).abs().max()))
+        worst_u = max(worst_u, float(torch.linalg.vector_norm(c - g)
+                                     / torch.linalg.vector_norm(c - start)))
+    if worst_p > tol["param"] or worst_u > tol["update"]:
+        raise AssertionError(f"params after 3 steps: max |cpu - cuda| "
+                             f"{worst_p:.3e}, update error {worst_u:.3e}")
+    gn_err = max(abs(a["grad_norm"] - b["grad_norm"]) / a["grad_norm"]
+                 for a, b in zip(mc, mg))
+    log("train", "reduced f32 qwen3-1.7b, 3 steps, card vs CPU: losses "
+        + ", ".join(f"{a['loss']:.6f}/{b['loss']:.6f}" for a, b in
+                    zip(mc, mg))
+        + f"; grad norms within {gn_err:.2e} relative; params max |Δ| "
+        f"{worst_p:.2e}, update "
+        f"error {worst_u:.2e} (limits {tol})")
+
+
+def _train_restart(device: str = "cuda") -> None:
+    """Checkpoint and restart at the reduced config: an injected failure,
+    a resumed run against an uninterrupted one (losses, and the final
+    params and AdamW state), and a ``save_async`` whose restored tensors
+    must equal the saved ones bit for bit."""
+    import tempfile
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.launch.train import make_train_state, train
+    from repro_torch.tree import tree_flatten_with_paths, tree_leaves
+    kw = dict(steps=8, batch=8, seq=64, lr_peak=3e-3, log_every=100,
+              device=device)
+    cfg = reduced_config(get_config(ARCH))
+    with tempfile.TemporaryDirectory() as root:
+        full_ck = str(Path(root) / "full")
+        full = train(ARCH, ckpt_dir=full_ck, ckpt_every=100, **kw)
+        ck = str(Path(root) / "ck")
+        try:
+            train(ARCH, ckpt_dir=ck, ckpt_every=4, fail_at_step=6, **kw)
+        except RuntimeError as e:
+            if "injected failure at step 6" not in str(e):
+                raise
+        else:
+            raise AssertionError("fail_at_step=6 did not raise")
+        if CheckpointManager(ck).steps() != [4]:
+            raise AssertionError(f"checkpoints after the failure: "
+                                 f"{CheckpointManager(ck).steps()}")
+        resumed = train(ARCH, ckpt_dir=ck, ckpt_every=100, **kw)
+        err = max(abs(a - b) for a, b in zip(resumed, full[4:]))
+        if len(resumed) != 4 or err > RESUME_LOSS_ATOL:
+            raise AssertionError(f"resumed losses {resumed} against "
+                                 f"{full[4:]}")
+        p0, o0 = make_train_state(
+            cfg, torch.Generator(device=device).manual_seed(0), device)
+        like = {"params": p0, "opt": o0}
+        ends = []
+        for where in (full_ck, ck):
+            mgr = CheckpointManager(where)
+            ends.append(mgr.restore(like, 8)[1])
+            mgr.close()
+        want, got = ends
+
+        def rel(got_t, want_t, base_t=None) -> float:
+            """||got - want|| / ||want - base|| over the leaves (``base``
+            0 when None)."""
+            g, w = tree_leaves(got_t), tree_leaves(want_t)
+            b = tree_leaves(base_t) if base_t is not None else [0] * len(w)
+            num = sum(float((x - y).double().square().sum())
+                      for x, y in zip(g, w))
+            den = sum(float((y - z).double().square().sum())
+                      for y, z in zip(w, b))
+            return (num / den) ** 0.5
+        state_err = {"params": rel(got["params"], want["params"], p0),
+                     "mu": rel(got["opt"]["mu"], want["opt"]["mu"]),
+                     "nu": rel(got["opt"]["nu"], want["opt"]["nu"])}
+        counts = {int(got["opt"]["count"]), int(want["opt"]["count"])}
+        if counts != {8} or max(state_err.values()) > RESUME_STATE_RTOL:
+            raise AssertionError(f"resumed state against the uninterrupted "
+                                 f"run: {state_err}, counts {counts}")
+        params, opt = make_train_state(
+            cfg, torch.Generator(device=device).manual_seed(1), device)
+        opt["mu"]["embed"].normal_()
+        opt["count"].fill_(4)
+        tree = {"params": params, "opt": opt,
+                "bf16": {"embed": params["embed"].to(torch.bfloat16)}}
+        saved = {name: t.clone() for name, t in tree_flatten_with_paths(tree)}
+        mgr = CheckpointManager(str(Path(root) / "bits"), stripes=4)
+        fut = mgr.save_async(4, tree)
+        for _, t in tree_flatten_with_paths(tree):
+            t.add_(1)                        # the save copied them already
+        fut.result()
+        step, got = mgr.restore(tree)
+        mgr.close()
+        bad = [name for name, t in tree_flatten_with_paths(got)
+               if t.device.type != torch.device(device).type
+               or not _bits_equal(t, saved[name])]
+        if step != 4 or bad:
+            raise AssertionError(f"restored step {step}, leaves not "
+                                 f"bit-equal: {bad}")
+    log("train", f"restart on {device} (reduced qwen3-1.7b, bf16 compute): "
+        f"fail_at_step=6 raised with step_4 committed; resumed steps 4-7 "
+        f"against the uninterrupted run: max |Δloss| {err:.2e} (limit "
+        f"{RESUME_LOSS_ATOL}), final state relative error "
+        + ", ".join(f"{k} {v:.2e}" for k, v in state_err.items())
+        + f" (limit {RESUME_STATE_RTOL}), count 8 on both; save_async then "
+        "in-place writes: "
+        f"{len(saved)} leaves restored bit-equal (f32, int32, bf16)")
+
+
+def phase_train() -> None:
+    """Training on the card: full width through ``train()``, the reduced
+    f32 step against the CPU, and a checkpoint restart."""
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    _train_full_width()
+    gc.collect()
+    torch.cuda.empty_cache()
+    _profile_train_step()
+    gc.collect()
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    _train_card_vs_cpu()
+    _train_restart()
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("train", f"phase times: full width {t1 - t0:.1f} s, reduced checks "
+        f"{time.perf_counter() - t1:.1f} s; phase peak "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB allocated")
+
+
 def check_fp8(name: str, got: torch.Tensor, want: torch.Tensor, a_q, b_q,
               sa_rows: torch.Tensor, sb_cols: torch.Tensor,
               faults: dict | None = None) -> float:
@@ -2045,6 +2366,7 @@ def main() -> int:
     phase_f32(prompts)
     gc.collect()
     torch.cuda.empty_cache()
+    phase_train()
     hpc_results, hpc_counts = phase_hpc()
     results.update(hpc_results)
     counts["hplmxp_fp8"] = hpc_counts["fp8"]

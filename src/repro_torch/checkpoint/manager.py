@@ -1,0 +1,190 @@
+"""Striped, async checkpointing (counterpart of
+``repro.checkpoint.manager``).  The on-disk format is the reference's, so
+either package restores what the other saved:
+
+    <root>/step_<N>.tmp/          # staged writes
+        ost0/<leaf>.stripe0
+        ost1/<leaf>.stripe1 ...
+    <root>/step_<N>/              # committed by atomic os.replace
+        ...
+        MANIFEST.json             # written + fsync'd LAST
+
+Commit protocol: write all stripes -> fsync -> write manifest -> fsync ->
+atomic directory rename.  A crash at any point leaves either the previous
+complete checkpoint or a .tmp that restore ignores — no torn states.
+
+Leaves are named by their path in the nested dict (``params/blocks/pos0/
+mixer/wq``, keys sorted as ``jax.tree_util.tree_flatten_with_path`` sorts
+them) and carry numpy's dtype name.  A bfloat16 leaf is written and read
+as its 16-bit patterns under the label ``"bfloat16"`` (the reference's
+``ml_dtypes`` name), so the port needs no ``ml_dtypes``.
+"""
+from __future__ import annotations
+
+import json
+import os
+import shutil
+import threading
+from concurrent.futures import Future, ThreadPoolExecutor
+from typing import Any, Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.tree import tree_flatten_with_paths, tree_unflatten
+
+MANIFEST = "MANIFEST.json"
+BF16 = "bfloat16"
+
+
+def _to_host(t: torch.Tensor) -> Tuple[np.ndarray, str]:
+    """A copy of a tensor as a host numpy array, and the dtype name to
+    record."""
+    t = t.detach().to("cpu", copy=True)
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(np.uint16), BF16
+    a = t.numpy()
+    return a, str(a.dtype)
+
+
+def _from_host(data: bytes, dtype: str, shape) -> torch.Tensor:
+    if dtype == BF16:
+        a = np.frombuffer(data, dtype=np.uint16).reshape(shape)
+        return torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16)
+    a = np.frombuffer(data, dtype=np.dtype(dtype)).reshape(shape)
+    return torch.from_numpy(a.copy())
+
+
+class CheckpointManager:
+    def __init__(self, root: str, *, stripes: int = 4, keep: int = 3):
+        self.root = root
+        self.stripes = stripes
+        self.keep = keep
+        os.makedirs(root, exist_ok=True)
+        self._pool = ThreadPoolExecutor(max_workers=stripes)
+        self._writer = ThreadPoolExecutor(max_workers=1)
+        self._pending: Optional[Future] = None
+        self._lock = threading.Lock()
+
+    # -- save ---------------------------------------------------------------
+
+    def _write_leaf(self, stage: str, name: str, arr: np.ndarray,
+                    dtype: str) -> Dict:
+        data = arr.tobytes()
+        n = max(1, min(self.stripes, len(data) or 1))
+        chunk = (len(data) + n - 1) // n if data else 0
+        files = []
+        for i in range(n):
+            ost = os.path.join(stage, f"ost{i}")
+            os.makedirs(ost, exist_ok=True)
+            fname = os.path.join(ost, f"{name.replace('/', '.')}.stripe{i}")
+            with open(fname, "wb") as f:
+                f.write(data[i * chunk:(i + 1) * chunk])
+                f.flush()
+                os.fsync(f.fileno())
+            files.append(os.path.relpath(fname, stage))
+        return {"name": name, "shape": list(arr.shape), "dtype": dtype,
+                "files": files}
+
+    def _commit(self, step: int, host, extra: Optional[Dict]) -> str:
+        stage = os.path.join(self.root, f"step_{step}.tmp")
+        final = os.path.join(self.root, f"step_{step}")
+        shutil.rmtree(stage, ignore_errors=True)
+        os.makedirs(stage)
+        records = list(self._pool.map(
+            lambda leaf: self._write_leaf(stage, *leaf), host))
+        manifest = {"step": step, "leaves": records, "extra": extra or {}}
+        mpath = os.path.join(stage, MANIFEST)
+        with open(mpath, "w") as f:
+            json.dump(manifest, f)
+            f.flush()
+            os.fsync(f.fileno())
+        shutil.rmtree(final, ignore_errors=True)
+        os.replace(stage, final)                     # atomic commit
+        self._gc()
+        return final
+
+    @staticmethod
+    def _host_leaves(tree):
+        return [(name, *_to_host(t))
+                for name, t in tree_flatten_with_paths(tree)]
+
+    def save(self, step: int, tree, *, extra: Optional[Dict] = None) -> str:
+        """Blocking save. Returns the committed directory."""
+        return self._commit(step, self._host_leaves(tree), extra)
+
+    def save_async(self, step: int, tree, *,
+                   extra: Optional[Dict] = None) -> Future:
+        """Non-blocking save: the device -> host copy happens before
+        returning, so training can update the tensors in place at once."""
+        host = self._host_leaves(tree)
+        with self._lock:
+            self.wait()
+            self._pending = self._writer.submit(self._commit, step, host,
+                                                extra)
+        return self._pending
+
+    def wait(self):
+        if self._pending is not None:
+            self._pending.result()
+            self._pending = None
+
+    def close(self):
+        """Finish the pending save and stop the writer threads."""
+        try:
+            self.wait()
+        finally:
+            self._writer.shutdown()
+            self._pool.shutdown()
+
+    # -- restore ------------------------------------------------------------
+
+    def steps(self) -> List[int]:
+        out = []
+        for d in os.listdir(self.root):
+            if d.startswith("step_") and not d.endswith(".tmp"):
+                if os.path.exists(os.path.join(self.root, d, MANIFEST)):
+                    out.append(int(d.split("_")[1]))
+        return sorted(out)
+
+    def latest_step(self) -> Optional[int]:
+        s = self.steps()
+        return s[-1] if s else None
+
+    def restore(self, tree_like, step: Optional[int] = None, *,
+                device=None) -> Tuple[int, Any]:
+        """Restore the leaves named by ``tree_like``'s paths from ``step``
+        (default: the latest), with the dtypes and shapes the manifest
+        records.  Each leaf goes to ``device``, or, when that is None, to
+        the device of its counterpart in ``tree_like``."""
+        step = step if step is not None else self.latest_step()
+        if step is None:
+            raise FileNotFoundError(f"no checkpoints under {self.root}")
+        cdir = os.path.join(self.root, f"step_{step}")
+        with open(os.path.join(cdir, MANIFEST)) as f:
+            manifest = json.load(f)
+        by_name = {r["name"]: r for r in manifest["leaves"]}
+
+        def load(item) -> torch.Tensor:
+            name, ref = item
+            rec = by_name[name]
+            data = b"".join(_read(os.path.join(cdir, f))
+                            for f in rec["files"])
+            t = _from_host(data, rec["dtype"], rec["shape"])
+            return t.to(ref.device if device is None else device)
+
+        leaves = self._pool.map(load, tree_flatten_with_paths(tree_like))
+        return step, tree_unflatten(tree_like, leaves)
+
+    # -- gc -----------------------------------------------------------------
+
+    def _gc(self):
+        steps = self.steps()
+        for s in steps[:-self.keep]:
+            shutil.rmtree(os.path.join(self.root, f"step_{s}"),
+                          ignore_errors=True)
+
+
+def _read(path: str) -> bytes:
+    with open(path, "rb") as f:
+        return f.read()

@@ -1,0 +1,138 @@
+"""Training entry point of the port (counterpart of ``repro.launch.train``):
+token pipeline -> train step -> striped async checkpoints -> restart.
+
+Runs on the card unless ``device="cpu"`` (``--device cpu``) is given.
+A restarted run restores params and optimizer state from the latest
+committed checkpoint and replays the deterministic token stream from the
+restored step.  The train step runs the model's plain PyTorch versions
+on purpose: no kernel of the port, nor of the reference, has a backward.
+
+  PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
+      --steps 3 --batch 4 --seq 64
+  PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-1.7b \\
+      --full --steps 12 --batch 8 --seq 1024
+"""
+from __future__ import annotations
+
+import argparse
+import time
+from typing import List
+
+import torch
+
+from repro_torch.checkpoint.manager import CheckpointManager
+from repro_torch.configs import get_config, reduced_config
+from repro_torch.configs.base import ShapeConfig
+from repro_torch.data.pipeline import TokenPipeline
+from repro_torch.launch.steps import build_cell
+from repro_torch.models import model as M
+from repro_torch.optim.adamw import init_opt_state
+from repro_torch.runtime.elastic import ElasticCoordinator
+from repro_torch.runtime.serving import resolve_device
+
+
+def make_train_state(cfg, generator: torch.Generator, device):
+    """f32 params drawn from ``generator`` (which lives on ``device``) and
+    a zero AdamW state."""
+    params = M.init_params(M.param_specs(cfg), generator, device=device)
+    return params, init_opt_state(params)
+
+
+def train(arch: str, *, steps: int = 20, batch: int = 8, seq: int = 128,
+          reduced: bool = True, ckpt_dir: str | None = None,
+          ckpt_every: int = 10, resume: bool = True,
+          fail_at_step: int | None = None, log_every: int = 1,
+          opts: M.RunOptions | None = None, lr_peak: float = 1e-3,
+          total_steps: int | None = None, device=None) -> List[float]:
+    """Train ``arch`` for steps ``[start, steps)``, ``start`` being the
+    latest checkpoint's step when ``resume`` finds one under ``ckpt_dir``
+    (else 0).  Saves asynchronously every ``ckpt_every`` steps and once
+    more at the end; ``fail_at_step`` raises at that step (an injected
+    failure: the pending save is flushed first).  Loss, grad norm and lr
+    are read from the device once per ``log_every`` steps.  Returns the
+    steps' losses.
+
+    Raises:
+      RuntimeError: no CUDA device and ``device`` not given (the port
+        runs on the card unless the caller asks for the CPU), or the
+        injected failure."""
+    dev = resolve_device(device)
+    cfg = get_config(arch)
+    if reduced:
+        cfg = reduced_config(cfg)
+    shape = ShapeConfig("custom", seq, batch, "train")
+    opts = opts or M.RunOptions(q_chunk=min(seq, 512),
+                                xent_chunk=min(seq, 512))
+    cell = build_cell(cfg, shape, opts, lr_peak=lr_peak,
+                      total_steps=total_steps or max(10 * steps, 100))
+    pipe = TokenPipeline(cfg.vocab_size, seq, batch, device=dev)
+    mgr = CheckpointManager(ckpt_dir) if ckpt_dir else None
+    coord = ElasticCoordinator(hosts=["host0"], devices_per_host=1,
+                               model_parallel=1, num_pods=1)
+
+    start = 0
+    params, opt = make_train_state(
+        cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    if mgr and resume and mgr.latest_step() is not None:
+        start, state = mgr.restore({"params": params, "opt": opt})
+        params, opt = state["params"], state["opt"]
+        print(f"[train] restored from step {start}")
+
+    losses = []
+    try:
+        for step in range(start, steps):
+            if fail_at_step is not None and step == fail_at_step:
+                raise RuntimeError(f"injected failure at step {step}")
+            t0 = time.perf_counter()
+            params, opt, metrics = cell.fn(params, opt, pipe.get_batch(step))
+            losses.append(metrics["loss"])
+            logged = step % log_every == 0
+            if logged:
+                loss, gnorm, lr = (float(metrics[k]) for k in
+                                   ("loss", "grad_norm", "lr"))
+            dt = time.perf_counter() - t0
+            coord.straggle.record("host0", dt)
+            coord.hb.beat("host0")
+            if logged:
+                print(f"[train] step={step} loss={loss:.4f} gnorm={gnorm:.3f} "
+                      f"lr={lr:.2e} {dt * 1e3:.0f}ms")
+            if mgr and (step + 1) % ckpt_every == 0:
+                mgr.save_async(step + 1, {"params": params, "opt": opt})
+        if mgr:
+            mgr.wait()
+            mgr.save(steps, {"params": params, "opt": opt})
+    finally:
+        # a failed step must not lose an in-flight async save: flush it,
+        # so a restart sees the last checkpoint issued
+        if mgr:
+            mgr.close()
+    return torch.stack(losses).tolist() if losses else []
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--arch", default="qwen3-1.7b")
+    ap.add_argument("--steps", type=int, default=20)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=128)
+    ap.add_argument("--reduced", action="store_true", default=True)
+    ap.add_argument("--full", dest="reduced", action="store_false")
+    ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--ckpt-every", type=int, default=10)
+    ap.add_argument("--fail-at-step", type=int, default=None)
+    ap.add_argument("--device", default=None,
+                    help="torch device (default: cuda; 'cpu' runs the "
+                    "plain versions on the CPU)")
+    args = ap.parse_args(argv)
+    losses = train(args.arch, steps=args.steps, batch=args.batch,
+                   seq=args.seq, reduced=args.reduced,
+                   ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every,
+                   fail_at_step=args.fail_at_step, device=args.device)
+    if losses:
+        print(f"[train] done; loss {losses[0]:.4f} -> {losses[-1]:.4f}")
+    else:
+        print("[train] done; no step left to run")
+
+
+if __name__ == "__main__":
+    main()

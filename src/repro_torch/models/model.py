@@ -1,7 +1,8 @@
-"""Model assembly of the port, the serving subset of ``repro.models.model``:
-parameter specs; the fixed-slot path (the dense cache, the full-sequence
-backbone, ``prefill`` and ``decode_step``); the paged KV pool, the paged
-model step and the fused decode tick.
+"""Model assembly of the port (counterpart of ``repro.models.model``):
+parameter specs; the training loss (``lm_loss``); the fixed-slot path
+(the dense cache, the full-sequence backbone, ``prefill`` and
+``decode_step``); the paged KV pool, the paged model step and the fused
+decode tick.
 
 Parameters keep the JAX pytree layout — ``embed``, ``blocks/pos{i}/...``
 with a leading stacked ``(G,)`` axis over ``num_layers = G × period``,
@@ -15,25 +16,46 @@ import dataclasses
 from typing import Any, Dict, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import mixed_precision
 from repro_torch.kernels import ops
 from repro_torch.models import attention as attn_mod
-from repro_torch.models.modules import (ParamSpec, init_params, mlp_specs,
-                                        swiglu)
+from repro_torch.models.modules import (ParamSpec, abstract_params,
+                                        count_params, init_params, mlp_specs,
+                                        softmax_xent_chunked, swiglu)
 from repro_torch.runtime import sampler as sampler_mod
+from repro_torch.tree import tree_map
 
 init_params = init_params          # re-export
+abstract_params = abstract_params  # re-export
+count_params = count_params        # re-export
 
 
 @dataclasses.dataclass(frozen=True)
 class RunOptions:
-    """Execution options of the fixed-slot path — the one field of the
-    JAX ``RunOptions`` that this path reads.  ``q_chunk``: query rows per
-    chunk of the dense prefill attention (the CPU path; the flash kernel
-    tiles on its own)."""
+    """Execution options: the fields of the JAX ``RunOptions`` that the
+    port's paths read.
+
+    - ``q_chunk``: query rows per chunk of the dense attention (training,
+      and prefill on the CPU; the flash kernel tiles on its own);
+    - ``remat``: recompute each layer in backward (``train=True`` only);
+      ``remat_policy``: ``"dots"`` (save the matmul outputs) is not
+      ported yet and raises; any other value recomputes everything, as
+      the reference's code does (its ``"none"`` too: only ``remat=False``
+      turns remat off);
+    - ``xent_chunk``: sequence positions per cross-entropy chunk;
+    - ``microbatches``: gradient-accumulation microbatches of a train
+      step; ``bf16_weights``: cast the f32 params to bf16 once at the
+      loss's entry.
+    """
+    remat: bool = True
+    remat_policy: str = "nothing"
     q_chunk: int = 1024
+    xent_chunk: int = 512
+    microbatches: int = 1
+    bf16_weights: bool = False
 
 
 def _dtype(name: str) -> torch.dtype:
@@ -104,16 +126,21 @@ def _layer(tree, g: int):
 
 def _layers(params, cfg: ModelConfig):
     """``(g, i, kind, p)`` of every layer in order: ``p`` holds the views
-    of period position ``i`` of stacked layer group ``g``."""
+    of period position ``i`` of stacked layer group ``g``, taken with one
+    ``unbind(0)`` per stacked leaf: under autograd that is one ``stack``
+    in backward, where a ``v[g]`` per layer would add a zero tensor of
+    the whole leaf's size per layer."""
+    blocks = tree_map(torch.unbind, params["blocks"])
     kinds = cfg.layer_kinds()
     out = []
     for g in range(cfg.num_layers // cfg.scan_period()):
-        blk = _layer(params["blocks"], g)
+        blk = _layer(blocks, g)
         out += [(g, i, kind, blk[f"pos{i}"]) for i, kind in enumerate(kinds)]
     return out
 
 
-def _residual_stream(params, cfg: ModelConfig, x, mixer, *, impl: str):
+def _residual_stream(params, cfg: ModelConfig, x, mixer, *, impl: str,
+                     remat: bool = False):
     """Run the residual stream ``x`` (..., D) through every layer and the
     final norm; ``mixer(g, i, kind, p, h)`` returns the attention output
     of layer ``(g, i)`` for its normed input ``h``.
@@ -123,29 +150,47 @@ def _residual_stream(params, cfg: ModelConfig, x, mixer, *, impl: str):
     fused into the norm that reads its result (``ops.add_rmsnorm``): the
     attention add into ln2, the MLP add into the next layer's ln1 or,
     after the last layer, into ``final_norm``.  Only layer 0's ln1 is a
-    lone norm.  Returns the final norm's output."""
+    lone norm.  Returns the final norm's output.
+
+    ``remat`` runs each layer — ``(x, h)`` in, ``(x, h)`` out — under
+    ``torch.utils.checkpoint``, so backward recomputes it from its two
+    inputs instead of keeping its activations."""
     eps = cfg.norm_eps
     layers = _layers(params, cfg)
     h = ops.rmsnorm(x, layers[0][3]["ln1"], eps=eps, impl=impl)
     for j, (g, i, kind, p) in enumerate(layers):
-        x, h = ops.add_rmsnorm(x, mixer(g, i, kind, p, h), p["ln2"],
-                               eps=eps, impl=impl)
         w_next = (layers[j + 1][3]["ln1"] if j + 1 < len(layers)
                   else params["final_norm"])
-        mlp = p["mlp"]
-        x, h = ops.add_rmsnorm(
-            x, swiglu(h, mlp["wg"], mlp["wu"], mlp["wd"], x.dtype), w_next,
-            eps=eps, impl=impl)
+
+        def layer(x, h, g=g, i=i, kind=kind, p=p, w_next=w_next):
+            x, h = ops.add_rmsnorm(x, mixer(g, i, kind, p, h), p["ln2"],
+                                   eps=eps, impl=impl)
+            mlp = p["mlp"]
+            return ops.add_rmsnorm(
+                x, swiglu(h, mlp["wg"], mlp["wu"], mlp["wd"], x.dtype),
+                w_next, eps=eps, impl=impl)
+        x, h = (checkpoint(layer, x, h, use_reentrant=False) if remat
+                else layer(x, h))
     return h
 
 
 def backbone(params, cfg: ModelConfig, x, opts: RunOptions, *,
-             want_cache: bool = False, impl: str = "auto"):
+             want_cache: bool = False, impl: str = "auto",
+             train: bool = False):
     """Forward through the layer stack at positions ``0..S-1`` and the
-    final norm (``_residual_stream``; forward only: no remat, no MoE aux
-    loss).  Returns ``(h, caches)``: ``h`` the final norm's output (B, S,
-    D), ``caches`` ``{posN: {k, v: (G, B, S, KVH, hd)}}`` when
-    ``want_cache``, else None."""
+    final norm (``_residual_stream``; no MoE aux loss: the port has no
+    MoE arch).  ``train`` is the loss's forward: layers remat'd when
+    ``opts.remat``.  Returns ``(h, caches)``: ``h`` the final norm's
+    output (B, S, D), ``caches`` ``{posN: {k, v: (G, B, S, KVH, hd)}}``
+    when ``want_cache``, else None.
+
+    Raises:
+      NotImplementedError: ``train`` with ``remat_policy="dots"``."""
+    remat = train and opts.remat
+    if remat and opts.remat_policy == "dots":
+        raise NotImplementedError(
+            "remat_policy='dots' (save the matmul outputs) is not ported "
+            "yet: ROADMAP.md queue 1 item 8")
     per_layer = {f"pos{i}": [] for i in range(cfg.scan_period())}
 
     def mixer(g, i, kind, p, h):
@@ -154,7 +199,7 @@ def backbone(params, cfg: ModelConfig, x, opts: RunOptions, *,
         if want_cache:
             per_layer[f"pos{i}"].append({"k": k, "v": v})
         return mix
-    h = _residual_stream(params, cfg, x, mixer, impl=impl)
+    h = _residual_stream(params, cfg, x, mixer, impl=impl, remat=remat)
     if not want_cache:
         return h, None
     return h, {pos: {key: torch.stack([c[key] for c in cs])
@@ -166,6 +211,43 @@ def _embed_inputs(params, cfg: ModelConfig, batch):
     """Token embedding of ``batch["tokens"]`` (B, S): x (B, S, D) in the
     compute dtype (the port's prompts are tokens only)."""
     return params["embed"][batch["tokens"].long()].to(compute_dtype(cfg))
+
+
+def _maybe_bf16(params, opts: RunOptions):
+    """The optional one-shot bf16 cast of the f32 weights at the loss's
+    entry (``opts.bf16_weights``): one cast per parameter instead of one
+    per use."""
+    if not opts.bf16_weights:
+        return params
+    return tree_map(
+        lambda p: p.to(torch.bfloat16) if p.dtype == torch.float32 else p,
+        params)
+
+
+def lm_loss(params, cfg: ModelConfig, batch,
+            opts: RunOptions = RunOptions()):
+    """Mean next-token cross-entropy of ``batch`` (``tokens``, ``labels``:
+    (B, S) int32; labels < 0 are masked).  Returns ``(loss, {"xent",
+    "aux_loss"})``, 0-d f32 tensors; ``aux_loss`` is 0, the port having
+    no MoE arch.
+
+    The forward is the reference's, in plain PyTorch (``impl="plain"``:
+    no kernel of the port has a backward, and neither has the
+    reference's): the dense query-chunked attention, each residual add
+    fused into the norm that reads it (the plain ``add_rmsnorm``,
+    bit-equal to the reference's add, then norm), layers remat'd per
+    ``opts``, and the chunked cross-entropy against the output weight in
+    the compute dtype (``softmax_xent_chunked`` then rounds it to bf16,
+    as the reference does even in f32 configs)."""
+    params = _maybe_bf16(params, opts)
+    x = _embed_inputs(params, cfg, batch)
+    h, _ = backbone(params, cfg, x, opts, impl="plain", train=True)
+    total, count = softmax_xent_chunked(
+        h, _output_weight(params, cfg).to(h.dtype), batch["labels"],
+        chunk=opts.xent_chunk)
+    loss = total / torch.clamp(count, min=1.0)
+    aux = torch.zeros((), dtype=torch.float32, device=loss.device)
+    return loss, {"xent": loss, "aux_loss": aux}
 
 
 def prefill(params, cfg: ModelConfig, batch, opts: RunOptions = RunOptions(),

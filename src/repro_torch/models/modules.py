@@ -15,6 +15,7 @@ from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels.ref import rmsnorm_ref
 
@@ -55,6 +56,20 @@ def init_params(specs, generator: torch.Generator,
     return build(specs)
 
 
+def abstract_params(specs, dtype: torch.dtype = torch.float32):
+    """The params tree as tensors on the ``meta`` device: shapes and
+    dtypes, no storage."""
+    if isinstance(specs, ParamSpec):
+        return torch.empty(specs.shape, dtype=dtype, device="meta")
+    return {k: abstract_params(v, dtype) for k, v in specs.items()}
+
+
+def count_params(specs) -> int:
+    if isinstance(specs, ParamSpec):
+        return math.prod(specs.shape)
+    return sum(count_params(v) for v in specs.values())
+
+
 def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6):
     """Plain RMSNorm (``x·rsqrt(mean(x²)+eps)·(1+w)`` in f32).  The model
     norms through ``kernels.ops.rmsnorm``, which runs the Triton kernel
@@ -91,3 +106,44 @@ def mlp_specs(d_model: int, d_ff: int, prefix_axes=("embed", "ff")) -> dict:
         "wu": ParamSpec((d_model, d_ff), (e, f)),
         "wd": ParamSpec((d_ff, d_model), (f, e)),
     }
+
+
+def _xent_chunk(xc, w_out, lc, compute_dtype: torch.dtype):
+    """Summed cross-entropy and token count of one chunk: xc (B, cs, D),
+    w_out (D, V), lc (B, cs) with labels < 0 masked out."""
+    w = w_out.to(compute_dtype).to(torch.promote_types(xc.dtype,
+                                                        compute_dtype))
+    logits = (xc @ w).float()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, lc.clamp(min=0).long()[..., None])[..., 0]
+    mask = (lc >= 0).float()
+    return torch.sum((lse - gold) * mask), torch.sum(mask)
+
+
+def softmax_xent_chunked(x, w_out, labels, *, chunk: int = 512,
+                         compute_dtype: torch.dtype = torch.bfloat16):
+    """Cross-entropy without materializing full (B, S, V) logits.
+
+    x: (B, S, D) final hidden; w_out: (D, V); labels: (B, S) int32.
+    Each chunk rounds ``w_out`` to ``compute_dtype`` and takes the
+    product in the promoted dtype of the two, as the reference's scan
+    body does: with f32 ``x`` the logits use bf16-rounded weights, and
+    each chunk's gradient reaching ``w_out`` is rounded to bf16 before
+    the chunks' gradients are summed.  Each chunk runs under
+    ``torch.utils.checkpoint``: backward recomputes it, so only one
+    chunk's (B, chunk, V) logits are alive at a time in either pass.
+    Returns (sum_loss, sum_tokens), 0-d f32.
+    """
+    B, S, D = x.shape
+    n = max(S // chunk, 1)
+    cs = S // n
+    xs = x.reshape(B, n, cs, D).unbind(1)
+    ls = labels.reshape(B, n, cs).unbind(1)
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    count = torch.zeros((), dtype=torch.float32, device=x.device)
+    for xc, lc in zip(xs, ls):
+        loss, cnt = checkpoint(_xent_chunk, xc, w_out, lc, compute_dtype,
+                               use_reentrant=False)
+        total = total + loss
+        count = count + cnt
+    return total, count

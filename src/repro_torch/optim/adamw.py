@@ -1,0 +1,71 @@
+"""AdamW with global-norm clipping (counterpart of
+``repro.optim.adamw``).
+
+The optimizer state keeps the reference's tree, ``{"mu", "nu", "count"}``
+with the moments parallel to the params and ``count`` a 0-d int32, so a
+checkpoint of it reads the same in both packages.  The update is the
+reference's formula, leaf by leaf; where the reference returns new
+arrays (and its train step donates the old ones), the port updates the
+params and the state in place and returns them.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, Optional
+
+import torch
+
+from repro_torch.tree import tree_leaves, tree_map
+
+
+@dataclasses.dataclass(frozen=True)
+class AdamWConfig:
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    weight_decay: float = 0.1
+    clip_norm: Optional[float] = 1.0
+
+
+def init_opt_state(params) -> Dict[str, Any]:
+    zeros = lambda: tree_map(torch.zeros_like, params)        # noqa: E731
+    device = tree_leaves(params)[0].device
+    return {"mu": zeros(), "nu": zeros(),
+            "count": torch.zeros((), dtype=torch.int32, device=device)}
+
+
+def global_norm(tree) -> torch.Tensor:
+    return torch.sqrt(sum(torch.sum(torch.square(x.float()))
+                          for x in tree_leaves(tree)))
+
+
+@torch.no_grad()
+def adamw_update(grads, opt_state, params, lr,
+                 cfg: AdamWConfig = AdamWConfig()):
+    """One AdamW step: clip ``grads`` to ``cfg.clip_norm`` by their global
+    norm, advance the moments, and move every leaf of ``params`` (the
+    norms included, as in the reference) by
+    ``lr·(m̂/(√v̂ + eps) + wd·p)``, the bias corrections taken at
+    ``count + 1``.  ``lr`` is a number
+    or a 0-d tensor on the params' device.
+
+    ``params`` and ``opt_state`` are updated in place and returned:
+    ``(params, opt_state, {"grad_norm"})``, the norm before clipping."""
+    count = opt_state["count"].add_(1)
+    gnorm = global_norm(grads)
+    scale = None
+    if cfg.clip_norm is not None:
+        scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-12),
+                            max=1.0)
+    b1c = 1.0 - cfg.b1 ** count.float()
+    b2c = 1.0 - cfg.b2 ** count.float()
+    for g, mu, nu, p in zip(tree_leaves(grads), tree_leaves(opt_state["mu"]),
+                            tree_leaves(opt_state["nu"]),
+                            tree_leaves(params)):
+        g = g.float() if scale is None else g.float() * scale
+        mu.copy_(cfg.b1 * mu.float() + (1 - cfg.b1) * g)
+        nu.copy_(cfg.b2 * nu.float() + (1 - cfg.b2) * torch.square(g))
+        step = (mu.float() / b1c) / (torch.sqrt(nu.float() / b2c) + cfg.eps)
+        p32 = p.float()
+        p.copy_(p32 - lr * (step + cfg.weight_decay * p32))
+    return params, opt_state, {"grad_norm": gnorm}

@@ -114,6 +114,19 @@ def test_fixed_slot_engine_and_serve_default_to_cuda(monkeypatch):
     assert r["generated"].shape == (2, 3)
 
 
+def test_train_defaults_to_cuda_and_raises_without_it(monkeypatch, capsys):
+    from repro_torch.launch.train import main, train
+    _no_cuda(monkeypatch)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train("qwen3-1.7b", steps=1)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        main(["--steps", "1", "--batch", "2", "--seq", "16"])
+    losses = train("qwen3-1.7b", steps=2, batch=2, seq=16, device="cpu")
+    assert len(losses) == 2 and np.isfinite(losses).all()
+    main(["--device", "cpu", "--steps", "1", "--batch", "2", "--seq", "16"])
+    assert "[train] done" in capsys.readouterr().out
+
+
 def test_telemetry_is_refused():
     from repro_torch.configs import get_config, reduced_config
     from repro_torch.models import model as M

@@ -1,0 +1,167 @@
+"""The port's train step and its ``train()`` loop.
+
+The train step against JAX's ``build_cell(...).fn`` over 3 steps, from
+the same params (JAX-initialized, carried across by ``params_from_jax``)
+and the same batches (the token pipelines are bit-equal), reduced
+configs, lr 3e-3 peak with warmup over 3 of 300 steps.  Tolerances:
+
+- f32 compute: losses rtol 1e-5, grad norms rtol 1e-3, lr rtol 1e-6;
+  params within 5e-5 and the whole update ``p_3 - p_0`` within 1e-3 of
+  its norm (XLA and torch sum the f32 matmuls in other orders; llama's
+  third step meets a grad-norm jump that carries those ulps to 2e-4);
+- bf16 compute: XLA-CPU and torch-CPU bf16 matmuls may round each
+  product's output one bf16 step apart, and AdamW's normalized update
+  turns a grad's rounding into a step of the full lr where the moments
+  nearly cancel: losses rtol 2e-4, grad norms rtol 5e-3, lr rtol 1e-6,
+  the update within 0.1 of its norm.
+
+``train()`` on the CPU at the reference's system-test settings
+(``tests/test_system.py``, qwen3-1.7b: the port has no mamba2-130m).
+"""
+import dataclasses
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_config, reduced_config
+from repro.configs.base import ShapeConfig
+from repro.data.pipeline import TokenPipeline as JPipeline
+from repro.launch.mesh import make_host_mesh
+from repro.launch.steps import build_cell as jbuild_cell
+from repro.models import model as JM
+from repro.optim.adamw import init_opt_state as jinit_opt_state
+from repro_torch.checkpoint.manager import CheckpointManager
+from repro_torch.configs import ShapeConfig as TShapeConfig
+from repro_torch.configs import get_config as tget
+from repro_torch.configs import reduced_config as treduced
+from repro_torch.data.pipeline import TokenPipeline
+from repro_torch.launch import train as T
+from repro_torch.launch.steps import build_cell
+from repro_torch.models import model as TM
+from repro_torch.models.convert import params_from_jax
+from repro_torch.optim.adamw import init_opt_state
+from repro_torch.tree import tree_leaves
+
+B, S = 4, 32
+TOL = {"float32": dict(loss=1e-5, grad_norm=1e-3, param=5e-5, update=1e-3),
+       "bfloat16": dict(loss=2e-4, grad_norm=5e-3, param=None, update=0.1)}
+
+
+@pytest.mark.parametrize("arch,dtype", [("qwen3-1.7b", "float32"),
+                                        ("llama3-8b", "float32"),
+                                        ("qwen3-1.7b", "bfloat16")])
+def test_train_step_matches_jax_over_three_steps(arch, dtype):
+    cfg = reduced_config(get_config(arch), compute_dtype=dtype)
+    tcfg = treduced(tget(arch), compute_dtype=dtype)
+    assert dataclasses.asdict(cfg) == dataclasses.asdict(tcfg)
+    mesh = make_host_mesh()
+    cell = jbuild_cell(cfg, ShapeConfig("custom", S, B, "train"), mesh,
+                       opts=JM.RunOptions(q_chunk=16, xent_chunk=16),
+                       lr_peak=3e-3, total_steps=300)
+    tcell = build_cell(tcfg, TShapeConfig("custom", S, B, "train"),
+                       TM.RunOptions(q_chunk=16, xent_chunk=16),
+                       lr_peak=3e-3, total_steps=300)
+    jp = JM.init_params(JM.param_specs(cfg), jax.random.PRNGKey(0))
+    p0 = jax.tree.leaves(jax.tree.map(np.asarray, jp))
+    jo = jinit_opt_state(jp)
+    tp = params_from_jax(jax.tree.map(np.asarray, jp))
+    to = init_opt_state(tp)
+    jpipe = JPipeline(cfg.vocab_size, S, B)
+    tpipe = TokenPipeline(cfg.vocab_size, S, B, device="cpu")
+    tol = TOL[dtype]
+    with mesh:
+        fn = jax.jit(cell.fn)
+        for step in range(3):
+            jp, jo, jm = fn(jp, jo, jpipe.get_batch(step))
+            tp, to, tm = tcell.fn(tp, to, tpipe.get_batch(step))
+            for key, rtol in (("loss", tol["loss"]), ("xent", tol["loss"]),
+                              ("grad_norm", tol["grad_norm"]), ("lr", 1e-6)):
+                np.testing.assert_allclose(float(tm[key]), float(jm[key]),
+                                           rtol=rtol, err_msg=key)
+    assert int(to["count"]) == int(jo["count"]) == 3
+    for a, t, start in zip(jax.tree.leaves(jp), tree_leaves(tp), p0):
+        a, t = np.asarray(a), t.numpy()
+        if tol["param"] is not None:
+            np.testing.assert_allclose(t, a, atol=tol["param"])
+        update_err = np.linalg.norm(a - t) / np.linalg.norm(a - start)
+        assert update_err < tol["update"], (a.shape, update_err)
+
+
+def test_train_cell_refuses_multi_device_modes_and_serving_shapes():
+    # the multi-device modes come with the parallelism slice: until then
+    # the port's RunOptions has no field to ask for them
+    for field in (dict(grad_sync="compressed"), dict(pipeline=True)):
+        with pytest.raises(TypeError, match="unexpected keyword"):
+            TM.RunOptions(**field)
+    cfg = treduced(tget("qwen3-1.7b"))
+    with pytest.raises(ValueError, match="train"):
+        build_cell(cfg, TShapeConfig("p", S, B, "prefill"))
+
+
+@pytest.fixture(scope="module")
+def trained(tmp_path_factory):
+    ck = str(tmp_path_factory.mktemp("ckpt"))
+    losses = T.train("qwen3-1.7b", steps=30, batch=8, seq=64, reduced=True,
+                     ckpt_dir=ck, ckpt_every=10, log_every=1000,
+                     lr_peak=3e-3, total_steps=300, device="cpu")
+    return ck, losses
+
+
+def test_train_reduces_loss(trained):
+    _, losses = trained
+    assert len(losses) == 30
+    assert all(isinstance(x, float) for x in losses)
+    assert np.mean(losses[-5:]) < np.mean(losses[:5]) - 0.05, losses
+
+
+def test_train_checkpoints_and_restart_continues(trained):
+    ck, losses = trained
+    assert CheckpointManager(ck).steps() == [10, 20, 30]
+    more = T.train("qwen3-1.7b", steps=33, batch=8, seq=64, reduced=True,
+                   ckpt_dir=ck, ckpt_every=100, log_every=1000,
+                   lr_peak=3e-3, total_steps=300, device="cpu")
+    assert len(more) == 3                       # steps 30..32
+    assert np.isfinite(more).all()
+    assert np.mean(more) < np.mean(losses[:5])
+
+
+def test_injected_failure_then_recovery_replays_the_stream(tmp_path):
+    """Crash mid-run, restart from the last committed step; the resumed
+    losses equal an uninterrupted run's on the CPU (same ops, same
+    order, the stream replayed from the restored step)."""
+    kw = dict(batch=4, seq=64, reduced=True, log_every=1000, device="cpu")
+    ck = str(tmp_path / "ck")
+    with pytest.raises(RuntimeError, match="injected failure"):
+        T.train("qwen3-1.7b", steps=20, ckpt_dir=ck, ckpt_every=5,
+                fail_at_step=12, **kw)
+    assert CheckpointManager(ck).steps() == [5, 10]
+    resumed = T.train("qwen3-1.7b", steps=14, ckpt_dir=ck, ckpt_every=100,
+                      total_steps=200, **kw)
+    assert len(resumed) == 4                    # steps 10..13
+    whole = T.train("qwen3-1.7b", steps=14, total_steps=200, **kw)
+    np.testing.assert_allclose(resumed, whole[10:], rtol=1e-6)
+
+
+def test_make_train_state_is_f32_and_seeded():
+    cfg = treduced(tget("llama3-8b"))
+    a, opt = T.make_train_state(cfg, torch.Generator().manual_seed(0), "cpu")
+    b, _ = T.make_train_state(cfg, torch.Generator().manual_seed(0), "cpu")
+    assert all(x.dtype == torch.float32 for x in tree_leaves(a))
+    assert all(torch.equal(x, y) for x, y in zip(tree_leaves(a),
+                                                 tree_leaves(b)))
+    assert set(opt) == {"mu", "nu", "count"} and int(opt["count"]) == 0
+    assert all(not m.any() for m in tree_leaves(opt["mu"]))
+
+
+def test_train_cli_on_cpu(capsys, tmp_path):
+    T.main(["--device", "cpu", "--steps", "3", "--batch", "2", "--seq", "16",
+            "--ckpt-dir", str(tmp_path), "--ckpt-every", "2"])
+    out = capsys.readouterr().out
+    assert out.count("[train] step=") == 3 and "[train] done; loss" in out
+    assert CheckpointManager(str(tmp_path)).steps() == [2, 3]
+    T.main(["--device", "cpu", "--steps", "3", "--batch", "2", "--seq", "16",
+            "--ckpt-dir", str(tmp_path)])
+    out = capsys.readouterr().out
+    assert "restored from step 3" in out and "no step left" in out
