@@ -65,7 +65,23 @@ Phases, each printed as it runs:
    time, device busy time and idle share, eager and as a graph replay;
    and, as information, how many greedy tokens the fixed-slot and bf16
    paged engines share;
-6. f32 — the same model computing in f32 (f32 weights, pool and cache;
+6. telemetry — the serving telemetry plane on the graphed paged engine
+   at the same width, over the same 16 requests and weights, with a bf16
+   and an fp8 pool: the engine with ``telemetry=None``,
+   ``Telemetry(ring=4096)`` and ``Telemetry(profile=True)`` gives the
+   streams and flat trace of phase 4's run and its launch counts; in a
+   steady window (every request seated and decoding) the three give the
+   same kernels and copies per tick under torch.profiler and the same
+   synchronizing calls per tick under
+   ``torch.cuda.set_sync_debug_mode("warn")``, and only the profiled one
+   has ``fused_decode_tick`` ranges; the recorder's events project onto
+   the flat trace and its Perfetto export validates; a ``MetricsServer``
+   on port 0 serves the engine's metric families; a forced stall writes a
+   postmortem naming every stalled rid with a consistent page partition;
+   then five interleaved runs of each mode on fresh engines give the
+   on/off tokens/s ratio and the tick profiler's phase table
+   (information);
+7. f32 — the same model computing in f32 (f32 weights, pool and cache;
    flash prefill on its CUDA-core route): 8 greedy streams teacher-forced
    through the fused tick and through ``prefill`` + ``decode_step``, each
    with the kernels and with the plain versions, whose top-1 must agree
@@ -73,7 +89,7 @@ Phases, each printed as it runs:
    logit difference there) with at least 90% of the positions decided;
    then the paged engine and ``ServingEngine`` on the same 8 requests,
    whose streams must be equal up to their first top-2 gap <= 1e-3;
-7. train — the training path, which runs the plain PyTorch versions on
+8. train — the training path, which runs the plain PyTorch versions on
    purpose (no kernel has a backward, in the port or in the reference):
    ``train()`` on qwen3-1.7b at its published width (f32 master weights
    and AdamW state, bf16 compute, remat, batch 8 x seq 1024 from the
@@ -90,7 +106,7 @@ Phases, each printed as it runs:
    resumed losses and final params, mu, nu and count against an
    uninterrupted run, and a ``save_async`` whose restored tensors equal
    the saved ones bit for bit);
-8. hpc — the fp8 GEMM kernel (K6) against its plain version, held to
+9. hpc — the fp8 GEMM kernel (K6) against its plain version, held to
    ``fp8_matmul.error_bound`` (f32 sums plus the tensor-core term of sums
    promoted every 128 products), through ``ops.fp8_matmul`` (aligned,
    ragged, bm/bn != 128) and through the per-tensor call at the n = 256,
@@ -108,8 +124,8 @@ Phases, each printed as it runs:
    kernel and with the plain version (first trailing update and refined
    solutions held); HPCG at 256³ (50 iterations, the true residual
    recomputed) and at 48³ (90 iterations, converged);
-9. summary — one JSON line listing the kernels, the card's name and power
-   limit, and as the last line ``{"ok": true, "device": {...}}``.
+10. summary — one JSON line listing the kernels, the card's name and power
+    limit, and as the last line ``{"ok": true, "device": {...}}``.
 
 Any failure raises: the script exits non-zero and prints no ``ok`` line.
 It never runs on the CPU: without CUDA it stops before any phase.
@@ -159,6 +175,10 @@ HPL_N, HPL_NB = 65536, 1024
 K6_M = K6_N = 32768            # a mid-run trailing update of that HPL
 HPL_CHECK_N = 8192             # whole-path kernel-vs-plain factorization
 HPCG_EDGE = 256                # HPCG's customary per-GPU local grid
+# the paged engines of the serving phases: 8 seats, pages of 16 tokens,
+# room for 16 requests of up to 544 tokens plus 16 pages of headroom
+ENGINE_KW = dict(page_size=PAGE, num_pages=16 * 34 + 16, max_seats=8,
+                 max_seq_len=512 + 32, prefill_chunk=PREFILL_CHUNK)
 
 
 def log(phase: str, msg: str) -> None:
@@ -1004,7 +1024,8 @@ def norm_launches(cfg, steps: int) -> dict:
             f"rmsnorm_qk[D={cfg.head_dim}]": L * steps}
 
 
-def _check_run(tag: str, r: dict, cfg, counts: dict) -> None:
+def _check_run(tag: str, r: dict, cfg, counts: dict,
+               phase: str = "serve") -> None:
     """Checks one serving run with a ``tag`` pool against the kernel
     launches ``counts`` read just after it."""
     eng = r["engine"]
@@ -1027,7 +1048,7 @@ def _check_run(tag: str, r: dict, cfg, counts: dict) -> None:
         f"{tag}: launches {counts}, expected {want} for {ticks} decode " \
         f"ticks and {chunks} prefill chunks"
     m = r["metrics"]
-    log("serve", f"{tag}: {m['completed']:.0f} requests "
+    log(phase, f"{tag}: {m['completed']:.0f} requests "
         f"{m['generated_tokens']:.0f} tokens, {ticks} decode ticks, "
         f"{chunks} prefill chunks, {m['tokens_per_s']:.1f} tokens/s, "
         f"mean TTFT {m['ttft_avg_s'] * 1e3:.1f} ms, wall "
@@ -1257,16 +1278,14 @@ def _check_tickets(what: str, tickets) -> None:
             f"{what}: tickets left at {buf.nonzero().flatten().tolist()}"
 
 
-def _eager_engine(tag: str, r: dict, cfg, kw: dict) -> None:
+def _eager_engine(tag: str, r: dict, cfg) -> None:
     """The paged engine with ``fused=False`` (eager model step, host-side
     sampling, no graph) over the requests of the graphed run ``r``, on
     the same weights: the greedy streams and the traces must be equal."""
     from repro_torch.runtime.serving import PagedServingEngine
     eng = PagedServingEngine(
-        cfg, r["engine"].params, page_size=kw["page_size"],
-        num_pages=kw["num_pages"], max_seats=kw["max_seats"],
-        max_seq_len=kw["max_seq_len"], prefill_chunk=kw["prefill_chunk"],
-        kv_dtype=None if tag == "bf16" else tag, fused=False, device="cuda")
+        cfg, r["engine"].params, kv_dtype=None if tag == "bf16" else tag,
+        fused=False, device="cuda", **ENGINE_KW)
     for q in sorted(r["finished"], key=lambda q: q.rid):
         eng.submit(q.prompt, max_new_tokens=q.max_new_tokens)
     eager = {q.rid: q.generated for q in eng.run()}
@@ -1295,9 +1314,7 @@ def phase_serve():
     from repro_torch.launch.serve import serve_paged
     cfg = get_config(ARCH)
     kw = dict(reduced=False, device="cuda", requests=16, gen=32, min_gen=32,
-              min_prompt_len=64, max_seq_len=512 + 32, page_size=PAGE,
-              num_pages=16 * 34 + 16, max_seats=8,
-              prefill_chunk=PREFILL_CHUNK, seed=0)
+              min_prompt_len=64, seed=0, **ENGINE_KW)
     runs, counts = {}, {}
     for tag in ("bf16", "fp8", "int8"):
         ops.reset_launches()                   # the main path starts here
@@ -1305,7 +1322,7 @@ def phase_serve():
                                 else tag, **kw)
         counts[tag] = dict(ops.launches)       # ... and ends here
         _check_run(tag, runs[tag], cfg, counts[tag])
-        _eager_engine(tag, runs[tag], cfg, kw)
+        _eager_engine(tag, runs[tag], cfg)
         gc.collect()
         torch.cuda.empty_cache()
         _graph_vs_eager(tag, runs[tag]["engine"])
@@ -1461,6 +1478,305 @@ def phase_serve_fixed(paged: dict) -> dict:
         f"streams identical, first divergence at mean token "
         f"{sum(lead) / 16:.1f}")
     return counts
+
+
+# ---------------------------------------------------------------------------
+# phase telemetry
+# ---------------------------------------------------------------------------
+
+TEL_MODES = ("off", "on", "profiled")
+TEL_REPS = 5                   # interleaved engine runs per mode and pool
+STEADY_TICKS = 5               # ticks in each profiled / sync-counted window
+TEL_DIR = ROOT / "build" / "telemetry"     # the trace export, the postmortem
+
+
+def _telemetry(mode: str):
+    from repro_torch.runtime.telemetry import Telemetry
+    return {"off": None, "on": Telemetry(ring=4096),
+            "profiled": Telemetry(profile=True)}[mode]
+
+
+def _tel_engine(cfg, params, tag: str, mode: str, requests):
+    """A graphed paged engine with the phase-4 configuration and a ``tag``
+    pool, ``mode`` telemetry, and ``requests`` submitted."""
+    from repro_torch.runtime.serving import PagedServingEngine
+    eng = PagedServingEngine(cfg, params, kv_dtype=None if tag == "bf16"
+                             else tag, telemetry=_telemetry(mode),
+                             device="cuda", **ENGINE_KW)
+    for prompt, n in requests:
+        eng.submit(prompt, max_new_tokens=n)
+    return eng
+
+
+def _to_steady(eng) -> None:
+    """Step ``eng`` until its next tick admits and prefills nothing: every
+    request is seated and decoding."""
+    while eng.queue or any(r.prefill_pos < len(r.prefill_src)
+                           for r in eng.seats.values()):
+        eng.step()
+
+
+def _window_kernels(eng) -> tuple:
+    """(kernels, memory copies, ``fused_decode_tick`` ranges) of
+    STEADY_TICKS engine ticks under torch.profiler.  The profiler lists
+    each range's span on the device (a user annotation) among the device
+    events; it is not a kernel and is not counted as one."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(STEADY_TICKS):
+            assert eng.seats, "the steady window outlived the requests"
+            eng.step()
+        torch.cuda.synchronize()
+    dev = [a for a in prof.key_averages()
+           if a.device_type == torch.autograd.DeviceType.CUDA
+           and a.self_device_time_total > 0]
+    copies = sum(a.count for a in dev if a.key.startswith(("Memcpy",
+                                                           "Memset")))
+    kernels = sum(a.count for a in dev
+                  if a.key != "fused_decode_tick") - copies
+    ranges = sum(1 for e in prof.events() if e.name == "fused_decode_tick"
+                 and e.device_type == torch.autograd.DeviceType.CPU)
+    return kernels, copies, ranges
+
+
+def _window_syncs(eng) -> Counter:
+    """Synchronizing CUDA calls made by STEADY_TICKS engine ticks, counted
+    under ``torch.cuda.set_sync_debug_mode("warn")`` by the file and line
+    that made them.  Only calls inside the ticks count: the first switch
+    into the mode makes one of its own."""
+    import traceback
+    import warnings
+    seen = Counter()
+    inside = False
+
+    def record(message, category, filename, lineno, file=None, line=None):
+        if inside and "synchroniz" in str(message):
+            f = [f for f in traceback.extract_stack()[:-1]
+                 if Path(f.filename).name != "warnings.py"][-1]
+            seen[f"{Path(f.filename).name}:{f.lineno}"] += 1
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = record
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            for _ in range(STEADY_TICKS):
+                assert eng.seats, "the steady window outlived the requests"
+                inside = True
+                eng.step()
+                inside = False
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return seen
+
+
+def _tel_identity(cfg, params, tag: str, requests, want) -> dict:
+    """The 16 requests through graphed engines with telemetry off, on and
+    profiling: tokens and flat traces equal to each other and to phase
+    4's run ``want`` (streams, trace), launch counts as phase 4's, and in
+    a steady window the same kernels, copies and synchronizing calls per
+    tick, with the ``fused_decode_tick`` ranges only when profiling.
+    Returns the telemetry-on engine."""
+    from repro_torch.kernels import ops
+    windows = {}
+    for mode in TEL_MODES:
+        ops.reset_launches()                   # the main path starts here
+        eng = _tel_engine(cfg, params, tag, mode, requests)
+        _to_steady(eng)
+        # no collection of an earlier engine's graphs inside a window
+        gc.collect()
+        syncs = _window_syncs(eng)
+        gc.collect()
+        kernels, copies, ranges = _window_kernels(eng)
+        done = eng.run()
+        counts = dict(ops.launches)            # ... and ends here
+        _check_run(tag, {"engine": eng, "finished": done,
+                         "metrics": eng.metrics.snapshot()}, cfg, counts,
+                   phase="telemetry")
+        streams = {q.rid: q.generated for q in done}
+        assert streams == want[0], f"{tag}/{mode}: streams differ from " \
+            "phase 4's run"
+        assert eng.trace == want[1], f"{tag}/{mode}: trace differs from " \
+            "phase 4's run"
+        windows[mode] = (kernels, copies, syncs, ranges)
+        if mode == "on":
+            on = eng
+        log("telemetry", f"{tag}/{mode}: streams and flat trace equal to "
+            f"phase 4's; steady window of {STEADY_TICKS} ticks: "
+            f"{kernels / STEADY_TICKS:.1f} kernels, "
+            f"{copies / STEADY_TICKS:.1f} copies, "
+            f"{sum(syncs.values()) / STEADY_TICKS:.1f} synchronizing calls "
+            f"per tick ({json.dumps(dict(syncs))}), {ranges} "
+            "fused_decode_tick ranges")
+    off = windows["off"]
+    for mode in ("on", "profiled"):
+        assert windows[mode][:3] == off[:3], \
+            f"{tag}: {mode} (kernels, copies, syncs) {windows[mode][:3]} " \
+            f"!= off {off[:3]} over {STEADY_TICKS} ticks"
+    assert sum(off[2].values()) >= STEADY_TICKS, \
+        f"{tag}: {dict(off[2])} synchronizing calls counted over " \
+        f"{STEADY_TICKS} ticks; the token pull alone is one per tick"
+    assert (windows["off"][3], windows["on"][3]) == (0, 0)
+    assert windows["profiled"][3] == STEADY_TICKS, \
+        f"{tag}: {windows['profiled'][3]} fused_decode_tick ranges in " \
+        f"{STEADY_TICKS} profiled ticks"
+    return on
+
+
+def _tel_export(tag: str, eng) -> None:
+    """The recorder of the telemetry-on engine: its events project onto
+    the flat trace, and its Perfetto export validates and holds a
+    prefill and a decode span for every request."""
+    from repro_torch.runtime.telemetry import (build_spans,
+                                               validate_chrome_trace,
+                                               write_perfetto)
+    tel = eng.telemetry
+    events = tel.events()
+    assert tel.recorder.dropped == 0, f"{tag}: the ring dropped events"
+    assert [(e.tick, e.kind, e.rid) for e in events
+            if e.kind != "submit"] == eng.trace, \
+        f"{tag}: recorder events do not project onto the flat trace"
+    path = TEL_DIR / f"trace_{tag}.json"
+    write_perfetto(str(path), events)
+    doc = json.loads(path.read_text())
+    errors = validate_chrome_trace(doc)
+    assert errors == [], f"{tag}: Perfetto export invalid: {errors[:5]}"
+    spans = build_spans(events)["spans"]
+    for name in ("prefill", "decode"):
+        rids = {s["rid"] for s in spans if s["name"] == name}
+        assert rids == set(range(16)), f"{tag}: {name} spans for {rids}"
+    log("telemetry", f"{tag}: {len(events)} events, none dropped; Perfetto "
+        f"export {path.relative_to(ROOT)} valid ({len(doc['traceEvents'])} "
+        f"trace events, {len(spans)} spans)")
+
+
+def _tel_metrics_server(eng) -> None:
+    """A ``MetricsServer`` on port 0 over the engine's metrics serves
+    every family of the exposition."""
+    import urllib.request
+    from repro_torch.runtime.telemetry import MetricsServer, prometheus_text
+    srv = MetricsServer(lambda: prometheus_text({ARCH: eng.metrics}), port=0)
+    try:
+        with urllib.request.urlopen(srv.url, timeout=10) as resp:
+            text = resp.read().decode()
+    finally:
+        srv.close()
+    assert text == prometheus_text({ARCH: eng.metrics})
+    families = [ln.split()[2] for ln in text.splitlines()
+                if ln.startswith("# TYPE ")]
+    for fam in ("repro_requests_completed_total", "repro_tokens_decode_total",
+                "repro_ticks_total", "repro_pages_in_use",
+                "repro_ttft_seconds", "repro_tbt_seconds"):
+        assert fam in families, f"metrics server: no {fam}"
+    assert f'repro_requests_completed_total{{engine="{ARCH}"}} 16' in text
+    log("telemetry", f"metrics server on port {srv.port}: {len(families)} "
+        f"families, {len(text.splitlines())} lines, equal to "
+        "prometheus_text")
+
+
+def _tel_stall(cfg, params, requests) -> None:
+    """A forced stall (3 ticks for 16 requests) raises and writes a
+    postmortem that names every stalled rid and holds a consistent
+    ``BlockManager`` partition."""
+    from repro_torch.runtime.serving import (PagedServingEngine,
+                                             SchedulerStallError)
+    from repro_torch.runtime.telemetry import Telemetry
+    path = TEL_DIR / "postmortem.json"
+    eng = PagedServingEngine(cfg, params, device="cuda", telemetry=Telemetry(
+        ring=4096, postmortem_path=str(path)), **ENGINE_KW)
+    for prompt, n in requests:
+        eng.submit(prompt, max_new_tokens=n)
+    try:
+        eng.run(max_ticks=3)
+    except SchedulerStallError:
+        pass
+    else:
+        raise AssertionError("run(max_ticks=3) did not stall")
+    pm = json.loads(path.read_text())
+    pending = sorted(q.rid for q in [*eng.queue, *eng.seats.values()])
+    state = pm["engines"]["engine"]
+    named = sorted({r["rid"] for r in state["queue"]}
+                   | {r["rid"] for r in state["seats"].values()})
+    assert named == pending and pending, (named, pending)
+    for rid in pending:
+        assert f"{rid}(standard)" in pm["reason"], rid
+    bm = state["block_manager"]
+    assert bm["partition_ok"] is True, "postmortem: pages not partitioned"
+    assert len(bm["free"]) + len(bm["reclaimable"]) + \
+        len(bm["live_refcounts"]) == bm["capacity"]
+    log("telemetry", f"forced stall: postmortem {path.relative_to(ROOT)} "
+        f"names the {len(pending)} stalled rids ({len(state['seats'])} "
+        f"seated, {len(state['queue'])} queued), {bm['in_use']} pages in "
+        f"use, partition consistent, "
+        f"{pm['flight_recorder']['total']} events recorded")
+
+
+def _tel_reps(cfg, params, tag: str, requests) -> None:
+    """TEL_REPS interleaved runs of each mode on fresh engines: tokens/s
+    with telemetry on over off (information, not a gate) and the tick
+    profiler's phase table, summed over the profiled runs."""
+    from repro_torch.runtime.telemetry import TickProfiler
+    tps = {mode: [] for mode in TEL_MODES}
+    prof = TickProfiler()
+    for rep in range(TEL_REPS):
+        for mode in TEL_MODES if rep % 2 == 0 else TEL_MODES[::-1]:
+            eng = _tel_engine(cfg, params, tag, mode, requests)
+            done = eng.run()
+            assert len(done) == 16
+            tps[mode].append(eng.metrics.snapshot()["tokens_per_s"])
+            if mode == "profiled":
+                p = eng.telemetry.profiler
+                for phase, t in p.totals.items():
+                    prof.totals[phase] = prof.totals.get(phase, 0.0) + t
+                    prof.calls[phase] = prof.calls.get(phase, 0) + \
+                        p.calls[phase]
+                prof.ticks += p.ticks
+            del eng, done
+            gc.collect()
+    med = {mode: statistics.median(v) for mode, v in tps.items()}
+    pair = statistics.median(on / off for on, off in zip(tps["on"],
+                                                         tps["off"]))
+    log("telemetry", f"{tag}: tokens/s over {TEL_REPS} interleaved runs "
+        + "; ".join(f"{mode} {', '.join(f'{x:.1f}' for x in v)}"
+                    for mode, v in tps.items()))
+    log("telemetry", f"{tag}: on/off tokens/s ratio {med['on'] / med['off']:.4f}"
+        f" (medians; median of paired ratios {pair:.4f}), profiled/off "
+        f"{med['profiled'] / med['off']:.4f} (information, not a gate)")
+    snap = prof.snapshot()
+    decode_ticks = snap["phases"]["decode/dispatch"]["calls"]
+    log("telemetry", f"{tag}: tick-phase profile over {snap['ticks']} ticks "
+        f"({decode_ticks} fused decode ticks) of {TEL_REPS} runs:")
+    for phase, ph in snap["phases"].items():
+        log("telemetry", f"{tag}:   {phase:<16} {ph['total_s'] * 1e3:9.2f} ms"
+            f" total {ph['total_s'] * 1e3 / ph['calls']:7.3f} ms per call "
+            f"x{ph['calls']:<5} {ph['share'] * 100:5.1f}%")
+
+
+def phase_telemetry(params, requests, want: dict) -> None:
+    """The telemetry plane on the graphed paged engine at full width, with
+    a bf16 and an fp8 pool: ``params`` and ``requests`` (prompt, budget)
+    are phase 4's, ``want`` its streams and traces by pool."""
+    from repro_torch.configs import get_config
+    cfg = get_config(ARCH)
+    TEL_DIR.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    for tag in ("bf16", "fp8"):
+        on = _tel_identity(cfg, params, tag, requests, want[tag])
+        _tel_export(tag, on)
+        if tag == "bf16":
+            _tel_metrics_server(on)
+        del on
+        gc.collect()
+        torch.cuda.empty_cache()
+    _tel_stall(cfg, params, requests)
+    gc.collect()
+    t1 = time.perf_counter()
+    for tag in ("bf16", "fp8"):
+        _tel_reps(cfg, params, tag, requests)
+    torch.cuda.empty_cache()
+    log("telemetry", f"phase times: checks {t1 - t0:.1f} s, interleaved runs "
+        f"{time.perf_counter() - t1:.1f} s")
 
 
 # phase f32: a position is decided when the plain version's top-2 gap
@@ -2353,9 +2669,17 @@ def main() -> int:
     phase_variants()
     runs, counts = phase_serve()
     counts["fixed"] = phase_serve_fixed(runs["bf16"])
-    prompts = [q.prompt for q in sorted(runs["bf16"]["finished"],
-                                        key=lambda q: q.rid)[:8]]
-    del runs                                   # free the serving state
+    reqs = sorted(runs["bf16"]["finished"], key=lambda q: q.rid)
+    prompts = [q.prompt for q in reqs[:8]]
+    requests = [(q.prompt, q.max_new_tokens) for q in reqs]
+    want = {tag: ({q.rid: q.generated for q in runs[tag]["finished"]},
+                  runs[tag]["engine"].trace) for tag in ("bf16", "fp8")}
+    params = runs["bf16"]["engine"].params
+    del runs, reqs                             # free the serving state
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_telemetry(params, requests, want)
+    del params
     gc.collect()
     torch.cuda.empty_cache()
     # the engines' pools, weights and graphs (with their private memory)

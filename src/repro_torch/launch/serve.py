@@ -12,18 +12,30 @@ Weights are drawn from a ``torch.Generator`` seeded with ``--seed`` on the
 device, prompts from ``numpy.random.default_rng(seed)``.  Both run on the
 card unless ``device="cpu"`` (``--device cpu``) is given.
 
+The paged engine takes the telemetry flags (``--metrics-port``,
+``--flight-recorder``, ``--trace-export``, ``--profile-ticks``,
+``--postmortem``; see :func:`add_telemetry_args`); the static batch has
+no scheduler to observe and refuses them.  ``--tuning-preset alloc``
+re-executes the interpreter once with tcmalloc preloaded (see
+:func:`build_tuning_env`).  The multi-model fleet (``--fleet``) is a
+later slice of the port.
+
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-1.7b \\
       --batch 4 --prompt-len 128 --gen 16
   PYTHONPATH=src python -m repro_torch.launch.serve --engine paged \\
       --arch qwen3-1.7b --requests 8 --gen 16 --temperature 0.8 --top-p 0.95
   PYTHONPATH=src python -m repro_torch.launch.serve --engine paged \\
       --device cpu --kv-dtype fp8 --requests 6 --gen 10
+  PYTHONPATH=src python -m repro_torch.launch.serve --engine paged \\
+      --device cpu --profile-ticks --trace-export trace.json
 """
 from __future__ import annotations
 
 import argparse
+import os
+import sys
 import time
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
@@ -34,6 +46,72 @@ from repro_torch.models import model as M
 from repro_torch.models.convert import cast_for_compute
 from repro_torch.runtime.sampler import Sampler, SamplingParams
 from repro_torch.runtime.serving import PagedServingEngine, resolve_device
+from repro_torch.runtime.telemetry import (MetricsServer, Telemetry,
+                                           prometheus_text, write_perfetto)
+
+
+# ---------------------------------------------------------------------------
+# Host allocator tuning preset
+# ---------------------------------------------------------------------------
+#
+# The serving loop allocates host memory every tick (token vectors,
+# metrics, trace tuples); the default glibc malloc serializes those on a
+# global lock.  ``LD_PRELOAD`` is read by the dynamic loader at process
+# start, so applying a preset re-executes the interpreter once with the
+# adjusted environment.
+
+TCMALLOC_PATH = "/usr/lib/x86_64-linux-gnu/libtcmalloc.so.4"
+_TUNED_MARKER = "_REPRO_TUNED"          # guards against re-exec loops
+
+
+def build_tuning_env(preset: str, env: Dict[str, str], *,
+                     tcmalloc_path: str = TCMALLOC_PATH) -> Dict[str, str]:
+    """Environment additions for a ``--tuning-preset`` (pure — no exec).
+
+    ``off`` returns {}.  ``alloc`` preloads tcmalloc (skipped with no
+    effect when the library is absent) and silences its large-allocation
+    reports.  ``full`` adds the same as ``alloc``: the JAX package's
+    ``full`` adds XLA flags on top (the step marker and the host
+    platform's device count), which mean nothing to PyTorch.  An existing
+    ``LD_PRELOAD`` is appended to, never clobbered, and already-present
+    values are left alone (idempotent).
+
+    Raises:
+      ValueError: an unknown preset name."""
+    if preset == "off":
+        return {}
+    if preset not in ("alloc", "full"):
+        raise ValueError(f"unknown tuning preset {preset!r}; "
+                         "expected off/alloc/full")
+    add: Dict[str, str] = {}
+    if os.path.exists(tcmalloc_path):
+        prior = env.get("LD_PRELOAD", "")
+        if tcmalloc_path not in prior.split(":"):
+            add["LD_PRELOAD"] = ":".join(
+                p for p in (prior, tcmalloc_path) if p)
+        if "TCMALLOC_LARGE_ALLOC_REPORT_THRESHOLD" not in env:
+            add["TCMALLOC_LARGE_ALLOC_REPORT_THRESHOLD"] = "60000000000"
+    return add
+
+
+def apply_tuning_preset(preset: str, argv: List[str]) -> None:
+    """Re-execute ``python -m repro_torch.launch.serve argv`` with the
+    preset environment applied.
+
+    Must run before anything touches the card: ``LD_PRELOAD`` is consumed
+    by the dynamic loader at process start.  No-op (returns) when the
+    preset is ``off``, the environment is already tuned (the
+    ``_REPRO_TUNED`` marker, set on exec, breaks the exec loop), or the
+    preset adds nothing."""
+    if preset == "off" or os.environ.get(_TUNED_MARKER):
+        return
+    add = build_tuning_env(preset, dict(os.environ))
+    if not add:                          # nothing to change; just mark
+        os.environ[_TUNED_MARKER] = "1"
+        return
+    env = {**os.environ, **add, _TUNED_MARKER: "1"}
+    os.execve(sys.executable,
+              [sys.executable, "-m", "repro_torch.launch.serve", *argv], env)
 
 
 def _sync(dev: torch.device) -> None:
@@ -124,6 +202,8 @@ def serve_paged(arch: str, *, requests: int = 8, gen: int = 16,
                 admission: str = "fcfs", aging_ticks: int = 64,
                 kv_dtype: Optional[str] = None,
                 class_precision: Optional[Dict[str, str]] = None,
+                telemetry: Optional[Telemetry] = None,
+                metrics_port: Optional[int] = None,
                 device=None):
     """Drive the paged engine over a request stream.
 
@@ -136,6 +216,11 @@ def serve_paged(arch: str, *, requests: int = 8, gen: int = 16,
     come from ``numpy.random.default_rng(seed)``, the weights from a
     ``torch.Generator`` seeded with ``seed`` on ``device``.  ``device``
     defaults to CUDA and raises when CUDA is absent.
+
+    ``telemetry`` attaches the observability plane (flight recorder, tick
+    profiler); ``metrics_port`` serves Prometheus text exposition of the
+    live engine metrics on 127.0.0.1 for the duration of the run (0 = an
+    ephemeral port).
 
     Returns ``{"finished": [Request], "metrics": snapshot, "engine":
     PagedServingEngine}``.
@@ -166,7 +251,8 @@ def serve_paged(arch: str, *, requests: int = 8, gen: int = 16,
         max_seq_len=max_seq_len, prefill_chunk=prefill_chunk,
         prefix_cache=prefix_cache, lazy_pages=lazy_pages,
         watermark=watermark, admission=admission, aging_ticks=aging_ticks,
-        kv_dtype=kv_dtype, class_precision=class_precision, device=dev)
+        kv_dtype=kv_dtype, class_precision=class_precision,
+        telemetry=telemetry, device=dev)
     rng = np.random.default_rng(seed)
     for _ in range(requests):
         plen = (prompt_len if prompt_len
@@ -176,7 +262,16 @@ def serve_paged(arch: str, *, requests: int = 8, gen: int = 16,
                    eos_id=eos_id, sampling=sampling,
                    priority=priority, deadline_ms=deadline_ms,
                    tbt_deadline_ms=tbt_deadline_ms)
-    done = eng.run()
+    server = None
+    if metrics_port is not None:
+        server = MetricsServer(
+            lambda: prometheus_text({arch: eng.metrics}), port=metrics_port)
+        print(f"[serve.paged] metrics: {server.url}")
+    try:
+        done = eng.run()
+    finally:
+        if server is not None:
+            server.close()
     return {"finished": done, "metrics": eng.metrics.snapshot(),
             "engine": eng}
 
@@ -204,6 +299,69 @@ def parse_class_precision(spec: str) -> Dict[str, str]:
                 f"{part!r}; expected one of {', '.join(KV_DTYPES)}")
         out[cls] = dt
     return out
+
+
+def add_telemetry_args(ap: argparse.ArgumentParser) -> None:
+    """The observability flags of the paged engine."""
+    ap.add_argument("--metrics-port", type=int, default=None,
+                    metavar="PORT",
+                    help="serve Prometheus text exposition of the live "
+                         "engine metrics on 127.0.0.1:PORT for the "
+                         "duration of the run (0 = ephemeral port, "
+                         "printed at startup)")
+    ap.add_argument("--flight-recorder", type=int, default=0,
+                    metavar="N",
+                    help="keep the last N structured trace events in a "
+                         "ring buffer; a scheduler stall dumps them "
+                         "plus a full engine-state snapshot as "
+                         "postmortem JSON (0 = off unless another "
+                         "telemetry flag turns telemetry on)")
+    ap.add_argument("--trace-export", default=None, metavar="PATH",
+                    help="after the run, write the recorded events as "
+                         "Chrome trace-event JSON (open in "
+                         "https://ui.perfetto.dev — one track per "
+                         "engine seat)")
+    ap.add_argument("--profile-ticks", action="store_true",
+                    help="time the tick phases (admission / prefill / "
+                         "decode, plus the fused tick's sync / dispatch "
+                         "/ host / sample sub-phases) and print the "
+                         "breakdown after the run")
+    ap.add_argument("--postmortem", default=None, metavar="PATH",
+                    help="where a stall postmortem JSON is written "
+                         "(default: postmortem.json next to the run)")
+
+
+def telemetry_from_args(args) -> Optional[Telemetry]:
+    """One :class:`Telemetry` from ``add_telemetry_args`` flags, or None
+    when every flag is at its off default (keeping the engine on the
+    zero-overhead path)."""
+    wanted = (args.flight_recorder or args.trace_export
+              or args.profile_ticks or args.metrics_port is not None)
+    if not wanted:
+        return None
+    return Telemetry(ring=args.flight_recorder or 4096,
+                     profile=args.profile_ticks,
+                     postmortem_path=args.postmortem or "postmortem.json")
+
+
+def report_telemetry(args, telemetry: Optional[Telemetry],
+                     tag: str) -> None:
+    """Post-run telemetry outputs: the Perfetto export and the
+    tick-phase profile table."""
+    if telemetry is None:
+        return
+    rec = telemetry.recorder
+    if args.trace_export:
+        write_perfetto(args.trace_export, telemetry.events())
+        print(f"[{tag}] wrote Perfetto trace {args.trace_export} "
+              f"({rec.total} events recorded, {rec.dropped} aged out "
+              f"of the {rec.capacity}-event ring)")
+    if telemetry.profiler is not None:
+        snap = telemetry.profiler.snapshot()
+        print(f"[{tag}] tick-phase profile over {snap['ticks']} ticks:")
+        for phase, ph in snap["phases"].items():
+            print(f"[{tag}]   {phase:<16} {ph['total_s'] * 1e3:8.2f} ms "
+                  f"total  {ph['share'] * 100:5.1f}%")
 
 
 def model_name(name: str) -> str:
@@ -275,12 +433,26 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--class-precision", default=None,
                     help="SLO class -> minimum KV precision map, e.g. "
                          "premium=bf16,standard=fp8")
+    ap.add_argument("--tuning-preset", choices=("off", "alloc", "full"),
+                    default="off",
+                    help="host allocator preset: alloc (and full, the "
+                         "same here) preloads tcmalloc (re-executes once "
+                         "to apply)")
+    add_telemetry_args(ap)
     return ap
 
 
 def main(argv=None):
     ap = build_parser()
+    if argv is None:
+        argv = sys.argv[1:]
     args = ap.parse_args(argv)
+    apply_tuning_preset(args.tuning_preset, argv)
+    telemetry = telemetry_from_args(args)
+    if telemetry is not None and args.engine != "paged":
+        ap.error("--metrics-port/--flight-recorder/--trace-export/"
+                 "--profile-ticks need --engine paged (the static batch "
+                 "path has no scheduler to observe)")
     try:
         class_precision = (parse_class_precision(args.class_precision)
                            if args.class_precision else None)
@@ -303,6 +475,7 @@ def main(argv=None):
                 tbt_deadline_ms=args.tbt_deadline_ms,
                 admission=args.admission, aging_ticks=args.aging_ticks,
                 kv_dtype=args.kv_dtype, class_precision=class_precision,
+                telemetry=telemetry, metrics_port=args.metrics_port,
                 device=args.device)
     except ValueError as e:
         ap.error(str(e))
@@ -323,6 +496,7 @@ def main(argv=None):
           f"prefix_hit_rate={m['prefix_hit_rate']:.2f} "
           f"preemptions={m['preemptions']:.0f}")
     print("[serve.paged] sample tokens:", r["finished"][0].generated[:12])
+    report_telemetry(args, telemetry, "serve.paged")
 
 
 if __name__ == "__main__":

@@ -34,11 +34,22 @@ the eager per-tick oracle (host-side sampling, no graph).  Whole-prompt
 prefill of the fixed-slot engine runs eagerly: its shape changes with
 every prompt.  On the CPU the same functions run eagerly over the same
 buffers.  The engines run on the card unless the caller passes
-``device="cpu"``.  The telemetry plane and the fleet router are later
-slices of the port.
+``device="cpu"``.
+
+Every ``_trace`` site also feeds the optional telemetry plane
+(``telemetry=`` a :class:`~repro_torch.runtime.telemetry.Telemetry`):
+the same events, plus a telemetry-only ``submit``, land in a bounded
+flight recorder as ``TraceEvent`` records carrying injected-clock time,
+the engine id and small attrs, exportable as Perfetto span timelines and
+dumped with a full engine-state snapshot when ``run`` stalls; its tick
+profiler times the step's phases and the fused tick's sub-phases by the
+host's wall clock.  It adds no kernel launch and no device sync: with
+the default ``telemetry=None`` the hot path pays one attribute load and
+a None check per event.  The fleet router is a later slice of the port.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 import time
@@ -88,6 +99,11 @@ class SchedulerStallError(RuntimeError):
 PRIORITIES: Dict[str, int] = {"premium": 0, "standard": 1, "batch": 2}
 
 DEFAULT_PRIORITY = "standard"
+
+#: Reusable no-op context manager: the fused decode tick wraps its
+#: dispatch in ``torch.profiler.record_function`` only while the tick
+#: profiler is live, and this stand-in keeps the unprofiled path free.
+_NULL_CTX = contextlib.nullcontext()
 
 
 def priority_level(req: "Request") -> int:
@@ -308,18 +324,20 @@ class Scheduler:
           clock: zero-arg callable returning monotonic seconds (default
               ``time.perf_counter``).
           record_trace: keep the per-event ``trace`` list (default).
-          telemetry: must be None — the telemetry plane is not ported
-              yet.
+          telemetry: optional
+              :class:`~repro_torch.runtime.telemetry.Telemetry` — every
+              ``_trace`` site then also emits a structured ``TraceEvent``
+              (injected-clock time, ``engine_id``, attrs) into its flight
+              recorder, deadlined TTFT/TBT verdicts feed its SLO
+              burn-rate monitor, ``run`` dumps a postmortem through it on
+              a stall, and its tick profiler (when enabled) times the
+              step phases.  None (default) keeps the hot path at one
+              attribute load + None check per event.
 
         Raises:
           ValueError: unknown ``admission`` name or ``aging_ticks < 1``.
           TypeError: ``admission`` object without a ``select`` method.
-          NotImplementedError: a telemetry object was passed.
         """
-        if telemetry is not None:
-            raise NotImplementedError(
-                "the port has no telemetry plane yet (flight recorder, "
-                "Perfetto export, tick profiler); pass telemetry=None")
         self.policy = policy
         self.max_seats = max_seats
         self.sampler = sampler or Sampler()
@@ -331,15 +349,25 @@ class Scheduler:
         self.metrics = EngineMetrics(page_capacity=page_capacity)
         self.trace: Optional[List[Tuple[int, str, int]]] = (
             [] if record_trace else None)
+        self.telemetry = telemetry
+        self.engine_id = ""
         self._next_rid = 0
         self._tick = 0
         policy.bind(self)
 
-    def _trace(self, event: str, rid: int) -> None:
-        """Append one (tick, event, rid) trace tuple (no-op when the trace
-        is disabled)."""
+    def _trace(self, event: str, rid: int,
+               attrs: Optional[dict] = None) -> None:
+        """Append one (tick, event, rid) trace tuple — no-op when the
+        trace is disabled — and mirror the event into the telemetry
+        flight recorder when one is attached.  ``attrs`` never reaches
+        the flat trace; hot callers pass None so the off path allocates
+        nothing."""
         if self.trace is not None:
             self.trace.append((self._tick, event, rid))
+        tel = self.telemetry
+        if tel is not None:
+            tel.emit(self._tick, self.clock(), self.engine_id, rid,
+                     event, attrs)
 
     # -- queue ---------------------------------------------------------------
 
@@ -393,6 +421,13 @@ class Scheduler:
         self._next_rid = rid + 1
         self.queue.append(req)
         self.metrics.submitted += 1
+        tel = self.telemetry
+        if tel is not None:
+            # telemetry-only event: the flat trace starts at admit
+            tel.emit(self._tick, req.t_submit, self.engine_id, req.rid,
+                     "submit", {"priority": req.priority,
+                                "prompt_tokens": int(req.prompt.size),
+                                "max_new_tokens": req.max_new_tokens})
         return req.rid
 
     def _free_seats(self) -> List[int]:
@@ -412,7 +447,11 @@ class Scheduler:
             req.slot = seat
             self.seats[seat] = req
             self.metrics.admitted += 1
-            self._trace("admit", req.rid)
+            self._trace("admit", req.rid,
+                        None if self.telemetry is None else
+                        {"seat": seat, "priority": req.priority,
+                         "cached_tokens": req.cached_tokens,
+                         "preempted_before": req.times_preempted})
             if req.cached_tokens:
                 self.metrics.cached_prompt_tokens += req.cached_tokens
                 self._trace("prefix_hit", req.rid)
@@ -450,9 +489,17 @@ class Scheduler:
             self.metrics.note_first_token(
                 req.priority, ttft, deadlined=req.deadline_ms is not None,
                 missed=missed)
-            self._trace("first_token", req.rid)
+            tel = self.telemetry
+            self._trace("first_token", req.rid,
+                        None if tel is None else {"ttft_s": ttft})
+            if tel is not None and req.deadline_ms is not None:
+                tel.observe_slo(now, self._tick, self.engine_id,
+                                req.priority, "ttft", missed)
             if missed:
-                self._trace("deadline_miss", req.rid)
+                self._trace("deadline_miss", req.rid,
+                            None if tel is None else
+                            {"ttft_s": ttft,
+                             "deadline_ms": req.deadline_ms})
             hit_eos = req.eos_id is not None and tok == req.eos_id
             if req.max_new_tokens <= 1 or hit_eos:
                 self.finish(req)
@@ -487,8 +534,15 @@ class Scheduler:
         self.metrics.note_decode_token(req.priority, tbt,
                                        deadlined=deadlined, missed=missed)
         self._trace("decode", req.rid)
+        tel = self.telemetry
+        if tel is not None and deadlined:
+            tel.observe_slo(now, self._tick, self.engine_id,
+                            req.priority, "tbt", missed)
         if missed:
-            self._trace("tbt_miss", req.rid)
+            self._trace("tbt_miss", req.rid,
+                        None if tel is None else
+                        {"tbt_s": tbt,
+                         "tbt_deadline_ms": req.tbt_deadline_ms})
         hit_eos = req.eos_id is not None and tok == req.eos_id
         if len(req.generated) >= req.max_new_tokens or hit_eos:
             self.finish(req)
@@ -544,7 +598,13 @@ class Scheduler:
 
     def step(self):
         """One engine tick: admission, one prefill round, one decode
-        round, then a metrics sample."""
+        round, then a metrics sample.  When the attached telemetry
+        carries a live tick profiler the phases run through
+        :meth:`_step_profiled` instead (identical order and effects, plus
+        wall-time attribution)."""
+        tel = self.telemetry
+        if tel is not None and tel.profiler is not None:
+            return self._step_profiled(tel.profiler)
         self.metrics.begin(self.clock())
         self._tick += 1
         self._admit_from_queue()
@@ -552,7 +612,32 @@ class Scheduler:
         self.policy.decode_tick()
         self._tick_bookkeeping()
 
+    def _step_profiled(self, prof):
+        """The tick with per-phase wall-time attribution (``admission`` /
+        ``prefill`` / ``decode`` / ``bookkeeping``; the fused paged
+        decode refines its share into ``decode/*`` sub-phases).  Measured
+        with ``time.perf_counter``, never the injected clock, which may
+        be virtual and would time every phase as 0; nothing here waits
+        for the device."""
+        self.metrics.begin(self.clock())
+        self._tick += 1
+        t0 = time.perf_counter()
+        self._admit_from_queue()
+        t1 = time.perf_counter()
+        prof.add("admission", t1 - t0)
+        self.policy.prefill_tick()
+        t2 = time.perf_counter()
+        prof.add("prefill", t2 - t1)
+        self.policy.decode_tick()
+        t3 = time.perf_counter()
+        prof.add("decode", t3 - t2)
+        self._tick_bookkeeping()
+        prof.add("bookkeeping", time.perf_counter() - t3)
+        prof.note_tick()
+
     def _tick_bookkeeping(self):
+        """The tick's closing metrics sample (shared by the plain and
+        profiled step paths)."""
         cached, evictions = self.policy.cache_stats()
         pages_by_class: Dict[str, int] = {}
         for r in self.seats.values():
@@ -570,7 +655,9 @@ class Scheduler:
         finished requests in completion order.
 
         Raises:
-          SchedulerStallError: ticks ran out with work still pending."""
+          SchedulerStallError: ticks ran out with work still pending;
+              with telemetry attached, a postmortem (flight recorder and
+              engine state) is written through it first."""
         if max_ticks is None:
             max_ticks = self.default_max_ticks
         t = 0
@@ -580,11 +667,16 @@ class Scheduler:
         if self.queue or self.seats:
             stalled = sorted(list(self.queue) + list(self.seats.values()),
                              key=lambda r: r.rid)
-            raise SchedulerStallError(
-                f"run() exhausted max_ticks={max_ticks} with "
-                f"{len(self.queue)} queued and {len(self.seats)} "
-                f"active requests: "
-                + ", ".join(f"{r.rid}({r.priority})" for r in stalled))
+            msg = (f"run() exhausted max_ticks={max_ticks} with "
+                   f"{len(self.queue)} queued and {len(self.seats)} "
+                   f"active requests: "
+                   + ", ".join(f"{r.rid}({r.priority})" for r in stalled))
+            if self.telemetry is not None:
+                # the stall is exactly when the evidence is hot
+                self.telemetry.write_postmortem(
+                    "SchedulerStallError: " + msg,
+                    engines={self.engine_id or "engine": self})
+            raise SchedulerStallError(msg)
         return self.finished
 
 
@@ -1284,15 +1376,31 @@ class PagedPolicy:
         position vectors go up, the model step runs eagerly, and the
         sampler runs on the host side of the logits' transfer
         (``Scheduler._sample_decode_batch``), as the reference's
-        pre-fusion path does."""
+        pre-fusion path does.
+
+        While a tick profiler is live, the fused tick's share of the
+        step's ``decode`` phase is refined into ``decode/sync`` (staging
+        and the one upload per dtype, on churn), ``decode/dispatch`` (the
+        fused tick's enqueue, inside a ``fused_decode_tick``
+        ``record_function`` range), ``decode/host`` (the token pull,
+        which holds the wait for the device) and ``decode/sample`` (host
+        acceptance), by the host's wall clock and without any added sync;
+        ``fused=False`` gets the step-level phases only."""
         sched = self.sched
         if self.lazy:
             self._grow_tick()
         decoding = self._decoding_seats()
         if not decoding:
             return
+        tel = sched.telemetry
+        prof = None if tel is None or not self.fused else tel.profiler
+        t0 = time.perf_counter() if prof is not None else 0.0
         if self._dirty:
             self._sync_device()
+            if prof is not None:
+                now = time.perf_counter()
+                prof.add("decode/sync", now - t0)
+                t0 = now
         elif not self.fused:
             # the eager step advances nothing on the device
             feed = self._i32.stage()
@@ -1302,8 +1410,19 @@ class PagedPolicy:
             feed["pos"][:] = self.pos
             self._i32.upload(through="pos")
         if self.fused:
-            toks_dev, _ = self._tick_fn()
+            # the range wraps the replay, never the capture
+            with (torch.profiler.record_function("fused_decode_tick")
+                  if prof is not None else _NULL_CTX):
+                toks_dev, _ = self._tick_fn()
+            if prof is not None:
+                now = time.perf_counter()
+                prof.add("decode/dispatch", now - t0)
+                t0 = now
             toks = toks_dev.cpu().numpy()  # the tick's one device->host sync
+            if prof is not None:
+                now = time.perf_counter()
+                prof.add("decode/host", now - t0)
+                t0 = now
         else:
             toks = sched._sample_decode_batch(self._step_body(), decoding)
         self.decode_ticks += 1
@@ -1311,6 +1430,8 @@ class PagedPolicy:
             req = sched.seats[s]
             self.pos[s] += 1
             sched._emit_decode_token(req, int(toks[s]))
+        if prof is not None:
+            prof.add("decode/sample", time.perf_counter() - t0)
 
 
 def _to_device(tree, device):

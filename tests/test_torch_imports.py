@@ -127,15 +127,23 @@ def test_train_defaults_to_cuda_and_raises_without_it(monkeypatch, capsys):
     assert "[train] done" in capsys.readouterr().out
 
 
-def test_telemetry_is_refused():
+def test_telemetry_is_accepted_and_leaves_the_flat_trace():
     from repro_torch.configs import get_config, reduced_config
     from repro_torch.models import model as M
     from repro_torch.runtime.serving import PagedServingEngine
+    from repro_torch.runtime.telemetry import Telemetry
     cfg = reduced_config(get_config("llama3-8b"))
     params = M.init_params(M.param_specs(cfg),
                            torch.Generator().manual_seed(0))
-    with pytest.raises(NotImplementedError, match="telemetry"):
-        PagedServingEngine(cfg, params, device="cpu", telemetry=object())
+    out = {}
+    for name, tel in (("off", None), ("on", Telemetry(ring=32))):
+        eng = PagedServingEngine(cfg, params, device="cpu", telemetry=tel)
+        assert eng.telemetry is tel
+        for n in (5, 9):
+            eng.submit(np.arange(n, dtype=np.int32), max_new_tokens=3)
+        out[name] = ([q.generated for q in eng.run()], eng.trace)
+    assert out["on"] == out["off"]
+    assert tel.recorder.total == len(out["on"][1]) + 2      # + 2 submits
 
 
 def test_registry_lists_ported_archs_only():
