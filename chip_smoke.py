@@ -14,7 +14,9 @@ Phases, each printed as it runs:
    on e4m3 operands for the fp8 GEMM, on bf16 ones (HGMMA) for flash; every
    instantiation of the decode kernel (paged and dense libraries) is named
    from ptxas's report and none may spill, and the widths of the serving
-   instantiations' loads are counted in the SASS;
+   instantiations' loads are counted in the SASS (qwen3-1.7b's GQA group
+   of 2 over every pool, llama3-8b's group of 4 over its bf16 and fp8
+   pools);
 3. kernels — every kernel of the serving paths against its plain PyTorch
    version at the serving shapes of qwen3-1.7b (H=16, KVH=8, d=128;
    paged decode: page 16, 8 seats with lengths from 1 to 2048; dense
@@ -81,7 +83,40 @@ Phases, each printed as it runs:
    then five interleaved runs of each mode on fresh engines give the
    on/off tokens/s ratio and the tick profiler's phase table
    (information);
-7. f32 — the same model computing in f32 (f32 weights, pool and cache;
+7. fleet — the multi-model fleet router (``runtime.router.ModelFleet``)
+   at full width: qwen3-1.7b x2 and llama3-8b x1 (32 layers, d_model
+   4096, GQA group 4, untied 128256-row head), weights from generators
+   seeded 0 and 1 on the card, each cast for compute before the next is
+   drawn and shared by its replicas; 8 seats, page 16, prefill chunk 128,
+   max_seq_len 544.  Run A: bf16 pools, least-loaded selection, a budget
+   of 840 pages (no engine can preempt), 24 requests of 64-511 prompt
+   tokens and 32 new tokens at temperature 0.9 alternating between the
+   models: every request finished in its model's vocabulary, logits
+   finite, no preemption, the launch counts equal to the sum over
+   engines of layers x graph replays, each rid's stream bit-equal to a
+   solo graphed engine's fed the same (rid, prompt, budget), both
+   qwen3-1.7b replicas on one tree's storage, the llama3-8b replica's
+   graphs bit-equal to eager, the split tickets back at 0; K1 and K2 at
+   llama3-8b's shapes (GQA group 4, the tick's 8 seats of 41-543 tokens)
+   over bf16 and fp8 pools against their plain versions; llama3-8b's bf16
+   tick with the kernels no further from the f32 tick of the same weights
+   and pool than 1.5x the plain versions' bf16 tick (per seat and at the
+   largest logit; a planted fault, the last page dropped, must fail);
+   llama3-8b's kernels against the plain versions in f32 (its weights
+   widened), 8 of its prompts teacher-forced as in phase f32.  Run B:
+   qwen3-1.7b bf16 and llama3-8b fp8 under a budget of the two floors and
+   40 pages, SLO-aware selection and SLO admission, a third of the
+   requests premium: every request finished, live bytes within the
+   budget after every fleet tick, some engine borrowing, K2 launched.
+   Run A again under ``Telemetry(ring=4096)``: the same streams, a
+   ``fleet_tick`` event per engine at every heartbeat stride, a valid
+   Perfetto export; a forced stall's message and postmortem (every
+   engine, the budget block);
+   then, as information, a steady fleet step (all 24 seats decoding)
+   under torch.profiler, the llama3-8b tick's device busy time against
+   its byte bound, and ``python -m repro_torch.launch.serve --fleet``
+   with its defaults (reduced configs);
+8. f32 — the same model computing in f32 (f32 weights, pool and cache;
    flash prefill on its CUDA-core route): 8 greedy streams teacher-forced
    through the fused tick and through ``prefill`` + ``decode_step``, each
    with the kernels and with the plain versions, whose top-1 must agree
@@ -89,7 +124,7 @@ Phases, each printed as it runs:
    logit difference there) with at least 90% of the positions decided;
    then the paged engine and ``ServingEngine`` on the same 8 requests,
    whose streams must be equal up to their first top-2 gap <= 1e-3;
-8. train — the training path, which runs the plain PyTorch versions on
+9. train — the training path, which runs the plain PyTorch versions on
    purpose (no kernel has a backward, in the port or in the reference):
    ``train()`` on qwen3-1.7b at its published width (f32 master weights
    and AdamW state, bf16 compute, remat, batch 8 x seq 1024 from the
@@ -106,7 +141,7 @@ Phases, each printed as it runs:
    resumed losses and final params, mu, nu and count against an
    uninterrupted run, and a ``save_async`` whose restored tensors equal
    the saved ones bit for bit);
-9. hpc — the fp8 GEMM kernel (K6) against its plain version, held to
+10. hpc — the fp8 GEMM kernel (K6) against its plain version, held to
    ``fp8_matmul.error_bound`` (f32 sums plus the tensor-core term of sums
    promoted every 128 products), through ``ops.fp8_matmul`` (aligned,
    ragged, bm/bn != 128) and through the per-tensor call at the n = 256,
@@ -124,7 +159,7 @@ Phases, each printed as it runs:
    kernel and with the plain version (first trailing update and refined
    solutions held); HPCG at 256³ (50 iterations, the true residual
    recomputed) and at 48³ (90 iterations, converged);
-10. summary — one JSON line listing the kernels, the card's name and power
+11. summary — one JSON line listing the kernels, the card's name and power
     limit, and as the last line ``{"ok": true, "device": {...}}``.
 
 Any failure raises: the script exits non-zero and prints no ``ok`` line.
@@ -134,6 +169,7 @@ from __future__ import annotations
 
 import gc
 import json
+import os
 import re
 import shutil
 import statistics
@@ -157,6 +193,8 @@ BF16_FLOPS = 989e12            # H100 SXM dense bf16 tensor-core rate
 FP8_FLOPS = 1979e12            # H100 SXM dense fp8 tensor-core rate
 ARCH = "qwen3-1.7b"
 H, KVH, HEAD_DIM, PAGE, D_MODEL = 16, 8, 128, 16, 2048
+LLAMA = "llama3-8b"            # the fleet's second model: 32 heads over 8
+LLAMA_H = 32
 SEAT_LENGTHS = (1, 16, 17, 255, 700, 1024, 1531, 2048)
 N_TABLE = 2048 // PAGE
 PREFILL_CHUNK = 128
@@ -475,19 +513,23 @@ def group_arrays(g: int) -> int:
 
 def serving_decode_instantiations() -> set:
     """The decode-kernel instantiations the serving paths of this script
-    run at qwen3-1.7b's head dim and group, by library: bf16 queries over
+    run, by library: at qwen3-1.7b's head dim and group, bf16 queries over
     the bf16, fp8 (uint8 bits) and int8 pools and f32 over an f32 pool
-    (phase f32) in the paged library; bf16 and f32 caches in the dense."""
+    (phase f32) in the paged library, bf16 and f32 caches in the dense;
+    at llama3-8b's group of 4 (phase fleet, the same head dim), bf16
+    queries over its bf16 and fp8 pools in the paged library."""
     from repro_torch.kernels import decode_attention as da
-    e, mg = da.lane_elems(HEAD_DIM), group_arrays(H // KVH)
-    paged = [("bf16", kv) for kv in ("bf16", "uint8", "int8")]
-    paged.append(("f32", "f32"))
-    dense = [("bf16", "bf16"), ("f32", "f32")]
-    return ({(lib, (q, kv, e, addr, mg))
-             for lib, addr, pairs in (
+    e = da.lane_elems(HEAD_DIM)
+    mg, mg_llama = group_arrays(H // KVH), group_arrays(LLAMA_H // KVH)
+    paged = [("bf16", kv, mg) for kv in ("bf16", "uint8", "int8")]
+    paged += [("f32", "f32", mg), ("bf16", "bf16", mg_llama),
+              ("bf16", "uint8", mg_llama)]
+    dense = [("bf16", "bf16", mg), ("f32", "f32", mg)]
+    return ({(lib, (q, kv, e, addr, g))
+             for lib, addr, insts in (
                  ("paged_decode_attention", "PagedAddr", paged),
                  ("decode_attention", "DenseAddr", dense))
-             for q, kv in pairs})
+             for q, kv, g in insts})
 
 
 def _check_decode_build(logs: dict) -> None:
@@ -1017,11 +1059,14 @@ def norm_launches(cfg, steps: int) -> dict:
     """The norm kernels' launches over ``steps`` model steps: per step
     layer 0's ln1 alone (K3), per layer the attention add fused into ln2
     and the MLP add into the next ln1 or the final norm (``add_rmsnorm``),
-    and the q- and k-norm in one launch (``rmsnorm_qk``)."""
+    and, in a model with qk-norm, the q- and k-norm in one launch
+    (``rmsnorm_qk``)."""
     L = cfg.num_layers
-    return {f"rmsnorm[D={cfg.d_model}]": steps,
-            f"add_rmsnorm[D={cfg.d_model}]": 2 * L * steps,
-            f"rmsnorm_qk[D={cfg.head_dim}]": L * steps}
+    out = {f"rmsnorm[D={cfg.d_model}]": steps,
+           f"add_rmsnorm[D={cfg.d_model}]": 2 * L * steps}
+    if cfg.qk_norm:
+        out[f"rmsnorm_qk[D={cfg.head_dim}]"] = L * steps
+    return out
 
 
 def _check_run(tag: str, r: dict, cfg, counts: dict,
@@ -1077,13 +1122,16 @@ def _tick_state(eng):
         step=torch.zeros(A, dtype=torch.int64, device="cuda"))
 
 
-def _tick(eng, cache, state, impl):
+def _tick(eng, cache, state, impl, params=None, cfg=None):
+    """One fused tick of ``eng``'s model (or of ``params``/``cfg``) from
+    a copy of ``state`` over ``cache``; returns (tokens, logits)."""
     from repro_torch.models import model as M
     s = {k: t.clone() for k, t in state.items()}
     return M.fused_decode_tick(
-        eng.policy.params, eng.cfg, cache, s["last"], s["pos"], s["table"],
-        s["nv"], s["temp"], s["top_k"], s["top_p"], s["seed"], s["rid"],
-        s["step"], impl=impl)
+        eng.policy.params if params is None else params,
+        eng.cfg if cfg is None else cfg, cache, s["last"], s["pos"],
+        s["table"], s["nv"], s["temp"], s["top_k"], s["top_p"], s["seed"],
+        s["rid"], s["step"], impl=impl)
 
 
 def _clone(cache):
@@ -1116,13 +1164,14 @@ SERVING_GROUPS = (("norm kernels (K3 and its fused forms)",
 
 
 def _profile_steady(phase: str, what: str, step, steps: int = 5,
-                    groups=SERVING_GROUPS, top: int = 6) -> None:
+                    groups=SERVING_GROUPS, top: int = 6) -> tuple:
     """Wall time of a steady model ``step()`` (which ends by bringing its
     tokens to the host, as the engine does), its device busy time (the
     kernels' time under torch.profiler), the kernels that take it, and
     the time of each of ``groups`` (label, pick(kernel name)).
     The idle share compares the busy time with the wall time measured
-    without the profiler, whose host overhead it would otherwise count."""
+    without the profiler, whose host overhead it would otherwise count.
+    Returns (wall, busy) in ms per step."""
     for _ in range(2):
         step()
     torch.cuda.synchronize()
@@ -1150,6 +1199,7 @@ def _profile_steady(phase: str, what: str, step, steps: int = 5,
         log(phase, f"{what}: {label} "
             f"{sum(a.self_device_time_total for a in sel) / steps / 1e3:.4f} "
             f"ms x{sum(a.count for a in sel) // steps}")
+    return wall, busy
 
 
 def _tick_kernel_vs_plain(tag: str, eng) -> float:
@@ -1173,11 +1223,12 @@ def _profile_tick(tag: str, eng) -> None:
                     lambda: _tick(eng, cache, state, "kernel")[0].cpu())
 
 
-def _profile_graph_tick(tag: str, eng) -> None:
+def _profile_graph_tick(tag: str, eng, phase: str = "serve") -> tuple:
     """The engine's captured fused tick replayed from the state of
     ``_profile_tick`` under ``_profile_steady``; ``pos`` and ``step`` are
     put back before each replay (two copies of 32 and 64 bytes among the
-    kernels counted), so no seat runs past its table."""
+    kernels counted), so no seat runs past its table.  Returns (wall,
+    busy) in ms per tick."""
     pol = eng.policy
     state = _tick_state(eng)
     for key, t in state.items():
@@ -1187,7 +1238,8 @@ def _profile_graph_tick(tag: str, eng) -> None:
         pol._dev["pos"].copy_(state["pos"])
         pol._dev["step"].copy_(state["step"])
         return pol._tick_fn()[0].cpu()
-    _profile_steady("serve", f"{tag}: steady fused tick, graph replay", step)
+    return _profile_steady(phase, f"{tag}: steady fused tick, graph replay",
+                           step)
 
 
 def _bits_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
@@ -1211,7 +1263,7 @@ def _pools(cache, skip_scratch: bool = False) -> dict:
             for p, ent in cache.items() for k, t in ent.items()}
 
 
-def _graph_vs_eager(tag: str, eng) -> None:
+def _graph_vs_eager(tag: str, eng, phase: str = "serve") -> None:
     """The paged engine's two graphs replayed against the functions they
     captured, run eagerly on the same inputs and a copy of the same pool:
     the fused tick (8 seats at spread lengths, greedy, temperature,
@@ -1242,7 +1294,7 @@ def _graph_vs_eager(tag: str, eng) -> None:
     pairs.update({k: (got_pool[k], want_pool[k]) for k in got_pool})
     _assert_bits(f"{tag}: fused tick", pairs)
     stochastic = int((state["temp"] > 0).sum())
-    log("serve", f"{tag}: fused tick graph replay == eager, bit for bit "
+    log(phase, f"{tag}: fused tick graph replay == eager, bit for bit "
         f"(tokens, logits, {len(got_pool)} pool tensors, last/pos/step; "
         f"{stochastic} of {len(toks)} seats sampling)")
 
@@ -1266,7 +1318,7 @@ def _graph_vs_eager(tag: str, eng) -> None:
     pairs = {"logits": (g_logits, logits),
              **{k: (got_pool[k], want_pool[k]) for k in got_pool}}
     _assert_bits(f"{tag}: prefill chunk", pairs)
-    log("serve", f"{tag}: prefill chunk graph replay == eager, bit for bit "
+    log(phase, f"{tag}: prefill chunk graph replay == eager, bit for bit "
         f"({c} of {C} tokens from position {start}: logits, "
         f"{len(got_pool)} pool tensors outside the scratch page)")
 
@@ -1779,6 +1831,542 @@ def phase_telemetry(params, requests, want: dict) -> None:
         f"{time.perf_counter() - t1:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# phase fleet
+# ---------------------------------------------------------------------------
+
+# the fleet's engines take the paged engines' knobs; the pools come from
+# the fleet's budget.  Run A's budget holds 3 engines x 8 seats x 34 pages
+# (no engine can preempt); Run B's the two floors and 40 pages more
+FLEET_KW = {k: v for k, v in ENGINE_KW.items() if k != "num_pages"}
+FLEET_A = ((ARCH, 2, None), (LLAMA, 1, None))
+FLEET_B = ((ARCH, 1, None), (LLAMA, 1, "fp8"))
+FLEET_PAGES_A = 840
+FLEET_SURPLUS_B = 40
+FLEET_REQUESTS = 24
+FLEET_DIR = ROOT / "build" / "fleet"      # the trace export, the postmortem
+
+
+def _fleet_weights() -> dict:
+    """qwen3-1.7b and llama3-8b at full width, model ``i`` from a
+    ``torch.Generator`` seeded with ``i`` on the card (``serve_fleet``'s
+    seeding at seed 0, so qwen3-1.7b has phase 4's weights), each drawn
+    in f32 and cast for compute before the next is drawn: no f32 tree
+    outlives its turn.  Returns arch -> (cfg, the cast tree)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+    from repro_torch.models.convert import cast_for_compute
+    out = {}
+    for i, arch in enumerate((ARCH, LLAMA)):
+        cfg = get_config(arch)
+        gen = torch.Generator(device="cuda").manual_seed(i)
+        out[arch] = (cfg, cast_for_compute(
+            M.init_params(M.param_specs(cfg), gen, device="cuda"),
+            M.compute_dtype(cfg)))
+        gc.collect()
+    return out
+
+
+def _tree_bytes(tree) -> int:
+    from repro_torch.tree import tree_leaves
+    return sum(t.numel() * t.element_size() for t in tree_leaves(tree))
+
+
+def _fleet_requests(weights) -> list:
+    """FLEET_REQUESTS requests alternating between the two models:
+    prompts of 64-511 tokens, exactly 32 new tokens each."""
+    rng = np.random.default_rng(7)
+    out = []
+    for i in range(FLEET_REQUESTS):
+        arch = (ARCH, LLAMA)[i % 2]
+        vocab = weights[arch][0].vocab_size
+        out.append((arch, rng.integers(0, vocab, int(rng.integers(
+            64, 512))).astype(np.int32), 32))
+    return out
+
+
+def _fleet(weights, spec, total_pages: int, **kw):
+    """A ``ModelFleet`` on the card of ``spec`` (arch, replicas, kv dtype)
+    over the cast trees of ``weights``, with the paged engines' knobs."""
+    from repro_torch.runtime.router import FleetModel, ModelFleet
+    return ModelFleet([FleetModel(arch, *weights[arch], replicas=n,
+                                  kv_dtype=dt) for arch, n, dt in spec],
+                      total_pages=total_pages, device="cuda", **FLEET_KW,
+                      **kw)
+
+
+def _fleet_submit(fleet, requests, sampling, premium_every: int = 0):
+    for i, (arch, prompt, n) in enumerate(requests):
+        prem = premium_every and i % premium_every == 0
+        fleet.submit(model=arch, prompt=prompt, max_new_tokens=n,
+                     sampling=sampling,
+                     priority="premium" if prem else "standard")
+
+
+def _fleet_tickets(fleet) -> list:
+    from repro_torch.kernels import decode_attention as da
+    return [eng.policy._tickets for _, _, eng in fleet._engines()] + \
+        list(da._tickets.values())
+
+
+def _fleet_launches(fleet) -> dict:
+    """The launches a fleet run must have made, summed over its engines:
+    each engine's attention kernel (by its pool) once per layer per
+    replay of its tick graph, and per replay of either graph (a decode
+    tick or a prefill chunk) its model's norms."""
+    want = Counter()
+    for _, _, eng in fleet._engines():
+        cfg, ticks = eng.cfg, eng.policy.decode_ticks
+        chunks = sum(1 for _, ev, _ in eng.trace if ev == "prefill_chunk")
+        kv = eng.kv_dtype
+        want["paged_decode_attention[bf16]" if kv == "bf16"
+             else f"quantized_paged_decode_attention[{kv}]"] += \
+            ticks * cfg.num_layers
+        want.update(norm_launches(cfg, ticks + chunks))
+    return dict(want)
+
+
+def _check_fleet_run(tag: str, fleet, requests, counts: dict) -> dict:
+    """Every request finished on a replica of its model with its budget
+    of tokens, all in its model's vocabulary; every engine's logits
+    finite; the launches ``counts`` read just after the run equal the
+    sum over engines of its graph replays' (``_fleet_launches``); the
+    split tickets back at 0.  Returns rid -> generated."""
+    done = fleet.finished()
+    assert sorted(done) == list(range(len(requests))), \
+        f"{tag}: {len(done)} of {len(requests)} requests finished"
+    for rid, (arch, _, n) in enumerate(requests):
+        assert fleet.route(rid)[0] == arch, (tag, rid)
+        gen = done[rid].generated
+        vocab = fleet.group(arch).cfg.vocab_size
+        assert len(gen) == n, (tag, rid, len(gen))
+        assert all(0 <= t < vocab for t in gen), \
+            f"{tag}: rid {rid} emitted a token outside {arch}'s vocabulary"
+    for name, i, eng in fleet._engines():
+        assert bool(eng.policy.logits_finite), \
+            f"{tag}: {name}/{i}: a logit was not finite"
+    want = _fleet_launches(fleet)
+    assert counts == want, f"{tag}: launches {counts}, expected {want}"
+    _check_tickets(f"{tag}: after the run", _fleet_tickets(fleet))
+    for name, i, eng in fleet._engines():
+        m = eng.metrics.snapshot()
+        log("fleet", f"{tag}: {name}/{i} ({eng.kv_dtype} pool, "
+            f"{eng.bm.capacity} pages): {m['completed']:.0f} requests, "
+            f"{eng.policy.decode_ticks} decode ticks, "
+            f"{m['preemptions']:.0f} preemptions, peak "
+            f"{m['peak_pages_in_use']:.0f} pages")
+    log("fleet", f"{tag}: {fleet._tick} fleet ticks; launches "
+        f"{json.dumps(counts)} equal the sum over engines of their graph "
+        "replays; split tickets back at 0")
+    return {rid: q.generated for rid, q in done.items()}
+
+
+def _report_fleet(tag: str, fleet) -> None:
+    """Fleet and per-model tokens/s and mean TTFT (information)."""
+    m = fleet.metrics_snapshot()
+    f = m["fleet"]
+    log("fleet", f"{tag}: fleet {f['generated_tokens']:.0f} tokens, "
+        f"{f['tokens_per_s']:.1f} tokens/s, mean TTFT "
+        f"{f['ttft_avg_s'] * 1e3:.1f} ms, wall {f['wall_s']:.2f} s")
+    for name, mm in m["models"].items():
+        log("fleet", f"{tag}:   {name} x{len(mm['replicas'])}: "
+            f"{mm['tokens_per_s']:.1f} tokens/s, mean TTFT "
+            f"{mm['ttft_avg_s'] * 1e3:.1f} ms, preemptions "
+            f"{mm['preemptions']:.0f}")
+
+
+def _fleet_identity(weights, requests, sampling) -> dict:
+    """Run A: the fleet of FLEET_A with bf16 pools and a budget in which
+    no engine preempts, ``requests`` sampled at temperature 0.9: the
+    checks of ``_check_fleet_run``, no preemption, both qwen3-1.7b
+    replicas on the storage of the one cast tree, the llama3-8b replica's
+    graphs against its functions run eagerly (bit for bit), K1/K2 at its
+    shapes (``_llama_attention``) and its tick with the kernels against
+    the plain versions and the f32 tick (``_tick_vs_f32``).  Returns the
+    streams."""
+    from repro_torch.kernels import ops
+    from repro_torch.tree import tree_leaves
+    fleet = _fleet(weights, FLEET_A, FLEET_PAGES_A)
+    pools = sum(_tree_bytes(eng.cache) for _, _, eng in fleet._engines())
+    held = sum(_tree_bytes(w[1]) for w in weights.values())
+    alloc = torch.cuda.memory_allocated()
+    # an f32 copy of either model's matmul weights would be >= 6.8 GB
+    assert alloc < held + pools + 4 * 2 ** 30, \
+        f"run A: {alloc / 2 ** 30:.2f} GiB allocated for " \
+        f"{(held + pools) / 2 ** 30:.2f} GiB of weights and pools"
+    log("fleet", f"run A built: weights {held / 2 ** 30:.2f} GiB, pools "
+        f"{pools / 2 ** 30:.2f} GiB, {alloc / 2 ** 30:.2f} GiB allocated "
+        "(no f32 copy of a weight is alive)")
+    ops.reset_launches()                       # the main path starts here
+    _fleet_submit(fleet, requests, sampling)
+    fleet.run()
+    counts = dict(ops.launches)                # ... and ends here
+    streams = _check_fleet_run("run A", fleet, requests, counts)
+    for name, i, eng in fleet._engines():
+        assert eng.metrics.preemptions == 0, \
+            f"run A: {name}/{i} preempted; the budget was sized for none"
+    for arch in (ARCH, LLAMA):
+        want = [t.data_ptr() for t in tree_leaves(weights[arch][1])]
+        for i, eng in enumerate(fleet.group(arch).engines):
+            got = [t.data_ptr() for t in tree_leaves(eng.params)]
+            assert got == want, f"run A: {arch}/{i} holds its own weights"
+    log("fleet", f"run A: both {ARCH} replicas and the {LLAMA} replica "
+        "hold the storage of their model's one cast tree (data_ptr of "
+        "every leaf)")
+    _report_fleet("run A", fleet)
+    llama = fleet.group(LLAMA).engines[0]
+    _graph_vs_eager(f"{LLAMA}/0", llama, phase="fleet")
+    _llama_attention(llama)
+    _tick_vs_f32(f"{LLAMA}/0", llama)
+    _check_tickets("run A: after the llama3-8b checks", _fleet_tickets(fleet))
+    return streams
+
+
+def _llama_attention(eng) -> None:
+    """K1 and K2 against their plain versions at the shapes the fleet
+    gives them on llama3-8b: bf16 queries of 32 heads over 8 kv heads
+    (GQA group 4), head dim 128, the 8 seats of ``_tick_state(eng)``
+    (lengths 41-543 over tables of 34 pages of ``eng``'s pool) over a
+    bf16 pool and an fp8 one, within BF16_ATOL/RTOL."""
+    from repro_torch.core.mixed_precision import quantize_kv_page
+    from repro_torch.kernels import ops
+    state = _tick_state(eng)
+    lengths = state["pos"] + 1
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    q = torch.randn((len(lengths), 1, LLAMA_H, HEAD_DIM), generator=gen,
+                    device="cuda").bfloat16()
+    shape = (eng.policy.bm.capacity + 1, PAGE, KVH, HEAD_DIM)
+    k, v = (torch.randn(shape, generator=gen, device="cuda")
+            for _ in range(2))
+    (kq, ks), (vq, vs) = quantize_kv_page(k, "fp8"), quantize_kv_page(v, "fp8")
+    for pool, (kp, vp, ksc, vsc) in (
+            ("bf16", (k.bfloat16(), v.bfloat16(), None, None)),
+            ("fp8", (kq, vq, ks, vs))):
+        got, want = (ops.paged_decode_attention(
+            q, kp, vp, state["table"], lengths, k_scale=ksc, v_scale=vsc,
+            impl=impl) for impl in ("kernel", "plain"))
+        err = check_close(f"{LLAMA} paged decode[{pool}]", got, want,
+                          BF16_ATOL, BF16_RTOL)
+        log("fleet", f"{LLAMA} paged decode H={LLAMA_H} KVH={KVH} "
+            f"d={HEAD_DIM} q=bf16 pool={pool}, lengths "
+            f"{lengths.tolist()}: max|err| {err:.3e}")
+
+
+# the bf16 tick with the kernels may lie no further from the f32 tick of
+# the same weights and pool than the plain versions' bf16 tick lies, up to
+# this factor, in every seat's RMS over its logits and in the largest
+# difference
+TICK_F32_RATIO = 1.5
+
+
+def _tick_vs_f32(tag: str, eng) -> None:
+    """The fused tick with the kernels against the plain versions, where
+    bf16 roundings compounded over many layers leave both some way from
+    the exact tick: each bf16 tick is held to the f32 tick (plain
+    versions) of the same weights and pool widened, and the kernels' may
+    be no further from it than TICK_F32_RATIO times the plain versions'.
+    A planted fault (the kernels' attention missing every seat's last
+    page) must fail the same test."""
+    import dataclasses
+    from repro_torch.kernels import ops
+    from repro_torch.tree import tree_map
+    state = _tick_state(eng)
+    pool = eng.policy.cache
+
+    def bf16(impl):
+        return _tick(eng, _clone(pool), state, impl)[1]
+    wide = tree_map(lambda t: t.float(), eng.params)
+    lf = _tick(eng, {p: {k: t.float() for k, t in ent.items()}
+                     for p, ent in pool.items()}, state, "plain", wide,
+               dataclasses.replace(eng.cfg, compute_dtype="float32"))[1]
+    del wide
+    gc.collect()
+
+    def ratios(lk, lp):
+        assert bool(torch.isfinite(lk).all()), f"{tag}: non-finite logits"
+        ek, ep = (lk - lf).abs(), (lp - lf).abs()
+        rows = (ek.square().mean(-1).sqrt() / ep.square().mean(-1).sqrt())
+        return rows, ek.max().item() / ep.max().item(), ek, ep
+    lp = bf16("plain")
+    lk = bf16("kernel")
+    rows, peak, ek, ep = ratios(lk, lp)
+    attention = ops.paged_decode_attention
+
+    def dropped_page(q, k, v, table, lengths, **kw):
+        if kw.get("impl") == "plain":
+            return attention(q, k, v, table, lengths, **kw)
+        return attention(q, k, v, table, torch.clamp(lengths - PAGE, min=1),
+                         **kw)
+    ops.paged_decode_attention = dropped_page
+    try:
+        bad_rows, bad_peak, _, _ = ratios(bf16("kernel"), lp)
+    finally:
+        ops.paged_decode_attention = attention
+    scale = lf.abs().max().item()
+    log("fleet", f"{tag}: bf16 fused tick against the f32 tick (largest "
+        f"|logit| {scale:.3e}): kernels max|Δ| {ek.max().item():.3e}, "
+        f"plain max|Δ| {ep.max().item():.3e} (ratio {peak:.3f}); per seat "
+        f"RMS ratio kernels/plain {[round(r, 3) for r in rows.tolist()]}; "
+        f"kernels vs plain max|Δ| {(lk - lp).abs().max().item():.3e}; "
+        f"greedy tokens equal to the f32 tick's: kernels "
+        f"{int((lk.argmax(-1) == lf.argmax(-1)).sum())}/{len(lf)}, plain "
+        f"{int((lp.argmax(-1) == lf.argmax(-1)).sum())}/{len(lf)}")
+    log("fleet", f"{tag}: planted fault [last page dropped]: per seat RMS "
+        f"ratio {[round(r, 3) for r in bad_rows.tolist()]}, max ratio "
+        f"{bad_peak:.3f}")
+    assert rows.max().item() <= TICK_F32_RATIO and peak <= TICK_F32_RATIO, \
+        f"{tag}: the kernels' bf16 tick lies further from the f32 tick " \
+        f"than {TICK_F32_RATIO}x the plain versions' (per seat " \
+        f"{rows.tolist()}, largest {peak:.3f})"
+    assert bad_rows.max().item() > TICK_F32_RATIO or \
+        bad_peak > TICK_F32_RATIO, \
+        f"{tag}: a planted fault passes the f32 tick test"
+
+
+def _fleet_llama_f32(weights, requests) -> None:
+    """llama3-8b's kernels (K1 at GQA group 4, K3 and its fused forms at
+    D = 4096) against the plain versions where the comparison is fair:
+    in f32 (the cast weights widened, f32 pools), 8 of Run A's llama3-8b
+    prompts teacher-forced through prefill chunks and 31 fused ticks,
+    phase f32's method: every decided position's top-1 equal and at
+    least F32_MIN_DECIDED of the positions decided."""
+    import dataclasses
+    from repro_torch.tree import tree_map
+    cfg, params = weights[LLAMA]
+    wide = tree_map(lambda t: t.float(), params)
+    prompts = [p for arch, p, _ in requests if arch == LLAMA][:8]
+    _f32_paged_teacher_forced(
+        dataclasses.replace(cfg, compute_dtype="float32"), wide, prompts,
+        what=f"{LLAMA} fused tick (paged, f32 pool)", phase="fleet")
+
+
+def _fleet_solo(weights, requests, streams, sampling) -> None:
+    """Each model's requests of Run A on a solo graphed engine, submitted
+    with the fleet's rids: the streams must equal the fleet's bit for
+    bit, with no preemption."""
+    from repro_torch.runtime.serving import PagedServingEngine
+    for arch in (ARCH, LLAMA):
+        cfg, params = weights[arch]
+        eng = PagedServingEngine(cfg, params, device="cuda", **ENGINE_KW)
+        mine = [(rid, p, n) for rid, (a, p, n) in enumerate(requests)
+                if a == arch]
+        for rid, p, n in mine:
+            eng.submit(p, max_new_tokens=n, sampling=sampling, rid=rid)
+        solo = {q.rid: q.generated for q in eng.run()}
+        assert eng.metrics.preemptions == 0, f"solo {arch} preempted"
+        diff = [rid for rid, _, _ in mine if solo[rid] != streams[rid]]
+        assert not diff, f"{arch}: fleet and solo streams differ for {diff}"
+        _check_tickets(f"solo {arch}", [eng.policy._tickets])
+        log("fleet", f"solo {arch} engine over its {len(mine)} requests "
+            "with the fleet's rids: streams equal to run A's, bit for bit")
+        del eng
+        gc.collect()
+
+
+def _fleet_budget(weights, requests) -> None:
+    """Run B: qwen3-1.7b with a bf16 pool and llama3-8b with an fp8 pool
+    under a budget of the two floors and FLEET_SURPLUS_B pages, SLO-aware
+    selection and SLO admission, a third of the requests premium: every
+    request finishes, the live bytes across engines stay within the
+    budget after every fleet step, some engine borrows beyond its floor,
+    and K2 carries the fp8 replica."""
+    from repro_torch.kernels import ops
+    floors = 2 * -(-ENGINE_KW["max_seq_len"] // PAGE)
+    fleet = _fleet(weights, FLEET_B, floors + FLEET_SURPLUS_B,
+                   selection="slo-aware", admission="slo")
+    budget = fleet.budget
+    ops.reset_launches()                       # the main path starts here
+    _fleet_submit(fleet, requests, None, premium_every=3)
+    borrowed, live_max = Counter(), 0
+    while fleet.pending():
+        fleet.step()
+        u = budget.usage()
+        live = sum(e["bytes_in_use"] for e in u["engines"].values())
+        assert live <= budget.total_bytes, \
+            f"run B: {live} live bytes > budget {budget.total_bytes} at " \
+            f"fleet tick {fleet._tick}"
+        live_max = max(live_max, live)
+        for key, e in u["engines"].items():
+            borrowed[key] = max(borrowed[key], e["borrowed"])
+        assert fleet._tick < 20_000, "run B: the fleet does not finish"
+    counts = dict(ops.launches)                # ... and ends here
+    _check_fleet_run("run B", fleet, requests, counts)
+    assert any(borrowed.values()), "run B: no engine borrowed"
+    assert counts.get("quantized_paged_decode_attention[fp8]", 0) > 0
+    log("fleet", f"run B: budget {budget.total} pages of "
+        f"{budget.page_bytes} bytes ({budget.total_bytes / 2 ** 20:.1f} MiB)"
+        f"; live bytes at most {live_max / 2 ** 20:.1f} MiB across the "
+        f"engines after every fleet tick; most pages borrowed beyond the "
+        f"floor {json.dumps(dict(borrowed))}")
+    _report_fleet("run B", fleet)
+
+
+def _fleet_telemetry(weights, requests, streams, sampling) -> None:
+    """Run A again under ``Telemetry(ring=4096)``: the same streams, one
+    ``fleet_tick`` event per engine at every ``heartbeat_every`` stride,
+    a valid Perfetto export; then a forced stall (``run(max_ticks=2)`` on
+    a fresh fleet) whose message names every pending request as
+    ``model/replica:rid(priority)`` and whose postmortem names every
+    engine and holds the budget block."""
+    from repro_torch.runtime.serving import SchedulerStallError
+    from repro_torch.runtime.telemetry import (Telemetry, build_spans,
+                                               validate_chrome_trace,
+                                               write_perfetto)
+    tel = Telemetry(ring=4096)
+    fleet = _fleet(weights, FLEET_A, FLEET_PAGES_A, telemetry=tel)
+    _fleet_submit(fleet, requests, sampling)
+    done = fleet.run()
+    assert {rid: q.generated for rid, q in done.items()} == streams, \
+        "telemetry: streams differ from run A's"
+    every = tel.heartbeat_every
+    assert fleet._tick >= every, f"telemetry: {fleet._tick} fleet ticks"
+    engines = [f"{n}/{i}" for n, i, _ in fleet._engines()]
+    beats = Counter((e.tick, e.engine) for e in tel.events()
+                    if e.kind == "fleet_tick")
+    want = {(t, name): 1 for t in range(every, fleet._tick + 1, every)
+            for name in engines}
+    assert dict(beats) == want, f"telemetry: heartbeats {dict(beats)}"
+    assert tel.recorder.dropped == 0, "telemetry: the ring dropped events"
+    path = FLEET_DIR / "trace_fleet.json"
+    write_perfetto(str(path), tel.events())
+    doc = json.loads(path.read_text())
+    errors = validate_chrome_trace(doc)
+    assert errors == [], f"telemetry: Perfetto export invalid: {errors[:5]}"
+    spans = build_spans(tel.events())["spans"]
+    log("fleet", f"telemetry: streams equal to run A's; {len(want)} "
+        f"fleet_tick events, one per engine every {every} of "
+        f"{fleet._tick} ticks; Perfetto export {path.relative_to(ROOT)} "
+        f"valid ({len(doc['traceEvents'])} trace events, {len(spans)} "
+        "spans)")
+    del fleet, done
+    gc.collect()
+    path = FLEET_DIR / "postmortem.json"
+    fleet = _fleet(weights, FLEET_A, FLEET_PAGES_A, telemetry=Telemetry(
+        ring=4096, postmortem_path=str(path)))
+    _fleet_submit(fleet, requests, sampling)
+    try:
+        fleet.run(max_ticks=2)
+    except SchedulerStallError as e:
+        msg = str(e)
+    else:
+        raise AssertionError("fleet run(max_ticks=2) did not stall")
+    pm = json.loads(path.read_text())
+    assert set(pm["engines"]) == set(engines), sorted(pm["engines"])
+    assert pm["budget"]["total_pages"] == FLEET_PAGES_A
+    assert set(pm["budget"]["engines"]) == \
+        {str((n, i)) for n, i, _ in fleet._engines()}
+    pending = 0
+    for name, i, eng in fleet._engines():
+        for q in [*eng.queue, *eng.seats.values()]:
+            assert f"{name}/{i}:{q.rid}({q.priority})" in msg, q.rid
+            pending += 1
+    assert pending and pm["reason"] == "SchedulerStallError: " + msg
+    log("fleet", f"forced stall: the message names the {pending} pending "
+        f"requests by model/replica:rid(priority); postmortem "
+        f"{path.relative_to(ROOT)} names the engines {engines} and holds "
+        "the budget block")
+
+
+def _fleet_steady(weights) -> None:
+    """A fleet of FLEET_A with every engine's 8 seats decoding (prompts of
+    128 tokens, 64 new tokens): one fleet step (three engine ticks, each
+    ending in its token pull) under ``_profile_steady``, then the
+    llama3-8b replica's tick replayed alone, its device busy time against
+    the least time its bytes take (information)."""
+    from repro_torch.tree import tree_flatten_with_paths
+    fleet = _fleet(weights, FLEET_A, FLEET_PAGES_A)
+    rng = np.random.default_rng(8)
+    for arch, n in ((ARCH, 16), (LLAMA, 8)):
+        for _ in range(n):
+            fleet.submit(model=arch, prompt=rng.integers(
+                0, weights[arch][0].vocab_size, 128).astype(np.int32),
+                max_new_tokens=64)
+    while any(eng.queue or any(r.prefill_pos < len(r.prefill_src)
+                               for r in eng.seats.values())
+              for _, _, eng in fleet._engines()):
+        fleet.step()
+    assert all(len(eng.seats) == 8 for _, _, eng in fleet._engines())
+    _profile_steady("fleet", "steady fleet step (3 engines, 24 seats)",
+                    fleet.step)
+    eng = fleet.group(LLAMA).engines[0]
+    cfg, params = eng.cfg, eng.params
+    state = _tick_state(eng)
+    # bytes one tick must move: every weight once but the embedding's
+    # 8 rows, the K and V of every seat's positions, and the logits
+    weights_read = sum(t.numel() * t.element_size() for p, t in
+                       tree_flatten_with_paths(params) if p != "embed")
+    row = params["embed"][0]
+    weights_read += 8 * row.numel() * row.element_size()
+    kv = 2 * cfg.num_layers * KVH * HEAD_DIM * 2 * \
+        int((state["pos"] + 1).sum())
+    nbytes = weights_read + kv + 8 * cfg.vocab_size * 4
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    _, busy = _profile_graph_tick(f"{LLAMA}/0", eng, phase="fleet")
+    log("fleet", f"{LLAMA}/0 tick: device busy {busy:.3f} ms against the "
+        f"byte bound {bound_ms:.3f} ms ({nbytes / 1e9:.2f} GB at "
+        f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s): {busy / bound_ms:.2f}x "
+        "(information)")
+    _check_tickets("steady fleet", _fleet_tickets(fleet))
+
+
+def _fleet_cli() -> None:
+    """``python -m repro_torch.launch.serve --fleet`` with the reference's
+    defaults (reduced configs, ``qwen3-1.7b:2,llama3-8b``) on the card."""
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    out = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve",
+                          "--fleet"], cwd=ROOT, env=env, capture_output=True,
+                         text=True, timeout=600)
+    assert out.returncode == 0, f"serve --fleet: rc {out.returncode}\n" \
+        f"{out.stderr[-3000:]}"
+    lines = [ln for ln in out.stdout.splitlines()
+             if ln.startswith("[serve.fleet]")]
+    assert lines and "device=cuda" in lines[0] and "8 requests" in lines[0], \
+        out.stdout[-2000:]
+    for ln in lines:
+        log("fleet", f"cli: {ln}")
+
+
+def phase_fleet() -> None:
+    """The multi-model fleet on the card: qwen3-1.7b x2 and llama3-8b x1
+    at full width behind one ``ModelFleet``."""
+    from repro_torch.runtime.sampler import SamplingParams
+    FLEET_DIR.mkdir(parents=True, exist_ok=True)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    weights = _fleet_weights()
+    log("fleet", f"weights: {ARCH} "
+        f"{_tree_bytes(weights[ARCH][1]) / 2 ** 30:.2f} GiB, {LLAMA} "
+        f"{_tree_bytes(weights[LLAMA][1]) / 2 ** 30:.2f} GiB cast for "
+        f"compute; {torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB "
+        "allocated, peak while drawing "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+    requests = _fleet_requests(weights)
+    sampling = SamplingParams(temperature=0.9, seed=11)
+    streams = _fleet_identity(weights, requests, sampling)
+    gc.collect()
+    _fleet_solo(weights, requests, streams, sampling)
+    _fleet_llama_f32(weights, requests)
+    gc.collect()
+    t1 = time.perf_counter()
+    _fleet_budget(weights, requests)
+    gc.collect()
+    _fleet_telemetry(weights, requests, streams, sampling)
+    gc.collect()
+    t2 = time.perf_counter()
+    _fleet_steady(weights)
+    gc.collect()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    del weights
+    gc.collect()
+    torch.cuda.empty_cache()
+    t3 = time.perf_counter()
+    _fleet_cli()
+    log("fleet", f"phase times: run A and solo {t1 - t0:.1f} s, run B and "
+        f"telemetry {t2 - t1:.1f} s, steady profile {t3 - t2:.1f} s, cli "
+        f"{time.perf_counter() - t3:.1f} s; peak "
+        f"{peak:.2f} GiB allocated (max_memory_allocated)")
+
+
 # phase f32: a position is decided when the plain version's top-2 gap
 # exceeds twice the largest |kernel - plain| logit difference there (the
 # workload-7 method of docs/benchmarks.md): there the two must pick the
@@ -1805,11 +2393,11 @@ def _hold_decided(stats: dict, lk: torch.Tensor, lp: torch.Tensor) -> None:
     stats["max_delta"] = max(stats["max_delta"], delta.max().item())
 
 
-def _report_decided(what: str, stats: dict) -> None:
+def _report_decided(what: str, stats: dict, phase: str = "f32") -> None:
     """Every decided position must agree, and at least F32_MIN_DECIDED of
     the positions must be decided."""
     frac = stats["decided"] / stats["rows"]
-    log("f32", f"{what} kernel vs plain, teacher-forced: top-1 equal at "
+    log(phase, f"{what} kernel vs plain, teacher-forced: top-1 equal at "
         f"{stats['agree']}/{stats['decided']} decided positions; decided "
         f"{stats['decided']}/{stats['rows']} = {frac:.4f}; max|Δlogit| "
         f"{stats['max_delta']:.3e}")
@@ -1824,7 +2412,9 @@ def _new_stats() -> dict:
     return {"rows": 0, "decided": 0, "agree": 0, "max_delta": 0.0}
 
 
-def _f32_paged_teacher_forced(cfg, params, prompts) -> None:
+def _f32_paged_teacher_forced(cfg, params, prompts,
+                              what: str = "fused tick (paged, f32 pool)",
+                              phase: str = "f32") -> None:
     """The fused tick with the kernels and with the plain versions on one
     greedy stream per seat: each prompt prefilled in chunks of
     PREFILL_CHUNK (``paged_decode_step``, as the engine does), then
@@ -1877,7 +2467,7 @@ def _f32_paged_teacher_forced(cfg, params, prompts) -> None:
                 st["rid"], st["step"], impl=impl)[1]
         _hold_decided(stats, out["kernel"], out["plain"])
         teacher = out["plain"].argmax(dim=-1).int()
-    _report_decided("fused tick (paged, f32 pool)", stats)
+    _report_decided(what, stats, phase)
 
 
 def _f32_fixed_teacher_forced(cfg, params, prompts) -> None:
@@ -2687,6 +3277,11 @@ def main() -> int:
     log("serve", f"serving state freed: "
         f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB allocated, "
         f"{torch.cuda.memory_reserved() / 2 ** 30:.2f} GiB reserved")
+    phase_fleet()
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("fleet", f"fleet state freed: "
+        f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB allocated")
     phase_f32(prompts)
     gc.collect()
     torch.cuda.empty_cache()

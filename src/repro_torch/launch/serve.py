@@ -6,19 +6,23 @@
   prefill and dense decode kernels on the card;
 - ``serve_paged`` (``--engine paged``): a mixed-length request stream
   through ``runtime.serving.PagedServingEngine``, reporting its metrics
-  (TTFT, tokens/s, page utilization, prefix-hit rate).
+  (TTFT, tokens/s, page utilization, prefix-hit rate);
+- ``serve_fleet`` (``--fleet``): several models (``--models``, default
+  ``qwen3-1.7b:2,llama3-8b``) behind one ``runtime.router.ModelFleet``,
+  one shared page budget (``--total-pages``) and a replica selection
+  policy (``--selection``), over one mixed request stream.
 
 Weights are drawn from a ``torch.Generator`` seeded with ``--seed`` on the
-device, prompts from ``numpy.random.default_rng(seed)``.  Both run on the
-card unless ``device="cpu"`` (``--device cpu``) is given.
+device (model ``i`` of a fleet with ``seed + i``), prompts from
+``numpy.random.default_rng(seed)``.  All run on the card unless
+``device="cpu"`` (``--device cpu``) is given.
 
-The paged engine takes the telemetry flags (``--metrics-port``,
-``--flight-recorder``, ``--trace-export``, ``--profile-ticks``,
-``--postmortem``; see :func:`add_telemetry_args`); the static batch has
-no scheduler to observe and refuses them.  ``--tuning-preset alloc``
-re-executes the interpreter once with tcmalloc preloaded (see
-:func:`build_tuning_env`).  The multi-model fleet (``--fleet``) is a
-later slice of the port.
+The paged engine and the fleet take the telemetry flags
+(``--metrics-port``, ``--flight-recorder``, ``--trace-export``,
+``--profile-ticks``, ``--postmortem``; see :func:`add_telemetry_args`);
+the static batch has no scheduler to observe and refuses them.
+``--tuning-preset alloc`` re-executes the interpreter once with tcmalloc
+preloaded (see :func:`build_tuning_env`).
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-1.7b \\
       --batch 4 --prompt-len 128 --gen 16
@@ -28,6 +32,8 @@ later slice of the port.
       --device cpu --kv-dtype fp8 --requests 6 --gen 10
   PYTHONPATH=src python -m repro_torch.launch.serve --engine paged \\
       --device cpu --profile-ticks --trace-export trace.json
+  PYTHONPATH=src python -m repro_torch.launch.serve --fleet --device cpu \\
+      --models qwen3-1.7b:2,llama3-8b:1:fp8 --selection slo-aware
 """
 from __future__ import annotations
 
@@ -44,6 +50,8 @@ from repro_torch.configs import get_config, reduced_config, resolve_arch
 from repro_torch.core.mixed_precision import KV_DTYPES
 from repro_torch.models import model as M
 from repro_torch.models.convert import cast_for_compute
+from repro_torch.runtime.router import (FleetModel, ModelFleet,
+                                        parse_models_spec)
 from repro_torch.runtime.sampler import Sampler, SamplingParams
 from repro_torch.runtime.serving import PagedServingEngine, resolve_device
 from repro_torch.runtime.telemetry import (MetricsServer, Telemetry,
@@ -276,6 +284,126 @@ def serve_paged(arch: str, *, requests: int = 8, gen: int = 16,
             "engine": eng}
 
 
+def serve_fleet(models, *, requests: int = 12, gen: int = 8,
+                page_size: int = 16, total_pages: int = 64,
+                max_seats: int = 4, prefill_chunk: int = 16,
+                reduced: bool = True, seed: int = 0,
+                eos_id: Optional[int] = None,
+                sampling: Optional[SamplingParams] = None,
+                prefix_cache: bool = True,
+                max_seq_len: Optional[int] = None,
+                prompt_len: Optional[int] = None,
+                lazy_pages: bool = True, watermark: float = 0.05,
+                priority: str = "standard",
+                deadline_ms: Optional[float] = None,
+                tbt_deadline_ms: Optional[float] = None,
+                admission: str = "fcfs", aging_ticks: int = 64,
+                selection: str = "least-loaded",
+                kv_dtype: Optional[str] = None,
+                class_precision: Optional[Dict[str, str]] = None,
+                telemetry: Optional[Telemetry] = None,
+                metrics_port: Optional[int] = None,
+                device=None):
+    """Drive a multi-model fleet over one mixed request stream.
+
+    ``models`` is a ``--models``-style spec string
+    (``llama3-8b:2:fp8,qwen3-1.7b``; module-style aliases like
+    ``llama3_8b`` resolve too) or a pre-parsed
+    [(name, replicas[, kv_dtype]), ...] list.  ``kv_dtype`` is the
+    fleet-wide KV storage default for models whose spec entry leaves it
+    unset; ``class_precision`` maps SLO classes to minimum precisions,
+    steering those classes to replicas whose pool qualifies.  Every
+    engine in the fleet shares one ``total_pages`` host budget —
+    denominated in bytes when precisions are mixed, so quantized
+    replicas' cheaper pages draw proportionally less; requests cycle
+    across the models round-robin and rids are fleet-global, so
+    per-request outputs match dedicated solo engines.  Model ``i``'s
+    weights come from a ``torch.Generator`` seeded with ``seed + i`` on
+    ``device``; the fleet casts them for compute, and the float32 trees
+    go when it is built.  ``device`` defaults to CUDA and raises
+    when CUDA is absent.  Returns the finished requests plus the fleet
+    metrics snapshot (per-model tokens/s, TTFT, prefix hits,
+    preemptions, SLO classes, budget accounting) and the fleet.
+
+    ``telemetry`` attaches one shared observability plane (flight
+    recorder tagged per ``model/replica`` engine, ``fleet_tick``
+    heartbeat counters); ``metrics_port`` serves per-replica Prometheus
+    exposition during the run.
+
+    Raises:
+      ValueError: a malformed ``models`` spec, an unknown model, or
+          infeasible flag combinations, named."""
+    if isinstance(models, str):
+        try:
+            models = parse_models_spec(models)
+        except ValueError as e:
+            raise ValueError(f"--models: {e}") from None
+    try:
+        models = [(resolve_arch(m[0]), m[1],
+                   m[2] if len(m) > 2 and m[2] is not None else kv_dtype)
+                  for m in models]
+    except KeyError as e:
+        raise ValueError(f"--models: {e.args[0]}") from None
+    if max_seq_len is None:
+        max_seq_len = (prompt_len if prompt_len else 3 * page_size) + gen
+    if prompt_len is not None and prompt_len + gen > max_seq_len:
+        raise ValueError(
+            f"--prompt-len {prompt_len} + --gen {gen} exceeds "
+            f"--max-seq-len {max_seq_len}")
+    if prompt_len is None and max_seq_len - gen < 2:
+        raise ValueError(
+            f"--max-seq-len {max_seq_len} leaves no room for prompts "
+            f"after --gen {gen}; raise it or pass --prompt-len")
+    dev = resolve_device(device)
+    entries = []
+    for i, (name, reps, dt) in enumerate(models):
+        cfg = get_config(name)
+        if reduced:
+            cfg = reduced_config(cfg)
+        gen_t = torch.Generator(device=dev).manual_seed(seed + i)
+        entries.append(FleetModel(
+            name, cfg, M.init_params(M.param_specs(cfg), gen_t, device=dev),
+            replicas=reps, kv_dtype=dt))
+    fleet = ModelFleet(entries, total_pages=total_pages,
+                       page_size=page_size, max_seats=max_seats,
+                       max_seq_len=max_seq_len,
+                       prefill_chunk=prefill_chunk, selection=selection,
+                       prefix_cache=prefix_cache, lazy_pages=lazy_pages,
+                       watermark=watermark, admission=admission,
+                       aging_ticks=aging_ticks,
+                       class_precision=class_precision,
+                       telemetry=telemetry, device=dev)
+    del entries                     # the float32 trees
+    rng = np.random.default_rng(seed)
+    for i in range(requests):
+        name = models[i % len(models)][0]
+        cfg = fleet.group(name).cfg
+        plen = (prompt_len if prompt_len
+                else int(rng.integers(1, max_seq_len - gen)))
+        fleet.submit(model=name,
+                     prompt=rng.integers(0, cfg.vocab_size,
+                                         plen).astype(np.int32),
+                     max_new_tokens=int(rng.integers(2, gen + 1)),
+                     eos_id=eos_id, sampling=sampling,
+                     priority=priority, deadline_ms=deadline_ms,
+                     tbt_deadline_ms=tbt_deadline_ms)
+    server = None
+    if metrics_port is not None:
+        server = MetricsServer(
+            lambda: prometheus_text(
+                {f"{n}/{i}": e.metrics
+                 for n, i, e in fleet._engines()}),
+            port=metrics_port)
+        print(f"[serve.fleet] metrics: {server.url}")
+    try:
+        done = fleet.run()
+    finally:
+        if server is not None:
+            server.close()
+    return {"finished": done, "metrics": fleet.metrics_snapshot(),
+            "fleet": fleet}
+
+
 def parse_class_precision(spec: str) -> Dict[str, str]:
     """Parse a ``--class-precision`` map: comma-separated ``class=dtype``
     entries, e.g. ``premium=bf16,standard=fp8``.
@@ -374,12 +502,29 @@ def model_name(name: str) -> str:
 
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
-        description="Serve on the port: a static batch (fixed-slot path) "
-                    "or a request stream on the paged engine.")
+        description="Serve on the port: a static batch (fixed-slot path), "
+                    "a request stream on the paged engine, or a "
+                    "multi-model fleet.")
     ap.add_argument("--engine", choices=("batch", "paged"), default="batch",
                     help="batch: one static batch, prefill then decode "
                          "(default); paged: the paged continuous-batching "
                          "engine over --requests")
+    ap.add_argument("--fleet", action="store_true",
+                    help="serve a multi-model fleet (--models) instead of "
+                         "one engine; implies the paged engine")
+    ap.add_argument("--models", default="qwen3-1.7b:2,llama3-8b",
+                    help="fleet spec: comma-separated "
+                         "name[:replicas[:kv_dtype]], e.g. "
+                         "llama3-8b:2:fp8,qwen3-1.7b (--fleet mode)")
+    ap.add_argument("--selection",
+                    choices=("least-loaded", "round-robin", "slo-aware"),
+                    default="least-loaded",
+                    help="replica selection policy (--fleet mode); "
+                         "slo-aware folds premium queue depth into the "
+                         "least-loaded key")
+    ap.add_argument("--total-pages", type=int, default=64,
+                    help="shared host page budget across all fleet "
+                         "engines (--fleet mode)")
     ap.add_argument("--model", "--arch", dest="arch", type=model_name,
                     default="qwen3-1.7b",
                     help="registry model name (default qwen3-1.7b)")
@@ -449,17 +594,31 @@ def main(argv=None):
     args = ap.parse_args(argv)
     apply_tuning_preset(args.tuning_preset, argv)
     telemetry = telemetry_from_args(args)
-    if telemetry is not None and args.engine != "paged":
+    if telemetry is not None and not args.fleet and args.engine != "paged":
         ap.error("--metrics-port/--flight-recorder/--trace-export/"
-                 "--profile-ticks need --engine paged (the static batch "
-                 "path has no scheduler to observe)")
+                 "--profile-ticks need --engine paged or --fleet (the "
+                 "static batch path has no scheduler to observe)")
     try:
         class_precision = (parse_class_precision(args.class_precision)
                            if args.class_precision else None)
         sampling = SamplingParams(temperature=args.temperature,
                                   top_k=args.top_k, top_p=args.top_p,
                                   seed=args.seed)
-        if args.engine == "batch":
+        if args.fleet:
+            r = serve_fleet(
+                args.models, requests=args.requests, gen=args.gen,
+                page_size=args.page_size, total_pages=args.total_pages,
+                seed=args.seed, eos_id=args.eos_id, sampling=sampling,
+                prefix_cache=not args.no_prefix_cache,
+                max_seq_len=args.max_seq_len, prompt_len=args.prompt_len,
+                lazy_pages=args.lazy_pages, watermark=args.watermark,
+                priority=args.priority, deadline_ms=args.deadline_ms,
+                tbt_deadline_ms=args.tbt_deadline_ms,
+                admission=args.admission, aging_ticks=args.aging_ticks,
+                selection=args.selection, kv_dtype=args.kv_dtype,
+                class_precision=class_precision, telemetry=telemetry,
+                metrics_port=args.metrics_port, device=args.device)
+        elif args.engine == "batch":
             r = serve(args.arch, batch=args.batch,
                       prompt_len=args.prompt_len or 32, gen=args.gen,
                       seed=args.seed, sampling=sampling, device=args.device)
@@ -479,6 +638,29 @@ def main(argv=None):
                 device=args.device)
     except ValueError as e:
         ap.error(str(e))
+    if args.fleet:
+        m = r["metrics"]
+        f = m["fleet"]
+        print(f"[serve.fleet] device={r['fleet'].device} "
+              f"{f['completed']:.0f} requests "
+              f"{f['generated_tokens']:.0f} tokens in "
+              f"{f['wall_s'] * 1e3:.0f}ms ({f['tokens_per_s']:.1f} tok/s) "
+              f"across {len(m['models'])} models; "
+              f"budget {m['budget']['total_pages']} pages "
+              f"(surplus {m['budget']['surplus_pages']})")
+        for name, mm in m["models"].items():
+            print(f"[serve.fleet]   model={name} "
+                  f"replicas={len(mm['replicas'])} "
+                  f"completed={mm['completed']:.0f} "
+                  f"tok/s={mm['tokens_per_s']:.1f} "
+                  f"ttft_avg={mm['ttft_avg_s'] * 1e3:.0f}ms "
+                  f"prefix_hit_rate={mm['prefix_hit_rate']:.2f} "
+                  f"preemptions={mm['preemptions']:.0f}")
+        rid0 = min(r["finished"])
+        print("[serve.fleet] sample tokens:",
+              r["finished"][rid0].generated[:12])
+        report_telemetry(args, telemetry, "serve.fleet")
+        return
     if args.engine == "batch":
         print(f"[serve] prefill={r['prefill_s'] * 1e3:.0f}ms "
               f"decode={r['decode_s'] * 1e3:.0f}ms "

@@ -45,7 +45,8 @@ dumped with a full engine-state snapshot when ``run`` stalls; its tick
 profiler times the step's phases and the fused tick's sub-phases by the
 host's wall clock.  It adds no kernel launch and no device sync: with
 the default ``telemetry=None`` the hot path pays one attribute load and
-a None check per event.  The fleet router is a later slice of the port.
+a None check per event.  ``runtime.router.ModelFleet`` puts several
+paged engines behind one ``submit`` and one shared host page budget.
 """
 from __future__ import annotations
 
@@ -458,22 +459,30 @@ class Scheduler:
 
     # -- token bookkeeping ----------------------------------------------------
 
-    def _emit_first_tokens(
-            self, ready: List[Tuple[Request, torch.Tensor]]) -> None:
+    def _emit_first_tokens(self, ready: List[Tuple[Request, object]]) -> None:
         """Sample the TTFT token for every request whose prefill
         completed this tick, in one batched call with one device→host
         transfer, then timestamp all of them after the batch.
 
         ready: ``[(req, logits_row)]`` in emission (rid) order, each row
-        the last prompt position's ``(V,)`` logits on the device."""
+        the last prompt position's ``(V,)`` logits: tensors on the
+        device, or numpy arrays from a model-free policy, whose rows
+        never leave the host and take the same algebra in numpy."""
         if not ready:
             return
-        rows = torch.stack([row for _, row in ready])
-        if all(req.sampling.greedy for req, _ in ready):
-            # one on-device argmax over the burst; K ints cross to host
-            toks = torch.argmax(rows, dim=-1).to(torch.int32).cpu().numpy()
+        greedy = all(req.sampling.greedy for req, _ in ready)
+        if all(isinstance(row, np.ndarray) for _, row in ready):
+            host = np.stack([row for _, row in ready])
+            if greedy:
+                toks = np.argmax(host, axis=-1).astype(np.int32)
         else:
-            host = rows.float().cpu().numpy()        # one (K, V) transfer
+            rows = torch.stack([row for _, row in ready])
+            if greedy:
+                # one on-device argmax over the burst; K ints cross to host
+                toks = torch.argmax(rows, dim=-1).to(torch.int32).cpu().numpy()
+            else:
+                host = rows.float().cpu().numpy()    # one (K, V) transfer
+        if not greedy:
             toks = [self.sampler.sample(host[i], req.sampling,
                                         rid=req.rid, step=0)
                     for i, (req, _) in enumerate(ready)]
@@ -983,11 +992,7 @@ class PagedPolicy:
                 f"{cfg.name}: paged KV needs a pure-attention decoder")
         self.cfg = cfg
         self.device = resolve_device(device)
-        # weights move to the device and the matmul/embedding weights are
-        # cast once to the compute dtype (see models.convert)
-        self.params = cast_for_compute(
-            {k: _to_device(v, self.device) for k, v in params.items()},
-            M.compute_dtype(cfg))
+        self.params = params
         self.impl = impl
         self.page_size = page_size
         self.max_seats = max_seats
@@ -1037,19 +1042,19 @@ class PagedPolicy:
         # entirely off the buffers the previous fused tick updated in place
         self._dirty = True
         self.decode_ticks = 0
-        # device-side health flag: stays True while every logit the
-        # engine computed was finite (read it after a run; no tick syncs)
-        self.logits_finite = torch.ones((), dtype=torch.bool,
-                                        device=self.device)
         self._init_model_state(num_pages)
 
     def _init_model_state(self, num_pages: int) -> None:
-        """Allocate the device KV pool and the tick's fixed device
-        buffers, and on a CUDA device with ``fused`` capture the fused
-        decode tick and the prefill chunk as CUDA graphs over them.
-        Split out of ``__init__`` as the reference splits it, so that a
-        model-free policy can keep the placement bookkeeping and replace
-        the device state.
+        """Move the weights to the device and cast the matmul and
+        embedding weights once to the compute dtype (a no-op on a tree
+        already cast there, which is then shared), allocate the device
+        KV pool and the tick's fixed device buffers, set the copy-on-write
+        hook, and on a CUDA device with ``fused`` capture the fused decode
+        tick and the prefill chunk as CUDA graphs over them.  Split out of
+        ``__init__`` as the reference splits it: a model-free policy
+        keeps the placement bookkeeping and replaces all of this (its
+        ``params`` may be None, its ``cache`` None and its ``_cow_fn``
+        the identity).
 
         The buffers start in the all-idle state, in which both steps
         change no live state (every valid count 0: writes go to the
@@ -1058,6 +1063,14 @@ class PagedPolicy:
         are."""
         cfg, dev = self.cfg, self.device
         A, n, C = self.max_seats, self.n_tables, self.prefill_chunk
+        self.params = cast_for_compute(
+            {k: _to_device(v, dev) for k, v in self.params.items()},
+            M.compute_dtype(cfg))
+        # device-side health flag: stays True while every logit the
+        # engine computed was finite (read it after a run; no tick syncs)
+        self.logits_finite = torch.ones((), dtype=torch.bool, device=dev)
+        # prefix copy-on-write of one page, in place (returns the pool)
+        self._cow_fn = M.copy_paged_page
         self.cache = M.init_paged_cache(cfg, num_pages, self.page_size,
                                         kv_dtype=self.kv_dtype, device=dev)
         # the fused tick's state, one buffer per dtype (the dtypes of
@@ -1211,7 +1224,7 @@ class PagedPolicy:
         if match.cow_src is not None:
             # copy the partially matched page, then own the copy; the pin
             # kept the source out of alloc's reach
-            M.copy_paged_page(self.cache, match.cow_src, fresh[0])
+            self.cache = self._cow_fn(self.cache, match.cow_src, fresh[0])
             self.bm.free([match.cow_src])
         req.pages = match.pages + fresh
         req.prefill_pos = req.cached_tokens = match.n_cached
@@ -1512,6 +1525,8 @@ class PagedServingEngine(Scheduler):
     ``impl`` picks kernels or plain versions (``kernels.ops``; ``auto``
     = the kernels on CUDA).  ``device`` defaults to ``"cuda"`` and
     raises when CUDA is absent; pass ``"cpu"`` to run on the CPU.
+    ``policy_cls`` replaces :class:`PagedPolicy` (None = it) with a
+    subclass built with the same arguments.
     """
 
     default_max_ticks = 100_000
@@ -1526,8 +1541,12 @@ class PagedServingEngine(Scheduler):
                  kv_dtype: Optional[str] = None,
                  class_precision: Optional[Dict[str, str]] = None,
                  clock=None, record_trace: bool = True,
-                 telemetry=None, impl: str = "auto", device=None):
-        policy = PagedPolicy(
+                 telemetry=None, impl: str = "auto", device=None,
+                 policy_cls: Optional[type] = None):
+        # policy_cls swaps the placement + arithmetic implementation and
+        # keeps every Scheduler behaviour (a model-free policy for load
+        # tests overrides PagedPolicy._init_model_state and the ticks)
+        policy = (policy_cls or PagedPolicy)(
             cfg, params, page_size=page_size, num_pages=num_pages,
             max_seats=max_seats, max_seq_len=max_seq_len,
             prefill_chunk=prefill_chunk, prefix_cache=prefix_cache,

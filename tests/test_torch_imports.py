@@ -201,3 +201,72 @@ def test_serve_paged_draws_prompts_and_budgets_within_bounds():
     with pytest.raises(ValueError, match="min_prompt_len"):
         serve_paged("qwen3-1.7b", gen=3, min_prompt_len=30,
                     max_seq_len=26, device="cpu")
+
+
+def _reference_parser():
+    """The JAX package's serve CLI parser, captured from its ``main()``
+    at the point where it parses the command line."""
+    import argparse
+    from unittest import mock
+    from repro.launch import serve as jserve
+
+    class Captured(Exception):
+        pass
+
+    def capture(self, *a, **kw):
+        raise Captured(self)
+
+    with mock.patch.object(argparse.ArgumentParser, "parse_args", capture):
+        with pytest.raises(Captured) as e:
+            jserve.main()
+    return e.value.args[0]
+
+
+def _flags(ap):
+    return {opt: act for act in ap._actions for opt in act.option_strings}
+
+
+def test_serve_parser_matches_the_reference_but_for_device():
+    """Every flag of the reference's serve CLI is the port's, with equal
+    defaults and choices (the fleet flags with equal help too); the port
+    adds only ``--device``."""
+    from repro_torch.launch.serve import build_parser
+    ref, port = _flags(_reference_parser()), _flags(build_parser())
+    assert set(port) - set(ref) == {"--device"}
+    assert set(ref) - set(port) == set()
+    for opt, act in ref.items():
+        assert (port[opt].dest, port[opt].default, port[opt].choices) == \
+            (act.dest, act.default, act.choices), opt
+    for opt in ("--fleet", "--models", "--selection", "--total-pages"):
+        assert port[opt].help == ref[opt].help, opt
+    assert port["--models"].default == "qwen3-1.7b:2,llama3-8b"
+    assert port["--total-pages"].default == 64
+
+
+def test_serve_fleet_defaults_to_cuda_and_finishes_on_cpu(monkeypatch,
+                                                         capsys):
+    from repro_torch.launch.serve import main, serve_fleet
+    _no_cuda(monkeypatch)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve_fleet("qwen3-1.7b:2,llama3-8b")
+    r = serve_fleet("qwen3-1.7b:2,llama3_8b:1:fp8", requests=7,
+                    selection="slo-aware", device="cpu")
+    assert sorted(r["finished"]) == list(range(7))
+    for req in r["finished"].values():
+        assert 2 <= len(req.generated) == req.max_new_tokens <= 8
+    fleet = r["fleet"]
+    assert [(n, i, e.kv_dtype) for n, i, e in fleet._engines()] == \
+        [("qwen3-1.7b", 0, "bf16"), ("qwen3-1.7b", 1, "bf16"),
+         ("llama3-8b", 0, "fp8")]
+    q0, q1 = fleet.group("qwen3-1.7b").engines
+    assert q0.params["embed"] is q1.params["embed"]     # one shared tree
+    assert r["metrics"]["fleet"]["completed"] == 7
+    with pytest.raises(ValueError, match="--models: unknown model"):
+        serve_fleet("gpt5", device="cpu")
+    main(["--fleet", "--device", "cpu", "--requests", "4",
+          "--flight-recorder", "64", "--profile-ticks"])
+    out = capsys.readouterr().out
+    assert "[serve.fleet] device=cpu 4 requests" in out
+    assert "model=qwen3-1.7b replicas=2" in out
+    assert "model=llama3-8b replicas=1" in out
+    assert "tick-phase profile" in out
