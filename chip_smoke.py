@@ -16,7 +16,8 @@ Phases, each printed as it runs:
    from ptxas's report and none may spill, and the widths of the serving
    instantiations' loads are counted in the SASS (qwen3-1.7b's GQA group
    of 2 over every pool, llama3-8b's group of 4 over its bf16 and fp8
-   pools);
+   pools, qwen2-moe-a2.7b's group of 1 over its bf16, fp8 and f32 pools
+   and its bf16 cache);
 3. kernels — every kernel of the serving paths against its plain PyTorch
    version at the serving shapes of qwen3-1.7b (H=16, KVH=8, d=128;
    paged decode: page 16, 8 seats with lengths from 1 to 2048; dense
@@ -101,7 +102,8 @@ Phases, each printed as it runs:
    over bf16 and fp8 pools against their plain versions; llama3-8b's bf16
    tick with the kernels no further from the f32 tick of the same weights
    and pool than 1.5x the plain versions' bf16 tick (per seat and at the
-   largest logit; a planted fault, the last page dropped, must fail);
+   largest logit; a planted fault, the last page dropped, must fail
+   both);
    llama3-8b's kernels against the plain versions in f32 (its weights
    widened), 8 of its prompts teacher-forced as in phase f32.  Run B:
    qwen3-1.7b bf16 and llama3-8b fp8 under a budget of the two floors and
@@ -116,7 +118,46 @@ Phases, each printed as it runs:
    under torch.profiler, the llama3-8b tick's device busy time against
    its byte bound, and ``python -m repro_torch.launch.serve --fleet``
    with its defaults (reduced configs);
-8. f32 — the same model computing in f32 (f32 weights, pool and cache;
+8. moe — qwen2-moe-a2.7b at full width (24 layers, d_model 2048, 16/16
+   heads of 128, 60 routed experts top-4 of d_ff 1408 and 4 shared of
+   5632 behind a sigmoid gate, untied 151936-row head), drawn on the
+   card from a generator seeded 0 with each matmul leaf cast to bf16 as
+   it is drawn (the f32 tree never exists; tree size and drawing peak
+   logged).  Run A: the paged engine (8 seats, page 16, 560 pages, chunk
+   128, bf16 pool) over 24 requests of 64-511 prompt tokens and 32 new
+   tokens at temperature 0.9, 12 submitted at once and then one every 4
+   engine steps, so that some ticks have idle seats below decoding ones:
+   every request finished in the vocabulary, logits finite, no
+   preemption, launch counts equal to layers x graph replays, such ticks
+   seen; the tick and a prefill chunk replayed against the functions
+   run eagerly, bit for bit; the split tickets back at 0; the same
+   requests and arrivals through the ``fused=False`` engine, whose
+   streams and trace must equal Run A's, with the capacity path's
+   dropped (token, expert) pairs logged per prefill chunk and per tick;
+   K1 and K2 at this model's shapes (GQA group 1, d 128, the tick's 8
+   seats of 41-543 tokens) over bf16 and fp8 pools against their plain
+   versions; the steady graphed tick (wall, busy, kernels, idle share,
+   GEMM and sort time) against its byte bound, and the expert products'
+   share of it (CUDA events); in 5 steady engine ticks one synchronizing
+   call each, the token pull; on the model's first 2 layers widened to
+   f32 (widths unchanged), the bf16 tick with the kernels no further
+   from the f32 tick than 1.5x the plain versions', every bf16 tick
+   routed to the experts the f32 tick chose (a planted fault, the last
+   page dropped, must fail both the per-seat and the largest-difference
+   limit), then on its first 12 layers the kernels against the plain
+   versions in f32,
+   teacher-forced as in phase f32, with the router's top-k flips between
+   the two counted (information).  Run B: the same requests on an fp8
+   pool, greedy: every request finished, K2 carried it.  The fixed-slot
+   ``ServingEngine`` over 8 of the prompts (K5 prefill, K4 decode at GQA
+   group 1), launch counts exact, and K4 and K5 at its shapes (bf16, 16
+   heads over 16, d 128; K4 over 8 slots of 545 keys at the lengths its
+   slots reach and an idle slot walking the whole cache, K5 causal at
+   511 and 3 of its prompt lengths) against their plain versions,
+   tickets back at 0; then ``python -m
+   repro_torch.launch.serve --arch qwen2-moe-a2.7b`` on the paged and
+   the static-batch engines with their defaults (reduced config);
+9. f32 — the same model computing in f32 (f32 weights, pool and cache;
    flash prefill on its CUDA-core route): 8 greedy streams teacher-forced
    through the fused tick and through ``prefill`` + ``decode_step``, each
    with the kernels and with the plain versions, whose top-1 must agree
@@ -124,7 +165,7 @@ Phases, each printed as it runs:
    logit difference there) with at least 90% of the positions decided;
    then the paged engine and ``ServingEngine`` on the same 8 requests,
    whose streams must be equal up to their first top-2 gap <= 1e-3;
-9. train — the training path, which runs the plain PyTorch versions on
+10. train — the training path, which runs the plain PyTorch versions on
    purpose (no kernel has a backward, in the port or in the reference):
    ``train()`` on qwen3-1.7b at its published width (f32 master weights
    and AdamW state, bf16 compute, remat, batch 8 x seq 1024 from the
@@ -141,7 +182,7 @@ Phases, each printed as it runs:
    resumed losses and final params, mu, nu and count against an
    uninterrupted run, and a ``save_async`` whose restored tensors equal
    the saved ones bit for bit);
-10. hpc — the fp8 GEMM kernel (K6) against its plain version, held to
+11. hpc — the fp8 GEMM kernel (K6) against its plain version, held to
    ``fp8_matmul.error_bound`` (f32 sums plus the tensor-core term of sums
    promoted every 128 products), through ``ops.fp8_matmul`` (aligned,
    ragged, bm/bn != 128) and through the per-tensor call at the n = 256,
@@ -159,7 +200,7 @@ Phases, each printed as it runs:
    kernel and with the plain version (first trailing update and refined
    solutions held); HPCG at 256³ (50 iterations, the true residual
    recomputed) and at 48³ (90 iterations, converged);
-11. summary — one JSON line listing the kernels, the card's name and power
+12. summary — one JSON line listing the kernels, the card's name and power
     limit, and as the last line ``{"ok": true, "device": {...}}``.
 
 Any failure raises: the script exits non-zero and prints no ``ok`` line.
@@ -167,6 +208,7 @@ It never runs on the CPU: without CUDA it stops before any phase.
 """
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import os
@@ -195,6 +237,8 @@ ARCH = "qwen3-1.7b"
 H, KVH, HEAD_DIM, PAGE, D_MODEL = 16, 8, 128, 16, 2048
 LLAMA = "llama3-8b"            # the fleet's second model: 32 heads over 8
 LLAMA_H = 32
+MOE = "qwen2-moe-a2.7b"        # phase moe: 16 heads over 16 (MHA)
+MOE_H = MOE_KVH = 16
 SEAT_LENGTHS = (1, 16, 17, 255, 700, 1024, 1531, 2048)
 N_TABLE = 2048 // PAGE
 PREFILL_CHUNK = 128
@@ -517,14 +561,21 @@ def serving_decode_instantiations() -> set:
     the bf16, fp8 (uint8 bits) and int8 pools and f32 over an f32 pool
     (phase f32) in the paged library, bf16 and f32 caches in the dense;
     at llama3-8b's group of 4 (phase fleet, the same head dim), bf16
-    queries over its bf16 and fp8 pools in the paged library."""
+    queries over its bf16 and fp8 pools in the paged library; at
+    qwen2-moe-a2.7b's group of 1 (phase moe, the same head dim), bf16
+    queries over its bf16 and fp8 pools and f32 over an f32 pool in the
+    paged library, and a bf16 cache in the dense."""
     from repro_torch.kernels import decode_attention as da
     e = da.lane_elems(HEAD_DIM)
     mg, mg_llama = group_arrays(H // KVH), group_arrays(LLAMA_H // KVH)
+    mg_moe = group_arrays(MOE_H // MOE_KVH)
     paged = [("bf16", kv, mg) for kv in ("bf16", "uint8", "int8")]
     paged += [("f32", "f32", mg), ("bf16", "bf16", mg_llama),
               ("bf16", "uint8", mg_llama)]
-    dense = [("bf16", "bf16", mg), ("f32", "f32", mg)]
+    paged += [("bf16", "bf16", mg_moe), ("bf16", "uint8", mg_moe),
+              ("f32", "f32", mg_moe)]
+    dense = [("bf16", "bf16", mg), ("f32", "f32", mg),
+             ("bf16", "bf16", mg_moe)]
     return ({(lib, (q, kv, e, addr, g))
              for lib, addr, insts in (
                  ("paged_decode_attention", "PagedAddr", paged),
@@ -1070,14 +1121,15 @@ def norm_launches(cfg, steps: int) -> dict:
 
 
 def _check_run(tag: str, r: dict, cfg, counts: dict,
-               phase: str = "serve") -> None:
-    """Checks one serving run with a ``tag`` pool against the kernel
-    launches ``counts`` read just after it."""
+               phase: str = "serve", requests: int = 16) -> None:
+    """Checks one serving run of ``requests`` requests with a ``tag`` pool
+    against the kernel launches ``counts`` read just after it."""
     eng = r["engine"]
     kernel = ("paged_decode_attention" if tag == "bf16"
               else "quantized_paged_decode_attention") + f"[{tag}]"
     done = r["finished"]
-    assert len(done) == 16, f"{tag}: {len(done)} of 16 requests finished"
+    assert len(done) == requests, \
+        f"{tag}: {len(done)} of {requests} requests finished"
     for req in done:
         assert len(req.generated) == req.max_new_tokens == 32, (tag, req.rid)
         assert all(0 <= t < cfg.vocab_size for t in req.generated), \
@@ -1223,7 +1275,8 @@ def _profile_tick(tag: str, eng) -> None:
                     lambda: _tick(eng, cache, state, "kernel")[0].cpu())
 
 
-def _profile_graph_tick(tag: str, eng, phase: str = "serve") -> tuple:
+def _profile_graph_tick(tag: str, eng, phase: str = "serve",
+                        groups=SERVING_GROUPS) -> tuple:
     """The engine's captured fused tick replayed from the state of
     ``_profile_tick`` under ``_profile_steady``; ``pos`` and ``step`` are
     put back before each replay (two copies of 32 and 64 bytes among the
@@ -1239,7 +1292,7 @@ def _profile_graph_tick(tag: str, eng, phase: str = "serve") -> tuple:
         pol._dev["step"].copy_(state["step"])
         return pol._tick_fn()[0].cpu()
     return _profile_steady(phase, f"{tag}: steady fused tick, graph replay",
-                           step)
+                           step, groups=groups)
 
 
 def _bits_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
@@ -2016,26 +2069,30 @@ def _fleet_identity(weights, requests, sampling) -> dict:
     _report_fleet("run A", fleet)
     llama = fleet.group(LLAMA).engines[0]
     _graph_vs_eager(f"{LLAMA}/0", llama, phase="fleet")
-    _llama_attention(llama)
+    _model_attention(llama, "fleet")
     _tick_vs_f32(f"{LLAMA}/0", llama)
     _check_tickets("run A: after the llama3-8b checks", _fleet_tickets(fleet))
     return streams
 
 
-def _llama_attention(eng) -> None:
-    """K1 and K2 against their plain versions at the shapes the fleet
-    gives them on llama3-8b: bf16 queries of 32 heads over 8 kv heads
-    (GQA group 4), head dim 128, the 8 seats of ``_tick_state(eng)``
+def _model_attention(eng, phase: str) -> None:
+    """K1 and K2 against their plain versions at the shapes ``eng``'s
+    model gives them: bf16 queries of its heads over its kv heads at its
+    head dim (llama3-8b: 32 over 8, GQA group 4; qwen2-moe-a2.7b: 16
+    over 16, group 1; both d = 128), the 8 seats of ``_tick_state(eng)``
     (lengths 41-543 over tables of 34 pages of ``eng``'s pool) over a
     bf16 pool and an fp8 one, within BF16_ATOL/RTOL."""
     from repro_torch.core.mixed_precision import quantize_kv_page
     from repro_torch.kernels import ops
+    cfg = eng.cfg
+    heads, kvh, hd = (cfg.num_heads, cfg.num_kv_heads,
+                      cfg.resolved_head_dim)
     state = _tick_state(eng)
     lengths = state["pos"] + 1
     gen = torch.Generator(device="cuda").manual_seed(4)
-    q = torch.randn((len(lengths), 1, LLAMA_H, HEAD_DIM), generator=gen,
+    q = torch.randn((len(lengths), 1, heads, hd), generator=gen,
                     device="cuda").bfloat16()
-    shape = (eng.policy.bm.capacity + 1, PAGE, KVH, HEAD_DIM)
+    shape = (eng.policy.bm.capacity + 1, PAGE, kvh, hd)
     k, v = (torch.randn(shape, generator=gen, device="cuda")
             for _ in range(2))
     (kq, ks), (vq, vs) = quantize_kv_page(k, "fp8"), quantize_kv_page(v, "fp8")
@@ -2045,11 +2102,11 @@ def _llama_attention(eng) -> None:
         got, want = (ops.paged_decode_attention(
             q, kp, vp, state["table"], lengths, k_scale=ksc, v_scale=vsc,
             impl=impl) for impl in ("kernel", "plain"))
-        err = check_close(f"{LLAMA} paged decode[{pool}]", got, want,
+        err = check_close(f"{cfg.name} paged decode[{pool}]", got, want,
                           BF16_ATOL, BF16_RTOL)
-        log("fleet", f"{LLAMA} paged decode H={LLAMA_H} KVH={KVH} "
-            f"d={HEAD_DIM} q=bf16 pool={pool}, lengths "
-            f"{lengths.tolist()}: max|err| {err:.3e}")
+        log(phase, f"{cfg.name} paged decode H={heads} KVH={kvh} d={hd} "
+            f"q=bf16 pool={pool}, lengths {lengths.tolist()}: max|err| "
+            f"{err:.3e}")
 
 
 # the bf16 tick with the kernels may lie no further from the f32 tick of
@@ -2059,27 +2116,83 @@ def _llama_attention(eng) -> None:
 TICK_F32_RATIO = 1.5
 
 
-def _tick_vs_f32(tag: str, eng) -> None:
+def _first_layers(params, cache, cfg, layers: int):
+    """The model cut to its first ``layers`` layers (widths unchanged):
+    views of the stacked weights and pool, and the config."""
+    import dataclasses
+    from repro_torch.tree import tree_map
+    return (dict(params, blocks=tree_map(lambda t: t[:layers],
+                                         params["blocks"])),
+            {p: {k: t[:layers] for k, t in ent.items()}
+             for p, ent in cache.items()},
+            dataclasses.replace(cfg, num_layers=layers))
+
+
+@contextlib.contextmanager
+def _routes(record=None, replay=None):
+    """``moe.route`` watched: with ``record`` (a list), each call's top-k
+    ids are appended to it; with ``replay``, the i-th call takes the ids
+    of the i-th recorded call, weighted by its own probabilities there
+    (renormalised), so two runs route alike and differ only in their
+    arithmetic.  Every recorded call must be replayed."""
+    from repro_torch.models import moe as moe_mod
+    route = moe_mod.route
+    used = []
+
+    def watched(p, m, xt):
+        probs, weights, idx = route(p, m, xt)
+        if record is not None:
+            record.append(idx)
+        if replay is not None:
+            idx = replay[len(used)]
+            used.append(idx)
+            weights = probs.gather(-1, idx)
+            weights = weights / weights.sum(dim=-1, keepdim=True)
+        return probs, weights, idx
+    moe_mod.route = watched
+    try:
+        yield
+    finally:
+        moe_mod.route = route
+    assert replay is None or len(used) == len(replay), \
+        f"routes: {len(used)} of {len(replay)} recorded calls replayed"
+
+
+def _tick_vs_f32(tag: str, eng, phase: str = "fleet", wide=None) -> None:
     """The fused tick with the kernels against the plain versions, where
     bf16 roundings compounded over many layers leave both some way from
     the exact tick: each bf16 tick is held to the f32 tick (plain
     versions) of the same weights and pool widened, and the kernels' may
     be no further from it than TICK_F32_RATIO times the plain versions'.
     A planted fault (the kernels' attention missing every seat's last
-    page) must fail the same test."""
+    page) must fail both the per-seat limit and the largest-difference
+    one.  An MoE's bf16 ticks route each token to the experts the f32
+    tick chose (``_routes``), so a rounding cannot flip the router.
+    ``wide``, the f32 weights of the model's first L layers, cuts the
+    model to those L layers (a model whose f32 weights do not fit beside
+    its bf16 ones)."""
     import dataclasses
     from repro_torch.kernels import ops
     from repro_torch.tree import tree_map
     state = _tick_state(eng)
-    pool = eng.policy.cache
+    params, pool, cfg = eng.params, eng.policy.cache, eng.cfg
+    if wide is not None:
+        params, pool, cfg = _first_layers(params, pool, cfg,
+                                          wide["blocks"]["pos0"]["ln1"]
+                                          .shape[0])
+    routes = []
 
     def bf16(impl):
-        return _tick(eng, _clone(pool), state, impl)[1]
-    wide = tree_map(lambda t: t.float(), eng.params)
-    lf = _tick(eng, {p: {k: t.float() for k, t in ent.items()}
-                     for p, ent in pool.items()}, state, "plain", wide,
-               dataclasses.replace(eng.cfg, compute_dtype="float32"))[1]
-    del wide
+        with _routes(replay=routes):
+            return _tick(eng, _clone(pool), state, impl, params, cfg)[1]
+    widened = wide if wide is not None else tree_map(lambda t: t.float(),
+                                                     params)
+    with _routes(record=routes):
+        lf = _tick(eng, {p: {k: t.float() for k, t in ent.items()}
+                         for p, ent in pool.items()}, state, "plain",
+                   widened, dataclasses.replace(cfg,
+                                                compute_dtype="float32"))[1]
+    del widened
     gc.collect()
 
     def ratios(lk, lp):
@@ -2103,24 +2216,29 @@ def _tick_vs_f32(tag: str, eng) -> None:
     finally:
         ops.paged_decode_attention = attention
     scale = lf.abs().max().item()
-    log("fleet", f"{tag}: bf16 fused tick against the f32 tick (largest "
-        f"|logit| {scale:.3e}): kernels max|Δ| {ek.max().item():.3e}, "
+    pinned = (f", every bf16 tick routed as the f32 tick ({len(routes)} "
+              "router calls)" if routes else "")
+    log(phase, f"{tag}: bf16 fused tick against the f32 tick (largest "
+        f"|logit| {scale:.3e}{pinned}): kernels max|Δ| "
+        f"{ek.max().item():.3e}, "
         f"plain max|Δ| {ep.max().item():.3e} (ratio {peak:.3f}); per seat "
         f"RMS ratio kernels/plain {[round(r, 3) for r in rows.tolist()]}; "
         f"kernels vs plain max|Δ| {(lk - lp).abs().max().item():.3e}; "
         f"greedy tokens equal to the f32 tick's: kernels "
         f"{int((lk.argmax(-1) == lf.argmax(-1)).sum())}/{len(lf)}, plain "
         f"{int((lp.argmax(-1) == lf.argmax(-1)).sum())}/{len(lf)}")
-    log("fleet", f"{tag}: planted fault [last page dropped]: per seat RMS "
+    log(phase, f"{tag}: planted fault [last page dropped]: per seat RMS "
         f"ratio {[round(r, 3) for r in bad_rows.tolist()]}, max ratio "
         f"{bad_peak:.3f}")
     assert rows.max().item() <= TICK_F32_RATIO and peak <= TICK_F32_RATIO, \
         f"{tag}: the kernels' bf16 tick lies further from the f32 tick " \
         f"than {TICK_F32_RATIO}x the plain versions' (per seat " \
         f"{rows.tolist()}, largest {peak:.3f})"
-    assert bad_rows.max().item() > TICK_F32_RATIO or \
-        bad_peak > TICK_F32_RATIO, \
-        f"{tag}: a planted fault passes the f32 tick test"
+    fails = (bad_rows.max().item() > TICK_F32_RATIO,
+             bad_peak > TICK_F32_RATIO)
+    assert all(fails), \
+        f"{tag}: a planted fault passes the f32 tick test (per seat, " \
+        f"largest difference: {fails})"
 
 
 def _fleet_llama_f32(weights, requests) -> None:
@@ -2273,7 +2391,6 @@ def _fleet_steady(weights) -> None:
     ending in its token pull) under ``_profile_steady``, then the
     llama3-8b replica's tick replayed alone, its device busy time against
     the least time its bytes take (information)."""
-    from repro_torch.tree import tree_flatten_with_paths
     fleet = _fleet(weights, FLEET_A, FLEET_PAGES_A)
     rng = np.random.default_rng(8)
     for arch, n in ((ARCH, 16), (LLAMA, 8)):
@@ -2289,17 +2406,7 @@ def _fleet_steady(weights) -> None:
     _profile_steady("fleet", "steady fleet step (3 engines, 24 seats)",
                     fleet.step)
     eng = fleet.group(LLAMA).engines[0]
-    cfg, params = eng.cfg, eng.params
-    state = _tick_state(eng)
-    # bytes one tick must move: every weight once but the embedding's
-    # 8 rows, the K and V of every seat's positions, and the logits
-    weights_read = sum(t.numel() * t.element_size() for p, t in
-                       tree_flatten_with_paths(params) if p != "embed")
-    row = params["embed"][0]
-    weights_read += 8 * row.numel() * row.element_size()
-    kv = 2 * cfg.num_layers * KVH * HEAD_DIM * 2 * \
-        int((state["pos"] + 1).sum())
-    nbytes = weights_read + kv + 8 * cfg.vocab_size * 4
+    nbytes = _tick_bytes(eng)
     bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
     _, busy = _profile_graph_tick(f"{LLAMA}/0", eng, phase="fleet")
     log("fleet", f"{LLAMA}/0 tick: device busy {busy:.3f} ms against the "
@@ -2307,6 +2414,25 @@ def _fleet_steady(weights) -> None:
         f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s): {busy / bound_ms:.2f}x "
         "(information)")
     _check_tickets("steady fleet", _fleet_tickets(fleet))
+
+
+def _tick_bytes(eng) -> int:
+    """Bytes one fused tick of ``eng`` from ``_tick_state(eng)`` must
+    move: every weight once but the embedding's rows of the 8 tokens, the
+    K and V of every seat's positions (bf16 pool), and the f32 logits.
+    An MoE model's capacity path reads every expert's weights each tick,
+    so they all count."""
+    from repro_torch.tree import tree_flatten_with_paths
+    cfg, params = eng.cfg, eng.params
+    state = _tick_state(eng)
+    seats = len(state["pos"])
+    weights = sum(t.numel() * t.element_size() for p, t in
+                  tree_flatten_with_paths(params) if p != "embed")
+    row = params["embed"][0]
+    weights += seats * row.numel() * row.element_size()
+    kv = 2 * cfg.num_layers * cfg.num_kv_heads * cfg.resolved_head_dim * \
+        2 * int((state["pos"] + 1).sum())
+    return weights + kv + seats * cfg.vocab_size * 4
 
 
 def _fleet_cli() -> None:
@@ -2365,6 +2491,475 @@ def phase_fleet() -> None:
         f"telemetry {t2 - t1:.1f} s, steady profile {t3 - t2:.1f} s, cli "
         f"{time.perf_counter() - t3:.1f} s; peak "
         f"{peak:.2f} GiB allocated (max_memory_allocated)")
+
+
+# ---------------------------------------------------------------------------
+# phase moe
+# ---------------------------------------------------------------------------
+
+MOE_REQUESTS = 24
+MOE_FIRST_WAVE = 12      # requests submitted before the first engine step;
+MOE_EVERY = 4            # then one more every MOE_EVERY steps
+MOE_F32_LAYERS = 12      # depth of the f32 checks: the widths never change
+# depth of the bf16 tick's check against the f32 tick.  The reference's
+# init draws a stacked leaf with std 1/sqrt(layers) (its fan-in is the
+# leading axis), so without a qk-norm the attention scores are large and
+# nearly one-hot: a bf16 rounding at a near-tie moves a seat's logits as
+# far as they are large, with the kernels and the plain versions alike.
+# Over 12 layers that swamped a planted fault, routes pinned or not;
+# over 2 the fault stands far out of it (PERF.md section 6)
+MOE_TICK_LAYERS = 2
+MOE_FIXED_REQUESTS = 8
+
+
+def _moe_weights():
+    """qwen2-moe-a2.7b at full width, drawn on the card from a generator
+    seeded 0, each matmul leaf cast to bf16 as it is drawn
+    (``init_params_for_compute``, bit-equal to casting the drawn f32
+    tree): the f32 tree never exists, only the leaf being drawn and its
+    cast beside the tree so far.  Returns (cfg, params)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+    from repro_torch.models.convert import init_params_for_compute
+    from repro_torch.tree import tree_leaves
+    cfg = get_config(MOE)
+    specs = M.param_specs(cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    params = init_params_for_compute(
+        specs, torch.Generator(device="cuda").manual_seed(0),
+        M.compute_dtype(cfg), device="cuda")
+    peak = torch.cuda.max_memory_allocated() - base
+    held = _tree_bytes(params)
+    largest = max(t.numel() for t in tree_leaves(params))
+    m = cfg.moe
+    log("moe", f"weights: {MOE}, {cfg.num_layers} layers, d_model "
+        f"{cfg.d_model}, {cfg.num_heads}/{cfg.num_kv_heads} heads of "
+        f"{cfg.head_dim}, {m.num_experts} experts top-{m.top_k} (d_ff "
+        f"{m.d_ff_expert}) + {m.num_shared_experts} shared (d_ff "
+        f"{m.d_ff_shared}), vocab {cfg.vocab_size} untied: "
+        f"{held / 2 ** 30:.2f} GiB cast as drawn; peak "
+        f"{peak / 2 ** 30:.2f} GiB while drawing (the f32 tree alone "
+        f"would be {M.count_params(specs) * 4 / 2 ** 30:.2f} GiB)")
+    # at most the tree and the largest leaf's f32 draw (4 bytes an
+    # element) beside its cast: no earlier leaf's f32 draw outlives it
+    assert peak <= held + 4 * largest + 2 ** 28, \
+        f"moe: drawing peaked at {peak / 2 ** 30:.2f} GiB"
+    return cfg, params
+
+
+def _moe_prompts(cfg) -> list:
+    """MOE_REQUESTS prompts of 64-511 tokens."""
+    rng = np.random.default_rng(9)
+    return [rng.integers(0, cfg.vocab_size, int(rng.integers(
+        64, 512))).astype(np.int32) for _ in range(MOE_REQUESTS)]
+
+
+def _moe_drive(eng, prompts, sampling) -> int:
+    """Submits MOE_FIRST_WAVE of ``prompts`` (32 new tokens each), then one
+    more every MOE_EVERY engine steps, and steps to the end.  Returns the
+    number of decode ticks in which an idle seat sat below a decoding
+    one, read from the valid counts staged for the tick (they stand until
+    the next churn)."""
+    pol = eng.policy
+    rest = list(prompts)
+    for p in rest[:MOE_FIRST_WAVE]:
+        eng.submit(p, max_new_tokens=32, sampling=sampling)
+    rest = rest[MOE_FIRST_WAVE:]
+    gaps = steps = 0
+    while rest or eng.queue or eng.seats:
+        if rest and steps % MOE_EVERY == 0:
+            eng.submit(rest.pop(0), max_new_tokens=32, sampling=sampling)
+        ticks = pol.decode_ticks
+        eng.step()
+        steps += 1
+        if pol.decode_ticks > ticks:
+            live = pol._i32._host["nv"] > 0
+            top = np.flatnonzero(live)
+            gaps += bool(top.size) and bool((~live[:top[-1]]).any())
+        assert steps < 10_000, "moe: the engine does not finish"
+    return gaps
+
+
+def _moe_run(cfg, params, prompts, sampling, kv_dtype=None,
+             fused: bool = True):
+    """The paged engine (ENGINE_KW) over ``prompts`` with staggered
+    arrivals; returns (engine, launches read just after the run, gap
+    ticks)."""
+    from repro_torch.kernels import ops
+    from repro_torch.runtime.serving import PagedServingEngine
+    eng = PagedServingEngine(cfg, params, kv_dtype=kv_dtype, fused=fused,
+                             device="cuda", **ENGINE_KW)
+    ops.reset_launches()                       # the main path starts here
+    gaps = _moe_drive(eng, prompts, sampling)
+    counts = dict(ops.launches)                # ... and ends here
+    return eng, counts, gaps
+
+
+def _moe_check(tag: str, eng, counts: dict, gaps: int) -> None:
+    """Every request finished with 32 tokens in the vocabulary, logits
+    finite, launches = layers x replays (``_check_run``), no preemption,
+    some tick with an idle seat below a decoding one."""
+    _check_run(tag, {"engine": eng, "finished": eng.finished,
+                     "metrics": eng.metrics.snapshot()}, eng.cfg, counts,
+               phase="moe", requests=MOE_REQUESTS)
+    assert eng.metrics.preemptions == 0, f"moe {tag}: preempted"
+    assert gaps > 0, f"moe {tag}: no tick had an idle seat below a " \
+        "decoding one"
+    log("moe", f"{tag}: {gaps} of {eng.policy.decode_ticks} decode ticks "
+        "had an idle seat below a decoding one; no preemption")
+
+
+def _moe_drops(cfg, params, prompts, sampling, ref) -> None:
+    """The same requests and arrivals through the ``fused=False`` engine
+    (eager model steps, host sampling), whose streams and trace must
+    equal the graphed run ``ref``'s, with every capacity-path call
+    recorded: the dropped (token, expert) pairs per prefill chunk and
+    per decode tick (information)."""
+    from repro_torch.models import moe as moe_mod
+    seen = []
+    inner = moe_mod._expert_gemms_capacity
+
+    def recording(p, m, xs, sizes, dt):
+        C = moe_mod.capacity(m, xs.shape[0])
+        seen.append((xs.shape[0], C, (sizes - C).clamp(min=0).sum()))
+        return inner(p, m, xs, sizes, dt)
+    moe_mod._expert_gemms_capacity = recording
+    try:
+        eng, _, _ = _moe_run(cfg, params, prompts, sampling, fused=False)
+    finally:
+        moe_mod._expert_gemms_capacity = inner
+    want = {q.rid: q.generated for q in ref.finished}
+    got = {q.rid: q.generated for q in eng.finished}
+    diff = [rid for rid in want if got.get(rid) != want[rid]]
+    assert not diff and len(got) == len(want), \
+        f"moe: fused=True and fused=False streams differ for rids {diff}"
+    assert eng.trace == ref.trace, \
+        "moe: fused=True and fused=False traces differ"
+    L, k = cfg.num_layers, cfg.moe.top_k
+    assert len(seen) % L == 0, len(seen)
+    dropped = torch.stack([d for _, _, d in seen]).reshape(-1, L).sum(1)
+    steps = [(tk, C, int(d)) for (tk, C, _), d in
+             zip(seen[::L], dropped.tolist())]
+    for name, tk in (("prefill chunk", PREFILL_CHUNK * k),
+                     ("decode tick", ENGINE_KW["max_seats"] * k)):
+        mine = [(C, d) for t, C, d in steps if t == tk]
+        drops = [d for _, d in mine]
+        routed = len(mine) * tk * L
+        log("moe", f"drops per {name} ({tk} (token, expert) pairs per "
+            f"layer into {cfg.moe.num_experts} experts of {mine[0][0]} "
+            f"slots): {len(mine)} {name}s, {sum(drops)} of {routed} routed "
+            f"pairs dropped ({sum(drops) / routed:.4f}); per {name} mean "
+            f"{sum(drops) / len(mine):.2f}, max {max(drops)}, "
+            f"{sum(d > 0 for d in drops)} with drops")
+    log("moe", f"fused=False engine (eager, host sampling): streams and "
+        f"trace equal to the graphed run's; {eng.policy.decode_ticks} "
+        f"decode ticks, {eng.metrics.snapshot()['tokens_per_s']:.1f} "
+        "tokens/s")
+
+
+def _moe_expert_ms(eng) -> float:
+    """CUDA-event time of one tick's expert products alone: per layer the
+    capacity path's three batched products over (E, C, ·) at the tick's
+    C and the SwiGLU between them, over every layer's weights (25 GB, so
+    no flush is needed: nothing stays in L2 from one call to the next)."""
+    from repro_torch.models import moe as moe_mod
+    cfg, w = eng.cfg, eng.params["blocks"]["pos0"]["moe"]
+    m = cfg.moe
+    C = moe_mod.capacity(m, eng.policy.max_seats * m.top_k)
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    xe = torch.randn((m.num_experts, C, cfg.d_model), generator=gen,
+                     device="cuda").bfloat16()
+
+    def run():
+        for layer in range(cfg.num_layers):
+            g = torch.bmm(xe, w["wg"][layer])
+            u = torch.bmm(xe, w["wu"][layer])
+            torch.bmm(F.silu(g) * u, w["wd"][layer])
+    return event_ms(run, torch.empty(1, device="cuda"), 5)
+
+
+# the MoE tick's kernels by kind: cuBLAS's GEMMs (the expert bmms and
+# the dense products), the sorts of the router and the dispatch
+MOE_GROUPS = SERVING_GROUPS + (
+    ("GEMMs (cuBLAS)", lambda key: "nvjet" in key or "gemm" in key.lower()),
+    ("sorts", lambda key: "sort" in key.lower()))
+
+
+def _moe_syncs(eng) -> None:
+    """``eng`` (graphed) over 8 fresh prompts of 128 tokens (no prefix
+    of an earlier run) with 64 new tokens each, stepped until every seat
+    decodes; then STEADY_TICKS ticks under
+    ``torch.cuda.set_sync_debug_mode("warn")`` (``_window_syncs``) make
+    exactly one synchronizing call each, the token pull: nothing in the
+    replayed MoE tick syncs."""
+    rng = np.random.default_rng(10)
+    for _ in range(8):
+        eng.submit(rng.integers(0, eng.cfg.vocab_size, 128).astype(np.int32),
+                   max_new_tokens=64)
+    _to_steady(eng)
+    syncs = _window_syncs(eng)
+    assert sum(syncs.values()) == STEADY_TICKS and len(syncs) == 1, \
+        f"moe: synchronizing calls in {STEADY_TICKS} steady ticks: " \
+        f"{dict(syncs)}"
+    eng.run()
+    log("moe", f"steady ticks: one synchronizing call per tick, the token "
+        f"pull ({dict(syncs)} over {STEADY_TICKS} ticks)")
+
+
+def _moe_steady(eng) -> None:
+    """The graphed tick replayed at 8 decoding seats (``_tick_state``):
+    wall, busy, kernels, idle share; its busy time against its byte
+    bound (every expert's weights each tick); the expert products' time
+    and share of the busy time (information)."""
+    wall, busy = _profile_graph_tick(f"{MOE} bf16 pool", eng, phase="moe",
+                                     groups=MOE_GROUPS)
+    nbytes = _tick_bytes(eng)
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    cfg = eng.cfg
+    m = cfg.moe
+    expert_bytes = 3 * cfg.num_layers * m.num_experts * cfg.d_model * \
+        m.d_ff_expert * 2
+    expert_ms = _moe_expert_ms(eng)
+    log("moe", f"{MOE} tick: device busy {busy:.3f} ms (wall {wall:.2f} "
+        f"ms) against the byte bound {bound_ms:.3f} ms ({nbytes / 1e9:.2f} "
+        f"GB at {HBM_BYTES_PER_S / 1e12:.2f} TB/s): {busy / bound_ms:.2f}x; "
+        f"the expert products alone {expert_ms:.3f} ms by CUDA events, "
+        f"{expert_ms / busy:.3f} of the busy time (their bytes "
+        f"{expert_bytes / 1e9:.2f} GB, bound "
+        f"{expert_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms) (information)")
+
+
+def _router_flips(run) -> tuple:
+    """Runs ``run()`` with the model step and the router watched, and
+    pairs the plain versions' model steps with the kernels' in call
+    order.  Returns ((token, layer) rows of valid tokens, rows whose
+    top-k expert set differs between the two, tokens, tokens with such a
+    row)."""
+    from repro_torch.models import model as M
+    from repro_torch.models import moe as moe_mod
+    step, route = M.paged_decode_step, moe_mod.route
+    calls = {"plain": [], "kernel": []}
+    now = {}
+
+    def watched_step(params, cfg, cache, tokens, pos, table, n_valid, **kw):
+        C = tokens.shape[1]
+        valid = (torch.arange(C, device=tokens.device)[None, :]
+                 < n_valid[:, None]).reshape(-1)
+        now["layers"] = []
+        calls[kw["impl"]].append((valid, now["layers"]))
+        return step(params, cfg, cache, tokens, pos, table, n_valid, **kw)
+
+    def watched_route(p, m, xt):
+        out = route(p, m, xt)
+        now["layers"].append(out[2])
+        return out
+    M.paged_decode_step, moe_mod.route = watched_step, watched_route
+    try:
+        run()
+    finally:
+        M.paged_decode_step, moe_mod.route = step, route
+    assert len(calls["plain"]) == len(calls["kernel"])
+    rows = flipped = tokens = tok_flipped = 0
+    for (valid, lp), (_, lk) in zip(calls["plain"], calls["kernel"]):
+        assert len(lp) == len(lk)
+        hit = torch.zeros_like(valid)
+        for a, b in zip(lp, lk):
+            diff = (a.sort(-1).values != b.sort(-1).values).any(-1) & valid
+            flipped += int(diff.sum())
+            rows += int(valid.sum())
+            hit |= diff
+        tok_flipped += int(hit.sum())
+        tokens += int(valid.sum())
+    return rows, flipped, tokens, tok_flipped
+
+
+def _moe_f32(eng, prompts) -> None:
+    """The model cut to its first MOE_F32_LAYERS layers (widths unchanged:
+    the 24 layers' f32 weights, 53 GiB, do not fit beside the bf16 tree),
+    widened to f32: on its first MOE_TICK_LAYERS layers the bf16 tick
+    with the kernels held to the f32 tick against the plain versions',
+    both routed as the f32 tick (``_tick_vs_f32``, with its planted
+    fault), then the kernels against the plain versions in f32,
+    teacher-forced by phase f32's method over 8 prompts, counting the
+    router's top-k flips between the two (information)."""
+    import dataclasses
+    from repro_torch.tree import tree_map
+    params, _, cfg = _first_layers(eng.params, eng.policy.cache, eng.cfg,
+                                   MOE_F32_LAYERS)
+    wide = tree_map(lambda t: t.float(), params)
+    log("moe", f"f32 checks on the first {MOE_F32_LAYERS} of "
+        f"{eng.cfg.num_layers} layers (widths unchanged): "
+        f"{_tree_bytes(wide) / 2 ** 30:.2f} GiB of f32 weights")
+    _tick_vs_f32(f"{MOE} (first {MOE_TICK_LAYERS} layers)", eng,
+                 phase="moe", wide=dict(wide, blocks=tree_map(
+                     lambda t: t[:MOE_TICK_LAYERS], wide["blocks"])))
+    gc.collect()
+    f32 = dataclasses.replace(cfg, compute_dtype="float32")
+    rows, flipped, tokens, tok_flipped = _router_flips(
+        lambda: _f32_paged_teacher_forced(
+            f32, wide, prompts, phase="moe",
+            what=f"{MOE} fused tick (paged, f32 pool, first "
+                 f"{MOE_F32_LAYERS} layers)"))
+    log("moe", f"router top-{cfg.moe.top_k} sets differing between the "
+        f"kernels' and the plain versions' f32 runs: {flipped} of {rows} "
+        f"(token, layer) rows, at {tok_flipped} of {tokens} tokens "
+        "(information)")
+
+
+def _moe_fixed(cfg, params, prompts) -> None:
+    """The fixed-slot ``ServingEngine`` (8 slots, max_len 544) over
+    MOE_FIXED_REQUESTS of the prompts, 32 greedy tokens each: all finish
+    in the vocabulary, logits finite, and the flash prefill (K5) and the
+    dense decode (K4, GQA group 1) carry the path, launch counts exact;
+    then K4 and K5 at those shapes against their plain versions
+    (``_moe_fixed_attention``)."""
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import ops
+    from repro_torch.runtime.serving import ServingEngine
+    eng = ServingEngine(cfg, params, slots=8, max_len=MAX_LEN, device="cuda")
+    for p in prompts[:MOE_FIXED_REQUESTS]:
+        eng.submit(p, max_new_tokens=32)
+    ops.reset_launches()                       # the main path starts here
+    done = eng.run()
+    counts = dict(ops.launches)                # ... and ends here
+    assert len(done) == MOE_FIXED_REQUESTS, f"moe fixed-slot: {len(done)}"
+    for q in done:
+        assert len(q.generated) == 32, q.rid
+        assert all(0 <= t < cfg.vocab_size for t in q.generated), q.rid
+    assert bool(eng.policy.logits_finite), "moe fixed-slot: a logit was " \
+        "not finite"
+    ticks = eng.policy.decode_ticks
+    prefills = sum(1 for _, ev, _ in eng.trace if ev == "admit")
+    L = cfg.num_layers
+    want = {"decode_attention[bf16]": ticks * L,
+            "flash_attention[causal]": prefills * L,
+            **norm_launches(cfg, ticks + prefills)}
+    assert counts == want, f"moe fixed-slot: launches {counts}, " \
+        f"expected {want}"
+    _check_tickets("moe fixed-slot", [eng.policy._tickets,
+                                      *da._tickets.values()])
+    m = eng.metrics.snapshot()
+    log("moe", f"fixed-slot engine: {m['completed']:.0f} requests, "
+        f"{ticks} decode steps, {prefills} prefills, "
+        f"{m['tokens_per_s']:.1f} tokens/s, mean TTFT "
+        f"{m['ttft_avg_s'] * 1e3:.1f} ms; launches {json.dumps(counts)}")
+    _moe_fixed_attention(cfg, prompts[:MOE_FIXED_REQUESTS])
+
+
+def _moe_fixed_attention(cfg, prompts) -> None:
+    """K4 and K5 against their plain versions at the shapes the
+    fixed-slot engine gives them for this model (bf16, its 16 heads over
+    16 kv heads, d 128: K4's group-1 instantiation), within
+    BF16_ATOL/RTOL: K4 over 8 slots of MAX_LEN + 1 keys at the lengths
+    the engine's slots reach (each prompt and its 31 decoded tokens) and
+    an idle slot walking the whole cache, the tickets back at 0 after;
+    K5 causal over one prompt of PREFILL_S tokens and of each of the
+    first 3 prompts' lengths."""
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import ops
+    heads, kvh, hd = (cfg.num_heads, cfg.num_kv_heads,
+                      cfg.resolved_head_dim)
+    B, T = 8, MAX_LEN + 1
+    lens = [len(p) + 31 for p in prompts[:B - 1]] + [T]
+    lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(7)
+
+    def draw(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").bfloat16()
+    q, k, v = draw(B, 1, heads, hd), draw(B, T, kvh, hd), draw(B, T, kvh, hd)
+    got, want = (ops.decode_attention(q, k, v, lengths, impl=impl)
+                 for impl in ("kernel", "plain"))
+    torch.cuda.synchronize()
+    err = check_close(f"{cfg.name} dense decode[bf16]", got, want,
+                      BF16_ATOL, BF16_RTOL)
+    _check_tickets(f"{cfg.name} dense decode", da._tickets.values())
+    log("moe", f"{cfg.name} dense decode (K4) H={heads} KVH={kvh} d={hd} "
+        f"bf16, {B} slots of {T} keys, lengths {lens}: max|err| "
+        f"{err:.3e}; tickets back at 0")
+    errs = {}
+    for S in (PREFILL_S, *(len(p) for p in prompts[:3])):
+        q, k, v = draw(1, S, heads, hd), draw(1, S, kvh, hd), \
+            draw(1, S, kvh, hd)
+        got, want = (ops.flash_attention(q, k, v, causal=True, impl=impl)
+                     for impl in ("kernel", "plain"))
+        errs[S] = check_close(f"{cfg.name} flash[causal, S={S}]", got, want,
+                              BF16_ATOL, BF16_RTOL)
+    log("moe", f"{cfg.name} flash prefill (K5) causal H={heads} KVH={kvh} "
+        f"d={hd} bf16, max|err| "
+        + ", ".join(f"{e:.3e} at S={S}" for S, e in errs.items()))
+
+
+def _moe_cli() -> None:
+    """``python -m repro_torch.launch.serve --arch qwen2-moe-a2.7b`` on
+    both engines (``--engine paged`` and the static batch) with their
+    defaults (reduced config) on the card."""
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    for engine, tag, want in (("paged", "[serve.paged]", "8 requests"),
+                              ("batch", "[serve]", "throughput=")):
+        out = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+             MOE, "--engine", engine], cwd=ROOT, env=env,
+            capture_output=True, text=True, timeout=600)
+        assert out.returncode == 0, f"serve --arch {MOE} --engine " \
+            f"{engine}: rc {out.returncode}\n{out.stderr[-3000:]}"
+        lines = [ln for ln in out.stdout.splitlines() if ln.startswith(tag)]
+        assert any(want in ln for ln in lines), out.stdout[-2000:]
+        if engine == "paged":
+            assert "device=cuda" in lines[0], lines[0]
+        for ln in lines:
+            log("moe", f"cli --engine {engine}: {ln}")
+
+
+def phase_moe() -> None:
+    """qwen2-moe-a2.7b at full width on the paged and fixed-slot engines."""
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.runtime.sampler import SamplingParams
+    t0 = time.perf_counter()
+    cfg, params = _moe_weights()
+    prompts = _moe_prompts(cfg)
+    sampling = SamplingParams(temperature=0.9, seed=13)
+    eng, counts, gaps = _moe_run(cfg, params, prompts, sampling)
+    pol = eng.policy
+    assert pol._tick_fn.graph is not None and \
+        pol._prefill_fn.graph is not None, "moe: a step was not captured"
+    log("moe", f"run A built: the tick and the prefill chunk captured as "
+        f"CUDA graphs (a synchronizing call inside a capture raises); "
+        f"pool {_tree_bytes(eng.cache) / 2 ** 30:.2f} GiB; "
+        f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB allocated")
+    _moe_check("bf16", eng, counts, gaps)
+    _graph_vs_eager(f"{MOE} bf16", eng, phase="moe")
+    _check_tickets("moe run A", [eng.policy._tickets,
+                                 *da._tickets.values()])
+    _moe_drops(cfg, params, prompts, sampling, eng)
+    gc.collect()
+    _model_attention(eng, "moe")
+    _moe_steady(eng)
+    _moe_syncs(eng)
+    t1 = time.perf_counter()
+    _moe_f32(eng, prompts[:8])
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    t2 = time.perf_counter()
+    eng, counts, gaps = _moe_run(cfg, params, prompts, None, kv_dtype="fp8")
+    _moe_check("fp8", eng, counts, gaps)
+    _check_tickets("moe run B", [eng.policy._tickets,
+                                 *da._tickets.values()])
+    del eng
+    gc.collect()
+    _moe_fixed(cfg, params, prompts)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    t3 = time.perf_counter()
+    _moe_cli()
+    log("moe", f"phase times: run A and its checks {t1 - t0:.1f} s, f32 "
+        f"{t2 - t1:.1f} s, run B and fixed-slot {t3 - t2:.1f} s, cli "
+        f"{time.perf_counter() - t3:.1f} s; peak {peak:.2f} GiB allocated "
+        "(max_memory_allocated)")
 
 
 # phase f32: a position is decided when the plain version's top-2 gap
@@ -3281,6 +3876,11 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     log("fleet", f"fleet state freed: "
+        f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB allocated")
+    phase_moe()
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("moe", f"moe state freed: "
         f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB allocated")
     phase_f32(prompts)
     gc.collect()

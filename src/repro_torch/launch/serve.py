@@ -13,7 +13,9 @@
   policy (``--selection``), over one mixed request stream.
 
 Weights are drawn from a ``torch.Generator`` seeded with ``--seed`` on the
-device (model ``i`` of a fleet with ``seed + i``), prompts from
+device (model ``i`` of a fleet with ``seed + i``), each matmul weight cast
+to the compute dtype as it is drawn
+(``models.convert.init_params_for_compute``), prompts from
 ``numpy.random.default_rng(seed)``.  All run on the card unless
 ``device="cpu"`` (``--device cpu``) is given.
 
@@ -30,6 +32,8 @@ preloaded (see :func:`build_tuning_env`).
       --arch qwen3-1.7b --requests 8 --gen 16 --temperature 0.8 --top-p 0.95
   PYTHONPATH=src python -m repro_torch.launch.serve --engine paged \\
       --device cpu --kv-dtype fp8 --requests 6 --gen 10
+  PYTHONPATH=src python -m repro_torch.launch.serve --engine paged \\
+      --device cpu --arch qwen2-moe-a2.7b --requests 6 --gen 10
   PYTHONPATH=src python -m repro_torch.launch.serve --engine paged \\
       --device cpu --profile-ticks --trace-export trace.json
   PYTHONPATH=src python -m repro_torch.launch.serve --fleet --device cpu \\
@@ -49,7 +53,7 @@ import torch
 from repro_torch.configs import get_config, reduced_config, resolve_arch
 from repro_torch.core.mixed_precision import KV_DTYPES
 from repro_torch.models import model as M
-from repro_torch.models.convert import cast_for_compute
+from repro_torch.models.convert import init_params_for_compute
 from repro_torch.runtime.router import (FleetModel, ModelFleet,
                                         parse_models_spec)
 from repro_torch.runtime.sampler import Sampler, SamplingParams
@@ -150,9 +154,8 @@ def serve(arch: str, *, batch: int = 4, prompt_len: int = 32, gen: int = 16,
         cfg = reduced_config(cfg)
     opts = M.RunOptions(q_chunk=min(prompt_len, 512))
     gen_t = torch.Generator(device=dev).manual_seed(seed)
-    params = cast_for_compute(
-        M.init_params(M.param_specs(cfg), gen_t, device=dev),
-        M.compute_dtype(cfg))
+    params = init_params_for_compute(M.param_specs(cfg), gen_t,
+                                     M.compute_dtype(cfg), device=dev)
     rng = np.random.default_rng(seed)
     tokens = torch.from_numpy(rng.integers(
         0, cfg.vocab_size, (batch, prompt_len)).astype(np.int32)).to(dev)
@@ -254,7 +257,8 @@ def serve_paged(arch: str, *, requests: int = 8, gen: int = 16,
         cfg = reduced_config(cfg)
     gen_t = torch.Generator(device=dev).manual_seed(seed)
     eng = PagedServingEngine(
-        cfg, M.init_params(M.param_specs(cfg), gen_t, device=dev),
+        cfg, init_params_for_compute(M.param_specs(cfg), gen_t,
+                                     M.compute_dtype(cfg), device=dev),
         page_size=page_size, num_pages=num_pages, max_seats=max_seats,
         max_seq_len=max_seq_len, prefill_chunk=prefill_chunk,
         prefix_cache=prefix_cache, lazy_pages=lazy_pages,
@@ -362,7 +366,8 @@ def serve_fleet(models, *, requests: int = 12, gen: int = 8,
             cfg = reduced_config(cfg)
         gen_t = torch.Generator(device=dev).manual_seed(seed + i)
         entries.append(FleetModel(
-            name, cfg, M.init_params(M.param_specs(cfg), gen_t, device=dev),
+            name, cfg, init_params_for_compute(
+                M.param_specs(cfg), gen_t, M.compute_dtype(cfg), device=dev),
             replicas=reps, kv_dtype=dt))
     fleet = ModelFleet(entries, total_pages=total_pages,
                        page_size=page_size, max_seats=max_seats,

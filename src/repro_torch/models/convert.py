@@ -1,5 +1,5 @@
-"""Carry weights across from the JAX package, and cast them once for
-compute.
+"""Carry weights across from the JAX package, cast them once for
+compute, or draw them already cast.
 
 ``params_from_jax`` takes the JAX params pytree with its leaves already
 turned into numpy arrays (``jax.tree.map(np.asarray, params)`` on the JAX
@@ -13,9 +13,12 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-#: Matmul and embedding weights; everything else (the norms) stays f32.
+from repro_torch.models.modules import init_params
+
+#: Matmul and embedding weights (the MoE router and shared-expert gate
+#: among them); everything else (the norms) stays f32.
 COMPUTE_CAST = frozenset(("wq", "wk", "wv", "wo", "wg", "wu", "wd",
-                          "embed", "lm_head"))
+                          "router", "gate", "embed", "lm_head"))
 
 
 def _tensor(a: np.ndarray, device) -> torch.Tensor:
@@ -45,3 +48,14 @@ def cast_for_compute(params, dtype: torch.dtype):
                     else v.to(dtype) if k in COMPUTE_CAST else v)
                 for k, v in tree.items()}
     return cast(params)
+
+
+def init_params_for_compute(specs, generator: torch.Generator,
+                            dtype: torch.dtype, device=None):
+    """``cast_for_compute(init_params(specs, generator, device=device),
+    dtype)`` bit for bit, with each matmul and embedding leaf cast as
+    soon as it is drawn: the f32 tree never exists whole, only the leaf
+    being drawn (a full-width MoE's f32 tree would not fit beside its
+    cast on one card)."""
+    return init_params(specs, generator, device=device,
+                       leaf_dtypes=dict.fromkeys(COMPUTE_CAST, dtype))

@@ -22,6 +22,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core import mixed_precision
 from repro_torch.kernels import ops
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import moe as moe_mod
 from repro_torch.models.modules import (ParamSpec, abstract_params,
                                         count_params, init_params, mlp_specs,
                                         softmax_xent_chunked, swiglu)
@@ -48,7 +49,11 @@ class RunOptions:
     - ``xent_chunk``: sequence positions per cross-entropy chunk;
     - ``microbatches``: gradient-accumulation microbatches of a train
       step; ``bf16_weights``: cast the f32 params to bf16 once at the
-      loss's entry.
+      loss's entry;
+    - ``moe_impl``: the MoE blocks' expert FFNs on the full-sequence
+      path (``backbone``), ``"capacity"`` (the reference's default:
+      capacity drops) or ``"ragged"`` (dropless); the serving steps run
+      ``"capacity"``.
     """
     remat: bool = True
     remat_policy: str = "nothing"
@@ -56,6 +61,7 @@ class RunOptions:
     xent_chunk: int = 512
     microbatches: int = 1
     bf16_weights: bool = False
+    moe_impl: str = "capacity"
 
 
 def _dtype(name: str) -> torch.dtype:
@@ -71,20 +77,22 @@ def compute_dtype(cfg: ModelConfig) -> torch.dtype:
 # ---------------------------------------------------------------------------
 
 def _block_specs(cfg: ModelConfig) -> Dict[str, Any]:
-    """Specs for ONE period of layers: {'pos0': {...}, 'pos1': {...}}."""
-    if not paged_cache_supported(cfg) or cfg.moe is not None:
+    """Specs for ONE period of layers: {'pos0': {...}, 'pos1': {...}},
+    each an attention layer with a dense (``mlp``) or MoE (``moe``) MLP."""
+    if not paged_cache_supported(cfg):
         raise NotImplementedError(
-            f"{cfg.name}: the port has dense attention decoders only so far "
-            "(MoE, SSM, encoder-decoder and frontend archs are later "
-            "slices, see ROADMAP.md)")
+            f"{cfg.name}: SSM, encoder-decoder and frontend archs are not "
+            "ported yet (later slices, see ROADMAP.md)")
     out: Dict[str, Any] = {}
-    for i in range(cfg.scan_period()):
-        out[f"pos{i}"] = {
-            "ln1": ParamSpec((cfg.d_model,), ("embed",), "zeros"),
-            "mixer": attn_mod.attn_specs(cfg),
-            "ln2": ParamSpec((cfg.d_model,), ("embed",), "zeros"),
-            "mlp": mlp_specs(cfg.d_model, cfg.d_ff),
-        }
+    for i, mlpk in enumerate(cfg.mlp_kinds()):
+        sub = {"ln1": ParamSpec((cfg.d_model,), ("embed",), "zeros"),
+               "mixer": attn_mod.attn_specs(cfg),
+               "ln2": ParamSpec((cfg.d_model,), ("embed",), "zeros")}
+        if mlpk == "moe":
+            sub["moe"] = moe_mod.moe_specs(cfg)
+        else:
+            sub["mlp"] = mlp_specs(cfg.d_model, cfg.d_ff)
+        out[f"pos{i}"] = sub
     return out
 
 
@@ -139,14 +147,24 @@ def _layers(params, cfg: ModelConfig):
     return out
 
 
+def _mlp(p, cfg: ModelConfig, h, moe_impl: str):
+    """The layer's MLP on its normed input ``h`` (B, S, D): the MoE block
+    where the layer has one, else the dense SwiGLU."""
+    if "moe" in p:
+        return moe_mod.moe_block(p["moe"], cfg, h, impl=moe_impl)
+    mlp = p["mlp"]
+    return swiglu(h, mlp["wg"], mlp["wu"], mlp["wd"], h.dtype)
+
+
 def _residual_stream(params, cfg: ModelConfig, x, mixer, *, impl: str,
-                     remat: bool = False):
-    """Run the residual stream ``x`` (..., D) through every layer and the
+                     remat: bool = False, moe_impl: str = "capacity"):
+    """Run the residual stream ``x`` (B, S, D) through every layer and the
     final norm; ``mixer(g, i, kind, p, h)`` returns the attention output
     of layer ``(g, i)`` for its normed input ``h``.
 
     The ops are the JAX model's (``h = ln1(x); x = x + attn(h); h =
-    ln2(x); x = x + mlp(h)``, then ``final_norm``), with each residual add
+    ln2(x); x = x + mlp(h)``, then ``final_norm``; ``mlp`` the MoE block,
+    by ``moe_impl``, in a layer that has one), with each residual add
     fused into the norm that reads its result (``ops.add_rmsnorm``): the
     attention add into ln2, the MLP add into the next layer's ln1 or,
     after the last layer, into ``final_norm``.  Only layer 0's ln1 is a
@@ -165,10 +183,8 @@ def _residual_stream(params, cfg: ModelConfig, x, mixer, *, impl: str,
         def layer(x, h, g=g, i=i, kind=kind, p=p, w_next=w_next):
             x, h = ops.add_rmsnorm(x, mixer(g, i, kind, p, h), p["ln2"],
                                    eps=eps, impl=impl)
-            mlp = p["mlp"]
-            return ops.add_rmsnorm(
-                x, swiglu(h, mlp["wg"], mlp["wu"], mlp["wd"], x.dtype),
-                w_next, eps=eps, impl=impl)
+            return ops.add_rmsnorm(x, _mlp(p, cfg, h, moe_impl), w_next,
+                                   eps=eps, impl=impl)
         x, h = (checkpoint(layer, x, h, use_reentrant=False) if remat
                 else layer(x, h))
     return h
@@ -178,8 +194,8 @@ def backbone(params, cfg: ModelConfig, x, opts: RunOptions, *,
              want_cache: bool = False, impl: str = "auto",
              train: bool = False):
     """Forward through the layer stack at positions ``0..S-1`` and the
-    final norm (``_residual_stream``; no MoE aux loss: the port has no
-    MoE arch).  ``train`` is the loss's forward: layers remat'd when
+    final norm (``_residual_stream``; MoE blocks by ``opts.moe_impl``, no
+    aux loss).  ``train`` is the loss's forward: layers remat'd when
     ``opts.remat``.  Returns ``(h, caches)``: ``h`` the final norm's
     output (B, S, D), ``caches`` ``{posN: {k, v: (G, B, S, KVH, hd)}}``
     when ``want_cache``, else None.
@@ -190,7 +206,7 @@ def backbone(params, cfg: ModelConfig, x, opts: RunOptions, *,
     if remat and opts.remat_policy == "dots":
         raise NotImplementedError(
             "remat_policy='dots' (save the matmul outputs) is not ported "
-            "yet: ROADMAP.md queue 1 item 8")
+            "yet: ROADMAP.md queue 1 item 4")
     per_layer = {f"pos{i}": [] for i in range(cfg.scan_period())}
 
     def mixer(g, i, kind, p, h):
@@ -199,7 +215,8 @@ def backbone(params, cfg: ModelConfig, x, opts: RunOptions, *,
         if want_cache:
             per_layer[f"pos{i}"].append({"k": k, "v": v})
         return mix
-    h = _residual_stream(params, cfg, x, mixer, impl=impl, remat=remat)
+    h = _residual_stream(params, cfg, x, mixer, impl=impl, remat=remat,
+                         moe_impl=opts.moe_impl)
     if not want_cache:
         return h, None
     return h, {pos: {key: torch.stack([c[key] for c in cs])
@@ -228,8 +245,8 @@ def lm_loss(params, cfg: ModelConfig, batch,
             opts: RunOptions = RunOptions()):
     """Mean next-token cross-entropy of ``batch`` (``tokens``, ``labels``:
     (B, S) int32; labels < 0 are masked).  Returns ``(loss, {"xent",
-    "aux_loss"})``, 0-d f32 tensors; ``aux_loss`` is 0, the port having
-    no MoE arch.
+    "aux_loss"})``, 0-d f32 tensors; ``aux_loss`` is the reference's sum
+    over no MoE layer, 0.
 
     The forward is the reference's, in plain PyTorch (``impl="plain"``:
     no kernel of the port has a backward, and neither has the
@@ -238,7 +255,18 @@ def lm_loss(params, cfg: ModelConfig, batch,
     bit-equal to the reference's add, then norm), layers remat'd per
     ``opts``, and the chunked cross-entropy against the output weight in
     the compute dtype (``softmax_xent_chunked`` then rounds it to bf16,
-    as the reference does even in f32 configs)."""
+    as the reference does even in f32 configs).
+
+    Raises:
+      NotImplementedError: an MoE config: its loss adds the weighted
+          load-balancing aux loss and backpropagates through the
+          dispatch, which the MoE training slice (ROADMAP.md queue 1
+          item 8) ports."""
+    if cfg.moe is not None:
+        raise NotImplementedError(
+            f"{cfg.name}: training an MoE model (the aux load-balancing "
+            "loss, backward through the dispatch) is not ported yet: "
+            "ROADMAP.md queue 1 item 8")
     params = _maybe_bf16(params, opts)
     x = _embed_inputs(params, cfg, batch)
     h, _ = backbone(params, cfg, x, opts, impl="plain", train=True)
@@ -385,7 +413,10 @@ def paged_decode_step(params, cfg: ModelConfig, cache, tokens, pos,
     go to the scratch page and its logits are garbage).
     ``impl`` selects kernel or plain version for the norms and the decode
     attention (see ``kernels.ops``).  Each residual add is fused into the
-    norm that reads it (``_residual_stream``).
+    norm that reads it (``_residual_stream``).  In an MoE model every row
+    routes, an idle seat's and a chunk's padding too, and takes expert
+    capacity after the rows of lower seats and positions, as in the
+    reference.
 
     Writes the new K/V into ``cache`` in place and returns
     ``(logits (A, C, V) f32, cache)``.

@@ -32,10 +32,13 @@ class ParamSpec:
 
 
 def init_params(specs, generator: torch.Generator,
-                dtype: torch.dtype = torch.float32, device=None):
+                dtype: torch.dtype = torch.float32, device=None,
+                leaf_dtypes: Optional[dict] = None):
     """Materialize a params tree from a spec tree: normal leaves draw
     ``N(0, (scale / sqrt(fan_in))²)`` from ``generator`` (which must live
-    on ``device``), in the JAX flattening order."""
+    on ``device``), in the JAX flattening order.  A leaf whose key is in
+    ``leaf_dtypes`` is cast to that dtype as soon as it is made, before
+    the next is drawn."""
     def build(tree):
         out = {}
         for key in sorted(tree):
@@ -49,9 +52,15 @@ def init_params(specs, generator: torch.Generator,
             else:
                 fan_in = spec.shape[0] if spec.shape else 1
                 std = spec.scale / math.sqrt(max(fan_in, 1))
-                t = torch.randn(spec.shape, generator=generator,
-                                dtype=torch.float32, device=device)
-                out[key] = t.mul_(std).to(dtype)
+                # no name holds the f32 draw: with ``leaf_dtypes`` it is
+                # freed as soon as its cast replaces it, not when the
+                # next leaf is drawn
+                out[key] = torch.randn(
+                    spec.shape, generator=generator, dtype=torch.float32,
+                    device=device).mul_(std).to(dtype)
+            if leaf_dtypes and key in leaf_dtypes and \
+                    isinstance(spec, ParamSpec):
+                out[key] = out[key].to(leaf_dtypes[key])
         return out
     return build(specs)
 

@@ -45,6 +45,7 @@ def test_every_module_imports_with_jax_and_reference_blocked():
     assert "imported" in out.stdout
     assert len(mods) >= 21
     assert "repro_torch.kernels.flash_attention" in mods
+    assert "repro_torch.models.moe" in mods
 
 
 @pytest.mark.parametrize("path", _port_files() + [ROOT / "chip_smoke.py"],
@@ -148,7 +149,8 @@ def test_telemetry_is_accepted_and_leaves_the_flat_trace():
 
 def test_registry_lists_ported_archs_only():
     from repro_torch.configs import ARCH_IDS, get_config, resolve_arch
-    assert set(ARCH_IDS) == {"qwen3-1.7b", "llama3-8b"}
+    assert set(ARCH_IDS) == {"qwen3-1.7b", "llama3-8b", "qwen2-moe-a2.7b"}
+    assert resolve_arch("qwen2_moe_a2_7b") == "qwen2-moe-a2.7b"
     assert resolve_arch("qwen3_1_7b") == "qwen3-1.7b"
     with pytest.raises(KeyError, match="known"):
         get_config("gemma3-12b")
@@ -157,6 +159,37 @@ def test_registry_lists_ported_archs_only():
             cfg.d_ff, cfg.vocab_size, cfg.head_dim) == \
         (28, 2048, 16, 8, 6144, 151_936, 128)
     assert cfg.qk_norm and cfg.tie_embeddings
+
+
+@pytest.mark.parametrize("arch", ["qwen3-1.7b", "llama3-8b",
+                                  "qwen2-moe-a2.7b"])
+def test_ported_configs_equal_the_references_field_by_field(arch):
+    """Each config of the port's registry, and its reduced form, equals
+    the JAX package's field by field (MoEConfig included)."""
+    import dataclasses
+    from repro.configs import get_config as jget
+    from repro.configs import reduced_config as jreduced
+    from repro_torch.configs import get_config, reduced_config
+    mine, ref = get_config(arch), jget(arch)
+    for a, b in ((mine, ref), (reduced_config(mine), jreduced(ref))):
+        assert [f.name for f in dataclasses.fields(a)] == \
+            [f.name for f in dataclasses.fields(b)]
+        for f in dataclasses.fields(a):
+            x, y = getattr(a, f.name), getattr(b, f.name)
+            if dataclasses.is_dataclass(y):
+                assert dataclasses.asdict(x) == dataclasses.asdict(y), f.name
+            else:
+                assert x == y, f.name
+    if arch == "qwen2-moe-a2.7b":
+        m = mine.moe
+        assert (mine.num_layers, mine.d_model, mine.num_heads,
+                mine.num_kv_heads, mine.head_dim, mine.vocab_size) == \
+            (24, 2048, 16, 16, 128, 151_936)
+        assert (m.num_experts, m.top_k, m.d_ff_expert, m.num_shared_experts,
+                m.d_ff_shared, m.capacity_factor) == (60, 4, 1408, 4, 5632,
+                                                      1.25)
+        assert not mine.tie_embeddings
+        assert mine.mlp_kinds() == ("moe",)
 
 
 def test_init_params_is_seeded_and_shaped():
