@@ -11,6 +11,7 @@ import importlib
 from repro_torch.configs.base import ModelConfig
 
 _MODULES = {
+    "gemma3-12b": "gemma3_12b",
     "llama3-8b": "llama3_8b",
     "qwen2-moe-a2.7b": "qwen2_moe_a2_7b",
     "qwen3-1.7b": "qwen3_1_7b",

@@ -34,15 +34,15 @@ _FLASH = (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
 SIGNATURES: Dict[str, tuple] = {
     # q_dtype, kv_dtype, q, k, v, ks, vs, page_table, lengths, out,
     # A, H, KVH, d, page_size, n_table, 6 strides, part, tickets, splits,
-    # chunk, stream
+    # chunk, window, stream
     "paged_decode_attention": (_I, _I, _P, _P, _P, _P, _P, _P, _P, _P,
                                _I, _I, _I, _I, _I, _I,
                                _LL, _LL, _LL, _LL, _LL, _LL,
-                               _P, _P, _I, _I, _P),
+                               _P, _P, _I, _I, _I, _P),
     # q_dtype, kv_dtype, q, k, v, lengths, out, B, H, KVH, d,
-    # 3 cache strides, part, tickets, splits, chunk, stream
+    # 3 cache strides, part, tickets, splits, chunk, window, stream
     "decode_attention": (_I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                         _LL, _LL, _LL, _P, _P, _I, _I, _P),
+                         _LL, _LL, _LL, _P, _P, _I, _I, _I, _P),
     # dtype, q, k, v, out, B, Sq, Skv, H, KVH, d, causal, window,
     # 3 strides each of q, k/v and out, stream (the CUDA-core route)
     "flash_attention": (_I,) + _FLASH,

@@ -49,11 +49,11 @@ cudaError_t dispatch_kv(int kv_dtype, const void* q, const void* k,
                         const void* v, const void* lengths, void* out,
                         int B, int H, int KVH, int d, const DenseAddr& addr,
                         float* part, int* tickets, int splits, int chunk,
-                        cudaStream_t stream) {
+                        int window, cudaStream_t stream) {
 #define REPRO_KV(KT_)                                                        \
   return launch<QT, KT_, DenseAddr>(q, k, v, nullptr, nullptr, lengths,     \
                                     out, B, H, KVH, d, addr, part, tickets, \
-                                    splits, chunk, stream)
+                                    splits, chunk, window, stream)
   switch (kv_dtype) {
     case 0: REPRO_KV(float);
     case 1: REPRO_KV(__nv_bfloat16);
@@ -71,17 +71,19 @@ cudaError_t dispatch_kv(int kv_dtype, const void* q, const void* k,
 // `chunk` tokens per (seat, kv head), partial states in `part`
 // (B·KVH·splits·(H/KVH)·(d + 2) f32) and one ticket per (seat, kv head)
 // in `tickets` (B·KVH int32, zero before the launch and after it;
-// launches that share them must not overlap).  d, the strides and the
-// k/v addresses must allow one load per lane (decode_attention.cuh ::
-// launch_e).  Returns the launch's cudaGetLastError() (0 = success), or
-// cudaErrorInvalidValue for a combination the kernel does not take.
+// launches that share them must not overlap).  window > 0 keeps only each
+// slot's last `window` keys (a sliding-window layer), 0 all of them.  d,
+// the strides and the k/v addresses must allow one load per lane
+// (decode_attention.cuh :: launch_e).  Returns the launch's
+// cudaGetLastError() (0 = success), or cudaErrorInvalidValue for a
+// combination the kernel does not take.
 extern "C" int decode_attention(int q_dtype, int kv_dtype, const void* q,
                                 const void* k, const void* v,
                                 const void* lengths, void* out, int B, int H,
                                 int KVH, int d, long long kv_seat,
                                 long long kv_tok, long long kv_head,
                                 void* part, void* tickets, int splits,
-                                int chunk, void* stream) {
+                                int chunk, int window, void* stream) {
   const DenseAddr addr{kv_seat, kv_tok, kv_head};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* p = static_cast<float*>(part);
@@ -89,10 +91,11 @@ extern "C" int decode_attention(int q_dtype, int kv_dtype, const void* q,
   cudaError_t err;
   if (q_dtype == 0) {
     err = dispatch_kv<float>(kv_dtype, q, k, v, lengths, out, B, H, KVH, d,
-                             addr, p, t, splits, chunk, s);
+                             addr, p, t, splits, chunk, window, s);
   } else if (q_dtype == 1) {
     err = dispatch_kv<__nv_bfloat16>(kv_dtype, q, k, v, lengths, out, B, H,
-                                     KVH, d, addr, p, t, splits, chunk, s);
+                                     KVH, d, addr, p, t, splits, chunk,
+                                     window, s);
   } else {
     err = cudaErrorInvalidValue;
   }

@@ -4,6 +4,9 @@
 //
 // What it computes, per seat a and query head h (kv head h / G):
 //   out[a, h] = softmax_t(q[a, h] . k_t * d^-0.5) . v_t   over t < lengths[a]
+// and, with a sliding window W > 0 (the local layers of gemma3), only over
+// t >= lengths[a] - W: the query at position lengths[a] - 1 keeps the W
+// keys kv_pos > qpos - W, the reference's mask for those layers
 // with an f32 online softmax (m, l, acc) as in the Pallas kernels, and
 // out = acc / max(l, 1e-30) in q's dtype.  Where token t of seat a lives
 // is the one thing the two layouts disagree on; an address policy
@@ -44,7 +47,11 @@
 //   * each warp keeps its own (m, l, acc) per query head; the warps merge
 //     in shared memory at the end.
 // Split-K over the sequence: the grid is (KVH, seats, splits) and block s
-// walks tokens [s·chunk, (s+1)·chunk) of its seat, cut at the length.
+// walks tokens [s·chunk, (s+1)·chunk) of its seat, cut at the length and,
+// with a window, started no earlier than lengths[a] - W.  The split plan
+// does not know the window, so a windowed seat's splits below it write
+// the empty state like those past its length, and a split the window
+// starts inside walks only its tail.
 // splits and chunk come from host-known shapes only (seats, kv heads,
 // table or cache width: kernels/decode_attention.py :: split_plan), so the
 // host never reads the lengths, which live on the card.  Each block
@@ -187,7 +194,8 @@ __device__ __forceinline__ void merge_splits(const float* part, int splits,
 // q and out are (A, H, d) contiguous.  Block (kvh, a, s) walks tokens
 // [s·chunk, (s+1)·chunk) of seat a, writes its partial state to `part`
 // and counts itself on the ticket of (a, kvh) in `tickets` (zero between
-// launches); the last of the gridDim.z splits merges.
+// launches); the last of the gridDim.z splits merges.  window > 0 keeps
+// only the last `window` tokens of each seat (0: every token).
 template <typename QT, typename KT, int E, typename Addr, int MG>
 __global__ void __launch_bounds__(kWarps * 32)
 decode_kernel(const QT* __restrict__ q, const KT* __restrict__ k,
@@ -195,7 +203,7 @@ decode_kernel(const QT* __restrict__ q, const KT* __restrict__ k,
               const float* __restrict__ vs, const int* __restrict__ lengths,
               QT* __restrict__ out, int H, int KVH, int d, Addr addr,
               float scale, float* __restrict__ part, int* tickets,
-              int chunk) {
+              int chunk, int window) {
   const int kvh = blockIdx.x;
   const int a = blockIdx.y;
   const int G = H / KVH;
@@ -204,8 +212,10 @@ decode_kernel(const QT* __restrict__ q, const KT* __restrict__ k,
   const bool quantized = ks != nullptr;
   // this block's tokens [start, end); its partial state `mine` is
   // addressed only after the walk, so no pointer is held across it
-  const int start = blockIdx.z * chunk;
-  const int end = min(start + chunk, lengths[a]);
+  const int len = lengths[a];
+  const int split0 = blockIdx.z * chunk;
+  const int start = window > 0 ? max(split0, len - window) : split0;
+  const int end = min(split0 + chunk, len);
   auto partial = [&]() {
     return part + (static_cast<long long>(a * KVH + kvh) * gridDim.z +
                    blockIdx.z) * (G * (d + 2));
@@ -319,7 +329,7 @@ decode_kernel(const QT* __restrict__ q, const KT* __restrict__ k,
       }
     }
   } else {
-    // past the seat's length: the empty state
+    // past the seat's length, or below its window: the empty state
     float* mine = partial();
     for (int i = threadIdx.x; i < G * (d + 2); i += blockDim.x)
       mine[i] = i < G * d ? 0.f : i < G * d + G ? kNegInf : 0.f;
@@ -345,16 +355,17 @@ decode_kernel(const QT* __restrict__ q, const KT* __restrict__ k,
 // Launches the instantiation for E lanes' elements and the group G =
 // H/KVH (register arrays for MG = 1, 2, 4 or 8) over gridDim.z = splits
 // blocks of `chunk` tokens, with the scratch `part` (A·KVH·splits·G·(d + 2)
-// f32) and `tickets` (A·KVH int32, zero).  The layout must allow one
-// load per lane (load_lane): d a multiple of E, every K/V stride of
-// `addr` a multiple of E, and k and v aligned to the load's word;
-// otherwise cudaErrorInvalidValue.
+// f32) and `tickets` (A·KVH int32, zero), keeping the last `window`
+// tokens of each seat (0: all).  The layout must allow one load per lane
+// (load_lane): d a multiple of E, every K/V stride of `addr` a multiple
+// of E, and k and v aligned to the load's word; otherwise
+// cudaErrorInvalidValue.
 template <typename QT, typename KT, int E, typename Addr>
 cudaError_t launch_e(const void* q, const void* k, const void* v,
                      const void* ks, const void* vs, const void* lengths,
                      void* out, int A, int H, int KVH, int d, Addr addr,
                      float* part, int* tickets, int splits, int chunk,
-                     cudaStream_t stream) {
+                     int window, cudaStream_t stream) {
   const int G = H / KVH;
   const size_t smem =
       sizeof(float) * static_cast<size_t>(kWarps) * G * (2 + 32 * E);
@@ -378,7 +389,7 @@ cudaError_t launch_e(const void* q, const void* k, const void* v,
         static_cast<const KT*>(v), static_cast<const float*>(ks),
         static_cast<const float*>(vs), static_cast<const int*>(lengths),
         static_cast<QT*>(out), H, KVH, d, addr, scale, part, tickets,
-        chunk);
+        chunk, window);
     return cudaGetLastError();
   };
   if (G <= 1) return run(decode_kernel<QT, KT, E, Addr, 1>);
@@ -395,16 +406,16 @@ cudaError_t launch(const void* q, const void* k, const void* v,
                    const void* ks, const void* vs, const void* lengths,
                    void* out, int A, int H, int KVH, int d, Addr addr,
                    float* part, int* tickets, int splits, int chunk,
-                   cudaStream_t stream) {
+                   int window, cudaStream_t stream) {
   if (KVH <= 0 || H % KVH != 0 || H / KVH > kMaxG || A <= 0 ||
       part == nullptr || tickets == nullptr || chunk <= 0 || splits <= 0 ||
-      splits > 65535) {
+      splits > 65535 || window < 0) {
     return cudaErrorInvalidValue;
   }
 #define REPRO_LAUNCH(E_)                                                    \
   return launch_e<QT, KT, E_, Addr>(q, k, v, ks, vs, lengths, out, A, H,    \
                                     KVH, d, addr, part, tickets, splits,    \
-                                    chunk, stream)
+                                    chunk, window, stream)
   if (d <= 32) REPRO_LAUNCH(1);
   if (d <= 64) REPRO_LAUNCH(2);
   if (d <= 128) REPRO_LAUNCH(4);

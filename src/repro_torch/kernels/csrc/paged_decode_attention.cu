@@ -46,11 +46,11 @@ cudaError_t dispatch_kv(int kv_dtype, const void* q, const void* k,
                         const void* lengths, void* out, int A, int H,
                         int KVH, int d, const PagedAddr& addr,
                         float* part, int* tickets, int splits, int chunk,
-                        cudaStream_t stream) {
+                        int window, cudaStream_t stream) {
 #define REPRO_KV(KT_)                                                        \
   return launch<QT, KT_, PagedAddr>(q, k, v, ks, vs, lengths, out, A, H,    \
                                     KVH, d, addr, part, tickets, splits,    \
-                                    chunk, stream)
+                                    chunk, window, stream)
   switch (kv_dtype) {
     case 0: REPRO_KV(float);
     case 1: REPRO_KV(__nv_bfloat16);
@@ -70,8 +70,9 @@ cudaError_t dispatch_kv(int kv_dtype, const void* q, const void* k,
 // head), partial states in `part` (A·KVH·splits·(H/KVH)·(d + 2) f32) and
 // one ticket per (seat, kv head) in `tickets` (A·KVH int32, zero before
 // the launch and after it; launches that share them must not overlap).
-// d, the strides and the k/v addresses must allow one load per lane
-// (decode_attention.cuh :: launch_e).
+// window > 0 keeps only each seat's last `window` tokens (a sliding-window
+// layer), 0 all of them.  d, the strides and the k/v addresses must allow
+// one load per lane (decode_attention.cuh :: launch_e).
 // Returns the launch's cudaGetLastError() (0 = success), or
 // cudaErrorInvalidValue for a combination the kernel does not take.
 extern "C" int paged_decode_attention(
@@ -81,7 +82,7 @@ extern "C" int paged_decode_attention(
     int page_size, int n_table, long long pool_page, long long pool_tok,
     long long pool_head, long long sc_page, long long sc_tok,
     long long sc_head, void* part, void* tickets, int splits, int chunk,
-    void* stream) {
+    int window, void* stream) {
   const PagedAddr addr{static_cast<const int*>(page_table), page_size,
                        n_table, pool_page, pool_tok, pool_head,
                        sc_page, sc_tok, sc_head};
@@ -90,13 +91,14 @@ extern "C" int paged_decode_attention(
   if (q_dtype == 0) {
     err = dispatch_kv<float>(kv_dtype, q, k, v, ks, vs, lengths, out, A, H,
                              KVH, d, addr, static_cast<float*>(part),
-                             static_cast<int*>(tickets), splits, chunk, s);
+                             static_cast<int*>(tickets), splits, chunk,
+                             window, s);
   } else if (q_dtype == 1) {
     err = dispatch_kv<__nv_bfloat16>(kv_dtype, q, k, v, ks, vs, lengths,
                                      out, A, H, KVH, d, addr,
                                      static_cast<float*>(part),
                                      static_cast<int*>(tickets), splits,
-                                     chunk, s);
+                                     chunk, window, s);
   } else {
     err = cudaErrorInvalidValue;
   }

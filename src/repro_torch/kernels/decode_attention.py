@@ -18,6 +18,10 @@ GQA repeat (``repro/kernels/ops.py :: decode_attention``) followed by
 ``ref.decode_attention_ref``.  Layout: q ``(B, H, d)``, k/v
 ``(B, T, KVH, d)``, ``lengths (B,)`` int32.
 
+Both kernels take an optional sliding window W: a seat keeps only its
+last W tokens (``t >= lengths - W``), the mask of the JAX model's local
+layers, which it computes with jnp on every backend.
+
 Both kernels share one per-token loop (``csrc/decode_attention.cuh``) and
 are bound by memory: they read each valid token's K and V once.  Both
 split each seat's sequence over ``split_plan``'s blocks and merge their
@@ -123,10 +127,12 @@ def reserve_tickets(device: torch.device, n: int) -> torch.Tensor:
 
 def paged_decode_attention_plain(q, k_pages, v_pages, page_table, lengths,
                                  k_scale: Optional[torch.Tensor] = None,
-                                 v_scale: Optional[torch.Tensor] = None):
+                                 v_scale: Optional[torch.Tensor] = None,
+                                 window: Optional[int] = None):
     """Plain version: expand GQA on the page table (head h of seat a reads
     pages ``kvh(h) * P + page_table[a]`` of the pool flattened to
-    ``(KVH*P, page, d)``), then the dense oracle.  Returns (A, H, d)."""
+    ``(KVH*P, page, d)``), then the dense oracle, keeping each seat's
+    last ``window`` tokens when a window is given.  Returns (A, H, d)."""
     A, H, d = q.shape
     P, page, KVH, _ = k_pages.shape
     n = page_table.shape[1]
@@ -140,9 +146,9 @@ def paged_decode_attention_plain(q, k_pages, v_pages, page_table, lengths,
         ksf = k_scale.permute(2, 0, 1).reshape(KVH * P, page)
         vsf = v_scale.permute(2, 0, 1).reshape(KVH * P, page)
         out = ref.quantized_paged_decode_attention_ref(qf, kf, vf, ksf, vsf,
-                                                       pt, lens)
+                                                       pt, lens, window)
     else:
-        out = ref.paged_decode_attention_ref(qf, kf, vf, pt, lens)
+        out = ref.paged_decode_attention_ref(qf, kf, vf, pt, lens, window)
     return out.reshape(A, H, d)
 
 
@@ -160,12 +166,14 @@ def _split_scratch(q: torch.Tensor, kv_heads: int, width: int):
 def paged_decode_attention_cuda(q, k_pages, v_pages, page_table, lengths,
                                 k_scale: Optional[torch.Tensor],
                                 v_scale: Optional[torch.Tensor],
-                                out: torch.Tensor) -> None:
+                                out: torch.Tensor,
+                                window: Optional[int] = None) -> None:
     """Launch the kernel on the current stream, writing ``out`` (A, H, d),
-    split over the sequence as ``split_plan`` says, with the partial
-    states in scratch allocated here and the per-device tickets.  The
-    caller (``kernels.ops``) has checked devices, dtypes, shapes, strides
-    and ``one_load_per_lane``.
+    split over the sequence as ``split_plan`` says (the whole table's
+    width, a window or not), with the partial states in scratch allocated
+    here and the per-device tickets; ``window`` keeps each seat's last
+    ``window`` tokens.  The caller (``kernels.ops``) has checked devices,
+    dtypes, shapes, strides and ``one_load_per_lane``.
 
     Raises:
       RuntimeError: the launch was refused (the CUDA error code)."""
@@ -185,15 +193,16 @@ def paged_decode_attention_cuda(q, k_pages, v_pages, page_table, lengths,
         A, H, KVH, d, page, n_table,
         k_pages.stride(0), k_pages.stride(1), k_pages.stride(2),
         sc[0], sc[1], sc[2], part.data_ptr(), tickets.data_ptr(), splits,
-        chunk, torch.cuda.current_stream(q.device).cuda_stream)
+        chunk, window or 0, torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"paged_decode_attention kernel launch failed: "
                            f"CUDA error {err}")
 
 
-def decode_attention_plain(q, k, v, lengths):
+def decode_attention_plain(q, k, v, lengths, window: Optional[int] = None):
     """Plain version: repeat each kv head G times, flatten to
-    ``(B·H, T, d)``, then the dense oracle.  Returns (B, H, d).  (The
+    ``(B·H, T, d)``, then the dense oracle, keeping each slot's last
+    ``window`` keys when a window is given.  Returns (B, H, d).  (The
     TPU wrapper also pads T to its key tile; the oracle masks by length,
     so the padding changes nothing and is left out.)"""
     B, H, d = q.shape
@@ -202,18 +211,20 @@ def decode_attention_plain(q, k, v, lengths):
     kf = k.repeat_interleave(rep, dim=2).transpose(1, 2).reshape(B * H, T, d)
     vf = v.repeat_interleave(rep, dim=2).transpose(1, 2).reshape(B * H, T, d)
     out = ref.decode_attention_ref(q.reshape(B * H, d), kf, vf,
-                                   lengths.repeat_interleave(H))
+                                   lengths.repeat_interleave(H), window)
     return out.reshape(B, H, d)
 
 
-def decode_attention_cuda(q, k, v, lengths, out: torch.Tensor) -> None:
+def decode_attention_cuda(q, k, v, lengths, out: torch.Tensor,
+                          window: Optional[int] = None) -> None:
     """Launch the dense kernel on the current stream, writing ``out``
     (B, H, d), split over the sequence as ``split_plan`` says for the
     cache width T (known here, so the lengths stay on the card), with
     the partial states in scratch allocated here and the per-device
     tickets it shares with the paged kernel (safe on one stream: see
-    ``_tickets``).  The caller (``kernels.ops``) has checked devices,
-    dtypes, shapes, strides and ``one_load_per_lane``.
+    ``_tickets``); ``window`` keeps each slot's last ``window`` keys.
+    The caller (``kernels.ops``) has checked devices, dtypes, shapes,
+    strides and ``one_load_per_lane``.
 
     Raises:
       RuntimeError: the launch was refused (the CUDA error code)."""
@@ -225,7 +236,7 @@ def decode_attention_cuda(q, k, v, lengths, out: torch.Tensor) -> None:
         Q_CODES[q.dtype], KV_CODES[k.dtype], q.data_ptr(), k.data_ptr(),
         v.data_ptr(), lengths.data_ptr(), out.data_ptr(), B, H, KVH, d,
         k.stride(0), k.stride(1), k.stride(2), part.data_ptr(),
-        tickets.data_ptr(), splits, chunk,
+        tickets.data_ptr(), splits, chunk, window or 0,
         torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"decode_attention kernel launch failed: "

@@ -16,7 +16,9 @@ plain version.  Each launch adds one to its variant's entry in
 ``quantized_paged_decode_attention[fp8]``, ``rmsnorm[D=2048]``, ...), so a
 run can show which kernels it went through, and at which pool type, mask
 or width (``decode_attention[bf16]``, ``flash_attention[causal]``,
-``add_rmsnorm[D=2048]``, ``rmsnorm_qk[D=128]``, ``fp8_matmul[e4m3]``).
+``add_rmsnorm[D=2048]``, ``rmsnorm_qk[D=128]``, ``fp8_matmul[e4m3]``); a
+decode launch over a sliding window counts apart from a global one
+(``paged_decode_attention[bf16,window]``, ``decode_attention[bf16,window]``).
 The kernels are built at their first launch (``kernels._build``,
 ``kernels.rmsnorm``).
 """
@@ -150,26 +152,35 @@ def rmsnorm_qk(q: torch.Tensor, k: torch.Tensor, wq: torch.Tensor,
     return qn.view(q.shape), kn.view(k.shape)
 
 
+def _window_tag(window: Optional[int]) -> str:
+    return "" if window is None else ",window"
+
+
 def paged_decode_attention(q, k_pages, v_pages, page_table, lengths, *,
                            k_scale: Optional[torch.Tensor] = None,
                            v_scale: Optional[torch.Tensor] = None,
+                           window: Optional[int] = None,
                            impl: str = "auto") -> torch.Tensor:
     """Single-token decode attention over a paged KV pool.
 
     q: (B, 1, H, d); k_pages/v_pages: (P, page, KVH, d) one layer's
     shared pool; page_table: (B, n) int32 logical->physical page map;
-    lengths: (B,) int32 valid-key counts.  Returns (B, 1, H, d) in
-    q.dtype.  A quantized pool (uint8 e4m3 bits or int8) passes
-    ``k_scale``/``v_scale`` (P, page, KVH) f32 — both or neither.
+    lengths: (B,) int32 valid-key counts; ``window``: a sliding window,
+    keeping only each seat's last ``window`` keys (``t >= lengths -
+    window``).  Returns (B, 1, H, d) in q.dtype.  A quantized pool (uint8
+    e4m3 bits or int8) passes ``k_scale``/``v_scale`` (P, page, KVH) f32
+    — both or neither.
     """
     if (k_scale is None) != (v_scale is None):
         raise ValueError("paged_decode_attention: pass k_scale and v_scale "
                          "together (quantized pool) or neither")
+    _check(window is None or window >= 1,
+           f"paged_decode_attention: window {window} < 1")
     B, C, H, d = q.shape
     if not use_kernel(impl, q):
         out = da.paged_decode_attention_plain(q[:, 0], k_pages, v_pages,
                                               page_table, lengths,
-                                              k_scale, v_scale)
+                                              k_scale, v_scale, window)
         return out[:, None]
     P, page, KVH, dk = k_pages.shape
     quantized = k_scale is not None
@@ -218,21 +229,27 @@ def paged_decode_attention(q, k_pages, v_pages, page_table, lengths, *,
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
         da.paged_decode_attention_cuda(q[:, 0], k_pages, v_pages, page_table,
-                                       lengths, k_scale, v_scale, out[:, 0])
-    launches[f"{name}[{_POOL_TAGS[k_pages.dtype]}]"] += 1
+                                       lengths, k_scale, v_scale, out[:, 0],
+                                       window=window)
+    launches[f"{name}[{_POOL_TAGS[k_pages.dtype]}{_window_tag(window)}]"] += 1
     return out
 
 
-def decode_attention(q, k, v, lengths, *, impl: str = "auto") -> torch.Tensor:
+def decode_attention(q, k, v, lengths, *, window: Optional[int] = None,
+                     impl: str = "auto") -> torch.Tensor:
     """Single-token decode attention against a dense KV cache (the
     fixed-slot layout).
 
     q: (B, 1, H, d); k/v: (B, T, KVH, d) one layer's cache; lengths: (B,)
-    int32 valid-key counts (keys ``t < lengths[b]`` attend).  Returns
-    (B, 1, H, d) in q.dtype."""
+    int32 valid-key counts (keys ``t < lengths[b]`` attend, and with a
+    ``window`` only ``t >= lengths[b] - window``).  Returns (B, 1, H, d)
+    in q.dtype."""
+    _check(window is None or window >= 1,
+           f"decode_attention: window {window} < 1")
     B, C, H, d = q.shape
     if not use_kernel(impl, q):
-        return da.decode_attention_plain(q[:, 0], k, v, lengths)[:, None]
+        return da.decode_attention_plain(q[:, 0], k, v, lengths,
+                                         window)[:, None]
     name = "decode_attention"
     _, T, KVH, dk = k.shape
     _check(C == 1, f"{name}: one query token per seat, got C={C}")
@@ -261,8 +278,9 @@ def decode_attention(q, k, v, lengths, *, impl: str = "auto") -> torch.Tensor:
            f"addresses must allow {da.lane_elems(d)} elements per load")
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
-        da.decode_attention_cuda(q[:, 0], k, v, lengths, out[:, 0])
-    launches[f"{name}[{_POOL_TAGS[k.dtype]}]"] += 1
+        da.decode_attention_cuda(q[:, 0], k, v, lengths, out[:, 0],
+                                 window=window)
+    launches[f"{name}[{_POOL_TAGS[k.dtype]}{_window_tag(window)}]"] += 1
     return out
 
 

@@ -83,33 +83,41 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 def decode_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                         lengths: torch.Tensor) -> torch.Tensor:
+                         lengths: torch.Tensor, window=None) -> torch.Tensor:
     """Oracle for single-query decode. q: (BH, d); k/v: (BH, T, d);
-    lengths: (BH,) valid-key counts.  Returns (BH, d) in q.dtype."""
+    lengths: (BH,) valid-key counts; ``window`` keeps only the last
+    ``window`` of them (keys ``t >= lengths - window``, the sliding-window
+    mask of the query at ``lengths - 1``).  Returns (BH, d) in q.dtype."""
     d = q.shape[-1]
     s = torch.einsum("bd,btd->bt", q.float(), k.float()) * (d ** -0.5)
     t = torch.arange(k.shape[1], device=k.device)[None, :]
-    s = torch.where(t < lengths[:, None], s, NEG_INF)
+    keep = t < lengths[:, None]
+    if window is not None:
+        keep &= t >= lengths[:, None] - window
+    s = torch.where(keep, s, NEG_INF)
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bt,btd->bd", p, v.float()).to(q.dtype)
 
 
 def paged_decode_attention_ref(q: torch.Tensor, k_pages: torch.Tensor,
                                v_pages: torch.Tensor, page_table: torch.Tensor,
-                               lengths: torch.Tensor) -> torch.Tensor:
+                               lengths: torch.Tensor,
+                               window=None) -> torch.Tensor:
     """Oracle for paged decode: gather each row's pages into a contiguous
     cache, then dense decode.  q: (BH, d); k_pages/v_pages: (P, page, d);
-    page_table: (BH, n) int32; lengths: (BH,)."""
+    page_table: (BH, n) int32; lengths: (BH,); ``window`` as in
+    ``decode_attention_ref``."""
     bh = q.shape[0]
     d = k_pages.shape[-1]
     pt = page_table.long()
     k = k_pages[pt].reshape(bh, -1, d)     # (BH, n*page, d)
     v = v_pages[pt].reshape(bh, -1, d)
-    return decode_attention_ref(q, k, v, lengths)
+    return decode_attention_ref(q, k, v, lengths, window)
 
 
 def quantized_paged_decode_attention_ref(q, k_pages, v_pages, k_scale,
-                                         v_scale, page_table, lengths):
+                                         v_scale, page_table, lengths,
+                                         window=None):
     """Oracle for paged decode over quantized pools: dequantize every
     page with its per-slot scales, then run the f32 paged oracle.
     k_pages/v_pages: (P, page, d) uint8 (e4m3 bit patterns) or int8;
@@ -119,4 +127,4 @@ def quantized_paged_decode_attention_ref(q, k_pages, v_pages, k_scale,
         v_pages = v_pages.view(torch.float8_e4m3fn)
     k = k_pages.float() * k_scale[..., None]
     v = v_pages.float() * v_scale[..., None]
-    return paged_decode_attention_ref(q, k, v, page_table, lengths)
+    return paged_decode_attention_ref(q, k, v, page_table, lengths, window)

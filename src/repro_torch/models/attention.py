@@ -2,21 +2,24 @@
 with RoPE, optional qk-norm and sliding window, over a paged KV pool
 (the paged engine) or a dense per-slot cache (the fixed-slot engine).
 
-- ``paged_attention``: single-token decode on global layers (``C == 1
-  and kind == "attn"``, the JAX model's Pallas condition) goes through
-  ``kernels.ops.paged_decode_attention`` (K1/K2); chunked prefill (C > 1)
-  and sliding-window layers gather the pages and attend densely, as the
-  JAX model does on every backend.
+- ``paged_attention``: single-token decode (``C == 1``) goes through
+  ``kernels.ops.paged_decode_attention`` (K1/K2), on sliding-window
+  (``attn_local``) layers with the window, whose mask the JAX model
+  computes with jnp on every backend; chunked prefill (C > 1) gathers the
+  pages and attends densely, as the JAX model does.
 - ``attention`` (full-sequence prefill): on the card the causal and
   windowed self-attention run ``kernels.ops.flash_attention`` (K5); on
   the CPU, or with ``impl="plain"``, the JAX model's query-chunked dense
   path runs unchanged, ``q_chunk`` included.
-- ``decode_attention`` (fixed-slot decode): global layers run
-  ``kernels.ops.decode_attention`` (K4) with ``lengths = pos + 1``, the
-  JAX mask ``kv_pos <= pos``; sliding-window layers attend densely.
+- ``decode_attention`` (fixed-slot decode): ``kernels.ops.decode_attention``
+  (K4) with ``lengths = pos + 1``, the JAX mask ``kv_pos <= pos``, and on
+  ``attn_local`` layers the window ``kv_pos > pos - W``.
+- ``ring_decode_attention``: sliding-window decode against a ring buffer
+  of W rows (``RunOptions.ring_local_cache``), slot = position mod W; K4
+  over the filled slots on the card, the JAX function's mask elsewhere.
 
 Where the JAX functions return new caches, the port writes K/V in place.
-Cross-attention and the ring-buffer local cache are later slices.
+Cross-attention is a later slice.
 """
 from __future__ import annotations
 
@@ -92,6 +95,20 @@ def _gqa_attend(q, k, v, keep, scale):
     return out.reshape(B, Sq, H, hd)
 
 
+def _window(cfg, kind: str):
+    """The sliding window of a layer of ``kind``: ``cfg.sliding_window``
+    on ``attn_local`` layers, else None."""
+    return cfg.sliding_window if kind == "attn_local" else None
+
+
+def _out_proj(p, cfg, x, out):
+    """The attention output (rows, C, H, hd) in x's dtype, padded heads
+    zeroed, through ``wo``: (rows, C, D)."""
+    out = _head_mask(cfg, out.to(x.dtype))
+    wo = p["wo"].to(x.dtype)
+    return out.reshape(*x.shape[:2], -1) @ wo.reshape(-1, wo.shape[-1])
+
+
 def attention(p, cfg, x, *, kind: str = "attn", q_chunk: int = 1024,
               impl: str = "auto"):
     """Full-sequence (prefill) causal self-attention over positions
@@ -109,7 +126,7 @@ def attention(p, cfg, x, *, kind: str = "attn", q_chunk: int = 1024,
                              device=x.device).expand(B, S)
     q, k, v = _project_qkv(p, cfg, x, x, positions, positions, impl=impl)
     hd = cfg.resolved_head_dim
-    window = cfg.sliding_window if kind == "attn_local" else None
+    window = _window(cfg, kind)
     if ops.use_kernel(impl, q):
         out = ops.flash_attention(q, k, v, causal=True, window=window,
                                   impl=impl)
@@ -125,9 +142,7 @@ def attention(p, cfg, x, *, kind: str = "attn", q_chunk: int = 1024,
             _gqa_attend(qc, k, v, keep(pc, positions), hd ** -0.5)
             for qc, pc in zip(q.chunk(n_chunks, dim=1),
                               positions.chunk(n_chunks, dim=1))], dim=1)
-    out = _head_mask(cfg, out)
-    wo = p["wo"].to(x.dtype)
-    return out.reshape(B, S, -1) @ wo.reshape(-1, wo.shape[-1]), (k, v)
+    return _out_proj(p, cfg, x, out), (k, v)
 
 
 def decode_attention(p, cfg, x, cache_k, cache_v, pos, *, kind: str = "attn",
@@ -141,26 +156,45 @@ def decode_attention(p, cfg, x, cache_k, cache_v, pos, *, kind: str = "attn",
     the window on ``attn_local`` layers).  Returns ``(out (B, 1, D),
     cache_k, cache_v)``."""
     B = x.shape[0]
-    T = cache_k.shape[1]
     q, k_new, v_new = _project_qkv(p, cfg, x, x, pos[:, None], pos[:, None],
                                    impl=impl)
     seat = torch.arange(B, device=x.device)
     cache_k[seat, pos.long()] = k_new[:, 0].to(cache_k.dtype)
     cache_v[seat, pos.long()] = v_new[:, 0].to(cache_v.dtype)
-    hd = cfg.resolved_head_dim
-    if kind == "attn":
-        out = ops.decode_attention(q, cache_k, cache_v, pos + 1, impl=impl)
+    out = ops.decode_attention(q, cache_k, cache_v, pos + 1,
+                               window=_window(cfg, kind), impl=impl)
+    return _out_proj(p, cfg, x, out), cache_k, cache_v
+
+
+def ring_decode_attention(p, cfg, x, cache_k, cache_v, pos, *,
+                          impl: str = "auto"):
+    """Sliding-window decode against a ring buffer of W rows.
+
+    x: (B, 1, D); cache_k/cache_v: (B, W, KVH, hd) one local layer's ring,
+    slot = position mod W; pos: (B,) int32 write position.  The new K/V
+    are written at slot ``pos % W`` **in place**, then the query attends
+    to every filled slot: on the card the dense kernel (K4) over the
+    first ``min(pos + 1, W)`` slots (a softmax over a set does not depend
+    on its keys' order, and RoPE was applied before storage); elsewhere,
+    or with ``impl="plain"``, the JAX function's mask over the position
+    each slot holds, ``pos - ((pos - j) mod W) >= 0``.  Returns ``(out
+    (B, 1, D), cache_k, cache_v)``."""
+    B, W = x.shape[0], cache_k.shape[1]
+    q, k_new, v_new = _project_qkv(p, cfg, x, x, pos[:, None], pos[:, None],
+                                   impl=impl)
+    seat = torch.arange(B, device=x.device)
+    slot = torch.remainder(pos, W).long()
+    cache_k[seat, slot] = k_new[:, 0].to(cache_k.dtype)
+    cache_v[seat, slot] = v_new[:, 0].to(cache_v.dtype)
+    if ops.use_kernel(impl, q):
+        out = ops.decode_attention(q, cache_k, cache_v,
+                                   torch.clamp(pos + 1, max=W), impl=impl)
     else:
-        kv_pos = torch.arange(T, dtype=torch.int32, device=x.device)
-        keep = kv_pos[None, None, :] <= pos[:, None, None]          # (B,1,T)
-        if kind == "attn_local" and cfg.sliding_window is not None:
-            keep &= kv_pos[None, None, :] > (pos[:, None, None]
-                                             - cfg.sliding_window)
-        out = _gqa_attend(q, cache_k, cache_v, keep, hd ** -0.5)
-    out = _head_mask(cfg, out.to(x.dtype))
-    wo = p["wo"].to(x.dtype)
-    return (out.reshape(B, 1, -1) @ wo.reshape(-1, wo.shape[-1]),
-            cache_k, cache_v)
+        j = torch.arange(W, dtype=torch.int32, device=x.device)[None, :]
+        kv_pos = pos[:, None] - torch.remainder(pos[:, None] - j, W)
+        out = _gqa_attend(q, cache_k, cache_v, (kv_pos >= 0)[:, None, :],
+                          cfg.resolved_head_dim ** -0.5)
+    return _out_proj(p, cfg, x, out), cache_k, cache_v
 
 
 def paged_attention(p, cfg, x, kv_entry, page_table, qpos, n_valid, *,
@@ -205,11 +239,12 @@ def paged_attention(p, cfg, x, kv_entry, page_table, qpos, n_valid, *,
         v_pool[phys, off] = v_new.to(v_pool.dtype)
 
     hd = cfg.resolved_head_dim
-    if C == 1 and kind == "attn":
+    if C == 1:
         out = ops.paged_decode_attention(
             q, k_pool, v_pool, page_table, qpos[:, 0] + 1,
             k_scale=kv_entry["ks"] if quantized else None,
-            v_scale=kv_entry["vs"] if quantized else None, impl=impl)
+            v_scale=kv_entry["vs"] if quantized else None,
+            window=_window(cfg, kind), impl=impl)
     else:
         pt = page_table.long()
         if quantized:
@@ -222,12 +257,10 @@ def paged_attention(p, cfg, x, kv_entry, page_table, qpos, n_valid, *,
         v = vd.reshape(A, n * page, *vd.shape[3:])
         kv_pos = torch.arange(n * page, dtype=torch.int32, device=x.device)
         keep = kv_pos[None, None, :] <= qpos[:, :, None]           # (A, C, T)
-        if kind == "attn_local" and cfg.sliding_window is not None:
-            keep &= kv_pos[None, None, :] > (qpos[:, :, None]
-                                             - cfg.sliding_window)
+        window = _window(cfg, kind)
+        if window is not None:
+            keep &= kv_pos[None, None, :] > qpos[:, :, None] - window
         out = _gqa_attend(q, k, v, keep, hd ** -0.5)
     # a pool stored above the compute dtype (e.g. f32 under bf16 compute)
     # attends at pool precision; the residual stream stays in compute dtype
-    out = _head_mask(cfg, out.to(x.dtype))
-    wo = p["wo"].to(x.dtype)
-    return out.reshape(A, C, -1) @ wo.reshape(-1, wo.shape[-1])
+    return _out_proj(p, cfg, x, out)

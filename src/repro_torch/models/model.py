@@ -53,7 +53,12 @@ class RunOptions:
     - ``moe_impl``: the MoE blocks' expert FFNs on the full-sequence
       path (``backbone``), ``"capacity"`` (the reference's default:
       capacity drops) or ``"ragged"`` (dropless); the serving steps run
-      ``"capacity"``.
+      ``"capacity"``;
+    - ``ring_local_cache``: the dense cache of a sliding-window layer
+      keeps ``min(seq, W)`` rows, slot = position mod W (``init_cache``,
+      ``prefill``), and ``decode_step`` attends to it with
+      ``attention.ring_decode_attention``.  A model-level option, as in
+      the reference: the serving engines never set it.
     """
     remat: bool = True
     remat_policy: str = "nothing"
@@ -62,6 +67,7 @@ class RunOptions:
     microbatches: int = 1
     bf16_weights: bool = False
     moe_impl: str = "capacity"
+    ring_local_cache: bool = False
 
 
 def _dtype(name: str) -> torch.dtype:
@@ -198,7 +204,9 @@ def backbone(params, cfg: ModelConfig, x, opts: RunOptions, *,
     aux loss).  ``train`` is the loss's forward: layers remat'd when
     ``opts.remat``.  Returns ``(h, caches)``: ``h`` the final norm's
     output (B, S, D), ``caches`` ``{posN: {k, v: (G, B, S, KVH, hd)}}``
-    when ``want_cache``, else None.
+    when ``want_cache``, else None.  With ``opts.ring_local_cache`` a
+    sliding-window layer of a prompt longer than its window W keeps its
+    last W rows at slot = position mod W (``_ring_rows``).
 
     Raises:
       NotImplementedError: ``train`` with ``remat_policy="dots"``."""
@@ -213,6 +221,9 @@ def backbone(params, cfg: ModelConfig, x, opts: RunOptions, *,
         mix, (k, v) = attn_mod.attention(p["mixer"], cfg, h, kind=kind,
                                          q_chunk=opts.q_chunk, impl=impl)
         if want_cache:
+            if _ring(cfg, kind, opts):
+                k, v = _ring_rows(k, cfg.sliding_window), \
+                    _ring_rows(v, cfg.sliding_window)
             per_layer[f"pos{i}"].append({"k": k, "v": v})
         return mix
     h = _residual_stream(params, cfg, x, mixer, impl=impl, remat=remat,
@@ -222,6 +233,25 @@ def backbone(params, cfg: ModelConfig, x, opts: RunOptions, *,
     return h, {pos: {key: torch.stack([c[key] for c in cs])
                      for key in ("k", "v")}
                for pos, cs in per_layer.items()}
+
+
+def _ring(cfg: ModelConfig, kind: str, opts: RunOptions) -> bool:
+    """Whether a layer of ``kind`` keeps a ring-buffer cache."""
+    return bool(kind == "attn_local" and opts.ring_local_cache
+                and cfg.sliding_window)
+
+
+def _ring_rows(k, window: int):
+    """The ring-buffer rows of a prompt's K or V (B, S, KVH, hd): all S
+    rows where S <= window, else the last ``window`` rolled by S mod
+    window, so that position t sits at slot t mod window, the slot rule
+    of ``attention.ring_decode_attention``.  (The reference keeps the
+    last rows in position order, which agrees with that rule only where
+    S is a multiple of the window.)"""
+    S = k.shape[1]
+    if S <= window:
+        return k
+    return torch.roll(k[:, -window:], shifts=S % window, dims=1)
 
 
 def _embed_inputs(params, cfg: ModelConfig, batch):
@@ -282,44 +312,53 @@ def prefill(params, cfg: ModelConfig, batch, opts: RunOptions = RunOptions(),
             *, impl: str = "auto"):
     """Run the prompts ``batch["tokens"]`` (B, S) through the model.
     Returns ``(last_logits (B, 1, V) f32, cache)``, the cache
-    ``{posN: {k, v: (G, B, S, KVH, hd)}}`` in the compute dtype."""
+    ``{posN: {k, v: (G, B, S, KVH, hd)}}`` in the compute dtype (a
+    ring-buffer layer's ``min(S, W)`` rows with ``opts.ring_local_cache``,
+    see ``backbone``)."""
     x = _embed_inputs(params, cfg, batch)
     h, caches = backbone(params, cfg, x, opts, want_cache=True, impl=impl)
     logits = h[:, -1:] @ _output_weight(params, cfg).to(h.dtype)
     return logits.float(), caches
 
 
-def cache_entry_shapes(cfg: ModelConfig, pos_idx: int, batch: int, seq: int):
+def cache_entry_shapes(cfg: ModelConfig, pos_idx: int, batch: int, seq: int,
+                       opts: RunOptions = RunOptions()):
     """Shape/axes template of one period position's cache entry
-    (attention layers: ``k``/``v`` of (batch, seq, KVH, hd))."""
+    (attention layers: ``k``/``v`` of (batch, seq, KVH, hd); a
+    ring-buffer layer, ``opts.ring_local_cache``, ``min(seq, W)`` rows)."""
     kind = cfg.layer_kinds()[pos_idx]
     if kind not in ("attn", "attn_local"):
         raise NotImplementedError(
             f"{cfg.name}: no dense cache for {kind!r} layers in the port "
             "yet (SSM state is a later slice)")
     kvh, hd = cfg.padded_kv_heads, cfg.resolved_head_dim
+    t = min(seq, cfg.sliding_window) if _ring(cfg, kind, opts) else seq
     axes = ("batch", "seq_shard", "kv_heads", None)
-    return {"k": ((batch, seq, kvh, hd), axes),
-            "v": ((batch, seq, kvh, hd), axes)}
+    return {"k": ((batch, t, kvh, hd), axes),
+            "v": ((batch, t, kvh, hd), axes)}
 
 
-def init_cache(cfg: ModelConfig, batch: int, seq: int, device=None):
+def init_cache(cfg: ModelConfig, batch: int, seq: int,
+               opts: RunOptions = RunOptions(), device=None):
     """Zero dense cache ``{posN: {k, v: (G, batch, seq, KVH, hd)}}`` in the
-    compute dtype."""
+    compute dtype (``cache_entry_shapes``' rows)."""
     g = cfg.num_layers // cfg.scan_period()
     return {f"pos{i}": {
         key: torch.zeros((g,) + shape, dtype=compute_dtype(cfg),
                          device=device)
-        for key, (shape, _) in cache_entry_shapes(cfg, i, batch,
-                                                  seq).items()}
+        for key, (shape, _) in cache_entry_shapes(cfg, i, batch, seq,
+                                                  opts).items()}
         for i in range(cfg.scan_period())}
 
 
-def decode_step(params, cfg: ModelConfig, cache, tokens, pos, *,
-                impl: str = "auto"):
+def decode_step(params, cfg: ModelConfig, cache, tokens, pos,
+                opts: RunOptions = RunOptions(), *, impl: str = "auto"):
     """One token for every slot.  tokens: (B, 1) int32; pos: (B,) int32
     next write position (the fixed-slot engine parks idle slots on the
-    scratch index ``T - 1``).
+    scratch index ``T - 1``).  A sliding-window layer whose cache holds
+    exactly W rows under ``opts.ring_local_cache`` decodes against it as
+    a ring (``attention.ring_decode_attention``), as the reference
+    chooses.
 
     Writes the new K/V into ``cache`` in place and returns
     ``(logits (B, 1, V) f32, cache)``."""
@@ -327,6 +366,10 @@ def decode_step(params, cfg: ModelConfig, cache, tokens, pos, *,
 
     def mixer(g, i, kind, p, h):
         c = _layer(cache[f"pos{i}"], g)
+        if (_ring(cfg, kind, opts)
+                and c["k"].shape[1] == cfg.sliding_window):
+            return attn_mod.ring_decode_attention(
+                p["mixer"], cfg, h, c["k"], c["v"], pos, impl=impl)[0]
         return attn_mod.decode_attention(p["mixer"], cfg, h, c["k"], c["v"],
                                          pos, kind=kind, impl=impl)[0]
     h = _residual_stream(params, cfg, x, mixer, impl=impl)

@@ -149,11 +149,13 @@ def test_telemetry_is_accepted_and_leaves_the_flat_trace():
 
 def test_registry_lists_ported_archs_only():
     from repro_torch.configs import ARCH_IDS, get_config, resolve_arch
-    assert set(ARCH_IDS) == {"qwen3-1.7b", "llama3-8b", "qwen2-moe-a2.7b"}
+    assert set(ARCH_IDS) == {"qwen3-1.7b", "llama3-8b", "qwen2-moe-a2.7b",
+                             "gemma3-12b"}
     assert resolve_arch("qwen2_moe_a2_7b") == "qwen2-moe-a2.7b"
     assert resolve_arch("qwen3_1_7b") == "qwen3-1.7b"
+    assert resolve_arch("gemma3_12b") == "gemma3-12b"
     with pytest.raises(KeyError, match="known"):
-        get_config("gemma3-12b")
+        get_config("minicpm-2b")
     cfg = get_config("qwen3-1.7b")
     assert (cfg.num_layers, cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
             cfg.d_ff, cfg.vocab_size, cfg.head_dim) == \
@@ -162,7 +164,7 @@ def test_registry_lists_ported_archs_only():
 
 
 @pytest.mark.parametrize("arch", ["qwen3-1.7b", "llama3-8b",
-                                  "qwen2-moe-a2.7b"])
+                                  "qwen2-moe-a2.7b", "gemma3-12b"])
 def test_ported_configs_equal_the_references_field_by_field(arch):
     """Each config of the port's registry, and its reduced form, equals
     the JAX package's field by field (MoEConfig included)."""

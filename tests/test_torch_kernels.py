@@ -210,9 +210,9 @@ def test_launch_counts_are_kept_per_pool_type_and_width(monkeypatch):
     from repro_torch.kernels import decode_attention as tda
     from repro_torch.kernels import rmsnorm as trn
 
-    def attn(q, k, v, table, lengths, ks, vs, out):
+    def attn(q, k, v, table, lengths, ks, vs, out, window=None):
         out.copy_(tda.paged_decode_attention_plain(q, k, v, table, lengths,
-                                                   ks, vs))
+                                                   ks, vs, window))
 
     def norm(x, w, out, eps):
         out.copy_(trn.rmsnorm_plain(x, w, eps=eps))
@@ -232,12 +232,15 @@ def test_launch_counts_are_kept_per_pool_type_and_width(monkeypatch):
                               tmp.quantize_kv_page(v, dt))
         tops.paged_decode_attention(q, kq, vq, table, lengths, k_scale=ks,
                                     v_scale=vs)
+    tops.paged_decode_attention(q, kq, vq, table, lengths, k_scale=ks,
+                                v_scale=vs, window=3)
     for d in (64, 64, 16):
         tops.rmsnorm(torch.randn(3, d), torch.zeros(d))
     assert dict(tops.launches) == {
         "paged_decode_attention[f32]": 1, "paged_decode_attention[bf16]": 1,
         "quantized_paged_decode_attention[fp8]": 1,
         "quantized_paged_decode_attention[int8]": 2,
+        "quantized_paged_decode_attention[int8,window]": 1,
         "rmsnorm[D=64]": 2, "rmsnorm[D=16]": 1}
     tops.reset_launches()
     assert tops.launches["rmsnorm[D=64]"] == 0 and not tops.launches
