@@ -77,9 +77,11 @@ Phases, each printed as it runs:
    ``Telemetry(ring=4096)`` and ``Telemetry(profile=True)`` gives the
    streams and flat trace of phase 4's run and its launch counts; in a
    steady window (every request seated and decoding) the three give the
-   same kernels and copies per tick under torch.profiler (a mode that
-   counts fewer than another is run again, up to three runs, keeping its
-   largest counts: the profiler drops records now and then) and the same
+   same kernels and copies per tick under torch.profiler (a window now
+   and then counts a few kernels more or fewer than another run of the
+   same ticks, so a mode that never counted what most runs did is run
+   again, up to three runs, logging the kernels that differ; one value
+   must be counted by a run of every mode) and the same
    synchronizing calls per tick under
    ``torch.cuda.set_sync_debug_mode("warn")``, and only the profiled one
    has ``fused_decode_tick`` ranges; the recorder's events project onto
@@ -195,7 +197,32 @@ Phases, each printed as it runs:
    largest |Δlogit| per step logged) and its top-1 equal up to the
    first top-2 gap <= 1e-3, launches exact, the local layers' cache
    bytes logged; ``serve --arch gemma3-12b`` on both engines (reduced);
-10. f32 — qwen3-1.7b computing in f32 (f32 weights, pool and cache;
+10. ssm — mamba2-130m at full width (24 Mamba-2 layers, no attention and
+   no MLP, d_model 768, d_inner 1536 in 24 heads of 64, d_state 128,
+   conv width 4, chunk 256, tied 50280-row embedding), drawn cast on the
+   card from a generator seeded 0, on the fixed-slot ``ServingEngine``
+   (the reference serves SSM archs there only).  Run A: 8 slots, max_len
+   4160, 24 requests of 100-4000 prompt tokens (below, at and past a
+   chunk, multiples of it and not) and 64 new, every second at
+   temperature 0.9: all finished in the vocabulary, logits finite,
+   launch counts exact (per decode step and per prefill one K3 at D =
+   768, 24 fused add + norms at 768 and 24 gated norms at D = 1536: no
+   other kernel), the captured decode step against eager bit for bit
+   (logits, conv and SSM states); K3 and the fused add + norm at D = 768
+   and 1536 against plain (bf16 at 8 rows and the longest prompt, f32 at
+   8 and 4000 rows; ``s`` bit-equal), timed; the bf16 decode step with
+   the kernels no further from the f32 step of the same weights and
+   states than 1.5x the plain versions' on the first 6 layers (a planted
+   fault, the gated norm's rows one slot down, must fail both limits);
+   in f32 at full width prefill(S) against prefill(S - 1) + one
+   ``decode_step`` at S = 255, 256, 1000, 4000 within 1e-3 of the
+   largest logit; the O(1) state: an engine at max_len 32833 holds the
+   same 146 MiB as Run A's (the config's arithmetic) and serves a prompt
+   of 32768 tokens (TTFT, peak memory), its steady decode step profiled
+   beside Run A's; ``serve()`` at full width and ``serve --arch
+   mamba2-130m`` (reduced), and ``--engine paged`` exiting with the
+   paged engine's refusal;
+11. f32 — qwen3-1.7b computing in f32 (f32 weights, pool and cache;
    flash prefill on its CUDA-core route): 8 greedy streams teacher-forced
    through the fused tick and through ``prefill`` + ``decode_step``, each
    with the kernels and with the plain versions, whose top-1 must agree
@@ -203,7 +230,7 @@ Phases, each printed as it runs:
    logit difference there) with at least 90% of the positions decided;
    then the paged engine and ``ServingEngine`` on the same 8 requests,
    whose streams must be equal up to their first top-2 gap <= 1e-3;
-11. train — the training path, which runs the plain PyTorch versions on
+12. train — the training path, which runs the plain PyTorch versions on
    purpose (no kernel has a backward, in the port or in the reference):
    ``train()`` on qwen3-1.7b at its published width (f32 master weights
    and AdamW state, bf16 compute, remat, batch 8 x seq 1024 from the
@@ -220,7 +247,7 @@ Phases, each printed as it runs:
    resumed losses and final params, mu, nu and count against an
    uninterrupted run, and a ``save_async`` whose restored tensors equal
    the saved ones bit for bit);
-12. hpc — the fp8 GEMM kernel (K6) against its plain version, held to
+13. hpc — the fp8 GEMM kernel (K6) against its plain version, held to
    ``fp8_matmul.error_bound`` (f32 sums plus the tensor-core term of sums
    promoted every 128 products), through ``ops.fp8_matmul`` (aligned,
    ragged, bm/bn != 128) and through the per-tensor call at the n = 256,
@@ -238,7 +265,7 @@ Phases, each printed as it runs:
    kernel and with the plain version (first trailing update and refined
    solutions held); HPCG at 256³ (50 iterations, the true residual
    recomputed) and at 48³ (90 iterations, converged);
-13. summary — one JSON line listing the kernels, the card's name and power
+14. summary — one JSON line listing the kernels, the card's name and power
     limit, and as the last line ``{"ok": true, "device": {...}}``.
 
 Any failure raises: the script exits non-zero and prints no ``ok`` line.
@@ -1219,8 +1246,13 @@ def norm_launches(cfg, steps: int) -> dict:
     layer 0's ln1 alone (K3), per layer the attention add fused into ln2
     and the MLP add into the next ln1 or the final norm (``add_rmsnorm``),
     and, in a model with qk-norm, the q- and k-norm in one launch
-    (``rmsnorm_qk``)."""
+    (``rmsnorm_qk``).  A Mamba-2 layer has no MLP: per layer its block's
+    add fused into the next norm and its gated norm at d_inner (K3)."""
     L = cfg.num_layers
+    if cfg.ssm is not None:
+        return {f"rmsnorm[D={cfg.d_model}]": steps,
+                f"add_rmsnorm[D={cfg.d_model}]": L * steps,
+                f"rmsnorm[D={cfg.ssm.expand * cfg.d_model}]": L * steps}
     out = {f"rmsnorm[D={cfg.d_model}]": steps,
            f"add_rmsnorm[D={cfg.d_model}]": 2 * L * steps}
     if cfg.qk_norm:
@@ -1630,15 +1662,18 @@ def _fixed_graph_vs_eager(eng, phase: str = "serve-fixed") -> None:
         f"(logits, {len(pairs) - 1} cache tensors)")
 
 
-def _profile_graph_decode_step(eng) -> None:
+def _profile_graph_decode_step(eng, phase: str = "serve-fixed",
+                               what: str = "steady decode step") -> tuple:
     """The fixed-slot engine's captured decode step replayed on the inputs
-    of ``_profile_decode_step`` under ``_profile_steady``."""
+    of ``_profile_decode_step`` under ``_profile_steady``.  Returns (wall,
+    busy) in ms per step."""
     pol = eng.policy
     tok, pos = _decode_state(eng)
     pol._feed.dev["tokens"].copy_(tok[:, 0])
     pol._feed.dev["pos"].copy_(pos)
-    _profile_steady("serve-fixed", "steady decode step, graph replay",
-                    lambda: torch.argmax(pol._decode_fn(), dim=-1).cpu())
+    return _profile_steady(
+        phase, f"{what}, graph replay",
+        lambda: torch.argmax(pol._decode_fn(), dim=-1).cpu())
 
 
 def phase_serve_fixed(paged: dict) -> dict:
@@ -1752,10 +1787,11 @@ def _to_steady(eng) -> None:
 
 
 def _window_kernels(eng) -> tuple:
-    """(kernels, memory copies, ``fused_decode_tick`` ranges) of
+    """(kernels by name, memory copies, ``fused_decode_tick`` ranges) of
     STEADY_TICKS engine ticks under torch.profiler.  The profiler lists
     each range's span on the device (a user annotation) among the device
     events; it is not a kernel and is not counted as one."""
+    torch.cuda.synchronize()           # nothing of earlier ticks in flight
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
@@ -1768,11 +1804,21 @@ def _window_kernels(eng) -> tuple:
            and a.self_device_time_total > 0]
     copies = sum(a.count for a in dev if a.key.startswith(("Memcpy",
                                                            "Memset")))
-    kernels = sum(a.count for a in dev
-                  if a.key != "fused_decode_tick") - copies
+    names = Counter()
+    for a in dev:
+        if a.key != "fused_decode_tick" and not a.key.startswith(
+                ("Memcpy", "Memset")):
+            names[a.key] += a.count
     ranges = sum(1 for e in prof.events() if e.name == "fused_decode_tick"
                  and e.device_type == torch.autograd.DeviceType.CPU)
-    return kernels, copies, ranges
+    return names, copies, ranges
+
+
+def _name_diff(a: Counter, b: Counter) -> dict:
+    """Kernels whose counts differ between windows ``a`` and ``b``, as
+    a's count less b's, by name cut to 60 characters."""
+    return {k[:60]: a[k] - b[k] for k in sorted(set(a) | set(b))
+            if a[k] != b[k]}
 
 
 def _window_syncs(eng) -> Counter:
@@ -1812,13 +1858,16 @@ def _tel_identity(cfg, params, tag: str, requests, want) -> dict:
     4's run ``want`` (streams, trace), launch counts as phase 4's, and in
     a steady window the same kernels, copies and synchronizing calls per
     tick, with the ``fused_decode_tick`` ranges only when profiling.
-    torch.profiler now and then drops a few kernel records, which lowers
-    a window's count and never raises it: a mode whose kernels or copies
-    fall below another mode's is run again, up to PROFILE_TRIES times in
-    all, and keeps its largest counts.  A real difference recurs on every
-    run and fails the check.  Returns the telemetry-on engine."""
+    torch.profiler's window now and then counts a few kernels more or
+    fewer than another run of the same ticks: while no (kernels, copies)
+    was counted by some run of every mode, each mode that never counted
+    the value most modes counted is run again, up to PROFILE_TRIES runs
+    of a mode in all.  A real difference recurs on every run and fails the
+    check; a mode that is run again logs the kernels, by name, that part
+    it from that value.  Returns the telemetry-on engine."""
     from repro_torch.kernels import ops
-    windows = {}
+    # each mode's runs: (kernels, copies, syncs, ranges, kernels by name)
+    runs = {m: [] for m in TEL_MODES}
 
     def measure(mode: str):
         ops.reset_launches()                   # the main path starts here
@@ -1828,7 +1877,7 @@ def _tel_identity(cfg, params, tag: str, requests, want) -> dict:
         gc.collect()
         syncs = _window_syncs(eng)
         gc.collect()
-        kernels, copies, ranges = _window_kernels(eng)
+        names, copies, ranges = _window_kernels(eng)
         done = eng.run()
         counts = dict(ops.launches)            # ... and ends here
         _check_run(tag, {"engine": eng, "finished": done,
@@ -1839,10 +1888,8 @@ def _tel_identity(cfg, params, tag: str, requests, want) -> dict:
             "phase 4's run"
         assert eng.trace == want[1], f"{tag}/{mode}: trace differs from " \
             "phase 4's run"
-        if mode in windows:
-            kernels = max(kernels, windows[mode][0])
-            copies = max(copies, windows[mode][1])
-        windows[mode] = (kernels, copies, syncs, ranges)
+        kernels = sum(names.values())
+        runs[mode].append((kernels, copies, syncs, ranges, names))
         log("telemetry", f"{tag}/{mode}: streams and flat trace equal to "
             f"phase 4's; steady window of {STEADY_TICKS} ticks: "
             f"{kernels / STEADY_TICKS:.1f} kernels, "
@@ -1852,9 +1899,11 @@ def _tel_identity(cfg, params, tag: str, requests, want) -> dict:
             "fused_decode_tick ranges")
         return eng
 
-    def below() -> list:
-        top = [max(w[i] for w in windows.values()) for i in (0, 1)]
-        return [m for m in TEL_MODES if list(windows[m][:2]) != top]
+    def agreed():
+        """The (kernels, copies) some run of every mode counted, or None."""
+        common = set.intersection(*({w[:2] for w in runs[m]}
+                                    for m in TEL_MODES))
+        return max(common) if common else None
 
     for mode in TEL_MODES:
         eng = measure(mode)
@@ -1862,25 +1911,44 @@ def _tel_identity(cfg, params, tag: str, requests, want) -> dict:
             on = eng
         del eng
     for _ in range(PROFILE_TRIES - 1):
-        for mode in below():
-            log("telemetry", f"{tag}/{mode}: fewer kernels or copies "
-                "counted than another mode's; running it again")
+        if agreed() is not None:
+            break
+        tally = Counter(c for m in TEL_MODES
+                        for c in {w[:2] for w in runs[m]})
+        top = max(tally, key=lambda c: (tally[c], c))
+        names = next(w[4] for m in TEL_MODES for w in runs[m]
+                     if w[:2] == top)
+        for mode in TEL_MODES:
+            last = runs[mode][-1]
+            if any(w[:2] == top for w in runs[mode]):
+                continue
+            log("telemetry", f"{tag}/{mode}: counted (kernels, copies) "
+                f"{last[:2]} where other runs counted {top}; kernels "
+                f"counted more (+) or fewer (-): "
+                f"{json.dumps(_name_diff(last[4], names))}; running it again")
             eng = measure(mode)
             if mode == "on":
                 on = eng
             del eng
-    off = windows["off"]
-    for mode in ("on", "profiled"):
-        assert windows[mode][:3] == off[:3], \
-            f"{tag}: {mode} (kernels, copies, syncs) {windows[mode][:3]} " \
-            f"!= off {off[:3]} over {STEADY_TICKS} ticks"
-    assert sum(off[2].values()) >= STEADY_TICKS, \
-        f"{tag}: {dict(off[2])} synchronizing calls counted over " \
+    assert agreed() is not None, \
+        f"{tag}: no (kernels, copies) over {STEADY_TICKS} ticks counted " \
+        "by a run of every mode: " + "; ".join(
+            f"{m} {[w[:2] for w in runs[m]]}, kernels against off's first "
+            f"run {json.dumps(_name_diff(runs[m][-1][4], runs['off'][0][4]))}"
+            for m in TEL_MODES)
+    syncs = runs["off"][0][2]
+    for mode in TEL_MODES:
+        for w in runs[mode]:
+            assert w[2] == syncs, f"{tag}: {mode} synchronizing calls " \
+                f"{dict(w[2])} != off's {dict(syncs)} over {STEADY_TICKS} " \
+                "ticks"
+    assert sum(syncs.values()) >= STEADY_TICKS, \
+        f"{tag}: {dict(syncs)} synchronizing calls counted over " \
         f"{STEADY_TICKS} ticks; the token pull alone is one per tick"
-    assert (windows["off"][3], windows["on"][3]) == (0, 0)
-    assert windows["profiled"][3] == STEADY_TICKS, \
-        f"{tag}: {windows['profiled'][3]} fused_decode_tick ranges in " \
-        f"{STEADY_TICKS} profiled ticks"
+    assert all(w[3] == 0 for m in ("off", "on") for w in runs[m])
+    assert all(w[3] == STEADY_TICKS for w in runs["profiled"]), \
+        f"{tag}: {[w[3] for w in runs['profiled']]} fused_decode_tick " \
+        f"ranges in {STEADY_TICKS} profiled ticks"
     return on
 
 
@@ -3723,6 +3791,355 @@ def phase_gemma():
                   "gemma_fixed": counts_fixed}
 
 
+# ---------------------------------------------------------------------------
+# phase ssm
+# ---------------------------------------------------------------------------
+
+MAMBA = "mamba2-130m"          # phase ssm: 24 Mamba-2 layers, no attention
+SSM_REQUESTS = 24
+SSM_GEN = 64
+SSM_MAX_LEN = 4160             # prompts of at most 4000 tokens + 64 new
+# prompt lengths every run takes: below a chunk of 256, at it and past
+# it, multiples of it and not, the longest; the rest drawn in [100, 4000]
+SSM_FIXED_LENGTHS = (100, 255, 256, 257, 1000, 2048, 3999, 4000)
+# depth of the bf16 decode step's check against the f32 step
+SSM_STEP_LAYERS = 6
+# prefill(S) against prefill(S - 1) + decode_step in f32: one chunk short
+# of 256, one chunk, and the padded path twice
+SSM_PD_LENGTHS = (255, 256, 1000, 4000)
+SSM_PD_LIMIT = 1e-3            # of the largest logit (PERF.md §6)
+SSM_LONG = 32_768              # the O(1)-state request's prompt
+
+
+def _ssm_prompts(cfg) -> list:
+    """SSM_REQUESTS prompts: SSM_FIXED_LENGTHS and the rest drawn in
+    [100, 4000], shuffled."""
+    rng = np.random.default_rng(21)
+    lens = [*SSM_FIXED_LENGTHS,
+            *rng.integers(100, 4001, SSM_REQUESTS - len(SSM_FIXED_LENGTHS))]
+    lens = [int(lens[i]) for i in rng.permutation(len(lens))]
+    assert max(lens) + SSM_GEN <= SSM_MAX_LEN
+    return [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+            for n in lens]
+
+
+def _ssm_state_bytes(cfg, slots: int) -> int:
+    """A fixed-slot cache's bytes by the arithmetic of the config: per
+    slot and layer the f32 (H, N, P) state and the (W - 1, conv_dim)
+    conv tail in the compute dtype."""
+    s = cfg.ssm
+    d_inner = s.expand * cfg.d_model
+    conv_dim = d_inner + 2 * s.n_groups * s.d_state
+    per = (d_inner // s.head_dim * s.d_state * s.head_dim * 4
+           + (s.conv_width - 1) * conv_dim * 2)
+    return cfg.num_layers * slots * per
+
+
+def _ssm_engine(cfg, params, prompts, sampling, max_len: int):
+    """The fixed-slot engine (8 slots, ``max_len``) over ``prompts``,
+    SSM_GEN new tokens each, every second request sampled with
+    ``sampling`` and the others greedy: all finished in the vocabulary,
+    logits finite, launch counts exact (the norms alone:
+    ``norm_launches`` per decode step and prefill).  Returns (engine,
+    launches read just after the run)."""
+    from repro_torch.kernels import ops
+    from repro_torch.runtime.serving import ServingEngine
+    eng = ServingEngine(cfg, params, slots=8, max_len=max_len, device="cuda")
+    assert eng.policy._decode_fn.graph is not None, \
+        "ssm: the decode step was not captured"
+    for i, p in enumerate(prompts):
+        eng.submit(p, max_new_tokens=SSM_GEN,
+                   sampling=sampling if i % 2 else None)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()                       # the main path starts here
+    done = eng.run()
+    counts = dict(ops.launches)                # ... and ends here
+    assert len(done) == len(prompts), f"ssm: {len(done)} finished"
+    for q in done:
+        assert len(q.generated) == SSM_GEN, q.rid
+        assert all(0 <= t < cfg.vocab_size for t in q.generated), \
+            f"ssm: rid {q.rid} emitted a token outside the vocabulary"
+    assert bool(eng.policy.logits_finite), "ssm: a logit was not finite"
+    ticks = eng.policy.decode_ticks
+    prefills = sum(1 for _, ev, _ in eng.trace if ev == "admit")
+    want = norm_launches(cfg, ticks + prefills)
+    assert counts == want, f"ssm: launches {counts}, expected {want} for " \
+        f"{ticks} decode steps and {prefills} prefills"
+    m = eng.metrics.snapshot()
+    log("ssm", f"fixed-slot engine, max_len {max_len}: {m['completed']:.0f} "
+        f"requests of {min(map(len, prompts))}-{max(map(len, prompts))} "
+        f"prompt tokens, {ticks} decode steps (graph replays), {prefills} "
+        f"prefills, {m['tokens_per_s']:.1f} tokens/s, mean TTFT "
+        f"{m['ttft_avg_s'] * 1e3:.1f} ms, wall {m['wall_s']:.2f} s, peak "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB allocated; "
+        f"launches {json.dumps(counts)}")
+    return eng, counts
+
+
+def _ssm_norms(rows_bf16: int, rows_f32: int, flush) -> dict:
+    """K3 and the fused add + norm at mamba2-130m's two widths, D = 768
+    (d_model: layer 0's ln1, each layer's add fused into the next norm)
+    and D = 1536 (d_inner: the gated norm), neither a power of two,
+    against their plain versions: bf16 at a decode step's 8 rows and
+    ``rows_bf16`` (the longest prompt) within BF16_ATOL/RTOL, f32 at 8
+    and ``rows_f32`` rows within F32_TOL; ``s`` bit-equal to torch's add.
+    ``rmsnorm[D=1536]`` and ``add_rmsnorm[D=768]`` are timed at the
+    decode step's 8 bf16 rows beside their bound and plain time (and
+    ``F.rms_norm``, the one library call for the plain norm; none
+    computes the fused add + norm).  Returns their rows."""
+    from repro_torch.kernels import ops
+    gen = torch.Generator(device="cuda").manual_seed(22)
+    out, errs = {}, []
+    for d in (768, 1536):
+        for rows, dt in ((8, torch.bfloat16), (rows_bf16, torch.bfloat16),
+                         (8, torch.float32), (rows_f32, torch.float32)):
+            x, y = (torch.randn((rows, d), generator=gen, device="cuda")
+                    .to(dt) for _ in range(2))
+            w = 0.1 * torch.randn((d,), generator=gen, device="cuda")
+            tol = F32_TOL if dt == torch.float32 else (BF16_ATOL, BF16_RTOL)
+            tag = f"[D={d}, M={rows}, {str(dt)[6:]}]"
+            got = ops.rmsnorm(x, w, impl="kernel")
+            torch.cuda.synchronize()
+            e_norm = check_close("rmsnorm" + tag, got,
+                                 ops.rmsnorm(x, w, impl="plain"), *tol)
+            (s, n), (s_p, n_p) = (ops.add_rmsnorm(x, y, w, impl=impl)
+                                  for impl in ("kernel", "plain"))
+            bits = torch.int16 if dt == torch.bfloat16 else torch.int32
+            assert torch.equal(s.view(bits), (x + y).view(bits)) and \
+                torch.equal(s_p, x + y), \
+                f"add_rmsnorm{tag}: s is not bit-equal to x + y"
+            e_add = check_close("add_rmsnorm" + tag, n, n_p, *tol)
+            errs.append(f"D={d} M={rows} {str(dt)[6:]} {e_norm:.3e} / "
+                        f"{e_add:.3e}")
+            if rows != 8 or dt != torch.bfloat16:
+                continue
+            if d == 1536:
+                w_lib = (1.0 + w).bfloat16()
+                ms = cuda_ms(lambda: ops.rmsnorm(x, w, impl="kernel"), flush)
+                plain_ms = cuda_ms(lambda: ops.rmsnorm(x, w, impl="plain"),
+                                   flush)
+                lib_ms = cuda_ms(lambda: F.rms_norm(x, (d,), weight=w_lib,
+                                                    eps=1e-6), flush)
+                b_ms, b_by = bound(2 * x.numel() * 2 + d * 4,
+                                   4.0 * x.numel())
+                log("ssm", f"rmsnorm[D={d}, M=8] kernel {ms:.4f} ms plain "
+                    f"{plain_ms:.4f} ms F.rms_norm {lib_ms:.4f} ms bound "
+                    f"{b_ms:.5f} ms ({b_by})")
+                out[f"rmsnorm[D={d}]"] = dict(
+                    name="rmsnorm", max_abs_err=e_norm, ms=ms,
+                    plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                    library_ms=lib_ms, library="F.rms_norm")
+            else:
+                ms = cuda_ms(lambda: ops.add_rmsnorm(x, y, w, impl="kernel"),
+                             flush)
+                plain_ms = cuda_ms(
+                    lambda: ops.add_rmsnorm(x, y, w, impl="plain"), flush)
+                # read x, y and w, write s and the norm
+                b_ms, b_by = bound(4 * x.numel() * 2 + d * 4,
+                                   5.0 * x.numel())
+                log("ssm", f"add_rmsnorm[D={d}, M=8] kernel {ms:.4f} ms "
+                    f"plain {plain_ms:.4f} ms bound {b_ms:.5f} ms ({b_by})")
+                out[f"add_rmsnorm[D={d}]"] = dict(
+                    name="add_rmsnorm", max_abs_err=e_add, ms=ms,
+                    plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                    library_ms=None, library=None)
+    log("ssm", "rmsnorm / add_rmsnorm against plain (s bit-equal to x + y), "
+        "max|err|: " + ", ".join(errs))
+    return out
+
+
+def _ssm_step_vs_f32(eng) -> None:
+    """The bf16 decode step on the engine's slots (``_decode_state``'s
+    tokens, the states Run A left) with the kernels and with the plain
+    versions, each held to the f32 step (plain versions) of the same
+    weights and states widened, on the first SSM_STEP_LAYERS layers: the
+    kernels' step may lie no further from it than TICK_F32_RATIO times
+    the plain versions' (per slot RMS and largest difference).  A planted
+    fault, the gated norm's rows handed one slot down, must fail both."""
+    import dataclasses
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as M
+    from repro_torch.tree import tree_map
+    params, cache, cfg = _first_layers(eng.params, eng.cache, eng.cfg,
+                                       SSM_STEP_LAYERS)
+    tok, pos = _decode_state(eng)
+
+    def step(impl, p=params, c=cache, cfg=cfg):
+        return M.decode_step(p, cfg, _clone(c), tok, pos,
+                             impl=impl)[0][:, -1].float()
+    lf = step("plain", tree_map(lambda t: t.float(), params),
+              {p: {k: t.float() for k, t in ent.items()}
+               for p, ent in cache.items()},
+              dataclasses.replace(cfg, compute_dtype="float32"))
+
+    def ratios(lk, lp):
+        assert bool(torch.isfinite(lk).all()), "ssm: non-finite logits"
+        ek, ep = (lk - lf).abs(), (lp - lf).abs()
+        rows = ek.square().mean(-1).sqrt() / ep.square().mean(-1).sqrt()
+        return rows, ek.max().item() / ep.max().item(), ek, ep
+    lp, lk = step("plain"), step("kernel")
+    rows, peak, ek, ep = ratios(lk, lp)
+    rmsnorm = ops.rmsnorm
+    d_inner = cfg.ssm.expand * cfg.d_model
+
+    def shifted(x, w, **kw):
+        out = rmsnorm(x, w, **kw)
+        if kw.get("impl") == "plain" or x.shape[-1] != d_inner:
+            return out
+        return torch.roll(out, 1, dims=0)
+    ops.rmsnorm = shifted
+    try:
+        bad_rows, bad_peak, _, _ = ratios(step("kernel"), lp)
+    finally:
+        ops.rmsnorm = rmsnorm
+    log("ssm", f"bf16 decode step on the first {SSM_STEP_LAYERS} layers "
+        f"against the f32 step (largest |logit| {lf.abs().max().item():.3e}): "
+        f"kernels max|Δ| {ek.max().item():.3e}, plain max|Δ| "
+        f"{ep.max().item():.3e} (ratio {peak:.3f}); per slot RMS ratio "
+        f"kernels/plain {[round(r, 3) for r in rows.tolist()]}; kernels vs "
+        f"plain max|Δ| {(lk - lp).abs().max().item():.3e}; planted fault "
+        f"[gated norm rows one slot down]: per slot RMS ratio "
+        f"{[round(r, 3) for r in bad_rows.tolist()]}, max ratio "
+        f"{bad_peak:.3f}")
+    assert rows.max().item() <= TICK_F32_RATIO and peak <= TICK_F32_RATIO, \
+        f"ssm: the kernels' bf16 step lies further from the f32 step than " \
+        f"{TICK_F32_RATIO}x the plain versions' (per slot {rows.tolist()}, " \
+        f"largest {peak:.3f})"
+    fails = (bad_rows.max().item() > TICK_F32_RATIO,
+             bad_peak > TICK_F32_RATIO)
+    assert all(fails), f"ssm: a planted fault passes the f32 step test " \
+        f"(per slot, largest difference: {fails})"
+
+
+def _ssm_prefill_vs_decode(cfg, params) -> None:
+    """In f32 at full width (``params`` widened): the last logits of
+    ``prefill`` of S tokens against ``prefill`` of S - 1 and one
+    ``decode_step`` on its cache, at S in SSM_PD_LENGTHS, within
+    SSM_PD_LIMIT of the largest logit: the chunked SSD and the per-token
+    recurrence carry the same state."""
+    import dataclasses
+    from repro_torch.models import model as M
+    from repro_torch.tree import tree_map
+    cfg = dataclasses.replace(cfg, compute_dtype="float32")
+    p32 = tree_map(lambda t: t.float(), params)
+    rng = np.random.default_rng(24)
+    out = []
+    for S in SSM_PD_LENGTHS:
+        toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, S))
+                                .astype(np.int32)).cuda()
+        want, _ = M.prefill(p32, cfg, {"tokens": toks})
+        _, cache = M.prefill(p32, cfg, {"tokens": toks[:, :-1]})
+        got, _ = M.decode_step(p32, cfg, cache, toks[:, -1:], torch.full(
+            (2,), S - 1, dtype=torch.int32, device="cuda"))
+        err = (got - want).abs().max().item()
+        scale = want.abs().max().item()
+        assert bool(torch.isfinite(got).all()) and err <= SSM_PD_LIMIT * \
+            scale, f"ssm: prefill({S}) against prefill({S - 1}) + decode: " \
+            f"max|Δ| {err:.3e} > {SSM_PD_LIMIT} × {scale:.3e}"
+        same = int((got.argmax(-1) == want.argmax(-1)).sum())
+        out.append(f"S={S} {err:.3e} ({err / scale:.2e} of {scale:.3f}; "
+                   f"top-1 equal {same}/2)")
+    log("ssm", "f32 prefill(S) against prefill(S - 1) + decode_step, "
+        "max|Δlogit|: " + "; ".join(out))
+
+
+def _ssm_long(cfg, params, ref) -> None:
+    """The O(1) state: an engine of 8 slots at max_len SSM_LONG + SSM_GEN
+    + 1 holds the same state bytes as Run A's ``ref`` (max_len
+    SSM_MAX_LEN), the config's arithmetic; it serves one request of
+    SSM_LONG prompt tokens and SSM_GEN new (launches exact); its steady
+    decode step is profiled beside Run A's."""
+    want = _ssm_state_bytes(cfg, 8)
+    prompt = np.random.default_rng(25).integers(
+        0, cfg.vocab_size, SSM_LONG).astype(np.int32)
+    eng, _ = _ssm_engine(cfg, params, [prompt], None,
+                         SSM_LONG + SSM_GEN + 1)
+    held = (_tree_bytes(ref.cache), _tree_bytes(eng.cache))
+    assert held == (want, want), f"ssm: slot state {held} B at max_len " \
+        f"{SSM_MAX_LEN} and {SSM_LONG + SSM_GEN + 1}, expected {want} B"
+    m = eng.metrics.snapshot()
+    log("ssm", f"O(1) state: 8 slots hold {want / 2 ** 20:.2f} MiB at "
+        f"max_len {SSM_MAX_LEN} and at {SSM_LONG + SSM_GEN + 1} "
+        f"({want // 8 / 2 ** 20:.3f} MiB a slot); a prompt of {SSM_LONG} "
+        f"tokens prefilled in {m['ttft_avg_s'] * 1e3:.1f} ms (TTFT)")
+    _profile_graph_decode_step(ref, "ssm", f"{MAMBA} run A engine (max_len "
+                               f"{SSM_MAX_LEN})")
+    _profile_graph_decode_step(eng, "ssm", f"{MAMBA} long engine (max_len "
+                               f"{SSM_LONG + SSM_GEN + 1})")
+
+
+def _ssm_cli(cfg) -> None:
+    """``serve()`` at full width (the static batch behind ``--engine
+    batch``: 4 prompts of 1000 tokens, 16 new), then ``python -m
+    repro_torch.launch.serve --arch mamba2-130m`` with its defaults
+    (reduced config), and ``--engine paged``, which must exit non-zero
+    with the paged engine's refusal."""
+    from repro_torch.launch.serve import serve
+    r = serve(MAMBA, batch=4, prompt_len=1000, gen=16, reduced=False,
+              device="cuda")
+    g = r["generated"]
+    assert g.shape == (4, 16) and ((g >= 0) & (g < cfg.vocab_size)).all(), g
+    log("ssm", f"serve() at full width: prefill={r['prefill_s'] * 1e3:.0f}ms "
+        f"decode={r['decode_s'] * 1e3:.0f}ms throughput="
+        f"{r['tokens_per_s']:.1f} tok/s (batch 4, prompt 1000, 16 new)")
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    for engine in ("batch", "paged"):
+        out = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+             MAMBA, "--engine", engine], cwd=ROOT, env=env,
+            capture_output=True, text=True, timeout=600)
+        if engine == "batch":
+            assert out.returncode == 0 and "throughput=" in out.stdout, \
+                f"serve --arch {MAMBA}: rc {out.returncode}\n" \
+                f"{out.stderr[-3000:]}"
+            for ln in out.stdout.splitlines():
+                log("ssm", f"cli --engine batch: {ln}")
+        else:
+            msg = "use ServingEngine for ssm/enc-dec/frontend archs"
+            assert out.returncode != 0 and msg in out.stderr, \
+                f"serve --arch {MAMBA} --engine paged: rc " \
+                f"{out.returncode}\n{out.stderr[-3000:]}"
+            log("ssm", f"cli --engine paged: rc {out.returncode}, "
+                f"{out.stderr.strip().splitlines()[-1]}")
+
+
+def phase_ssm():
+    """mamba2-130m at full width on the fixed-slot engine.  Returns the
+    two new K3 rows and Run A's launch counts."""
+    from repro_torch.runtime.sampler import SamplingParams
+    t0 = time.perf_counter()
+    cfg, params = _draw_cast(MAMBA, "ssm")
+    s = cfg.ssm
+    d_inner = s.expand * cfg.d_model
+    log("ssm", f"SSM: d_inner {d_inner}, {d_inner // s.head_dim} heads of "
+        f"{s.head_dim}, d_state {s.d_state}, conv width {s.conv_width}, "
+        f"{s.n_groups} group, chunk {s.chunk_size}")
+    prompts = _ssm_prompts(cfg)
+    sampling = SamplingParams(temperature=0.9, seed=23)
+    eng, counts = _ssm_engine(cfg, params, prompts, sampling, SSM_MAX_LEN)
+    _fixed_graph_vs_eager(eng, phase="ssm")
+    flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device="cuda")
+    rows = _ssm_norms(max(map(len, prompts)), max(SSM_PD_LENGTHS), flush)
+    del flush
+    t1 = time.perf_counter()
+    _ssm_step_vs_f32(eng)
+    _ssm_prefill_vs_decode(cfg, params)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t2 = time.perf_counter()
+    _ssm_long(cfg, params, eng)
+    del eng, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    t3 = time.perf_counter()
+    _ssm_cli(cfg)
+    log("ssm", f"phase times: run A and the norms {t1 - t0:.1f} s, the f32 "
+        f"checks {t2 - t1:.1f} s, the long prompt {t3 - t2:.1f} s, cli "
+        f"{time.perf_counter() - t3:.1f} s")
+    return rows, {"ssm": counts}
+
+
 # phase f32: a position is decided when the plain version's top-2 gap
 # exceeds twice the largest |kernel - plain| logit difference there (the
 # workload-7 method of docs/benchmarks.md): there the two must pick the
@@ -4651,6 +5068,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     log("gemma", f"gemma state freed: "
         f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB allocated")
+    ssm_rows, ssm_counts = phase_ssm()
+    results.update(ssm_rows)
+    counts.update(ssm_counts)
+    gc.collect()
+    torch.cuda.empty_cache()
     phase_f32(prompts)
     gc.collect()
     torch.cuda.empty_cache()
@@ -4684,7 +5106,8 @@ def main() -> int:
     # paged attention kernels from the run with their pool type, the norm
     # kernels (which every run drives) from the bf16 paged run, the dense
     # decode and flash kernels from the fixed-slot engine run; the
-    # windowed ones from phase gemma's runs
+    # windowed ones from phase gemma's runs; the norms at mamba2-130m's
+    # widths from phase ssm's Run A
     for key, run in (("paged_decode_attention[bf16]", "bf16"),
                      ("quantized_paged_decode_attention[fp8]", "fp8"),
                      ("quantized_paged_decode_attention[int8]", "int8"),
@@ -4698,6 +5121,8 @@ def main() -> int:
                       "gemma_fp8"),
                      ("decode_attention[bf16,window]", "gemma_fixed"),
                      ("flash_attention[window]", "gemma_fixed"),
+                     ("rmsnorm[D=1536]", "ssm"),
+                     ("add_rmsnorm[D=768]", "ssm"),
                      ("fp8_matmul[e4m3]", "hplmxp_fp8")):
         r = results[key]
         route, src, replaces = meta[r["name"]]

@@ -13,6 +13,7 @@ from repro_torch.configs.base import ModelConfig
 _MODULES = {
     "gemma3-12b": "gemma3_12b",
     "llama3-8b": "llama3_8b",
+    "mamba2-130m": "mamba2_130m",
     "qwen2-moe-a2.7b": "qwen2_moe_a2_7b",
     "qwen3-1.7b": "qwen3_1_7b",
 }

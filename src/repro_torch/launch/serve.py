@@ -172,9 +172,11 @@ def serve(arch: str, *, batch: int = 4, prompt_len: int = 32, gen: int = 16,
 
     t0 = time.perf_counter()
     logits, cache = M.prefill(params, cfg, {"tokens": tokens}, opts)
-    # grow the cache along the sequence axis to hold the generation
-    cache = {pos: {k: torch.cat([c, c.new_zeros(c.shape[:2] + (gen,)
-                                                + c.shape[3:])], dim=2)
+    # grow the K/V cache along the sequence axis to hold the generation
+    # (an SSM layer's conv and ssm states have no sequence axis)
+    cache = {pos: {k: (torch.cat([c, c.new_zeros(c.shape[:2] + (gen,)
+                                                 + c.shape[3:])], dim=2)
+                       if k in ("k", "v") else c)
                    for k, c in ent.items()}
              for pos, ent in cache.items()}
     _sync(dev)

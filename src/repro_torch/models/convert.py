@@ -16,9 +16,13 @@ import torch
 from repro_torch.models.modules import init_params
 
 #: Matmul and embedding weights (the MoE router and shared-expert gate
-#: among them); everything else (the norms) stays f32.
+#: among them, the SSM block's in/out projections), and the SSM block's
+#: conv weight and bias and skip ``D``, which the reference casts to the
+#: compute dtype at each use; everything else stays f32 (the norms, and
+#: the SSM's ``A_log`` and ``dt_bias``, which it reads in f32).
 COMPUTE_CAST = frozenset(("wq", "wk", "wv", "wo", "wg", "wu", "wd",
-                          "router", "gate", "embed", "lm_head"))
+                          "router", "gate", "embed", "lm_head",
+                          "in_proj", "out_proj", "conv_w", "conv_b", "D"))
 
 
 def _tensor(a: np.ndarray, device) -> torch.Tensor:

@@ -23,6 +23,7 @@ from repro_torch.core import mixed_precision
 from repro_torch.kernels import ops
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import moe as moe_mod
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.modules import (ParamSpec, abstract_params,
                                         count_params, init_params, mlp_specs,
                                         softmax_xent_chunked, swiglu)
@@ -84,19 +85,24 @@ def compute_dtype(cfg: ModelConfig) -> torch.dtype:
 
 def _block_specs(cfg: ModelConfig) -> Dict[str, Any]:
     """Specs for ONE period of layers: {'pos0': {...}, 'pos1': {...}},
-    each an attention layer with a dense (``mlp``) or MoE (``moe``) MLP."""
-    if not paged_cache_supported(cfg):
+    each a mixer (an SSM block on an ``ssm`` layer, else attention) and
+    a dense (``mlp``) or MoE (``moe``) MLP behind ``ln2``, or no MLP and
+    no ``ln2`` where ``mlp_kinds()`` says ``"none"`` (a Mamba-2 layer)."""
+    if cfg.encoder_decoder or cfg.frontend is not None:
         raise NotImplementedError(
-            f"{cfg.name}: SSM, encoder-decoder and frontend archs are not "
+            f"{cfg.name}: encoder-decoder and frontend archs are not "
             "ported yet (later slices, see ROADMAP.md)")
     out: Dict[str, Any] = {}
-    for i, mlpk in enumerate(cfg.mlp_kinds()):
+    for i, (kind, mlpk) in enumerate(zip(cfg.layer_kinds(),
+                                         cfg.mlp_kinds())):
         sub = {"ln1": ParamSpec((cfg.d_model,), ("embed",), "zeros"),
-               "mixer": attn_mod.attn_specs(cfg),
-               "ln2": ParamSpec((cfg.d_model,), ("embed",), "zeros")}
+               "mixer": (ssm_mod.ssm_specs(cfg) if kind == "ssm"
+                         else attn_mod.attn_specs(cfg))}
+        if mlpk != "none":
+            sub["ln2"] = ParamSpec((cfg.d_model,), ("embed",), "zeros")
         if mlpk == "moe":
             sub["moe"] = moe_mod.moe_specs(cfg)
-        else:
+        elif mlpk == "dense":
             sub["mlp"] = mlp_specs(cfg.d_model, cfg.d_ff)
         out[f"pos{i}"] = sub
     return out
@@ -165,16 +171,18 @@ def _mlp(p, cfg: ModelConfig, h, moe_impl: str):
 def _residual_stream(params, cfg: ModelConfig, x, mixer, *, impl: str,
                      remat: bool = False, moe_impl: str = "capacity"):
     """Run the residual stream ``x`` (B, S, D) through every layer and the
-    final norm; ``mixer(g, i, kind, p, h)`` returns the attention output
-    of layer ``(g, i)`` for its normed input ``h``.
+    final norm; ``mixer(g, i, kind, p, h)`` returns the mixer output
+    (attention or SSM block) of layer ``(g, i)`` for its normed input
+    ``h``.
 
-    The ops are the JAX model's (``h = ln1(x); x = x + attn(h); h =
+    The ops are the JAX model's (``h = ln1(x); x = x + mix(h); h =
     ln2(x); x = x + mlp(h)``, then ``final_norm``; ``mlp`` the MoE block,
     by ``moe_impl``, in a layer that has one), with each residual add
     fused into the norm that reads its result (``ops.add_rmsnorm``): the
-    attention add into ln2, the MLP add into the next layer's ln1 or,
-    after the last layer, into ``final_norm``.  Only layer 0's ln1 is a
-    lone norm.  Returns the final norm's output.
+    mixer's add into ln2, the MLP add into the next layer's ln1 or,
+    after the last layer, into ``final_norm``; in a layer without an MLP
+    (no ``ln2``) the mixer's add into that next norm.  Only layer 0's
+    ln1 is a lone norm.  Returns the final norm's output.
 
     ``remat`` runs each layer — ``(x, h)`` in, ``(x, h)`` out — under
     ``torch.utils.checkpoint``, so backward recomputes it from its two
@@ -187,8 +195,10 @@ def _residual_stream(params, cfg: ModelConfig, x, mixer, *, impl: str,
                   else params["final_norm"])
 
         def layer(x, h, g=g, i=i, kind=kind, p=p, w_next=w_next):
-            x, h = ops.add_rmsnorm(x, mixer(g, i, kind, p, h), p["ln2"],
-                                   eps=eps, impl=impl)
+            mix = mixer(g, i, kind, p, h)
+            if "ln2" not in p:
+                return ops.add_rmsnorm(x, mix, w_next, eps=eps, impl=impl)
+            x, h = ops.add_rmsnorm(x, mix, p["ln2"], eps=eps, impl=impl)
             return ops.add_rmsnorm(x, _mlp(p, cfg, h, moe_impl), w_next,
                                    eps=eps, impl=impl)
         x, h = (checkpoint(layer, x, h, use_reentrant=False) if remat
@@ -204,7 +214,9 @@ def backbone(params, cfg: ModelConfig, x, opts: RunOptions, *,
     aux loss).  ``train`` is the loss's forward: layers remat'd when
     ``opts.remat``.  Returns ``(h, caches)``: ``h`` the final norm's
     output (B, S, D), ``caches`` ``{posN: {k, v: (G, B, S, KVH, hd)}}``
-    when ``want_cache``, else None.  With ``opts.ring_local_cache`` a
+    (an SSM layer's ``{conv: (G, B, W - 1, C), ssm: (G, B, H, N, P)}``,
+    the conv tail in the compute dtype and the state in f32) when
+    ``want_cache``, else None.  With ``opts.ring_local_cache`` a
     sliding-window layer of a prompt longer than its window W keeps its
     last W rows at slot = position mod W (``_ring_rows``).
 
@@ -218,6 +230,15 @@ def backbone(params, cfg: ModelConfig, x, opts: RunOptions, *,
     per_layer = {f"pos{i}": [] for i in range(cfg.scan_period())}
 
     def mixer(g, i, kind, p, h):
+        if kind == "ssm":
+            mix, (conv, ssm) = ssm_mod.ssm_block(p["mixer"], cfg, h,
+                                                 impl=impl)
+            if want_cache:
+                # the tail is a view of the conv's padded input: keep
+                # only its rows
+                per_layer[f"pos{i}"].append({"conv": conv.clone(),
+                                             "ssm": ssm})
+            return mix
         mix, (k, v) = attn_mod.attention(p["mixer"], cfg, h, kind=kind,
                                          q_chunk=opts.q_chunk, impl=impl)
         if want_cache:
@@ -231,7 +252,7 @@ def backbone(params, cfg: ModelConfig, x, opts: RunOptions, *,
     if not want_cache:
         return h, None
     return h, {pos: {key: torch.stack([c[key] for c in cs])
-                     for key in ("k", "v")}
+                     for key in cs[0]}
                for pos, cs in per_layer.items()}
 
 
@@ -291,12 +312,19 @@ def lm_loss(params, cfg: ModelConfig, batch,
       NotImplementedError: an MoE config: its loss adds the weighted
           load-balancing aux loss and backpropagates through the
           dispatch, which the MoE training slice (ROADMAP.md queue 1
-          item 8) ports."""
+          item 8) ports; a config with SSM layers, whose backward
+          through the chunked SSD the SSM training slice (item 9)
+          ports."""
     if cfg.moe is not None:
         raise NotImplementedError(
             f"{cfg.name}: training an MoE model (the aux load-balancing "
             "loss, backward through the dispatch) is not ported yet: "
             "ROADMAP.md queue 1 item 8")
+    if "ssm" in cfg.layer_kinds():
+        raise NotImplementedError(
+            f"{cfg.name}: training a model with SSM layers (backward "
+            "through the chunked SSD scan) is not ported yet: ROADMAP.md "
+            "queue 1 item 9")
     params = _maybe_bf16(params, opts)
     x = _embed_inputs(params, cfg, batch)
     h, _ = backbone(params, cfg, x, opts, impl="plain", train=True)
@@ -313,8 +341,9 @@ def prefill(params, cfg: ModelConfig, batch, opts: RunOptions = RunOptions(),
     """Run the prompts ``batch["tokens"]`` (B, S) through the model.
     Returns ``(last_logits (B, 1, V) f32, cache)``, the cache
     ``{posN: {k, v: (G, B, S, KVH, hd)}}`` in the compute dtype (a
-    ring-buffer layer's ``min(S, W)`` rows with ``opts.ring_local_cache``,
-    see ``backbone``)."""
+    ring-buffer layer's ``min(S, W)`` rows with ``opts.ring_local_cache``;
+    an SSM layer's ``conv`` tail and f32 ``ssm`` state, see
+    ``backbone``)."""
     x = _embed_inputs(params, cfg, batch)
     h, caches = backbone(params, cfg, x, opts, want_cache=True, impl=impl)
     logits = h[:, -1:] @ _output_weight(params, cfg).to(h.dtype)
@@ -325,12 +354,17 @@ def cache_entry_shapes(cfg: ModelConfig, pos_idx: int, batch: int, seq: int,
                        opts: RunOptions = RunOptions()):
     """Shape/axes template of one period position's cache entry
     (attention layers: ``k``/``v`` of (batch, seq, KVH, hd); a
-    ring-buffer layer, ``opts.ring_local_cache``, ``min(seq, W)`` rows)."""
+    ring-buffer layer, ``opts.ring_local_cache``, ``min(seq, W)`` rows;
+    an SSM layer: ``conv`` (batch, W - 1, conv_dim) and ``ssm`` (batch,
+    H, N, P), whatever ``seq``)."""
     kind = cfg.layer_kinds()[pos_idx]
-    if kind not in ("attn", "attn_local"):
-        raise NotImplementedError(
-            f"{cfg.name}: no dense cache for {kind!r} layers in the port "
-            "yet (SSM state is a later slice)")
+    if kind == "ssm":
+        _, nheads, conv_dim = ssm_mod.ssm_dims(cfg)
+        s = cfg.ssm
+        return {"conv": ((batch, s.conv_width - 1, conv_dim),
+                         ("batch", None, "ssm_inner")),
+                "ssm": ((batch, nheads, s.d_state, s.head_dim),
+                        ("batch", "ssm_heads", None, None))}
     kvh, hd = cfg.padded_kv_heads, cfg.resolved_head_dim
     t = min(seq, cfg.sliding_window) if _ring(cfg, kind, opts) else seq
     axes = ("batch", "seq_shard", "kv_heads", None)
@@ -341,11 +375,13 @@ def cache_entry_shapes(cfg: ModelConfig, pos_idx: int, batch: int, seq: int,
 def init_cache(cfg: ModelConfig, batch: int, seq: int,
                opts: RunOptions = RunOptions(), device=None):
     """Zero dense cache ``{posN: {k, v: (G, batch, seq, KVH, hd)}}`` in the
-    compute dtype (``cache_entry_shapes``' rows)."""
+    compute dtype (``cache_entry_shapes``' rows); an SSM layer's ``ssm``
+    state in f32, as the reference keeps it."""
     g = cfg.num_layers // cfg.scan_period()
     return {f"pos{i}": {
-        key: torch.zeros((g,) + shape, dtype=compute_dtype(cfg),
-                         device=device)
+        key: torch.zeros((g,) + shape, device=device,
+                         dtype=(torch.float32 if key == "ssm"
+                                else compute_dtype(cfg)))
         for key, (shape, _) in cache_entry_shapes(cfg, i, batch, seq,
                                                   opts).items()}
         for i in range(cfg.scan_period())}
@@ -358,14 +394,23 @@ def decode_step(params, cfg: ModelConfig, cache, tokens, pos,
     scratch index ``T - 1``).  A sliding-window layer whose cache holds
     exactly W rows under ``opts.ring_local_cache`` decodes against it as
     a ring (``attention.ring_decode_attention``), as the reference
-    chooses.
+    chooses.  An SSM layer runs one step of its recurrence from the
+    slot's ``conv`` and ``ssm`` states (``pos`` unread).
 
-    Writes the new K/V into ``cache`` in place and returns
+    Writes the new K/V, and the new SSM states, into ``cache`` in place
+    (``copy_``: a captured step replays on fixed addresses) and returns
     ``(logits (B, 1, V) f32, cache)``."""
     x = params["embed"][tokens.long()].to(compute_dtype(cfg))
 
     def mixer(g, i, kind, p, h):
         c = _layer(cache[f"pos{i}"], g)
+        if kind == "ssm":
+            mix, (conv, ssm) = ssm_mod.ssm_block(
+                p["mixer"], cfg, h, conv_state=c["conv"],
+                ssm_state=c["ssm"], decode=True, impl=impl)
+            c["conv"].copy_(conv)
+            c["ssm"].copy_(ssm)
+            return mix
         if (_ring(cfg, kind, opts)
                 and c["k"].shape[1] == cfg.sliding_window):
             return attn_mod.ring_decode_attention(

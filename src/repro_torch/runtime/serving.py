@@ -786,6 +786,20 @@ class _Step:
 # KV placement policies
 # ---------------------------------------------------------------------------
 
+def _place(full, row, key: str, slot: int, P: int) -> None:
+    """Write leaf ``key`` of one request's prefill cache ``row`` into slot
+    ``slot`` of the fixed-slot cache ``full`` (G, slots, ...), in place,
+    as the JAX policy's ``place()`` does: K/V rows 0..P-1, the rest of
+    the row, the scratch position included, zeroed; an SSM layer's conv
+    tail and state whole, which also resets what an idle slot's ride
+    through the batched decode left there."""
+    if key in ("k", "v"):
+        full[:, slot, :P] = row
+        full[:, slot, P:] = 0
+    else:
+        full[:, slot] = row
+
+
 class FixedSlotPolicy:
     """Dense fixed-slot placement: ``slots`` cache rows of ``max_len``
     tokens, whole-prompt prefill written into the slot.  Wastes
@@ -799,7 +813,10 @@ class FixedSlotPolicy:
     previous occupant left behind.  No live query attends to it (live
     positions are < ``max_len`` and the mask drops keys past the query).
     An idle slot's query attends to all ``max_len + 1`` keys, and its
-    logits are thrown away.
+    logits are thrown away.  An SSM layer's slot holds a fixed-size state
+    instead (the conv tail and the f32 SSM state, whatever ``max_len``),
+    which an idle slot's ride advances on token 0: admission, and the
+    replay after a preemption, write the slot's whole state anew.
 
     Weights move to ``device`` and the matmul weights are cast once to the
     compute dtype; the cache lives there and is written in place.  The
@@ -923,13 +940,9 @@ class FixedSlotPolicy:
             self.device)
         logits, row_cache = M.prefill(self.params, self.cfg,
                                       {"tokens": tokens}, self.opts)
-        # write the single-row cache into the slot in place; the rest of
-        # the row, the scratch position included, is zeroed as the JAX
-        # policy's padded row write does
         for pos, ent in self.cache.items():
             for key, full in ent.items():
-                full[:, slot, :P] = row_cache[pos][key][:, 0]
-                full[:, slot, P:] = 0
+                _place(full, row_cache[pos][key][:, 0], key, slot, P)
         self.logits_finite &= torch.isfinite(logits).all()
         self.pos[slot] = P
         req.prefill_pos = P
@@ -989,7 +1002,8 @@ class PagedPolicy:
                  impl: str = "auto", device=None):
         if not M.paged_cache_supported(cfg):
             raise ValueError(
-                f"{cfg.name}: paged KV needs a pure-attention decoder")
+                f"{cfg.name}: paged KV needs a pure-attention decoder; "
+                "use ServingEngine for ssm/enc-dec/frontend archs")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.params = params

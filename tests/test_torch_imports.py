@@ -46,6 +46,7 @@ def test_every_module_imports_with_jax_and_reference_blocked():
     assert len(mods) >= 21
     assert "repro_torch.kernels.flash_attention" in mods
     assert "repro_torch.models.moe" in mods
+    assert "repro_torch.models.ssm" in mods
 
 
 @pytest.mark.parametrize("path", _port_files() + [ROOT / "chip_smoke.py"],
@@ -150,8 +151,9 @@ def test_telemetry_is_accepted_and_leaves_the_flat_trace():
 def test_registry_lists_ported_archs_only():
     from repro_torch.configs import ARCH_IDS, get_config, resolve_arch
     assert set(ARCH_IDS) == {"qwen3-1.7b", "llama3-8b", "qwen2-moe-a2.7b",
-                             "gemma3-12b"}
+                             "gemma3-12b", "mamba2-130m"}
     assert resolve_arch("qwen2_moe_a2_7b") == "qwen2-moe-a2.7b"
+    assert resolve_arch("mamba2_130m") == "mamba2-130m"
     assert resolve_arch("qwen3_1_7b") == "qwen3-1.7b"
     assert resolve_arch("gemma3_12b") == "gemma3-12b"
     with pytest.raises(KeyError, match="known"):
@@ -164,10 +166,12 @@ def test_registry_lists_ported_archs_only():
 
 
 @pytest.mark.parametrize("arch", ["qwen3-1.7b", "llama3-8b",
-                                  "qwen2-moe-a2.7b", "gemma3-12b"])
+                                  "qwen2-moe-a2.7b", "gemma3-12b",
+                                  "mamba2-130m"])
 def test_ported_configs_equal_the_references_field_by_field(arch):
     """Each config of the port's registry, and its reduced form, equals
-    the JAX package's field by field (MoEConfig included)."""
+    the JAX package's field by field (MoEConfig and SSMConfig compared
+    field by field too)."""
     import dataclasses
     from repro.configs import get_config as jget
     from repro.configs import reduced_config as jreduced
@@ -179,7 +183,11 @@ def test_ported_configs_equal_the_references_field_by_field(arch):
         for f in dataclasses.fields(a):
             x, y = getattr(a, f.name), getattr(b, f.name)
             if dataclasses.is_dataclass(y):
-                assert dataclasses.asdict(x) == dataclasses.asdict(y), f.name
+                assert [g.name for g in dataclasses.fields(x)] == \
+                    [g.name for g in dataclasses.fields(y)], f.name
+                for g in dataclasses.fields(y):
+                    assert getattr(x, g.name) == getattr(y, g.name), \
+                        (f.name, g.name)
             else:
                 assert x == y, f.name
     if arch == "qwen2-moe-a2.7b":
@@ -192,6 +200,15 @@ def test_ported_configs_equal_the_references_field_by_field(arch):
                                                       1.25)
         assert not mine.tie_embeddings
         assert mine.mlp_kinds() == ("moe",)
+    if arch == "mamba2-130m":
+        s = mine.ssm
+        assert (mine.num_layers, mine.d_model, mine.vocab_size) == \
+            (24, 768, 50_280)
+        assert (s.d_state, s.conv_width, s.expand, s.head_dim, s.n_groups,
+                s.chunk_size) == (128, 4, 2, 64, 1, 256)
+        assert mine.tie_embeddings and mine.subquadratic
+        assert mine.layer_kinds() == ("ssm",) and \
+            mine.mlp_kinds() == ("none",)
 
 
 def test_init_params_is_seeded_and_shaped():

@@ -313,12 +313,11 @@ def test_lm_loss_refuses_moe():
         TM.lm_loss(tp, tcfg, batch)
 
 
-def test_ssm_and_encoder_decoder_archs_stay_refused():
-    from repro_torch.configs.base import SSMConfig
+def test_encoder_decoder_and_frontend_archs_stay_refused():
     base = dict(num_layers=2, d_model=64, num_heads=4, num_kv_heads=4,
                 d_ff=128, vocab_size=256, head_dim=16)
-    for cfg in (TConfig(name="ssm", family="ssm",
-                        ssm=SSMConfig(d_state=16), **base),
+    for cfg in (TConfig(name="vlm", family="vlm", frontend="vision",
+                        frontend_len=8, frontend_dim=64, **base),
                 TConfig(name="encdec", family="audio", encoder_decoder=True,
                         num_encoder_layers=2, encoder_len=32, **base)):
         with pytest.raises(NotImplementedError, match="not ported"):

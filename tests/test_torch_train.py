@@ -16,7 +16,8 @@ configs, lr 3e-3 peak with warmup over 3 of 300 steps.  Tolerances:
   the update within 0.1 of its norm.
 
 ``train()`` on the CPU at the reference's system-test settings
-(``tests/test_system.py``, qwen3-1.7b: the port has no mamba2-130m).
+(``tests/test_system.py``, qwen3-1.7b: the port serves mamba2-130m but
+does not train it yet).
 """
 import dataclasses
 
