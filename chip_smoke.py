@@ -18,7 +18,8 @@ Phases, each printed as it runs:
    of 2 over every pool, llama3-8b's group of 4 over its bf16 and fp8
    pools, qwen2-moe-a2.7b's group of 1 over its bf16, fp8 and f32 pools
    and its bf16 cache, gemma3-12b's group of 2 at head dim 256 over its
-   bf16 and fp8 pools and its bf16 and f32 caches);
+   bf16 and fp8 pools and its bf16 and f32 caches, whisper-base's group
+   of 1 at head dim 64 over its bf16 and f32 caches);
 3. kernels — every kernel of the serving paths against its plain PyTorch
    version at the serving shapes of qwen3-1.7b (H=16, KVH=8, d=128;
    paged decode: page 16, 8 seats with lengths from 1 to 2048; dense
@@ -222,7 +223,34 @@ Phases, each printed as it runs:
    beside Run A's; ``serve()`` at full width and ``serve --arch
    mamba2-130m`` (reduced), and ``--engine paged`` exiting with the
    paged engine's refusal;
-11. f32 — qwen3-1.7b computing in f32 (f32 weights, pool and cache;
+11. whisper — whisper-base at full width (6 encoder and 6 decoder
+   layers, d_model 512, 8/8 heads of 64, d_ff 2048, untied 51865-row
+   head, 1500 encoder frames of 80 from the frontend stub), drawn cast
+   on the card from a generator seeded 0, on the fixed-slot
+   ``ServingEngine`` (the reference serves encoder-decoder archs there
+   only).  Run A: 8 slots, max_len 448 (whisper's text context), 24
+   requests of 8-384 prompt tokens and 32-64 new, every second at
+   temperature 0.9, each prefill on the reference's stub frames (zeros):
+   all finished in the vocabulary, logits finite, launch counts exact
+   (per prefill K5 non-causal on the 6 encoder layers at 1500 x 1500
+   and the 6 cross layers at P x 1500, K5 causal on the 6 decoder
+   layers, and both stacks' norms; per decode step 12 K4, self and
+   cross, and the decoder's norms); every slot's ``ck``/``cv`` then
+   filled with random values, the captured decode step against eager
+   bit for bit and ``ck``/``cv`` unchanged by it; the steady step
+   profiled.  The zero frames zero every cross output, so the kernels
+   are held to their plain versions on frames and prompts from a numpy
+   seed: in bf16 each K4/K5 call of a ``prefill`` of 383 tokens and a
+   ``decode_step`` on its own inputs (scaled by powers of two, the
+   scores near one-hot at random weights); in f32
+   prefill(S) against prefill(S - 1) + one ``decode_step`` at S - 1 =
+   1, 64, 383 within 1e-3 of the largest logit, where a planted fault
+   (each slot's cross K/V handed to the next slot) must fail; K5
+   non-causal over the 1500 frames and 384 x 1500 and K4 over 8 slots
+   of 1500 cross rows against plain, timed beside SDPA; ``serve()`` at
+   full width and ``serve --arch whisper-base`` (reduced), and
+   ``--engine paged`` exiting with the paged engine's refusal;
+12. f32 — qwen3-1.7b computing in f32 (f32 weights, pool and cache;
    flash prefill on its CUDA-core route): 8 greedy streams teacher-forced
    through the fused tick and through ``prefill`` + ``decode_step``, each
    with the kernels and with the plain versions, whose top-1 must agree
@@ -230,7 +258,7 @@ Phases, each printed as it runs:
    logit difference there) with at least 90% of the positions decided;
    then the paged engine and ``ServingEngine`` on the same 8 requests,
    whose streams must be equal up to their first top-2 gap <= 1e-3;
-12. train — the training path, which runs the plain PyTorch versions on
+13. train — the training path, which runs the plain PyTorch versions on
    purpose (no kernel has a backward, in the port or in the reference):
    ``train()`` on qwen3-1.7b at its published width (f32 master weights
    and AdamW state, bf16 compute, remat, batch 8 x seq 1024 from the
@@ -247,7 +275,7 @@ Phases, each printed as it runs:
    resumed losses and final params, mu, nu and count against an
    uninterrupted run, and a ``save_async`` whose restored tensors equal
    the saved ones bit for bit);
-13. hpc — the fp8 GEMM kernel (K6) against its plain version, held to
+14. hpc — the fp8 GEMM kernel (K6) against its plain version, held to
    ``fp8_matmul.error_bound`` (f32 sums plus the tensor-core term of sums
    promoted every 128 products), through ``ops.fp8_matmul`` (aligned,
    ragged, bm/bn != 128) and through the per-tensor call at the n = 256,
@@ -265,7 +293,7 @@ Phases, each printed as it runs:
    kernel and with the plain version (first trailing update and refined
    solutions held); HPCG at 256³ (50 iterations, the true residual
    recomputed) and at 48³ (90 iterations, converged);
-14. summary — one JSON line listing the kernels, the card's name and power
+15. summary — one JSON line listing the kernels, the card's name and power
     limit, and as the last line ``{"ok": true, "device": {...}}``.
 
 Any failure raises: the script exits non-zero and prints no ``ok`` line.
@@ -306,6 +334,8 @@ MOE = "qwen2-moe-a2.7b"        # phase moe: 16 heads over 16 (MHA)
 MOE_H = MOE_KVH = 16
 GEMMA = "gemma3-12b"           # phase gemma: 16 heads over 8 of 256,
 GEMMA_H, GEMMA_HEAD_DIM = 16, 256   # 40 of 48 layers in a window of 1024
+WHISPER = "whisper-base"       # phase whisper: 8 heads over 8 of 64 (MHA),
+WHISPER_HEAD_DIM = 64          # 6 encoder and 6 decoder layers
 SEAT_LENGTHS = (1, 16, 17, 255, 700, 1024, 1531, 2048)
 N_TABLE = 2048 // PAGE
 PREFILL_CHUNK = 128
@@ -685,9 +715,12 @@ def serving_decode_instantiations() -> set:
     paged library, and a bf16 cache in the dense; at gemma3-12b's head dim
     of 256 (E = 8) and group of 2 (phase gemma), bf16 queries over its
     bf16 and fp8 pools in the paged library, a bf16 cache and an f32 one
-    (its ring-cache check) in the dense."""
+    (its ring-cache check) in the dense; at whisper-base's head dim of 64
+    (E = 2) and group of 1 (phase whisper), a bf16 cache and an f32 one
+    (its prefill/decode check) in the dense."""
     from repro_torch.kernels import decode_attention as da
     e, e_gemma = da.lane_elems(HEAD_DIM), da.lane_elems(GEMMA_HEAD_DIM)
+    e_whisper = da.lane_elems(WHISPER_HEAD_DIM)
     mg, mg_llama = group_arrays(H // KVH), group_arrays(LLAMA_H // KVH)
     mg_moe = group_arrays(MOE_H // MOE_KVH)
     mg_gemma = group_arrays(GEMMA_H // KVH)
@@ -700,7 +733,9 @@ def serving_decode_instantiations() -> set:
               ("bf16", "uint8", e_gemma, mg_gemma)]
     dense = [("bf16", "bf16", e, mg), ("f32", "f32", e, mg),
              ("bf16", "bf16", e, mg_moe), ("bf16", "bf16", e_gemma, mg_gemma),
-             ("f32", "f32", e_gemma, mg_gemma)]
+             ("f32", "f32", e_gemma, mg_gemma),
+             ("bf16", "bf16", e_whisper, group_arrays(1)),
+             ("f32", "f32", e_whisper, group_arrays(1))]
     return ({(lib, (q, kv, el, addr, g))
              for lib, addr, insts in (
                  ("paged_decode_attention", "PagedAddr", paged),
@@ -3463,43 +3498,6 @@ def _gemma_steady(eng) -> None:
         f"{busy / bound_ms:.2f}x (information)")
 
 
-def _gemma_norms(prompts) -> None:
-    """K3 and its fused add + norm at gemma3-12b's width, D = 3840 (not a
-    power of two: the row's block is 4096 wide and its last 256 columns
-    masked), against their plain versions at every row count the phase
-    gives them: bf16 over a tick's 8 rows, a prefill chunk's
-    PREFILL_CHUNK and the longest fixed-slot prompt, within
-    BF16_ATOL/RTOL; f32 over the ring check's decode row and prompt,
-    within F32_TOL.  ``s`` must be bit-equal to torch's add."""
-    from repro_torch.kernels import ops
-    gen = torch.Generator(device="cuda").manual_seed(18)
-    d = 3840
-    longest = max(len(p) for p in prompts[:GEMMA_FIXED_REQUESTS])
-    errs = []
-    for rows, dt in ((8, torch.bfloat16), (PREFILL_CHUNK, torch.bfloat16),
-                     (longest, torch.bfloat16), (1, torch.float32),
-                     (GEMMA_RING_S, torch.float32)):
-        x, y = (torch.randn((rows, d), generator=gen, device="cuda").to(dt)
-                for _ in range(2))
-        w = 0.1 * torch.randn((d,), generator=gen, device="cuda")
-        tol = F32_TOL if dt == torch.float32 else (BF16_ATOL, BF16_RTOL)
-        tag = f"[D={d}, M={rows}, {str(dt)[6:]}]"
-        got = ops.rmsnorm(x, w, impl="kernel")
-        torch.cuda.synchronize()
-        e_norm = check_close("rmsnorm" + tag, got,
-                             ops.rmsnorm(x, w, impl="plain"), *tol)
-        (s, n), (s_p, n_p) = (ops.add_rmsnorm(x, y, w, impl=impl)
-                              for impl in ("kernel", "plain"))
-        bits = torch.int16 if dt == torch.bfloat16 else torch.int32
-        assert torch.equal(s.view(bits), (x + y).view(bits)) and \
-            torch.equal(s_p, x + y), \
-            f"add_rmsnorm{tag}: s is not bit-equal to x + y"
-        e_add = check_close("add_rmsnorm" + tag, n, n_p, *tol)
-        errs.append(f"M={rows} {str(dt)[6:]} {e_norm:.3e} / {e_add:.3e}")
-    log("gemma", f"rmsnorm / add_rmsnorm at D={d} against plain (s "
-        "bit-equal to x + y), max|err|: " + ", ".join(errs))
-
-
 @contextlib.contextmanager
 def _recording(calls: list, when=lambda: True):
     """``ops.decode_attention`` and ``ops.flash_attention`` watched: each
@@ -3526,17 +3524,20 @@ def _recording(calls: list, when=lambda: True):
             setattr(ops, name, fn)
 
 
-def _held_to_plain(calls: list, errs: dict) -> None:
+def _held_to_plain(calls: list, errs: dict,
+                   what: str = "gemma ring check") -> None:
     """Each recorded K4/K5 call (``_recording``) again, with the kernel
     and with the plain version, on its own inputs with q scaled by a
     power of two so that no score can pass 4 (Cauchy-Schwarz over its
-    rows) and v by one to |v| <= 1, both exact in f32: within F32_TOL.
-    At random weights the model's scores reach ~1.5e4, where an f32 score
+    rows) and v by one to |v| <= 1, both exact in f32 and in bf16:
+    within F32_TOL for f32 inputs, BF16_ATOL/RTOL for bf16 ones.  At
+    random weights the model's scores reach ~1.5e4, where an f32 score
     carries an absolute error of ~1e-2 and the two sides differ by ~1e-3
     on the raw inputs with neither nearer an f64 oracle; scaled, the
     softmax spreads over the window and its edges show.  ``errs`` maps
-    each call's shape (the cache's rows or the prompt's length, and its
-    mask) to [calls, largest scaled |kernel - plain|, largest raw one]."""
+    each call's shape (the cache's rows or the query and key lengths, and
+    its mask) to [calls, largest scaled |kernel - plain|, largest raw
+    one]."""
     import math
     from repro_torch.kernels import ops
     for name, args, kw in calls:
@@ -3549,13 +3550,16 @@ def _held_to_plain(calls: list, errs: dict) -> None:
         qs = q * 2.0 ** -max(0, math.ceil(math.log2(top / 4)))
         vs = v * 2.0 ** -max(0, math.ceil(math.log2(v.abs().max().item())))
         window = kw.get("window")
+        mask = ("window" if window else
+                "causal" if kw.get("causal", True) else "full")
+        rows = (f"S={q.shape[1]}" if q.shape[1] == k.shape[1]
+                else f"{q.shape[1]}x{k.shape[1]}")
         key = (f"{name}[{k.shape[1]} rows, {'window' if window else 'full'}]"
-               if name == "decode_attention" else
-               f"{name}[S={q.shape[1]}, {'window' if window else 'causal'}]")
+               if name == "decode_attention" else f"{name}[{rows}, {mask}]")
+        tol = F32_TOL if q.dtype == torch.float32 else (BF16_ATOL, BF16_RTOL)
         got, want = (fn(qs, k, vs, *rest, **{**kw, "impl": impl})
                      for impl in ("kernel", "plain"))
-        err = check_close(f"gemma ring check {key}, scaled inputs", got,
-                          want, *F32_TOL)
+        err = check_close(f"{what} {key}, scaled inputs", got, want, *tol)
         row = errs.setdefault(key, [0, 0.0, 0.0])
         row[0] += 1
         row[1], row[2] = max(row[1], err), max(row[2], raw.item())
@@ -3774,7 +3778,15 @@ def phase_gemma():
     gc.collect()
     rows.update(_fixed_attention(cfg, fixed, "gemma", GEMMA_MAX_LEN,
                                  GEMMA_GEN, flush))
-    _gemma_norms(prompts)
+    # K3 and the fused add + norm at D = 3840 (not a power of two: the
+    # row's block is 4096 wide and its last 256 columns masked) over a
+    # tick's 8 rows, a prefill chunk and the longest fixed-slot prompt,
+    # and f32 over the ring check's decode row and prompt
+    _norms_vs_plain("gemma", 18, (3840,),
+                    ((8, torch.bfloat16), (PREFILL_CHUNK, torch.bfloat16),
+                     (max(map(len, fixed)), torch.bfloat16),
+                     (1, torch.float32),
+                     (GEMMA_RING_S, torch.float32)), (), flush)
     del params, flush
     gc.collect()
     torch.cuda.empty_cache()
@@ -3877,28 +3889,25 @@ def _ssm_engine(cfg, params, prompts, sampling, max_len: int):
     return eng, counts
 
 
-def _ssm_norms(rows_bf16: int, rows_f32: int, flush) -> dict:
-    """K3 and the fused add + norm at mamba2-130m's two widths, D = 768
-    (d_model: layer 0's ln1, each layer's add fused into the next norm)
-    and D = 1536 (d_inner: the gated norm), neither a power of two,
-    against their plain versions: bf16 at a decode step's 8 rows and
-    ``rows_bf16`` (the longest prompt) within BF16_ATOL/RTOL, f32 at 8
-    and ``rows_f32`` rows within F32_TOL; ``s`` bit-equal to torch's add.
-    ``rmsnorm[D=1536]`` and ``add_rmsnorm[D=768]`` are timed at the
-    decode step's 8 bf16 rows beside their bound and plain time (and
-    ``F.rms_norm``, the one library call for the plain norm; none
-    computes the fused add + norm).  Returns their rows."""
+def _norms_vs_plain(phase: str, seed: int, widths, rows, timed,
+                    flush) -> dict:
+    """K3 and the fused add + norm at a model's widths ``widths`` against
+    their plain versions over ``rows``, the (M, dtype) pairs its path
+    gives them: bf16 within BF16_ATOL/RTOL, f32 within F32_TOL; ``s``
+    bit-equal to torch's add.  The (name, D) pairs of ``timed`` are
+    timed at a decode step's 8 bf16 rows beside their bound and plain
+    time (and ``F.rms_norm``, the one library call for the plain norm;
+    none computes the fused add + norm).  Returns their rows."""
     from repro_torch.kernels import ops
-    gen = torch.Generator(device="cuda").manual_seed(22)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
     out, errs = {}, []
-    for d in (768, 1536):
-        for rows, dt in ((8, torch.bfloat16), (rows_bf16, torch.bfloat16),
-                         (8, torch.float32), (rows_f32, torch.float32)):
-            x, y = (torch.randn((rows, d), generator=gen, device="cuda")
+    for d in widths:
+        for m, dt in rows:
+            x, y = (torch.randn((m, d), generator=gen, device="cuda")
                     .to(dt) for _ in range(2))
             w = 0.1 * torch.randn((d,), generator=gen, device="cuda")
             tol = F32_TOL if dt == torch.float32 else (BF16_ATOL, BF16_RTOL)
-            tag = f"[D={d}, M={rows}, {str(dt)[6:]}]"
+            tag = f"[D={d}, M={m}, {str(dt)[6:]}]"
             got = ops.rmsnorm(x, w, impl="kernel")
             torch.cuda.synchronize()
             e_norm = check_close("rmsnorm" + tag, got,
@@ -3910,11 +3919,11 @@ def _ssm_norms(rows_bf16: int, rows_f32: int, flush) -> dict:
                 torch.equal(s_p, x + y), \
                 f"add_rmsnorm{tag}: s is not bit-equal to x + y"
             e_add = check_close("add_rmsnorm" + tag, n, n_p, *tol)
-            errs.append(f"D={d} M={rows} {str(dt)[6:]} {e_norm:.3e} / "
+            errs.append(f"D={d} M={m} {str(dt)[6:]} {e_norm:.3e} / "
                         f"{e_add:.3e}")
-            if rows != 8 or dt != torch.bfloat16:
+            if m != 8 or dt != torch.bfloat16:
                 continue
-            if d == 1536:
+            if ("rmsnorm", d) in timed:
                 w_lib = (1.0 + w).bfloat16()
                 ms = cuda_ms(lambda: ops.rmsnorm(x, w, impl="kernel"), flush)
                 plain_ms = cuda_ms(lambda: ops.rmsnorm(x, w, impl="plain"),
@@ -3923,14 +3932,14 @@ def _ssm_norms(rows_bf16: int, rows_f32: int, flush) -> dict:
                                                     eps=1e-6), flush)
                 b_ms, b_by = bound(2 * x.numel() * 2 + d * 4,
                                    4.0 * x.numel())
-                log("ssm", f"rmsnorm[D={d}, M=8] kernel {ms:.4f} ms plain "
+                log(phase, f"rmsnorm[D={d}, M=8] kernel {ms:.4f} ms plain "
                     f"{plain_ms:.4f} ms F.rms_norm {lib_ms:.4f} ms bound "
                     f"{b_ms:.5f} ms ({b_by})")
                 out[f"rmsnorm[D={d}]"] = dict(
                     name="rmsnorm", max_abs_err=e_norm, ms=ms,
                     plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                     library_ms=lib_ms, library="F.rms_norm")
-            else:
+            if ("add_rmsnorm", d) in timed:
                 ms = cuda_ms(lambda: ops.add_rmsnorm(x, y, w, impl="kernel"),
                              flush)
                 plain_ms = cuda_ms(
@@ -3938,13 +3947,13 @@ def _ssm_norms(rows_bf16: int, rows_f32: int, flush) -> dict:
                 # read x, y and w, write s and the norm
                 b_ms, b_by = bound(4 * x.numel() * 2 + d * 4,
                                    5.0 * x.numel())
-                log("ssm", f"add_rmsnorm[D={d}, M=8] kernel {ms:.4f} ms "
+                log(phase, f"add_rmsnorm[D={d}, M=8] kernel {ms:.4f} ms "
                     f"plain {plain_ms:.4f} ms bound {b_ms:.5f} ms ({b_by})")
                 out[f"add_rmsnorm[D={d}]"] = dict(
                     name="add_rmsnorm", max_abs_err=e_add, ms=ms,
                     plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                     library_ms=None, library=None)
-    log("ssm", "rmsnorm / add_rmsnorm against plain (s bit-equal to x + y), "
+    log(phase, "rmsnorm / add_rmsnorm against plain (s bit-equal to x + y), "
         "max|err|: " + ", ".join(errs))
     return out
 
@@ -4069,38 +4078,42 @@ def _ssm_long(cfg, params, ref) -> None:
                                f"{SSM_LONG + SSM_GEN + 1})")
 
 
-def _ssm_cli(cfg) -> None:
-    """``serve()`` at full width (the static batch behind ``--engine
-    batch``: 4 prompts of 1000 tokens, 16 new), then ``python -m
-    repro_torch.launch.serve --arch mamba2-130m`` with its defaults
-    (reduced config), and ``--engine paged``, which must exit non-zero
-    with the paged engine's refusal."""
+def _fixed_only_cli(arch: str, phase: str, prompt_len: int) -> None:
+    """For an arch the reference serves on fixed slots only: ``serve()``
+    at full width (the static batch behind ``--engine batch``: 4 prompts
+    of ``prompt_len`` tokens, 16 new), then ``python -m
+    repro_torch.launch.serve --arch <arch>`` with its defaults (reduced
+    config), and ``--engine paged``, which must exit non-zero with the
+    paged engine's refusal."""
+    from repro_torch.configs import get_config
     from repro_torch.launch.serve import serve
-    r = serve(MAMBA, batch=4, prompt_len=1000, gen=16, reduced=False,
+    vocab = get_config(arch).vocab_size
+    r = serve(arch, batch=4, prompt_len=prompt_len, gen=16, reduced=False,
               device="cuda")
     g = r["generated"]
-    assert g.shape == (4, 16) and ((g >= 0) & (g < cfg.vocab_size)).all(), g
-    log("ssm", f"serve() at full width: prefill={r['prefill_s'] * 1e3:.0f}ms "
-        f"decode={r['decode_s'] * 1e3:.0f}ms throughput="
-        f"{r['tokens_per_s']:.1f} tok/s (batch 4, prompt 1000, 16 new)")
+    assert g.shape == (4, 16) and ((g >= 0) & (g < vocab)).all(), g
+    log(phase, f"serve() at full width: prefill="
+        f"{r['prefill_s'] * 1e3:.0f}ms decode={r['decode_s'] * 1e3:.0f}ms "
+        f"throughput={r['tokens_per_s']:.1f} tok/s (batch 4, prompt "
+        f"{prompt_len}, 16 new)")
     env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
     for engine in ("batch", "paged"):
         out = subprocess.run(
             [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
-             MAMBA, "--engine", engine], cwd=ROOT, env=env,
+             arch, "--engine", engine], cwd=ROOT, env=env,
             capture_output=True, text=True, timeout=600)
         if engine == "batch":
             assert out.returncode == 0 and "throughput=" in out.stdout, \
-                f"serve --arch {MAMBA}: rc {out.returncode}\n" \
+                f"serve --arch {arch}: rc {out.returncode}\n" \
                 f"{out.stderr[-3000:]}"
             for ln in out.stdout.splitlines():
-                log("ssm", f"cli --engine batch: {ln}")
+                log(phase, f"cli --engine batch: {ln}")
         else:
             msg = "use ServingEngine for ssm/enc-dec/frontend archs"
             assert out.returncode != 0 and msg in out.stderr, \
-                f"serve --arch {MAMBA} --engine paged: rc " \
+                f"serve --arch {arch} --engine paged: rc " \
                 f"{out.returncode}\n{out.stderr[-3000:]}"
-            log("ssm", f"cli --engine paged: rc {out.returncode}, "
+            log(phase, f"cli --engine paged: rc {out.returncode}, "
                 f"{out.stderr.strip().splitlines()[-1]}")
 
 
@@ -4120,7 +4133,15 @@ def phase_ssm():
     eng, counts = _ssm_engine(cfg, params, prompts, sampling, SSM_MAX_LEN)
     _fixed_graph_vs_eager(eng, phase="ssm")
     flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device="cuda")
-    rows = _ssm_norms(max(map(len, prompts)), max(SSM_PD_LENGTHS), flush)
+    # K3 and the fused add + norm at mamba2-130m's two widths, D = 768
+    # (d_model: layer 0's ln1, each layer's add fused into the next norm)
+    # and D = 1536 (d_inner: the gated norm), neither a power of two: a
+    # decode step's 8 rows, the longest prompt, f32 at the checks' rows
+    rows = _norms_vs_plain(
+        "ssm", 22, (768, 1536),
+        ((8, torch.bfloat16), (max(map(len, prompts)), torch.bfloat16),
+         (8, torch.float32), (max(SSM_PD_LENGTHS), torch.float32)),
+        {("rmsnorm", 1536), ("add_rmsnorm", 768)}, flush)
     del flush
     t1 = time.perf_counter()
     _ssm_step_vs_f32(eng)
@@ -4133,11 +4154,346 @@ def phase_ssm():
     gc.collect()
     torch.cuda.empty_cache()
     t3 = time.perf_counter()
-    _ssm_cli(cfg)
+    _fixed_only_cli(MAMBA, "ssm", 1000)
     log("ssm", f"phase times: run A and the norms {t1 - t0:.1f} s, the f32 "
         f"checks {t2 - t1:.1f} s, the long prompt {t3 - t2:.1f} s, cli "
         f"{time.perf_counter() - t3:.1f} s")
     return rows, {"ssm": counts}
+
+
+WHISPER_REQUESTS = 24
+WHISPER_MAX_LEN = 448          # whisper's published text context
+# prompt lengths every run takes: the shortest and longest, a tile of 64
+# keys and around it; the rest drawn in [8, 384]; 32-64 new tokens each
+WHISPER_FIXED_LENGTHS = (8, 63, 64, 65, 127, 255, 383, 384)
+# f32 prefill(S) against prefill(S - 1) + one decode_step, S - 1 in:
+WHISPER_PD_LENGTHS = (1, 64, 383)
+WHISPER_PD_LIMIT = 1e-3        # of the largest logit, as phase ssm's
+
+
+def _whisper_requests(cfg) -> list:
+    """(prompt, new tokens) of WHISPER_REQUESTS requests: prompts of
+    WHISPER_FIXED_LENGTHS and the rest drawn in [8, 384], 32-64 new
+    tokens each, shuffled."""
+    rng = np.random.default_rng(31)
+    n = WHISPER_REQUESTS - len(WHISPER_FIXED_LENGTHS)
+    lens = [*WHISPER_FIXED_LENGTHS, *rng.integers(8, 385, n)]
+    lens = [int(lens[i]) for i in rng.permutation(len(lens))]
+    gens = [int(g) for g in rng.integers(32, 65, len(lens))]
+    assert max(a + b for a, b in zip(lens, gens)) <= WHISPER_MAX_LEN
+    return [(rng.integers(0, cfg.vocab_size, n).astype(np.int32), g)
+            for n, g in zip(lens, gens)]
+
+
+def whisper_launches(cfg, ticks: int, prefills: int) -> dict:
+    """The kernel launches of ``ticks`` fixed-slot decode steps and
+    ``prefills`` prefills of an encoder-decoder model: per decode step
+    K4 per decoder layer for its self-attention and for its
+    cross-attention, layer 0's ln1 alone and three fused add + norms per
+    decoder layer (into ln_cross, ln2 and the next norm); per prefill K5
+    non-causal per encoder layer (the frames) and per decoder layer (the
+    prompt against the frames), K5 causal per decoder layer, and the
+    norms of both stacks (the encoder's: its layer 0's ln1 alone, two
+    fused per layer)."""
+    L, E, D = cfg.num_layers, cfg.num_encoder_layers, cfg.d_model
+    return {"decode_attention[bf16]": 2 * L * ticks,
+            "flash_attention[full]": (E + L) * prefills,
+            "flash_attention[causal]": L * prefills,
+            f"rmsnorm[D={D}]": ticks + 2 * prefills,
+            f"add_rmsnorm[D={D}]": 3 * L * (ticks + prefills)
+            + 2 * E * prefills}
+
+
+def _whisper_engine(cfg, params, requests, sampling):
+    """Run A: the fixed-slot engine (8 slots, max_len WHISPER_MAX_LEN)
+    over ``requests``, every second sampled with ``sampling`` and the
+    others greedy, each prefill on the reference's stub frames (zeros):
+    all finished in the vocabulary, logits finite, launch counts exact
+    (``whisper_launches``).  Returns (engine, launches read just after
+    the run)."""
+    from repro_torch.kernels import ops
+    from repro_torch.runtime.serving import ServingEngine
+    eng = ServingEngine(cfg, params, slots=8, max_len=WHISPER_MAX_LEN,
+                        device="cuda")
+    assert eng.policy._decode_fn.graph is not None, \
+        "whisper: the decode step was not captured"
+    for i, (p, g) in enumerate(requests):
+        eng.submit(p, max_new_tokens=g, sampling=sampling if i % 2 else None)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()                       # the main path starts here
+    done = eng.run()
+    counts = dict(ops.launches)                # ... and ends here
+    assert len(done) == len(requests), f"whisper: {len(done)} finished"
+    for q in done:
+        assert len(q.generated) == q.max_new_tokens, q.rid
+        assert all(0 <= t < cfg.vocab_size for t in q.generated), \
+            f"whisper: rid {q.rid} emitted a token outside the vocabulary"
+    assert bool(eng.policy.logits_finite), "whisper: a logit was not finite"
+    ticks = eng.policy.decode_ticks
+    prefills = sum(1 for _, ev, _ in eng.trace if ev == "admit")
+    want = whisper_launches(cfg, ticks, prefills)
+    assert counts == want, f"whisper: launches {counts}, expected {want} " \
+        f"for {ticks} decode steps and {prefills} prefills"
+    m = eng.metrics.snapshot()
+    lens = [len(p) for p, _ in requests]
+    log("whisper", f"Run A, fixed-slot engine (8 slots, max_len "
+        f"{WHISPER_MAX_LEN}): {m['completed']:.0f} requests of "
+        f"{min(lens)}-{max(lens)} prompt tokens and "
+        f"{min(g for _, g in requests)}-{max(g for _, g in requests)} new, "
+        f"{ticks} decode steps (graph replays), {prefills} prefills, "
+        f"{m['tokens_per_s']:.1f} tokens/s, mean TTFT "
+        f"{m['ttft_avg_s'] * 1e3:.1f} ms, wall {m['wall_s']:.2f} s, peak "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB allocated; "
+        f"launches {json.dumps(counts)}")
+    return eng, counts
+
+
+def _whisper_graph(eng) -> None:
+    """The captured decode step against eager (``_fixed_graph_vs_eager``)
+    after every slot's ``ck``/``cv`` is filled with random values in place
+    (Run A's stub frames leave them zero): logits, ``k``/``v`` and
+    ``ck``/``cv`` bit for bit, and ``ck``/``cv`` still the values written,
+    an idle slot's ride included."""
+    gen = torch.Generator(device="cuda").manual_seed(32)
+    cross = {}
+    for p, ent in eng.policy.cache.items():
+        for key in ("ck", "cv"):
+            ent[key].copy_(torch.randn(ent[key].shape, generator=gen,
+                                       device="cuda"))
+            cross[f"{p}.{key}"] = ent[key].clone()
+    _fixed_graph_vs_eager(eng, phase="whisper")
+    _assert_bits("whisper: ck/cv after the decode step", {
+        name: (eng.policy.cache[name.split(".")[0]][name.split(".")[1]], t)
+        for name, t in cross.items()})
+    log("whisper", f"ck/cv filled with random values: graph replay == "
+        f"eager, and the {len(cross)} ck/cv tensors unchanged by the step "
+        "(an idle slot parked on the scratch row among the 8)")
+
+
+def _whisper_batch(cfg, rng, S: int) -> dict:
+    """Two prompts of ``S`` tokens and their frames, standard normal
+    (2, encoder_len, frontend_dim), from numpy ``rng``, on the card."""
+    return {"tokens": torch.from_numpy(rng.integers(
+                0, cfg.vocab_size, (2, S)).astype(np.int32)).cuda(),
+            "audio": torch.from_numpy(rng.standard_normal(
+                (2, cfg.encoder_len, cfg.frontend_dim),
+                dtype=np.float32)).cuda()}
+
+
+def _whisper_random_frames(cfg, params) -> None:
+    """The kernels against their plain versions at full width on frames
+    and prompts from a numpy seed (the engine's stub frames zero every
+    cross output).  In bf16: ``prefill`` of 2 prompts of 383 tokens into
+    a cache of WHISPER_MAX_LEN + 1 rows and one ``decode_step``, with the
+    kernels and with the plain versions; each K4/K5 call of the kernel
+    run held to its plain version on its own inputs (``_held_to_plain``:
+    K5 non-causal 1500 x 1500 and 383 x 1500, causal 383, K4 over 449
+    and 1500 rows); logged, the distance of the kernels' and of the plain
+    versions' logits from the f32 logits (the plain versions on the same
+    weights widened).  That distance is no check: at random weights the
+    scores are nearly one-hot and reach hundreds, a bf16 rounding of q or
+    k moves them by more than the gap between the top keys, and both
+    bf16 runs lie about the largest logit's size from f32 (PERF.md §6).
+    The whole model is held in f32 instead (K5 on
+    its CUDA-core route, the f32 K4): ``prefill`` of S tokens against
+    ``prefill`` of S - 1 and one ``decode_step`` at S - 1 in
+    WHISPER_PD_LENGTHS within WHISPER_PD_LIMIT of the largest logit, the
+    calls of S - 1 = 383 held to plain; a planted fault, every slot's
+    cross K/V handed to the next slot, must exceed that limit."""
+    import dataclasses
+    from repro_torch.models import model as M
+    from repro_torch.tree import tree_map
+    rng = np.random.default_rng(33)
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    p32 = tree_map(lambda t: t.float(), params)
+    opts = M.RunOptions(q_chunk=512)
+    S = WHISPER_PD_LENGTHS[-1]
+    batch = _whisper_batch(cfg, rng, S)
+    tok = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 1))
+                           .astype(np.int32)).cuda()
+    pos = torch.full((2,), S, dtype=torch.int32, device="cuda")
+    calls, errs, out = [], {}, {}
+    for impl, p, c in (("kernel", params, cfg), ("plain", params, cfg),
+                       ("f32", p32, cfg32)):
+        mode = "plain" if impl == "f32" else impl
+        with _recording(calls, lambda: impl == "kernel"):
+            lp, cache = M.prefill(p, c, batch, opts, impl=mode)
+            ld, _ = M.decode_step(p, c, M.grow_cache(
+                cache, WHISPER_MAX_LEN + 1), tok, pos, impl=mode)
+        out[impl] = (lp[:, -1].float(), ld[:, -1].float())
+        del cache
+    _held_to_plain(calls, errs, "whisper bf16")
+    ratios = []
+    for i, what in enumerate(("prefill", "decode step")):
+        lk, lp, lf = (out[impl][i] for impl in ("kernel", "plain", "f32"))
+        assert bool(torch.isfinite(lk).all()), f"whisper: {what} not finite"
+        ek, ep = (lk - lf).abs(), (lp - lf).abs()
+        ratios.append(f"{what}: kernels max|Δ| {ek.max().item():.3e}, plain "
+                      f"{ep.max().item():.3e}, kernels vs plain "
+                      f"{(lk - lp).abs().max().item():.3e}, largest |logit| "
+                      f"{lf.abs().max().item():.3f}")
+    log("whisper", "bf16 on random frames, K4/K5 calls against plain on "
+        "their own inputs, scaled (calls, max|err| scaled within "
+        "BF16_ATOL/RTOL, max|err| raw): " + "; ".join(
+            f"{key} {n}, {e:.3e}, {raw:.3e}"
+            for key, (n, e, raw) in errs.items()))
+    log("whisper", "bf16 logits against the f32 logits (information): "
+        + "; ".join(ratios))
+    errs.clear()
+    res = []
+    for n in WHISPER_PD_LENGTHS:
+        batch = _whisper_batch(cfg, rng, n + 1)
+        toks = batch["tokens"]
+        want, _ = M.prefill(p32, cfg32, batch, opts)
+        with _recording(calls, lambda: n == WHISPER_PD_LENGTHS[-1]):
+            _, cache = M.prefill(p32, cfg32, {**batch,
+                                              "tokens": toks[:, :n]}, opts)
+            cache = M.grow_cache(cache, n + 1)
+            pos = torch.full((2,), n, dtype=torch.int32, device="cuda")
+            got, _ = M.decode_step(p32, cfg32, _clone(cache), toks[:, n:],
+                                   pos)
+        _held_to_plain(calls, errs, "whisper f32")
+        swapped = {p: {k: (t.roll(1, dims=1) if k in ("ck", "cv") else t)
+                       for k, t in ent.items()} for p, ent in cache.items()}
+        bad, _ = M.decode_step(p32, cfg32, swapped, toks[:, n:], pos)
+        scale = want.abs().max().item()
+        err = (got - want).abs().max().item()
+        bad_err = (bad - want).abs().max().item()
+        assert bool(torch.isfinite(got).all()) and \
+            err <= WHISPER_PD_LIMIT * scale, f"whisper: prefill({n + 1}) " \
+            f"against prefill({n}) + decode: max|Δ| {err:.3e} > " \
+            f"{WHISPER_PD_LIMIT} × {scale:.3e}"
+        assert bad_err > WHISPER_PD_LIMIT * scale, f"whisper: the planted " \
+            f"fault (cross K/V of the next slot) passes at S = {n + 1}: " \
+            f"max|Δ| {bad_err:.3e}"
+        same = int((got.argmax(-1) == want.argmax(-1)).sum())
+        res.append(f"S={n + 1} {err:.3e} ({err / scale:.2e} of {scale:.3f}; "
+                   f"top-1 equal {same}/2; fault {bad_err / scale:.2e})")
+    log("whisper", "f32 prefill(S) against prefill(S - 1) + decode_step, "
+        "max|Δlogit|: " + "; ".join(res))
+    log("whisper", "f32 K4/K5 calls of S - 1 = "
+        f"{WHISPER_PD_LENGTHS[-1]} against plain, scaled (calls, max|err| "
+        "scaled within F32_TOL, max|err| raw): " + "; ".join(
+            f"{key} {n}, {e:.3e}, {raw:.3e}"
+            for key, (n, e, raw) in errs.items()))
+
+
+def _whisper_timing(cfg, flush) -> dict:
+    """K5 non-causal and K4 at whisper-base's shapes (bf16, 8 heads over
+    8 of 64, unit-scale random inputs) against plain within
+    BF16_ATOL/RTOL, timed beside their plain versions, their bounds and
+    SDPA with the same (empty) mask: K5 over the encoder's 1500 frames
+    and over the longest prompt (384) against them, K4 over 8 slots of
+    1500 cross rows, every row kept.  Returns the rows of the encoder's
+    K5 and of K4."""
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import ops
+    heads, kvh, d = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    L = cfg.encoder_len
+    gen = torch.Generator(device="cuda").manual_seed(34)
+
+    def draw(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").bfloat16()
+    rows = {}
+    k, v = draw(1, L, kvh, d), draw(1, L, kvh, d)
+    for Sq in (L, max(WHISPER_FIXED_LENGTHS)):
+        q = draw(1, Sq, heads, d)
+
+        def run(impl, q=q):
+            return ops.flash_attention(q, k, v, causal=False, impl=impl)
+        err = check_close(f"whisper flash[{Sq}x{L}, full]", run("kernel"),
+                          run("plain"), BF16_ATOL, BF16_RTOL)
+        ms = cuda_ms(lambda: run("kernel"), flush)
+        plain_ms = cuda_ms(lambda: run("plain"), flush, iters=5)
+        qs, ks, vs = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        lib_ms = cuda_ms(lambda: sdpa(SDPBackend.FLASH_ATTENTION, qs, ks,
+                                      vs), flush)
+        nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
+        flops = 4.0 * d * heads * Sq * L
+        b_ms, b_by = bound(nbytes, flops, BF16_FLOPS)
+        log("whisper", f"flash_attention[full] {Sq}x{L} H={heads} KVH={kvh} "
+            f"d={d}: max|err| {err:.3e} kernel {ms:.4f} ms plain "
+            f"{plain_ms:.4f} ms {SDPA_FLASH} {lib_ms:.4f} ms bound "
+            f"{b_ms:.5f} ms ({b_by}, {nbytes / 1e6:.2f} MB, "
+            f"{flops / 1e9:.2f} GFLOP at the bf16 tensor-core rate)")
+        if Sq == L:
+            rows["flash_attention[full]"] = dict(
+                name="flash_attention", max_abs_err=err, ms=ms,
+                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=lib_ms, library=SDPA_FLASH)
+    B = 8
+    q, k, v = draw(B, 1, heads, d), draw(B, L, kvh, d), draw(B, L, kvh, d)
+    lengths = torch.full((B,), L, dtype=torch.int32, device="cuda")
+
+    def run(impl):
+        return ops.decode_attention(q, k, v, lengths, impl=impl)
+    err = check_close("whisper decode_attention[bf16, cross]", run("kernel"),
+                      run("plain"), BF16_ATOL, BF16_RTOL)
+    _check_tickets("whisper dense decode", da._tickets.values())
+    ms = cuda_ms(lambda: run("kernel"), flush)
+    plain_ms = cuda_ms(lambda: run("plain"), flush, iters=5)
+    qs, ks, vs = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    lib_ms = cuda_ms(lambda: sdpa(SDPBackend.EFFICIENT_ATTENTION, qs, ks, vs),
+                     flush)
+    nbytes = 2 * k.numel() * 2 + 2 * q.numel() * 2 + B * 4
+    b_ms, b_by = bound(nbytes, 4.0 * B * L * heads * d)
+    splits, chunk = da.split_plan(B, kvh, L, _sms())
+    log("whisper", f"decode_attention[bf16] cross, {B} slots of {L} rows "
+        f"H={heads} KVH={kvh} d={d}: max|err| {err:.3e} kernel {ms:.4f} ms "
+        f"plain {plain_ms:.4f} ms {SDPA_EFF} {lib_ms:.4f} ms bound "
+        f"{b_ms:.5f} ms ({b_by}, {nbytes / 1e6:.2f} MB; {splits} splits of "
+        f"{chunk})")
+    rows["decode_attention[bf16,d=64]"] = dict(
+        name="decode_attention", max_abs_err=err, ms=ms, plain_ms=plain_ms,
+        bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms, library=SDPA_EFF)
+    return rows
+
+
+def phase_whisper():
+    """whisper-base at full width on the fixed-slot engine.  Returns the
+    rows of K5 non-causal, K4 at d 64 and K3 and the fused add + norm at
+    D = 512, and Run A's launch counts."""
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.runtime.sampler import SamplingParams
+    t0 = time.perf_counter()
+    cfg, params = _draw_cast(WHISPER, "whisper")
+    log("whisper", f"encoder: {cfg.num_encoder_layers} layers over "
+        f"{cfg.encoder_len} frames of {cfg.frontend_dim} (the frontend "
+        f"stub's embeddings) through frontend_proj; decoder: "
+        f"{cfg.num_layers} layers with cross-attention")
+    requests = _whisper_requests(cfg)
+    sampling = SamplingParams(temperature=0.9, seed=35)
+    eng, counts = _whisper_engine(cfg, params, requests, sampling)
+    _check_tickets("whisper fixed-slot", [eng.policy._tickets,
+                                          *da._tickets.values()])
+    _whisper_graph(eng)
+    _profile_graph_decode_step(eng, "whisper", f"{WHISPER} Run A engine")
+    del eng
+    t1 = time.perf_counter()
+    _whisper_random_frames(cfg, params)
+    flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device="cuda")
+    rows = _whisper_timing(cfg, flush)
+    # K3 and the fused add + norm at d_model 512, every norm of both
+    # stacks: a decode step's 8 rows, the longest prompt, one request's
+    # 1500 frames and two (the random-frame checks' batch), and f32 at
+    # the checks' decode rows and frames
+    D, L = cfg.d_model, cfg.encoder_len
+    rows.update(_norms_vs_plain(
+        "whisper", 36, (D,),
+        ((8, torch.bfloat16), (max(WHISPER_FIXED_LENGTHS), torch.bfloat16),
+         (L, torch.bfloat16), (2 * L, torch.bfloat16), (2, torch.float32),
+         (2 * L, torch.float32)),
+        {("rmsnorm", D), ("add_rmsnorm", D)}, flush))
+    del flush, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    t2 = time.perf_counter()
+    _fixed_only_cli(WHISPER, "whisper", 128)
+    log("whisper", f"phase times: run A {t1 - t0:.1f} s, kernels against "
+        f"plain and timed {t2 - t1:.1f} s, cli {time.perf_counter() - t2:.1f}"
+        " s")
+    return rows, {"whisper": counts}
 
 
 # phase f32: a position is decided when the plain version's top-2 gap
@@ -4324,7 +4680,7 @@ def _f32_engines(cfg, params, prompts) -> dict:
         seq = torch.from_numpy(np.concatenate(
             [prompt, np.asarray(gp[:-1], np.int32)]))[None].cuda()
         h, _ = M.backbone(params, cfg, M._embed_inputs(
-            params, cfg, {"tokens": seq}), opts)
+            params, cfg, {"tokens": seq})[0], opts)
         top = (h[0, len(prompt) - 1:] @ out_w).topk(2, dim=-1).values
         gaps = (top[:, 0] - top[:, 1]).tolist()
         undecided = next((i for i, g in enumerate(gaps) if g <= F32_GAP),
@@ -5073,6 +5429,13 @@ def main() -> int:
     counts.update(ssm_counts)
     gc.collect()
     torch.cuda.empty_cache()
+    whisper_rows, whisper_counts = phase_whisper()
+    results.update(whisper_rows)
+    counts.update(whisper_counts)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("whisper", f"whisper state freed: "
+        f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB allocated")
     phase_f32(prompts)
     gc.collect()
     torch.cuda.empty_cache()
@@ -5107,8 +5470,11 @@ def main() -> int:
     # kernels (which every run drives) from the bf16 paged run, the dense
     # decode and flash kernels from the fixed-slot engine run; the
     # windowed ones from phase gemma's runs; the norms at mamba2-130m's
-    # widths from phase ssm's Run A
-    for key, run in (("paged_decode_attention[bf16]", "bf16"),
+    # widths from phase ssm's Run A; the norms at whisper-base's width,
+    # non-causal flash and the dense decode at d 64 (whose launches count
+    # under the variant's key, self- and cross-attention together) from
+    # phase whisper's Run A
+    for key, run, *count_key in (("paged_decode_attention[bf16]", "bf16"),
                      ("quantized_paged_decode_attention[fp8]", "fp8"),
                      ("quantized_paged_decode_attention[int8]", "int8"),
                      ("rmsnorm[D=2048]", "bf16"),
@@ -5123,10 +5489,15 @@ def main() -> int:
                      ("flash_attention[window]", "gemma_fixed"),
                      ("rmsnorm[D=1536]", "ssm"),
                      ("add_rmsnorm[D=768]", "ssm"),
+                     ("rmsnorm[D=512]", "whisper"),
+                     ("add_rmsnorm[D=512]", "whisper"),
+                     ("flash_attention[full]", "whisper"),
+                     ("decode_attention[bf16,d=64]", "whisper",
+                      "decode_attention[bf16]"),
                      ("fp8_matmul[e4m3]", "hplmxp_fp8")):
         r = results[key]
         route, src, replaces = meta[r["name"]]
-        n = counts[run].get(key, 0)
+        n = counts[run].get(count_key[0] if count_key else key, 0)
         if n <= 0:
             raise AssertionError(f"{key} never launched on the path")
         kernels.append({"name": key, "route": route, "source": src,

@@ -16,6 +16,7 @@ _MODULES = {
     "mamba2-130m": "mamba2_130m",
     "qwen2-moe-a2.7b": "qwen2_moe_a2_7b",
     "qwen3-1.7b": "qwen3_1_7b",
+    "whisper-base": "whisper_base",
 }
 
 ARCH_IDS = tuple(_MODULES)

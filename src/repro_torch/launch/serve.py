@@ -34,6 +34,8 @@ preloaded (see :func:`build_tuning_env`).
       --device cpu --kv-dtype fp8 --requests 6 --gen 10
   PYTHONPATH=src python -m repro_torch.launch.serve --engine paged \\
       --device cpu --arch qwen2-moe-a2.7b --requests 6 --gen 10
+  PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \\
+      --arch whisper-base --batch 2 --gen 5
   PYTHONPATH=src python -m repro_torch.launch.serve --engine paged \\
       --device cpu --profile-ticks --trace-export trace.json
   PYTHONPATH=src python -m repro_torch.launch.serve --fleet --device cpu \\
@@ -140,6 +142,13 @@ def serve(arch: str, *, batch: int = 4, prompt_len: int = 32, gen: int = 16,
     otherwise; stochastic rows go through the host ``Sampler`` with
     ``rid`` = the batch row and ``step`` = the token index.
 
+    An encoder-decoder config (whisper-base) also takes stub frame
+    embeddings ``(batch, encoder_len, frontend_dim)``, standard normal
+    f32 drawn from the same numpy generator after the prompts.  The JAX
+    package's ``serve`` draws its frames with ``jax.random`` in
+    ``make_example_batch``, which this port cannot reproduce, so the two
+    entry points feed different frames at the same seed.
+
     Returns ``{"generated": (batch, gen) int32 numpy array, "prefill_s",
     "decode_s", "tokens_per_s"}``; the times end in a device synchronize.
 
@@ -157,8 +166,12 @@ def serve(arch: str, *, batch: int = 4, prompt_len: int = 32, gen: int = 16,
     params = init_params_for_compute(M.param_specs(cfg), gen_t,
                                      M.compute_dtype(cfg), device=dev)
     rng = np.random.default_rng(seed)
-    tokens = torch.from_numpy(rng.integers(
-        0, cfg.vocab_size, (batch, prompt_len)).astype(np.int32)).to(dev)
+    req = {"tokens": torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (batch, prompt_len)).astype(np.int32)).to(dev)}
+    if cfg.encoder_decoder:
+        req["audio"] = torch.from_numpy(rng.standard_normal(
+            (batch, cfg.encoder_len, cfg.frontend_dim),
+            dtype=np.float32)).to(dev)
     sampler = Sampler()
 
     def pick(last: torch.Tensor, step: int) -> torch.Tensor:
@@ -171,14 +184,8 @@ def serve(arch: str, *, batch: int = 4, prompt_len: int = 32, gen: int = 16,
         return torch.tensor(toks, dtype=torch.int32, device=dev)[:, None]
 
     t0 = time.perf_counter()
-    logits, cache = M.prefill(params, cfg, {"tokens": tokens}, opts)
-    # grow the K/V cache along the sequence axis to hold the generation
-    # (an SSM layer's conv and ssm states have no sequence axis)
-    cache = {pos: {k: (torch.cat([c, c.new_zeros(c.shape[:2] + (gen,)
-                                                 + c.shape[3:])], dim=2)
-                       if k in ("k", "v") else c)
-                   for k, c in ent.items()}
-             for pos, ent in cache.items()}
+    logits, cache = M.prefill(params, cfg, req, opts)
+    cache = M.grow_cache(cache, prompt_len + gen)
     _sync(dev)
     t_prefill = time.perf_counter() - t0
 

@@ -7,19 +7,21 @@ with RoPE, optional qk-norm and sliding window, over a paged KV pool
   (``attn_local``) layers with the window, whose mask the JAX model
   computes with jnp on every backend; chunked prefill (C > 1) gathers the
   pages and attends densely, as the JAX model does.
-- ``attention`` (full-sequence prefill): on the card the causal and
-  windowed self-attention run ``kernels.ops.flash_attention`` (K5); on
-  the CPU, or with ``impl="plain"``, the JAX model's query-chunked dense
-  path runs unchanged, ``q_chunk`` included.
+- ``attention`` (full-sequence prefill): on the card the causal,
+  windowed and non-causal self-attention (an encoder's) and the
+  cross-attention (queries against ``x_kv``, the encoder's output) run
+  ``kernels.ops.flash_attention`` (K5); on the CPU, or with
+  ``impl="plain"``, the JAX model's query-chunked dense path runs
+  unchanged, ``q_chunk`` included.
 - ``decode_attention`` (fixed-slot decode): ``kernels.ops.decode_attention``
   (K4) with ``lengths = pos + 1``, the JAX mask ``kv_pos <= pos``, and on
-  ``attn_local`` layers the window ``kv_pos > pos - W``.
+  ``attn_local`` layers the window ``kv_pos > pos - W``; with ``cross``
+  against the cached encoder K/V, every row of it.
 - ``ring_decode_attention``: sliding-window decode against a ring buffer
   of W rows (``RunOptions.ring_local_cache``), slot = position mod W; K4
   over the filled slots on the card, the JAX function's mask elsewhere.
 
 Where the JAX functions return new caches, the port writes K/V in place.
-Cross-attention is a later slice.
 """
 from __future__ import annotations
 
@@ -32,7 +34,9 @@ from repro_torch.models.modules import ParamSpec, rope
 NEG_INF = -1e30
 
 
-def attn_specs(cfg) -> dict:
+def attn_specs(cfg, *, cross: bool = False) -> dict:
+    """Specs of one attention block; a cross-attention block (``cross``)
+    never has the q- and k-norms."""
     d, h, kvh, hd = (cfg.d_model, cfg.padded_heads, cfg.padded_kv_heads,
                      cfg.resolved_head_dim)
     specs = {
@@ -41,7 +45,7 @@ def attn_specs(cfg) -> dict:
         "wv": ParamSpec((d, kvh, hd), ("embed", "kv_heads", "head_dim")),
         "wo": ParamSpec((h, hd, d), ("heads", "head_dim", "embed")),
     }
-    if cfg.qk_norm:
+    if cfg.qk_norm and not cross:
         specs["q_norm"] = ParamSpec((hd,), ("head_dim",), "zeros")
         specs["k_norm"] = ParamSpec((hd,), ("head_dim",), "zeros")
     return specs
@@ -109,53 +113,77 @@ def _out_proj(p, cfg, x, out):
     return out.reshape(*x.shape[:2], -1) @ wo.reshape(-1, wo.shape[-1])
 
 
-def attention(p, cfg, x, *, kind: str = "attn", q_chunk: int = 1024,
-              impl: str = "auto"):
-    """Full-sequence (prefill) causal self-attention over positions
+def attention(p, cfg, x, *, kind: str = "attn", causal: bool = True,
+              x_kv=None, q_chunk: int = 1024, impl: str = "auto"):
+    """Full-sequence (prefill) attention of queries at positions
     ``0..S-1``.
 
     x: (B, S, D).  kind: ``"attn"`` (global) or ``"attn_local"``
-    (sliding window ``cfg.sliding_window``).  ``impl`` picks the flash
-    kernel (``kernels.ops``; ``auto`` = the kernel on CUDA) or the
-    query-chunked dense path of the JAX model.
+    (sliding window ``cfg.sliding_window``); ``causal=False`` keeps every
+    key (an encoder's self-attention, RoPE at 0..S-1 on q and k).
+    ``x_kv`` (B, L, D) makes it cross-attention: K/V are projected from
+    ``x_kv``, neither q nor k is rotated and every query keeps every key.
+    ``impl`` picks the flash kernel (``kernels.ops``; ``auto`` = the
+    kernel on CUDA) or the query-chunked dense path of the JAX model.
 
-    Returns ``(out (B, S, D), (k, v))``, k/v ``(B, S, KVH, hd)`` to seed
-    the cache."""
+    Returns ``(out (B, S, D), (k, v))``, k/v ``(B, S or L, KVH, hd)`` to
+    seed the cache."""
     B, S, _ = x.shape
+    cross = x_kv is not None
+    xkv = x_kv if cross else x
     positions = torch.arange(S, dtype=torch.int32,
                              device=x.device).expand(B, S)
-    q, k, v = _project_qkv(p, cfg, x, x, positions, positions, impl=impl)
+    kv_positions = torch.arange(xkv.shape[1], dtype=torch.int32,
+                                device=x.device).expand(B, -1)
+    q, k, v = _project_qkv(p, cfg, x, xkv, positions, kv_positions,
+                           use_rope=not cross, impl=impl)
+    causal = causal and not cross
     hd = cfg.resolved_head_dim
     window = _window(cfg, kind)
     if ops.use_kernel(impl, q):
-        out = ops.flash_attention(q, k, v, causal=True, window=window,
+        out = ops.flash_attention(q, k, v, causal=causal, window=window,
                                   impl=impl)
     else:
-        def keep(qp, kp):
-            mask = kp[:, None, :] <= qp[:, :, None]
+        def keep(qp):
+            kp = kv_positions[:, None, :]
+            mask = torch.ones((B, qp.shape[1], kp.shape[2]), dtype=torch.bool,
+                              device=x.device)
+            if causal:
+                mask &= kp <= qp[:, :, None]
             if window is not None:
-                mask &= kp[:, None, :] > qp[:, :, None] - window
+                mask &= kp > qp[:, :, None] - window
             return mask
 
         n_chunks = S // q_chunk if (S % q_chunk == 0 and S > q_chunk) else 1
         out = torch.cat([
-            _gqa_attend(qc, k, v, keep(pc, positions), hd ** -0.5)
+            _gqa_attend(qc, k, v, keep(pc), hd ** -0.5)
             for qc, pc in zip(q.chunk(n_chunks, dim=1),
                               positions.chunk(n_chunks, dim=1))], dim=1)
     return _out_proj(p, cfg, x, out), (k, v)
 
 
 def decode_attention(p, cfg, x, cache_k, cache_v, pos, *, kind: str = "attn",
-                     impl: str = "auto"):
+                     cross: bool = False, lengths=None, impl: str = "auto"):
     """Single-token decode against a dense cache.
 
     x: (B, 1, D); cache_k/cache_v: (B, T, KVH, hd) one layer's cache;
     pos: (B,) int32 write position of each seat.  The new K/V are written
     at ``pos`` **in place** (the JAX function returns new caches), then
     every query attends to the keys at positions ``<= pos`` (and inside
-    the window on ``attn_local`` layers).  Returns ``(out (B, 1, D),
-    cache_k, cache_v)``."""
+    the window on ``attn_local`` layers).  With ``cross`` the cache holds
+    the encoder's K/V (``ck``/``cv``), read and never written: q is
+    ``x @ wq``, neither normed nor rotated, and attends to all T rows
+    (``pos`` unread); ``lengths`` (B,) int32 of T each, built here when
+    None, lets a caller build it once for all its layers.  Returns
+    ``(out (B, 1, D), cache_k, cache_v)``."""
     B = x.shape[0]
+    if cross:
+        q = _proj(x, p["wq"])
+        if lengths is None:
+            lengths = torch.full((B,), cache_k.shape[1], dtype=torch.int32,
+                                 device=x.device)
+        out = ops.decode_attention(q, cache_k, cache_v, lengths, impl=impl)
+        return _out_proj(p, cfg, x, out), cache_k, cache_v
     q, k_new, v_new = _project_qkv(p, cfg, x, x, pos[:, None], pos[:, None],
                                    impl=impl)
     seat = torch.arange(B, device=x.device)

@@ -4,8 +4,10 @@ compute, or draw them already cast.
 ``params_from_jax`` takes the JAX params pytree with its leaves already
 turned into numpy arrays (``jax.tree.map(np.asarray, params)`` on the JAX
 side) and returns the same nested dict of torch tensors: ``embed``,
-``blocks/pos{i}/...`` with the leading stacked ``(G,)`` axis,
-``final_norm``, and ``lm_head`` when untied.  It converts any such tree
+``blocks/pos{i}/...`` with the leading stacked ``(G,)`` axis (a
+decoder layer's ``cross`` and ``ln_cross`` among them), ``final_norm``,
+``lm_head`` when untied, and an encoder-decoder model's ``encoder/...``
+and ``frontend_proj``.  It converts any such tree
 (a paged KV pool too).
 """
 from __future__ import annotations
@@ -17,12 +19,14 @@ from repro_torch.models.modules import init_params
 
 #: Matmul and embedding weights (the MoE router and shared-expert gate
 #: among them, the SSM block's in/out projections), and the SSM block's
-#: conv weight and bias and skip ``D``, which the reference casts to the
-#: compute dtype at each use; everything else stays f32 (the norms, and
-#: the SSM's ``A_log`` and ``dt_bias``, which it reads in f32).
+#: conv weight and bias and skip ``D``, and the audio frontend's
+#: ``frontend_proj``, which the reference casts to the compute dtype at
+#: each use; everything else stays f32 (the norms, and the SSM's
+#: ``A_log`` and ``dt_bias``, which it reads in f32).
 COMPUTE_CAST = frozenset(("wq", "wk", "wv", "wo", "wg", "wu", "wd",
                           "router", "gate", "embed", "lm_head",
-                          "in_proj", "out_proj", "conv_w", "conv_b", "D"))
+                          "in_proj", "out_proj", "conv_w", "conv_b", "D",
+                          "frontend_proj"))
 
 
 def _tensor(a: np.ndarray, device) -> torch.Tensor:

@@ -6,7 +6,9 @@ decode tick.
 
 Parameters keep the JAX pytree layout — ``embed``, ``blocks/pos{i}/...``
 with a leading stacked ``(G,)`` axis over ``num_layers = G × period``,
-``final_norm``, and ``lm_head`` when untied — so weights convert 1:1.
+``final_norm``, ``lm_head`` when untied, and an encoder-decoder model's
+``encoder/{blocks, final_norm}`` and ``frontend_proj`` — so weights
+convert 1:1.
 Where JAX scans over the stacked axis, the port runs a Python loop over
 it.  Where JAX returns a new KV pool, the port writes the pool in place.
 """
@@ -83,21 +85,31 @@ def compute_dtype(cfg: ModelConfig) -> torch.dtype:
 # Parameter specs
 # ---------------------------------------------------------------------------
 
-def _block_specs(cfg: ModelConfig) -> Dict[str, Any]:
+def _block_specs(cfg: ModelConfig, *,
+                 decoder_side: bool = True) -> Dict[str, Any]:
     """Specs for ONE period of layers: {'pos0': {...}, 'pos1': {...}},
-    each a mixer (an SSM block on an ``ssm`` layer, else attention) and
-    a dense (``mlp``) or MoE (``moe``) MLP behind ``ln2``, or no MLP and
-    no ``ln2`` where ``mlp_kinds()`` says ``"none"`` (a Mamba-2 layer)."""
-    if cfg.encoder_decoder or cfg.frontend is not None:
+    each a mixer (an SSM block on an ``ssm`` layer, else attention), in
+    an encoder-decoder model's decoder (``decoder_side``) a
+    cross-attention block behind ``ln_cross``, and a dense (``mlp``) or
+    MoE (``moe``) MLP behind ``ln2``, or no MLP and no ``ln2`` where
+    ``mlp_kinds()`` says ``"none"`` (a Mamba-2 layer).
+
+    Raises:
+      NotImplementedError: a vision frontend (phi-3-vision-4.2b), which
+          ROADMAP.md queue 1 item 10 ports."""
+    if cfg.frontend == "vision":
         raise NotImplementedError(
-            f"{cfg.name}: encoder-decoder and frontend archs are not "
-            "ported yet (later slices, see ROADMAP.md)")
+            f"{cfg.name}: the vision frontend (and K4/K5 at its head dim) "
+            "is not ported yet: ROADMAP.md queue 1 item 10")
     out: Dict[str, Any] = {}
     for i, (kind, mlpk) in enumerate(zip(cfg.layer_kinds(),
                                          cfg.mlp_kinds())):
         sub = {"ln1": ParamSpec((cfg.d_model,), ("embed",), "zeros"),
                "mixer": (ssm_mod.ssm_specs(cfg) if kind == "ssm"
                          else attn_mod.attn_specs(cfg))}
+        if cfg.encoder_decoder and decoder_side:
+            sub["ln_cross"] = ParamSpec((cfg.d_model,), ("embed",), "zeros")
+            sub["cross"] = attn_mod.attn_specs(cfg, cross=True)
         if mlpk != "none":
             sub["ln2"] = ParamSpec((cfg.d_model,), ("embed",), "zeros")
         if mlpk == "moe":
@@ -106,6 +118,15 @@ def _block_specs(cfg: ModelConfig) -> Dict[str, Any]:
             sub["mlp"] = mlp_specs(cfg.d_model, cfg.d_ff)
         out[f"pos{i}"] = sub
     return out
+
+
+def _encoder_cfg(cfg: ModelConfig) -> ModelConfig:
+    """The config of an encoder-decoder model's encoder stack, as the
+    reference derives it: ``num_encoder_layers`` dense attention layers,
+    period 1, no cross-attention."""
+    return dataclasses.replace(
+        cfg, encoder_decoder=False, moe=None, attn_period=None,
+        local_global_period=None, num_layers=cfg.num_encoder_layers)
 
 
 def _stack(specs, g: int):
@@ -125,6 +146,16 @@ def param_specs(cfg: ModelConfig) -> Dict[str, Any]:
     if not cfg.tie_embeddings:
         specs["lm_head"] = ParamSpec((cfg.d_model, cfg.vocab_size),
                                      ("embed", "vocab"))
+    if cfg.encoder_decoder:
+        specs["encoder"] = {
+            "blocks": _stack(_block_specs(_encoder_cfg(cfg),
+                                          decoder_side=False),
+                             cfg.num_encoder_layers),
+            "final_norm": ParamSpec((cfg.d_model,), ("embed",), "zeros"),
+        }
+    if cfg.frontend is not None:
+        specs["frontend_proj"] = ParamSpec((cfg.frontend_dim, cfg.d_model),
+                                           (None, "embed"))
     return specs
 
 
@@ -168,21 +199,26 @@ def _mlp(p, cfg: ModelConfig, h, moe_impl: str):
     return swiglu(h, mlp["wg"], mlp["wu"], mlp["wd"], h.dtype)
 
 
-def _residual_stream(params, cfg: ModelConfig, x, mixer, *, impl: str,
-                     remat: bool = False, moe_impl: str = "capacity"):
-    """Run the residual stream ``x`` (B, S, D) through every layer and the
-    final norm; ``mixer(g, i, kind, p, h)`` returns the mixer output
-    (attention or SSM block) of layer ``(g, i)`` for its normed input
-    ``h``.
+def _residual_stream(params, cfg: ModelConfig, x, mixer, *, cross=None,
+                     impl: str, remat: bool = False,
+                     moe_impl: str = "capacity"):
+    """Run the residual stream ``x`` (B, S, D) through every layer of
+    ``params["blocks"]`` and ``params["final_norm"]``;
+    ``mixer(g, i, kind, p, h)`` returns the mixer output (attention or
+    SSM block) of layer ``(g, i)`` for its normed input ``h``, and in a
+    layer with cross-attention (an encoder-decoder model's decoder)
+    ``cross(g, i, p, h)`` the cross-attention output for its normed input.
 
     The ops are the JAX model's (``h = ln1(x); x = x + mix(h); h =
-    ln2(x); x = x + mlp(h)``, then ``final_norm``; ``mlp`` the MoE block,
-    by ``moe_impl``, in a layer that has one), with each residual add
-    fused into the norm that reads its result (``ops.add_rmsnorm``): the
-    mixer's add into ln2, the MLP add into the next layer's ln1 or,
-    after the last layer, into ``final_norm``; in a layer without an MLP
-    (no ``ln2``) the mixer's add into that next norm.  Only layer 0's
-    ln1 is a lone norm.  Returns the final norm's output.
+    ln_cross(x); x = x + cross(h); h = ln2(x); x = x + mlp(h)``, then
+    ``final_norm``; ``mlp`` the MoE block, by ``moe_impl``, in a layer
+    that has one), with each residual add fused into the norm that reads
+    its result (``ops.add_rmsnorm``): the mixer's add into ln_cross where
+    the layer has cross-attention, else into ln2, the cross add into
+    ln2, the MLP add into the next layer's ln1 or, after the last layer,
+    into ``final_norm``; in a layer without an MLP (no ``ln2``) the
+    mixer's add into that next norm.  Only layer 0's ln1 is a lone norm.
+    Returns the final norm's output.
 
     ``remat`` runs each layer — ``(x, h)`` in, ``(x, h)`` out — under
     ``torch.utils.checkpoint``, so backward recomputes it from its two
@@ -196,6 +232,10 @@ def _residual_stream(params, cfg: ModelConfig, x, mixer, *, impl: str,
 
         def layer(x, h, g=g, i=i, kind=kind, p=p, w_next=w_next):
             mix = mixer(g, i, kind, p, h)
+            if "cross" in p:
+                x, h = ops.add_rmsnorm(x, mix, p["ln_cross"], eps=eps,
+                                       impl=impl)
+                mix = cross(g, i, p, h)
             if "ln2" not in p:
                 return ops.add_rmsnorm(x, mix, w_next, eps=eps, impl=impl)
             x, h = ops.add_rmsnorm(x, mix, p["ln2"], eps=eps, impl=impl)
@@ -207,18 +247,21 @@ def _residual_stream(params, cfg: ModelConfig, x, mixer, *, impl: str,
 
 
 def backbone(params, cfg: ModelConfig, x, opts: RunOptions, *,
-             want_cache: bool = False, impl: str = "auto",
+             enc_out=None, want_cache: bool = False, impl: str = "auto",
              train: bool = False):
     """Forward through the layer stack at positions ``0..S-1`` and the
     final norm (``_residual_stream``; MoE blocks by ``opts.moe_impl``, no
-    aux loss).  ``train`` is the loss's forward: layers remat'd when
-    ``opts.remat``.  Returns ``(h, caches)``: ``h`` the final norm's
-    output (B, S, D), ``caches`` ``{posN: {k, v: (G, B, S, KVH, hd)}}``
-    (an SSM layer's ``{conv: (G, B, W - 1, C), ssm: (G, B, H, N, P)}``,
-    the conv tail in the compute dtype and the state in f32) when
-    ``want_cache``, else None.  With ``opts.ring_local_cache`` a
-    sliding-window layer of a prompt longer than its window W keeps its
-    last W rows at slot = position mod W (``_ring_rows``).
+    aux loss), an encoder-decoder model's decoder layers attending to
+    ``enc_out`` (B, L, D), the encoder's output.  ``train`` is the loss's
+    forward: layers remat'd when ``opts.remat``.  Returns ``(h,
+    caches)``: ``h`` the final norm's output (B, S, D), ``caches``
+    ``{posN: {k, v: (G, B, S, KVH, hd)}}`` (an SSM layer's ``{conv: (G,
+    B, W - 1, C), ssm: (G, B, H, N, P)}``, the conv tail in the compute
+    dtype and the state in f32; an encoder-decoder model's layers add the
+    cross K/V ``ck``/``cv`` (G, B, L, KVH, hd)) when ``want_cache``, else
+    None.  With ``opts.ring_local_cache`` a sliding-window layer of a
+    prompt longer than its window W keeps its last W rows at slot =
+    position mod W (``_ring_rows``).
 
     Raises:
       NotImplementedError: ``train`` with ``remat_policy="dots"``."""
@@ -247,8 +290,16 @@ def backbone(params, cfg: ModelConfig, x, opts: RunOptions, *,
                     _ring_rows(v, cfg.sliding_window)
             per_layer[f"pos{i}"].append({"k": k, "v": v})
         return mix
-    h = _residual_stream(params, cfg, x, mixer, impl=impl, remat=remat,
-                         moe_impl=opts.moe_impl)
+
+    def cross(g, i, p, h):
+        mix, (ck, cv) = attn_mod.attention(p["cross"], cfg, h, x_kv=enc_out,
+                                           causal=False,
+                                           q_chunk=opts.q_chunk, impl=impl)
+        if want_cache:
+            per_layer[f"pos{i}"][-1].update(ck=ck, cv=cv)
+        return mix
+    h = _residual_stream(params, cfg, x, mixer, cross=cross, impl=impl,
+                         remat=remat, moe_impl=opts.moe_impl)
     if not want_cache:
         return h, None
     return h, {pos: {key: torch.stack([c[key] for c in cs])
@@ -275,10 +326,25 @@ def _ring_rows(k, window: int):
     return torch.roll(k[:, -window:], shifts=S % window, dims=1)
 
 
-def _embed_inputs(params, cfg: ModelConfig, batch):
+def _embed_inputs(params, cfg: ModelConfig, batch, *, impl: str = "auto"):
     """Token embedding of ``batch["tokens"]`` (B, S): x (B, S, D) in the
-    compute dtype (the port's prompts are tokens only)."""
-    return params["embed"][batch["tokens"].long()].to(compute_dtype(cfg))
+    compute dtype; and, in an encoder-decoder model, the encoder's output
+    for the stub frame embeddings ``batch["audio"]`` (B, L, frontend_dim):
+    the frames through ``frontend_proj`` in the compute dtype, the encoder
+    stack (non-causal self-attention at positions 0..L-1, the dense MLP)
+    and its final norm.  Returns ``(x, enc_out)``, ``enc_out`` (B, L, D)
+    or None."""
+    dt = compute_dtype(cfg)
+    x = params["embed"][batch["tokens"].long()].to(dt)
+    if not cfg.encoder_decoder:
+        return x, None
+    enc, enc_cfg = params["encoder"], _encoder_cfg(cfg)
+    e = batch["audio"].to(dt) @ params["frontend_proj"].to(dt)
+
+    def mixer(g, i, kind, p, h):
+        return attn_mod.attention(p["mixer"], enc_cfg, h, causal=False,
+                                  impl=impl)[0]
+    return x, _residual_stream(enc, enc_cfg, e, mixer, impl=impl)
 
 
 def _maybe_bf16(params, opts: RunOptions):
@@ -314,7 +380,8 @@ def lm_loss(params, cfg: ModelConfig, batch,
           dispatch, which the MoE training slice (ROADMAP.md queue 1
           item 8) ports; a config with SSM layers, whose backward
           through the chunked SSD the SSM training slice (item 9)
-          ports."""
+          ports; an encoder-decoder config, whose loss runs the encoder
+          and the cross-attention, which item 11 ports."""
     if cfg.moe is not None:
         raise NotImplementedError(
             f"{cfg.name}: training an MoE model (the aux load-balancing "
@@ -325,8 +392,13 @@ def lm_loss(params, cfg: ModelConfig, batch,
             f"{cfg.name}: training a model with SSM layers (backward "
             "through the chunked SSD scan) is not ported yet: ROADMAP.md "
             "queue 1 item 9")
+    if cfg.encoder_decoder:
+        raise NotImplementedError(
+            f"{cfg.name}: training an encoder-decoder model (the encoder "
+            "and the cross-attention under backward) is not ported yet: "
+            "ROADMAP.md queue 1 item 11")
     params = _maybe_bf16(params, opts)
-    x = _embed_inputs(params, cfg, batch)
+    x, _ = _embed_inputs(params, cfg, batch)
     h, _ = backbone(params, cfg, x, opts, impl="plain", train=True)
     total, count = softmax_xent_chunked(
         h, _output_weight(params, cfg).to(h.dtype), batch["labels"],
@@ -338,14 +410,17 @@ def lm_loss(params, cfg: ModelConfig, batch,
 
 def prefill(params, cfg: ModelConfig, batch, opts: RunOptions = RunOptions(),
             *, impl: str = "auto"):
-    """Run the prompts ``batch["tokens"]`` (B, S) through the model.
-    Returns ``(last_logits (B, 1, V) f32, cache)``, the cache
-    ``{posN: {k, v: (G, B, S, KVH, hd)}}`` in the compute dtype (a
-    ring-buffer layer's ``min(S, W)`` rows with ``opts.ring_local_cache``;
-    an SSM layer's ``conv`` tail and f32 ``ssm`` state, see
+    """Run the prompts ``batch["tokens"]`` (B, S) through the model (an
+    encoder-decoder model's decoder attending to the encoder's output for
+    ``batch["audio"]``, see ``_embed_inputs``).  Returns ``(last_logits
+    (B, 1, V) f32, cache)``, the cache ``{posN: {k, v: (G, B, S, KVH,
+    hd)}}`` in the compute dtype (a ring-buffer layer's ``min(S, W)``
+    rows with ``opts.ring_local_cache``; an SSM layer's ``conv`` tail and
+    f32 ``ssm`` state; an encoder-decoder model's ``ck``/``cv`` too, see
     ``backbone``)."""
-    x = _embed_inputs(params, cfg, batch)
-    h, caches = backbone(params, cfg, x, opts, want_cache=True, impl=impl)
+    x, enc_out = _embed_inputs(params, cfg, batch, impl=impl)
+    h, caches = backbone(params, cfg, x, opts, enc_out=enc_out,
+                         want_cache=True, impl=impl)
     logits = h[:, -1:] @ _output_weight(params, cfg).to(h.dtype)
     return logits.float(), caches
 
@@ -356,20 +431,27 @@ def cache_entry_shapes(cfg: ModelConfig, pos_idx: int, batch: int, seq: int,
     (attention layers: ``k``/``v`` of (batch, seq, KVH, hd); a
     ring-buffer layer, ``opts.ring_local_cache``, ``min(seq, W)`` rows;
     an SSM layer: ``conv`` (batch, W - 1, conv_dim) and ``ssm`` (batch,
-    H, N, P), whatever ``seq``)."""
+    H, N, P), whatever ``seq``; an encoder-decoder model's layers add
+    ``ck``/``cv`` (batch, encoder_len, KVH, hd), whatever ``seq``)."""
     kind = cfg.layer_kinds()[pos_idx]
+    kvh, hd = cfg.padded_kv_heads, cfg.resolved_head_dim
     if kind == "ssm":
         _, nheads, conv_dim = ssm_mod.ssm_dims(cfg)
         s = cfg.ssm
-        return {"conv": ((batch, s.conv_width - 1, conv_dim),
-                         ("batch", None, "ssm_inner")),
-                "ssm": ((batch, nheads, s.d_state, s.head_dim),
-                        ("batch", "ssm_heads", None, None))}
-    kvh, hd = cfg.padded_kv_heads, cfg.resolved_head_dim
-    t = min(seq, cfg.sliding_window) if _ring(cfg, kind, opts) else seq
-    axes = ("batch", "seq_shard", "kv_heads", None)
-    return {"k": ((batch, t, kvh, hd), axes),
-            "v": ((batch, t, kvh, hd), axes)}
+        ent = {"conv": ((batch, s.conv_width - 1, conv_dim),
+                        ("batch", None, "ssm_inner")),
+               "ssm": ((batch, nheads, s.d_state, s.head_dim),
+                       ("batch", "ssm_heads", None, None))}
+    else:
+        t = min(seq, cfg.sliding_window) if _ring(cfg, kind, opts) else seq
+        axes = ("batch", "seq_shard", "kv_heads", None)
+        ent = {"k": ((batch, t, kvh, hd), axes),
+               "v": ((batch, t, kvh, hd), axes)}
+    if cfg.encoder_decoder:
+        axes = ("batch", None, "kv_heads", None)
+        ent["ck"] = ((batch, cfg.encoder_len, kvh, hd), axes)
+        ent["cv"] = ((batch, cfg.encoder_len, kvh, hd), axes)
+    return ent
 
 
 def init_cache(cfg: ModelConfig, batch: int, seq: int,
@@ -387,6 +469,20 @@ def init_cache(cfg: ModelConfig, batch: int, seq: int,
         for i in range(cfg.scan_period())}
 
 
+def grow_cache(cache, rows: int):
+    """A prefill's cache with each ``k``/``v`` leaf (G, B, S, KVH, hd)
+    zero-padded along the sequence to ``rows``, to hold the generation;
+    every other leaf (an SSM layer's ``conv``/``ssm`` states, an
+    encoder-decoder model's ``ck``/``cv``) has no sequence axis and is
+    kept as it is."""
+    return {pos: {key: (torch.cat([c, c.new_zeros(c.shape[:2]
+                                                  + (rows - c.shape[2],)
+                                                  + c.shape[3:])], dim=2)
+                        if key in ("k", "v") else c)
+                  for key, c in ent.items()}
+            for pos, ent in cache.items()}
+
+
 def decode_step(params, cfg: ModelConfig, cache, tokens, pos,
                 opts: RunOptions = RunOptions(), *, impl: str = "auto"):
     """One token for every slot.  tokens: (B, 1) int32; pos: (B,) int32
@@ -395,7 +491,9 @@ def decode_step(params, cfg: ModelConfig, cache, tokens, pos,
     exactly W rows under ``opts.ring_local_cache`` decodes against it as
     a ring (``attention.ring_decode_attention``), as the reference
     chooses.  An SSM layer runs one step of its recurrence from the
-    slot's ``conv`` and ``ssm`` states (``pos`` unread).
+    slot's ``conv`` and ``ssm`` states (``pos`` unread).  An
+    encoder-decoder model's layers attend to the slot's cached encoder
+    K/V (``ck``/``cv``), which no step writes.
 
     Writes the new K/V, and the new SSM states, into ``cache`` in place
     (``copy_``: a captured step replays on fixed addresses) and returns
@@ -417,7 +515,18 @@ def decode_step(params, cfg: ModelConfig, cache, tokens, pos,
                 p["mixer"], cfg, h, c["k"], c["v"], pos, impl=impl)[0]
         return attn_mod.decode_attention(p["mixer"], cfg, h, c["k"], c["v"],
                                          pos, kind=kind, impl=impl)[0]
-    h = _residual_stream(params, cfg, x, mixer, impl=impl)
+
+    # every slot attends to all encoder_len rows of its ck/cv: one
+    # lengths tensor for every layer
+    enc_len = (torch.full_like(pos, cfg.encoder_len)
+               if cfg.encoder_decoder else None)
+
+    def cross(g, i, p, h):
+        c = _layer(cache[f"pos{i}"], g)
+        return attn_mod.decode_attention(p["cross"], cfg, h, c["ck"],
+                                         c["cv"], pos, cross=True,
+                                         lengths=enc_len, impl=impl)[0]
+    h = _residual_stream(params, cfg, x, mixer, cross=cross, impl=impl)
     logits = h @ _output_weight(params, cfg).to(h.dtype)
     return logits.float(), cache
 

@@ -790,9 +790,11 @@ def _place(full, row, key: str, slot: int, P: int) -> None:
     """Write leaf ``key`` of one request's prefill cache ``row`` into slot
     ``slot`` of the fixed-slot cache ``full`` (G, slots, ...), in place,
     as the JAX policy's ``place()`` does: K/V rows 0..P-1, the rest of
-    the row, the scratch position included, zeroed; an SSM layer's conv
-    tail and state whole, which also resets what an idle slot's ride
-    through the batched decode left there."""
+    the row, the scratch position included, zeroed; every other leaf
+    whole: an SSM layer's conv tail and state, which also resets what an
+    idle slot's ride through the batched decode left there, and an
+    encoder-decoder model's cross K/V (``ck``/``cv``, ``encoder_len``
+    rows, no scratch position)."""
     if key in ("k", "v"):
         full[:, slot, :P] = row
         full[:, slot, P:] = 0
@@ -816,7 +818,11 @@ class FixedSlotPolicy:
     logits are thrown away.  An SSM layer's slot holds a fixed-size state
     instead (the conv tail and the f32 SSM state, whatever ``max_len``),
     which an idle slot's ride advances on token 0: admission, and the
-    replay after a preemption, write the slot's whole state anew.
+    replay after a preemption, write the slot's whole state anew.  An
+    encoder-decoder model's slot also holds the encoder's K/V of its
+    request (``ck``/``cv``, ``encoder_len`` rows each), which prefill
+    writes whole and decode only reads; the prefill's frames are the
+    reference's stub, zeros of ``(1, encoder_len, frontend_dim)``.
 
     Weights move to ``device`` and the matmul weights are cast once to the
     compute dtype; the cache lives there and is written in place.  The
@@ -936,10 +942,14 @@ class FixedSlotPolicy:
         slot = req.slot
         src = req.prefill_src
         P = len(src)
-        tokens = torch.from_numpy(np.asarray(src, np.int32)[None]).to(
-            self.device)
-        logits, row_cache = M.prefill(self.params, self.cfg,
-                                      {"tokens": tokens}, self.opts)
+        batch = {"tokens": torch.from_numpy(
+            np.asarray(src, np.int32)[None]).to(self.device)}
+        if self.cfg.frontend == "audio":
+            batch["audio"] = torch.zeros(
+                (1, self.cfg.encoder_len, self.cfg.frontend_dim),
+                dtype=torch.float32, device=self.device)
+        logits, row_cache = M.prefill(self.params, self.cfg, batch,
+                                      self.opts)
         for pos, ent in self.cache.items():
             for key, full in ent.items():
                 _place(full, row_cache[pos][key][:, 0], key, slot, P)

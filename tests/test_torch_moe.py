@@ -314,11 +314,17 @@ def test_lm_loss_refuses_moe():
 
 
 def test_encoder_decoder_and_frontend_archs_stay_refused():
+    """The vision frontend stays refused; the encoder-decoder family is
+    ported (``tests/test_torch_whisper.py``), so its config now builds
+    the encoder stack and each decoder layer's cross-attention."""
     base = dict(num_layers=2, d_model=64, num_heads=4, num_kv_heads=4,
                 d_ff=128, vocab_size=256, head_dim=16)
-    for cfg in (TConfig(name="vlm", family="vlm", frontend="vision",
-                        frontend_len=8, frontend_dim=64, **base),
-                TConfig(name="encdec", family="audio", encoder_decoder=True,
-                        num_encoder_layers=2, encoder_len=32, **base)):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            TM.param_specs(cfg)
+    vlm = TConfig(name="vlm", family="vlm", frontend="vision",
+                  frontend_len=8, frontend_dim=64, **base)
+    with pytest.raises(NotImplementedError, match="not ported"):
+        TM.param_specs(vlm)
+    specs = TM.param_specs(TConfig(name="encdec", family="audio",
+                                   encoder_decoder=True, num_encoder_layers=2,
+                                   encoder_len=32, **base))
+    assert "cross" in specs["blocks"]["pos0"]
+    assert "cross" not in specs["encoder"]["blocks"]["pos0"]
