@@ -19,7 +19,10 @@ Phases, each printed as it runs:
    pools, qwen2-moe-a2.7b's group of 1 over its bf16, fp8 and f32 pools
    and its bf16 cache, gemma3-12b's group of 2 at head dim 256 over its
    bf16 and fp8 pools and its bf16 and f32 caches, whisper-base's group
-   of 1 at head dim 64 over its bf16 and f32 caches);
+   of 1 at head dim 64 over its bf16 and f32 caches, phi-3-vision-4.2b's
+   group of 1 at head dim 96 over its bf16 and f32 caches); the flash
+   library must hold a tensor-core instantiation for every head dim its
+   route takes, d 96 among them;
 3. kernels — every kernel of the serving paths against its plain PyTorch
    version at the serving shapes of qwen3-1.7b (H=16, KVH=8, d=128;
    paged decode: page 16, 8 seats with lengths from 1 to 2048; dense
@@ -40,7 +43,9 @@ Phases, each printed as it runs:
    tickets must be back at zero after the launches); then the same checks
    off those shapes (f32 queries, pools and caches, GQA groups 1 and 4,
    head dims 16 to 256, odd cache lengths, sliding-window and non-causal
-   flash on both routes, f32 RMSNorm);
+   flash on both routes, f32 RMSNorm; at d 96 dense decode over lengths
+   1, 9, 64 and 200 and tensor-core flash causal at 77 and non-causal at
+   96 x 200);
 4. serve — ``serve_paged`` at the full width of qwen3-1.7b (28 layers,
    d_model 2048, vocab 151936, bf16 compute, weights from a seeded
    torch.Generator), 16 requests with prompts of 64-511 tokens and 32
@@ -250,7 +255,32 @@ Phases, each printed as it runs:
    of 1500 cross rows against plain, timed beside SDPA; ``serve()`` at
    full width and ``serve --arch whisper-base`` (reduced), and
    ``--engine paged`` exiting with the paged engine's refusal;
-12. f32 — qwen3-1.7b computing in f32 (f32 weights, pool and cache;
+12. vision — phi-3-vision-4.2b at full width and depth (32 layers,
+   d_model 3072, 32/32 heads of 96, d_ff 8192, untied 32064-row head,
+   256 patch embeddings of 1024 from the frontend stub through
+   ``frontend_proj``), drawn cast on the card from a generator seeded 0,
+   on the fixed-slot ``ServingEngine`` (the reference serves frontend
+   archs there only).  Run A: 8 slots, max_len 1056, 16 greedy requests
+   of 256-1024 prompt tokens and 32 new, each prefill on the reference's
+   stub patches (zeros): all finished in the vocabulary, logits finite,
+   launch counts exact (per prefill K5 causal on the 32 layers, on its
+   tensor-core route at d 96; per decode step 32 K4 at d 96; the
+   norms); the K5 calls of its longest and shortest prefill and the K4
+   calls of a decode step on its cache held to plain (inputs scaled by
+   powers of two); graph == eager; tokens/s, mean TTFT and the steady
+   graphed step (wall, busy, kernels).  On patches drawn from a numpy
+   seed: the embedding's patch rows bit-equal to the projection; in bf16
+   every K4/K5 call of a prefill of 700 tokens and a decode step held to
+   plain; in f32 8 prompts with their patches teacher-forced through
+   prefill and 31 decode steps, the kernels against the plain versions
+   on decided positions; with wq/wk at their true fan-in, the bf16
+   kernels no further from the f32 run than 1.5x the plain versions.
+   K5 causal at 1024 (beside its old CUDA-core route) and K4 over 8 x
+   1056 keys timed beside SDPA; K3 and ``add_rmsnorm`` at D = 3072 against
+   plain and timed; ``serve()`` at full width and ``serve --arch
+   phi-3-vision-4.2b`` (reduced), and ``--engine paged`` exiting with the
+   paged engine's refusal;
+13. f32 — qwen3-1.7b computing in f32 (f32 weights, pool and cache;
    flash prefill on its CUDA-core route): 8 greedy streams teacher-forced
    through the fused tick and through ``prefill`` + ``decode_step``, each
    with the kernels and with the plain versions, whose top-1 must agree
@@ -258,7 +288,7 @@ Phases, each printed as it runs:
    logit difference there) with at least 90% of the positions decided;
    then the paged engine and ``ServingEngine`` on the same 8 requests,
    whose streams must be equal up to their first top-2 gap <= 1e-3;
-13. train — the training path, which runs the plain PyTorch versions on
+14. train — the training path, which runs the plain PyTorch versions on
    purpose (no kernel has a backward, in the port or in the reference):
    ``train()`` on qwen3-1.7b at its published width (f32 master weights
    and AdamW state, bf16 compute, remat, batch 8 x seq 1024 from the
@@ -275,7 +305,7 @@ Phases, each printed as it runs:
    resumed losses and final params, mu, nu and count against an
    uninterrupted run, and a ``save_async`` whose restored tensors equal
    the saved ones bit for bit);
-14. hpc — the fp8 GEMM kernel (K6) against its plain version, held to
+15. hpc — the fp8 GEMM kernel (K6) against its plain version, held to
    ``fp8_matmul.error_bound`` (f32 sums plus the tensor-core term of sums
    promoted every 128 products), through ``ops.fp8_matmul`` (aligned,
    ragged, bm/bn != 128) and through the per-tensor call at the n = 256,
@@ -293,7 +323,7 @@ Phases, each printed as it runs:
    kernel and with the plain version (first trailing update and refined
    solutions held); HPCG at 256³ (50 iterations, the true residual
    recomputed) and at 48³ (90 iterations, converged);
-15. summary — one JSON line listing the kernels, the card's name and power
+16. summary — one JSON line listing the kernels, the card's name and power
     limit, and as the last line ``{"ok": true, "device": {...}}``.
 
 Any failure raises: the script exits non-zero and prints no ``ok`` line.
@@ -336,6 +366,8 @@ GEMMA = "gemma3-12b"           # phase gemma: 16 heads over 8 of 256,
 GEMMA_H, GEMMA_HEAD_DIM = 16, 256   # 40 of 48 layers in a window of 1024
 WHISPER = "whisper-base"       # phase whisper: 8 heads over 8 of 64 (MHA),
 WHISPER_HEAD_DIM = 64          # 6 encoder and 6 decoder layers
+VISION = "phi-3-vision-4.2b"   # phase vision: 32 heads over 32 of 96 (MHA),
+VISION_HEAD_DIM = 96           # 32 layers, 256 patch rows per prompt
 SEAT_LENGTHS = (1, 16, 17, 255, 700, 1024, 1531, 2048)
 N_TABLE = 2048 // PAGE
 PREFILL_CHUNK = 128
@@ -629,11 +661,13 @@ def _check_fp8_build(logs: dict) -> None:
 def _check_flash_build(logs: dict) -> None:
     """K5's build: ptxas must report no spill in any of its kernels, and
     the registers of the tensor-core kernel (``flash_tc_kernel``, one
-    instantiation per head dim) are logged; the library's SASS must hold
-    bf16 warpgroup MMAs (``HGMMA ... .BF16``), the tensor-core route.
+    instantiation per head dim of ``flash_attention.TC_HEAD_DIMS``, d 96
+    included) are logged; the library's SASS must hold bf16 warpgroup
+    MMAs (``HGMMA ... .BF16``), the tensor-core route.
 
     Raises:
-      AssertionError: a spill, or no bf16 warpgroup MMA in the SASS."""
+      AssertionError: a spill, a tensor-core head dim not instantiated,
+          or no bf16 warpgroup MMA in the SASS."""
     text = logs["flash_attention"]
     spills = [int(n) for n in re.findall(r"(\d+) bytes spill", text)]
     assert spills and not any(spills), \
@@ -648,6 +682,10 @@ def _check_flash_build(logs: dict) -> None:
                                               ln).group(1)
     log("build", "flash_attention tensor cores, registers by head dim: "
         + ", ".join(f"d={d}: {r}" for d, r in sorted(regs.items())))
+    from repro_torch.kernels import flash_attention as fa
+    assert sorted(regs) == sorted(fa.TC_HEAD_DIMS), \
+        f"flash_attention: tensor-core instantiations {sorted(regs)}, the " \
+        f"route takes {fa.TC_HEAD_DIMS}"
     sass = _sass("flash_attention")
     hgmma = sorted({m for m in re.findall(r"\bHGMMA\.[\w.]+", sass)
                     if m.endswith(".BF16")})
@@ -717,10 +755,14 @@ def serving_decode_instantiations() -> set:
     bf16 and fp8 pools in the paged library, a bf16 cache and an f32 one
     (its ring-cache check) in the dense; at whisper-base's head dim of 64
     (E = 2) and group of 1 (phase whisper), a bf16 cache and an f32 one
-    (its prefill/decode check) in the dense."""
+    (its prefill/decode check) in the dense; at phi-3-vision-4.2b's head
+    dim of 96 (E = 4, lanes 24-31 of each warp empty) and group of 1
+    (phase vision), a bf16 cache and an f32 one (its teacher-forced
+    checks) in the dense."""
     from repro_torch.kernels import decode_attention as da
     e, e_gemma = da.lane_elems(HEAD_DIM), da.lane_elems(GEMMA_HEAD_DIM)
     e_whisper = da.lane_elems(WHISPER_HEAD_DIM)
+    e_vision = da.lane_elems(VISION_HEAD_DIM)
     mg, mg_llama = group_arrays(H // KVH), group_arrays(LLAMA_H // KVH)
     mg_moe = group_arrays(MOE_H // MOE_KVH)
     mg_gemma = group_arrays(GEMMA_H // KVH)
@@ -735,7 +777,9 @@ def serving_decode_instantiations() -> set:
              ("bf16", "bf16", e, mg_moe), ("bf16", "bf16", e_gemma, mg_gemma),
              ("f32", "f32", e_gemma, mg_gemma),
              ("bf16", "bf16", e_whisper, group_arrays(1)),
-             ("f32", "f32", e_whisper, group_arrays(1))]
+             ("f32", "f32", e_whisper, group_arrays(1)),
+             ("bf16", "bf16", e_vision, group_arrays(1)),
+             ("f32", "f32", e_vision, group_arrays(1))]
     return ({(lib, (q, kv, el, addr, g))
              for lib, addr, insts in (
                  ("paged_decode_attention", "PagedAddr", paged),
@@ -1192,7 +1236,11 @@ def _flash_kernel(gen: torch.Generator, flush: torch.Tensor) -> dict:
 def phase_variants() -> None:
     """The kernels against their plain versions off the main path's
     shapes: f32 queries and pools, GQA groups 1 and 4 (llama3-8b),
-    smaller head dims (the reduced configs), f32 RMSNorm."""
+    smaller head dims (the reduced configs), f32 RMSNorm; and at d 96
+    (phi-3-vision-4.2b), where a lane or descriptor fault shows at a size
+    a log can hold: dense decode over lengths 1, 9, 64 and 200 (E = 4,
+    the last 8 lanes of every warp empty), and flash on the tensor cores
+    causal at 77 and non-causal at 96 x 200 (a ragged last key tile)."""
     from repro_torch.core.mixed_precision import quantize_kv_page
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops
@@ -1251,6 +1299,16 @@ def phase_variants() -> None:
                           f"{qdt},{kdt}]", got, want, *tol)
         log("variants", f"dense decode T={T} H={H_} KVH={KVH_} d={d} "
             f"q={qdt} cache={kdt}: max|err| {err:.3e}")
+    d96 = torch.tensor([1, 9, 64, 200], dtype=torch.int32, device="cuda")
+    q = torch.randn((4, 1, 4, 96), generator=gen, device="cuda").bfloat16()
+    k, v = (torch.randn((4, 200, 4, 96), generator=gen, device="cuda")
+            .bfloat16() for _ in range(2))
+    got, want = (ops.decode_attention(q, k, v, d96, impl=impl)
+                 for impl in ("kernel", "plain"))
+    err = check_close("dense[B=4,T=200,H=4,KVH=4,d=96,bf16]", got, want,
+                      BF16_ATOL, BF16_RTOL)
+    log("variants", f"dense decode T=200 H=4 KVH=4 d=96 bf16, lengths "
+        f"{d96.tolist()}: max|err| {err:.3e}")
     flash = [  # (B, Sq, Skv, H, KVH, d, dtype, causal, window)
         (2, 100, 100, 16, 8, 128, torch.float32, True, None),
         (1, 511, 511, 16, 8, 128, torch.bfloat16, True, 128),
@@ -1258,7 +1316,9 @@ def phase_variants() -> None:
         (2, 64, 64, 4, 4, 32, torch.float32, False, None),
         (2, 96, 200, 4, 1, 32, torch.bfloat16, False, None),
         (1, 37, 37, 4, 2, 16, torch.float32, True, None),
-        (1, 300, 300, 4, 4, 256, torch.bfloat16, True, None)]
+        (1, 300, 300, 4, 4, 256, torch.bfloat16, True, None),
+        (2, 77, 77, 4, 4, 96, torch.bfloat16, True, None),
+        (2, 96, 200, 4, 2, 96, torch.bfloat16, False, None)]
     for B, Sq, Skv, H_, KVH_, d, dt, causal, window in flash:
         q = torch.randn((B, Sq, H_, d), generator=gen, device="cuda").to(dt)
         k = torch.randn((B, Skv, KVH_, d), generator=gen, device="cuda").to(dt)
@@ -3547,8 +3607,10 @@ def _held_to_plain(calls: list, errs: dict,
                - fn(q, k, v, *rest, **{**kw, "impl": "plain"})).abs().max()
         top = (q.norm(dim=-1).max() * k.norm(dim=-1).max()
                * q.shape[-1] ** -0.5).item()
-        qs = q * 2.0 ** -max(0, math.ceil(math.log2(top / 4)))
-        vs = v * 2.0 ** -max(0, math.ceil(math.log2(v.abs().max().item())))
+        vmax = v.abs().max().item()
+        # all-zero inputs (a prompt of zero patch rows alone) need none
+        qs = q * 2.0 ** -max(0, math.ceil(math.log2(top / 4)) if top else 0)
+        vs = v * 2.0 ** -max(0, math.ceil(math.log2(vmax)) if vmax else 0)
         window = kw.get("window")
         mask = ("window" if window else
                 "causal" if kw.get("causal", True) else "full")
@@ -4496,6 +4558,401 @@ def phase_whisper():
     return rows, {"whisper": counts}
 
 
+VISION_REQUESTS = 16
+VISION_GEN = 32
+VISION_MAX_LEN = 1056          # prompts of at most 1024 tokens + 32 new
+# prompt lengths every run takes: the longest and one text row past the
+# patch rows first (rids 0 and 1, the two prefills whose K5 calls are
+# held to plain), the patch rows alone (on the engine's zero patches
+# every activation of that prompt is 0), a key tile of 64 around 320,
+# 511, 767 and 1023; the rest drawn in [256, 1024], all at least
+# frontend_len (256)
+VISION_FIXED_LENGTHS = (1024, 257, 256, 319, 320, 511, 767, 1023)
+VISION_PATCH_S = 700           # the drawn-patch model checks' prompts
+VISION_TF_MAX_LEN = 544        # teacher-forced: 8 prompts of 256-512 + 31
+VISION_SERVE_PROMPT = 256      # serve() at full width: the least prompt
+
+
+def _vision_requests(cfg) -> list:
+    """VISION_REQUESTS prompts: VISION_FIXED_LENGTHS' first two, then the
+    rest of them and lengths drawn in [256, 1024], shuffled."""
+    rng = np.random.default_rng(41)
+    n = VISION_REQUESTS - len(VISION_FIXED_LENGTHS)
+    rest = [*VISION_FIXED_LENGTHS[2:], *rng.integers(cfg.frontend_len, 1025,
+                                                     n)]
+    lens = [*VISION_FIXED_LENGTHS[:2],
+            *(int(rest[i]) for i in rng.permutation(len(rest)))]
+    assert min(lens) >= cfg.frontend_len
+    assert max(lens) + VISION_GEN <= VISION_MAX_LEN
+    return [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+            for n in lens]
+
+
+def _vision_engine(cfg, params, prompts):
+    """Run A: the fixed-slot engine (8 slots, max_len VISION_MAX_LEN) over
+    ``prompts``, VISION_GEN greedy tokens each, every prefill on the
+    reference's stub patches (zeros): all finished in the vocabulary,
+    logits finite, launch counts exact (per prefill K5 causal per layer,
+    per decode step K4 per layer, and the norms).  The K5 calls of the
+    first two prefills (the longest prompt and one of 257) are
+    recorded in the run (their inputs copied: ~0.6 GB of copies in two
+    of the 16 prefills) and held to plain (``_held_to_plain``); the
+    decode step is a graph replay, which no wrapper sees, so its K4
+    calls are recorded from one eager ``decode_step`` on the engine's
+    cache after the run (the replay is bit-equal to it:
+    ``_fixed_graph_vs_eager``).  Returns (engine, launches read just
+    after the run, the held calls' errors)."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as M
+    from repro_torch.runtime.serving import ServingEngine
+    eng = ServingEngine(cfg, params, slots=8, max_len=VISION_MAX_LEN,
+                        device="cuda")
+    assert eng.policy._decode_fn.graph is not None, \
+        "vision: the decode step was not captured"
+    for p in prompts:
+        eng.submit(p, max_new_tokens=VISION_GEN)
+    L = cfg.num_layers
+    calls = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with _recording(calls, lambda: len(calls) < 2 * L):
+        ops.reset_launches()                   # the main path starts here
+        done = eng.run()
+        counts = dict(ops.launches)            # ... and ends here
+    assert len(done) == len(prompts), f"vision: {len(done)} finished"
+    for q in done:
+        assert len(q.generated) == VISION_GEN, q.rid
+        assert all(0 <= t < cfg.vocab_size for t in q.generated), \
+            f"vision: rid {q.rid} emitted a token outside the vocabulary"
+    assert bool(eng.policy.logits_finite), "vision: a logit was not finite"
+    ticks = eng.policy.decode_ticks
+    prefills = sum(1 for _, ev, _ in eng.trace if ev == "admit")
+    want = {"decode_attention[bf16]": L * ticks,
+            "flash_attention[causal]": L * prefills,
+            **norm_launches(cfg, ticks + prefills)}
+    assert counts == want, f"vision: launches {counts}, expected {want} " \
+        f"for {ticks} decode steps and {prefills} prefills"
+    m = eng.metrics.snapshot()
+    lens = [len(p) for p in prompts]
+    log("vision", f"Run A, fixed-slot engine (8 slots, max_len "
+        f"{VISION_MAX_LEN}): {m['completed']:.0f} requests of "
+        f"{min(lens)}-{max(lens)} prompt tokens and {VISION_GEN} new, "
+        f"{ticks} decode steps (graph replays), {prefills} prefills, "
+        f"{m['tokens_per_s']:.1f} tokens/s, mean TTFT "
+        f"{m['ttft_avg_s'] * 1e3:.1f} ms, wall {m['wall_s']:.2f} s, peak "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB allocated; "
+        f"launches {json.dumps(counts)}")
+    assert [c[1][0].shape[1] for c in calls[::L]] == \
+        list(VISION_FIXED_LENGTHS[:2]), "vision: recorded the wrong prefills"
+    errs = {}
+    _held_to_plain(calls, errs, "vision engine prefill")
+    tok, pos = _decode_state(eng)
+    with _recording(calls):
+        M.decode_step(eng.params, cfg, _clone(eng.cache), tok, pos)
+    assert len(calls) == L, f"vision: {len(calls)} K4 calls in a step"
+    _held_to_plain(calls, errs, "vision engine decode step")
+    log("vision", "Run A's K5 calls (prefills of 1024 and 257) and one "
+        "decode step's K4 calls against plain on their own inputs, scaled "
+        "(calls, max|err| scaled within BF16_ATOL/RTOL, max|err| raw): "
+        + "; ".join(f"{key} {n}, {e:.3e}, {raw:.3e}"
+                    for key, (n, e, raw) in errs.items()))
+    return eng, counts
+
+
+def _vision_prefill_profile(eng) -> None:
+    """One eager prefill of the longest prompt on the engine's stub
+    patches, as the engine runs it, under ``_profile_steady`` (wall,
+    busy, kernels, the top ones): what a prefill's TTFT is made of."""
+    from repro_torch.models import model as M
+    cfg = eng.cfg
+    S = max(VISION_FIXED_LENGTHS)
+    batch = {"tokens": torch.arange(S, dtype=torch.int32,
+                                    device="cuda")[None] % cfg.vocab_size,
+             "patches": torch.zeros((1, cfg.frontend_len, cfg.frontend_dim),
+                                    device="cuda")}
+
+    def step():
+        logits, _ = M.prefill(eng.params, cfg, batch, eng.policy.opts)
+        return logits.argmax(-1).cpu()
+    _profile_steady("vision", f"prefill of {S} tokens, eager", step,
+                    steps=2, top=8, groups=SERVING_GROUPS + (
+                        ("flash attention (K5)", lambda key: "flash" in key),))
+
+
+def _scaled_qk(params, cfg):
+    """``params`` with every block's ``wq`` and ``wk`` scaled by
+    sqrt(G / d_model) to their true fan-in (the reference's init takes a
+    stacked leaf's G as its fan-in), rounded to the leaf's dtype; the
+    other leaves shared."""
+    s = (params["blocks"]["pos0"]["mixer"]["wq"].shape[0]
+         / cfg.d_model) ** 0.5
+
+    def walk(t):
+        return {k: walk(v) if isinstance(v, dict) else
+                ((v.float() * s).to(v.dtype) if k in ("wq", "wk") else v)
+                for k, v in t.items()}
+    return walk(params)
+
+
+def _vision_patches(cfg, params) -> None:
+    """The frontend and the kernels at full width on patches drawn from a
+    numpy seed (the engine's stub patches embed as zero rows).
+
+    - The embedding: rows [0, 256) are the bf16 patches through
+      ``frontend_proj``, the rest the token embeddings, bit for bit; the
+      drawn patches move the logits away from the zero patches'.
+    - bf16: ``prefill`` of 2 prompts of VISION_PATCH_S tokens with their
+      patches and one ``decode_step``, with the kernels and with the
+      plain versions; each K4/K5 call of the kernel run held to plain on
+      its own inputs (``_held_to_plain``); the distance of both runs'
+      logits from the f32 logits logged (no check: at random weights the
+      scores are near one-hot, PERF.md §6).
+    - f32 (the weights widened): 8 prompts of 256-512 tokens with their
+      patches, prefill and 31 decode steps teacher-forced, the kernels
+      against the plain versions on decided positions (phase f32's
+      method: every decided top-1 equal, >= 90% decided).
+    - bf16 against f32 on the same streams, with wq and wk at their true
+      fan-in (``_scaled_qk``, the CPU bf16 test's weights) so that the
+      scores are O(1): the bf16 runs with the kernels and with the plain
+      versions, each against the f32 run of the same weights widened;
+      the kernels' largest |Δlogit| from f32 may be no more than
+      TICK_F32_RATIO times the plain versions' (phase gemma's rule), and
+      both runs' decided positions agree with f32 (information: how many
+      are decided)."""
+    import dataclasses
+    from repro_torch.models import model as M
+    from repro_torch.tree import tree_map
+    rng = np.random.default_rng(43)
+    P, F = cfg.frontend_len, cfg.frontend_dim
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    p32 = tree_map(lambda t: t.float(), params)
+    opts = M.RunOptions(q_chunk=512)
+    S = VISION_PATCH_S
+    batch = {"tokens": torch.from_numpy(rng.integers(
+                 0, cfg.vocab_size, (2, S)).astype(np.int32)).cuda(),
+             "patches": torch.from_numpy(rng.standard_normal(
+                 (2, P, F), dtype=np.float32)).cuda()}
+    x, _ = M._embed_inputs(params, cfg, batch)
+    proj = batch["patches"].bfloat16() @ params["frontend_proj"]
+    text = params["embed"][batch["tokens"].long()]
+    assert torch.equal(x[:, :P], proj) and torch.equal(x[:, P:],
+                                                       text[:, P:]), \
+        "vision: the embedding is not the patch rows over the text rows"
+    tok = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 1))
+                           .astype(np.int32)).cuda()
+    pos = torch.full((2,), S, dtype=torch.int32, device="cuda")
+    calls, errs, out = [], {}, {}
+    for impl, w, c in (("kernel", params, cfg), ("plain", params, cfg),
+                       ("f32", p32, cfg32)):
+        mode = "plain" if impl == "f32" else impl
+        with _recording(calls, lambda: impl == "kernel"):
+            lp, cache = M.prefill(w, c, batch, opts, impl=mode)
+            ld, _ = M.decode_step(w, c, M.grow_cache(cache, S + 1), tok, pos,
+                                  impl=mode)
+        out[impl] = (lp[:, -1].float(), ld[:, -1].float())
+        del cache, w
+    zero, _ = M.prefill(params, cfg, {**batch, "patches": torch.zeros_like(
+        batch["patches"])}, opts)
+    moved = (zero[:, -1] - out["kernel"][0]).abs().max().item()
+    assert moved > 0, "vision: the drawn patches left the logits unchanged"
+    _held_to_plain(calls, errs, "vision bf16 drawn patches")
+    ratios = []
+    for i, what in enumerate(("prefill", "decode step")):
+        lk, lp, lf = (out[impl][i] for impl in ("kernel", "plain", "f32"))
+        assert bool(torch.isfinite(lk).all()), f"vision: {what} not finite"
+        ratios.append(f"{what}: kernels max|Δ| {(lk - lf).abs().max():.3e}, "
+                      f"plain {(lp - lf).abs().max():.3e}, kernels vs plain "
+                      f"{(lk - lp).abs().max():.3e}, largest |logit| "
+                      f"{lf.abs().max():.3f}")
+    log("vision", f"embedding: rows [0, {P}) the bf16 patches through "
+        f"frontend_proj and rows [{P}, {S}) the token embeddings, bit for "
+        f"bit; drawn against zero patches moves the last logits by "
+        f"{moved:.3e}")
+    log("vision", "bf16 on drawn patches, K4/K5 calls against plain on "
+        "their own inputs, scaled (calls, max|err| scaled within "
+        "BF16_ATOL/RTOL, max|err| raw): " + "; ".join(
+            f"{key} {n}, {e:.3e}, {raw:.3e}"
+            for key, (n, e, raw) in errs.items()))
+    log("vision", "bf16 logits against the f32 logits, weights as drawn "
+        "(information): " + "; ".join(ratios))
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+               for n in rng.integers(P, VISION_TF_MAX_LEN - F32_GEN + 2, 8)]
+    patches = [torch.from_numpy(rng.standard_normal(
+        (1, P, F), dtype=np.float32)).cuda() for _ in prompts]
+    tf = _fixed_teacher_forced({"plain": (p32, cfg32, "plain"),
+                                "kernel": (p32, cfg32, "kernel")},
+                               prompts, VISION_TF_MAX_LEN, patches)
+    stats = _new_stats()
+    for lp, lk in zip(tf["plain"], tf["kernel"]):
+        _hold_decided(stats, lk, lp)
+    _report_decided("f32 prefill + decode step on drawn patches", stats,
+                    "vision")
+    del tf, p32
+    gc.collect()
+    ps = _scaled_qk(params, cfg)
+    ps32 = tree_map(lambda t: t.float(), ps)
+    tf = _fixed_teacher_forced({"f32": (ps32, cfg32, "plain"),
+                                "kernel": (ps, cfg, "kernel"),
+                                "plain": (ps, cfg, "plain")},
+                               prompts, VISION_TF_MAX_LEN, patches)
+    lf, lk, lp = (torch.cat(tf[name]) for name in ("f32", "kernel", "plain"))
+    ek, ep = (lk - lf).abs().max().item(), (lp - lf).abs().max().item()
+    decided = {}
+    for name, l in (("kernels", lk), ("plain", lp)):
+        st = _new_stats()
+        _hold_decided(st, l, lf)
+        decided[name] = st
+        assert st["agree"] == st["decided"], f"vision: bf16 {name} top-1 " \
+            "differs from f32 at a decided position"
+    log("vision", f"bf16 against f32 on the same {len(lf)} teacher-forced "
+        f"positions, wq/wk at their true fan-in (largest |logit| "
+        f"{lf.abs().max().item():.3f}): kernels max|Δ| {ek:.3e}, plain "
+        f"{ep:.3e} (ratio {ek / ep:.3f}, limit {TICK_F32_RATIO}); decided "
+        + ", ".join(f"{name} {st['decided']}/{st['rows']} (top-1 equal at "
+                    f"all)" for name, st in decided.items()))
+    assert ek <= TICK_F32_RATIO * ep, f"vision: the kernels' bf16 logits " \
+        f"lie {ek / ep:.3f}x further from f32 than the plain versions'"
+
+
+def _flash_cuda_cores(q, k, v) -> torch.Tensor:
+    """K5's CUDA-core route on bf16 q/k/v, causal, launched through its C
+    entry point (the wrapper routes bf16 at d 96 to the tensor cores
+    now): the route bf16 at d 96 took before, timed once beside the
+    tensor-core one.  Not a launch of the path: not counted."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import flash_attention as fa
+    B, Sq, H, d = q.shape
+    Skv, KVH = k.shape[1], k.shape[2]
+    out = torch.empty_like(q)
+    err = _build.library("flash_attention").flash_attention(
+        fa.CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        out.data_ptr(), B, Sq, Skv, H, KVH, d, 1, 0, *q.stride()[:3],
+        *k.stride()[:3], *out.stride()[:3],
+        torch.cuda.current_stream().cuda_stream)
+    assert err == 0, f"flash_attention (CUDA cores): CUDA error {err}"
+    return out
+
+
+def _vision_timing(cfg, flush) -> dict:
+    """K5 and K4 at phi-3-vision-4.2b's shapes (bf16, 32 heads over 32 of
+    96, unit-scale random inputs) against plain within BF16_ATOL/RTOL,
+    timed beside their plain versions, their bounds and SDPA with the
+    same mask: K5 causal over the longest prompt (1024), on the tensor
+    cores and, once, on the CUDA cores it took before; K4 over 8 slots of
+    VISION_MAX_LEN keys, every key kept.  Returns their rows."""
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    heads, kvh, d = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    assert fa.route(torch.bfloat16, d) == "tensor cores"
+    gen = torch.Generator(device="cuda").manual_seed(44)
+
+    def draw(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").bfloat16()
+    S = max(VISION_FIXED_LENGTHS)
+    q, k, v = draw(1, S, heads, d), draw(1, S, kvh, d), draw(1, S, kvh, d)
+
+    def run(impl):
+        return ops.flash_attention(q, k, v, causal=True, impl=impl)
+    want = run("plain")
+    err = check_close(f"vision flash[causal, S={S}, d={d}]", run("kernel"),
+                      want, BF16_ATOL, BF16_RTOL)
+    err_cc = check_close(f"vision flash[causal, S={S}, d={d}], CUDA cores",
+                         _flash_cuda_cores(q, k, v), want, BF16_ATOL,
+                         BF16_RTOL)
+    ms = cuda_ms(lambda: run("kernel"), flush)
+    cc_ms = cuda_ms(lambda: _flash_cuda_cores(q, k, v), flush)
+    plain_ms = cuda_ms(lambda: run("plain"), flush, iters=5)
+    qs, ks, vs = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    lib_ms = cuda_ms(lambda: sdpa(SDPBackend.FLASH_ATTENTION, qs, ks, vs,
+                                  is_causal=True), flush)
+    nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
+    flops = 2.0 * d * heads * S * (S + 1)
+    b_ms, b_by = bound(nbytes, flops, BF16_FLOPS)
+    log("vision", f"flash_attention[causal] S={S} H={heads} KVH={kvh} d={d}: "
+        f"max|err| {err:.3e} (CUDA cores {err_cc:.3e}) kernel {ms:.4f} ms "
+        f"(CUDA-core route {cc_ms:.4f} ms, {cc_ms / ms:.1f}x) plain "
+        f"{plain_ms:.4f} ms {SDPA_FLASH} {lib_ms:.4f} ms bound {b_ms:.5f} ms "
+        f"({b_by}, {nbytes / 1e6:.2f} MB, {flops / 1e9:.2f} GFLOP at the "
+        "bf16 tensor-core rate)")
+    rows = {"flash_attention[d=96]": dict(
+        name="flash_attention", max_abs_err=err, ms=ms, plain_ms=plain_ms,
+        bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms, library=SDPA_FLASH)}
+    B, T = 8, VISION_MAX_LEN
+    q, k, v = draw(B, 1, heads, d), draw(B, T, kvh, d), draw(B, T, kvh, d)
+    lengths = torch.full((B,), T, dtype=torch.int32, device="cuda")
+
+    def run(impl):
+        return ops.decode_attention(q, k, v, lengths, impl=impl)
+    err = check_close(f"vision decode_attention[bf16, d={d}]", run("kernel"),
+                      run("plain"), BF16_ATOL, BF16_RTOL)
+    _check_tickets("vision dense decode", da._tickets.values())
+    ms = cuda_ms(lambda: run("kernel"), flush)
+    plain_ms = cuda_ms(lambda: run("plain"), flush, iters=5)
+    qs, ks, vs = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    lib_ms = cuda_ms(lambda: sdpa(SDPBackend.EFFICIENT_ATTENTION, qs, ks, vs),
+                     flush)
+    nbytes = 2 * k.numel() * 2 + 2 * q.numel() * 2 + B * 4
+    b_ms, b_by = bound(nbytes, 4.0 * B * T * heads * d)
+    splits, chunk = da.split_plan(B, kvh, T, _sms())
+    log("vision", f"decode_attention[bf16] {B} slots of {T} keys H={heads} "
+        f"KVH={kvh} d={d}: max|err| {err:.3e} kernel {ms:.4f} ms plain "
+        f"{plain_ms:.4f} ms {SDPA_EFF} {lib_ms:.4f} ms bound {b_ms:.5f} ms "
+        f"({b_by}, {nbytes / 1e6:.2f} MB; {splits} splits of {chunk})")
+    rows["decode_attention[d=96]"] = dict(
+        name="decode_attention", max_abs_err=err, ms=ms, plain_ms=plain_ms,
+        bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms, library=SDPA_EFF)
+    return rows
+
+
+def phase_vision():
+    """phi-3-vision-4.2b at full width on the fixed-slot engine.  Returns
+    the rows of K5 and K4 at d 96 and K3 and the fused add + norm at
+    D = 3072, and Run A's launch counts."""
+    from repro_torch.kernels import decode_attention as da
+    t0 = time.perf_counter()
+    cfg, params = _draw_cast(VISION, "vision")
+    log("vision", f"frontend stub: {cfg.frontend_len} patch embeddings of "
+        f"{cfg.frontend_dim} through frontend_proj over each prompt's first "
+        "rows; the engine feeds zeros, serve() and the checks draw them")
+    eng, counts = _vision_engine(cfg, params, _vision_requests(cfg))
+    _fixed_graph_vs_eager(eng, phase="vision")
+    _check_tickets("vision fixed-slot", [eng.policy._tickets,
+                                         *da._tickets.values()])
+    _profile_graph_decode_step(eng, "vision", f"{VISION} Run A engine")
+    _vision_prefill_profile(eng)
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    _vision_patches(cfg, params)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t2 = time.perf_counter()
+    flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device="cuda")
+    rows = _vision_timing(cfg, flush)
+    # K3 and the fused add + norm at d_model 3072: a decode step's 8 rows,
+    # the shortest and the longest prompt, the drawn-patch checks' 2 x 700
+    # rows, and f32 at the teacher-forced decode rows and prompts
+    D = cfg.d_model
+    rows.update(_norms_vs_plain(
+        "vision", 45, (D,),
+        ((8, torch.bfloat16), (cfg.frontend_len, torch.bfloat16),
+         (max(VISION_FIXED_LENGTHS), torch.bfloat16),
+         (2 * VISION_PATCH_S, torch.bfloat16), (8, torch.float32),
+         (512, torch.float32)),
+        {("rmsnorm", D), ("add_rmsnorm", D)}, flush))
+    del flush, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    t3 = time.perf_counter()
+    _fixed_only_cli(VISION, "vision", VISION_SERVE_PROMPT)
+    log("vision", f"phase times: run A {t1 - t0:.1f} s, drawn patches "
+        f"{t2 - t1:.1f} s, kernels timed {t3 - t2:.1f} s, cli "
+        f"{time.perf_counter() - t3:.1f} s")
+    return rows, {"vision": counts}
+
+
 # phase f32: a position is decided when the plain version's top-2 gap
 # exceeds twice the largest |kernel - plain| logit difference there (the
 # workload-7 method of docs/benchmarks.md): there the two must pick the
@@ -4600,40 +5057,56 @@ def _f32_paged_teacher_forced(cfg, params, prompts,
     _report_decided(what, stats, phase)
 
 
+def _fixed_teacher_forced(runs: dict, prompts, max_len: int,
+                          patches=None) -> dict:
+    """``prefill`` and ``decode_step`` for each run of ``runs`` ({name:
+    (params, cfg, impl)}) on the same streams: each prompt prefilled
+    whole into its slot of the run's cache of ``max_len`` + 1 rows (a
+    vision model's with its patches ``patches[a]``, (1, P, F)), then
+    F32_GEN - 1 decode steps over the slots, every input token the first
+    run's top-1 (teacher forcing).  Returns {name: [(slots, V) logits of
+    each position]}."""
+    from repro_torch.models import model as M
+    opts = M.RunOptions(q_chunk=min(max_len, 512))
+    caches = {name: M.init_cache(cfg, len(prompts), max_len + 1,
+                                 device="cuda")
+              for name, (_, cfg, _) in runs.items()}
+    first = {name: [] for name in runs}
+    for a, prompt in enumerate(prompts):
+        batch = {"tokens": torch.from_numpy(prompt)[None].cuda()}
+        if patches is not None:
+            batch["patches"] = patches[a]
+        for name, (params, cfg, impl) in runs.items():
+            logits, rows = M.prefill(params, cfg, batch, opts, impl=impl)
+            for pos, ent in caches[name].items():
+                for key, full in ent.items():
+                    full[:, a, :len(prompt)] = rows[pos][key][:, 0]
+            first[name].append(logits[0, -1])
+    out = {name: [torch.stack(rows)] for name, rows in first.items()}
+    teacher_run = next(iter(runs))
+    pos = torch.tensor([len(p) for p in prompts], dtype=torch.int32,
+                       device="cuda")
+    for _ in range(F32_GEN - 1):
+        teacher = out[teacher_run][-1].argmax(dim=-1).int()
+        for name, (params, cfg, impl) in runs.items():
+            out[name].append(M.decode_step(params, cfg, caches[name],
+                                           teacher[:, None], pos,
+                                           impl=impl)[0][:, -1])
+        pos = pos + 1
+    return out
+
+
 def _f32_fixed_teacher_forced(cfg, params, prompts) -> None:
     """``prefill`` and ``decode_step`` with the kernels and with the plain
     versions on the same streams as ``_f32_paged_teacher_forced``: each
     prompt prefilled whole into its slot of an f32 cache of MAX_LEN + 1,
     then F32_GEN - 1 decode steps over the 8 slots, teacher-forced."""
-    from repro_torch.models import model as M
-    A = len(prompts)
-    impls = ("plain", "kernel")
-    caches = {impl: M.init_cache(cfg, A, MAX_LEN + 1, device="cuda")
-              for impl in impls}
-    opts = M.RunOptions(q_chunk=min(MAX_LEN, 512))
+    out = _fixed_teacher_forced({"plain": (params, cfg, "plain"),
+                                 "kernel": (params, cfg, "kernel")},
+                                prompts, MAX_LEN)
     stats = _new_stats()
-    first = {impl: [] for impl in impls}
-    for a, prompt in enumerate(prompts):
-        tokens = torch.from_numpy(prompt)[None].cuda()
-        for impl in impls:
-            logits, rows = M.prefill(params, cfg, {"tokens": tokens}, opts,
-                                     impl=impl)
-            for pos, ent in caches[impl].items():
-                for key, full in ent.items():
-                    full[:, a, :len(prompt)] = rows[pos][key][:, 0]
-            first[impl].append(logits[0, -1])
-    lp = torch.stack(first["plain"])
-    _hold_decided(stats, torch.stack(first["kernel"]), lp)
-    teacher = lp.argmax(dim=-1).int()
-    pos = torch.tensor([len(p) for p in prompts], dtype=torch.int32,
-                       device="cuda")
-    for _ in range(F32_GEN - 1):
-        out = {impl: M.decode_step(params, cfg, caches[impl], teacher[:, None],
-                                   pos, impl=impl)[0][:, -1]
-               for impl in impls}
-        _hold_decided(stats, out["kernel"], out["plain"])
-        teacher = out["plain"].argmax(dim=-1).int()
-        pos = pos + 1
+    for lp, lk in zip(out["plain"], out["kernel"]):
+        _hold_decided(stats, lk, lp)
     _report_decided("prefill + decode step (fixed-slot, f32 cache)", stats)
 
 
@@ -5436,6 +5909,13 @@ def main() -> int:
     torch.cuda.empty_cache()
     log("whisper", f"whisper state freed: "
         f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB allocated")
+    vision_rows, vision_counts = phase_vision()
+    results.update(vision_rows)
+    counts.update(vision_counts)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("vision", f"vision state freed: "
+        f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB allocated")
     phase_f32(prompts)
     gc.collect()
     torch.cuda.empty_cache()
@@ -5473,7 +5953,9 @@ def main() -> int:
     # widths from phase ssm's Run A; the norms at whisper-base's width,
     # non-causal flash and the dense decode at d 64 (whose launches count
     # under the variant's key, self- and cross-attention together) from
-    # phase whisper's Run A
+    # phase whisper's Run A; the norms at phi-3-vision-4.2b's width and
+    # flash and the dense decode at d 96 (counted under the variant's
+    # key) from phase vision's Run A
     for key, run, *count_key in (("paged_decode_attention[bf16]", "bf16"),
                      ("quantized_paged_decode_attention[fp8]", "fp8"),
                      ("quantized_paged_decode_attention[int8]", "int8"),
@@ -5493,6 +5975,12 @@ def main() -> int:
                      ("add_rmsnorm[D=512]", "whisper"),
                      ("flash_attention[full]", "whisper"),
                      ("decode_attention[bf16,d=64]", "whisper",
+                      "decode_attention[bf16]"),
+                     ("rmsnorm[D=3072]", "vision"),
+                     ("add_rmsnorm[D=3072]", "vision"),
+                     ("flash_attention[d=96]", "vision",
+                      "flash_attention[causal]"),
+                     ("decode_attention[d=96]", "vision",
                       "decode_attention[bf16]"),
                      ("fp8_matmul[e4m3]", "hplmxp_fp8")):
         r = results[key]

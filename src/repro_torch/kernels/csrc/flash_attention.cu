@@ -19,7 +19,7 @@
 //
 // Two routes, chosen by dtype and head dim (kernels/ops.py):
 //
-// bf16, d in {32, 64, 128, 256}: flash_attention_tc, the tensor cores.
+// bf16, d in {32, 64, 96, 128, 256}: flash_attention_tc, the tensor cores.
 //   * one block per (64 query rows, query head, batch row): one consumer
 //     warpgroup and one producer warp;
 //   * the producer issues TMA loads through 4-D tensor maps (d, S, heads,
@@ -27,7 +27,9 @@
 //     h / G: no GQA repeat, no padding, no copy): the q tile once, then
 //     the key tiles of 64 keys into a 2-stage ring, K and V on their own
 //     mbarriers so that S = Q·K^T starts before V has landed; rows of d are
-//     cut into swizzle-wide chunks (128 bytes, 64 for d = 32); TMA fills
+//     cut into swizzle-wide chunks (128 bytes where 2·d is a multiple of
+//     128, else 64: d = 32, and d = 96 as three chunks of 32, its 192-byte
+//     row being no whole number of 128-byte chunks); TMA fills
 //     rows past Sq and keys past Skv with zeros, and those keys are still
 //     masked to -1e30 here;
 //   * S = Q·K^T is wgmma m64n64k16 bf16 x bf16 -> f32 with both operands
@@ -41,7 +43,8 @@
 //     lo = bf16(p - hi), and O += P·V is two wgmma m64n{d}k16 per 16 keys
 //     (hi·V + lo·V) with A from registers and V read MN-major from shared
 //     memory (bf16 wgmma has the transpose bit, so V needs no transposed
-//     copy);
+//     copy; its d chunks are the descriptor's MN atoms, kKeys·SW bytes
+//     apart: three of 32 columns at d = 96, m64n96k16);
 //   * only the key tiles the 64 rows can see are walked: up to the causal
 //     diagonal, and from the first tile inside the window; the grid runs
 //     the query tiles last-first, so the deepest causal tiles of every head
@@ -312,12 +315,15 @@ constexpr int kThreads = 128 + 32;       // consumer warpgroup + producer warp
 constexpr float kLog2e = 1.4426950408889634f;
 
 // D: head dim.  Rows of d are cut into chunks of SW bytes, the TMA box
-// width and the swizzle (128 bytes; 64 for d = 32).
+// width and the swizzle: 128 bytes where a row is a whole number of them,
+// else 64 (d = 32: one chunk; d = 96: three, where 128-byte chunks would
+// leave half of one over).
 template <int D>
 struct Tile {
-  static constexpr int SW = D * 2 >= 128 ? 128 : D * 2;
+  static constexpr int SW = (D * 2) % 128 == 0 ? 128 : 64;
   static constexpr int CH = SW / 2;      // elements per chunk
   static constexpr int NC = D / CH;      // chunks per row
+  static_assert(D % CH == 0, "a row is a whole number of chunks");
   static constexpr int Q_BYTES = kRows * D * 2;
   static constexpr int KV_BYTES = kKeys * D * 2;
   // 1024-byte alignment of every tile (the swizzle atom), then q, the K
@@ -382,6 +388,32 @@ __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
         "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
         "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+// d(64x96, f32) (+)= a(64x16, bf16, registers) * b(16x96, bf16, MN-major
+// in shared memory: the transpose bit set; three 64-byte swizzle atoms
+// along N, the descriptor's leading byte offset apart)
+__device__ __forceinline__ void wgmma_rs_n96(float (&d)[48],
+                                          const uint32_t (&a)[4],
+                                          uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 {%0, %1, %2, "
+      "%3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "
+      "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, "
+      "%31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "
+      "%44, %45, %46, %47}, {%48, %49, %50, %51}, %52, p, 1, 1, 1;\n}"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
 }
 
@@ -469,6 +501,7 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
                                          int scale_d) {
   if constexpr (N == 32) wgmma_rs_n32(d, a, db, scale_d);
   else if constexpr (N == 64) wgmma_rs_n64(d, a, db, scale_d);
+  else if constexpr (N == 96) wgmma_rs_n96(d, a, db, scale_d);
   else if constexpr (N == 128) wgmma_rs_n128(d, a, db, scale_d);
   else wgmma_rs_n256(d, a, db, scale_d);
 }
@@ -768,7 +801,7 @@ extern "C" int flash_attention(int dtype, const void* q, const void* k,
 
 // Plain C entry point of the tensor-core route, bound with ctypes: bf16
 // q (B, Sq, H, d), k/v (B, Skv, KVH, d) and out (B, Sq, H, d), d one of
-// 32, 64, 128, 256, unit stride in d, the other strides (in elements) as
+// 32, 64, 96, 128, 256, unit stride in d, the other strides (in elements) as
 // flash_attention takes them.  TMA's rules: q, k and v 16-byte aligned,
 // every stride a multiple of 8 elements (16 bytes; the stride of a
 // dimension of size 1 is never read but must obey it too).  Returns the
@@ -799,6 +832,8 @@ extern "C" int flash_attention_tc(const void* q, const void* k,
     case 32: err = tc::launch<32>(q, k, v, out, B, Sq, Skv, H, KVH, causal,
                                   window, qs, kvs, os, s); break;
     case 64: err = tc::launch<64>(q, k, v, out, B, Sq, Skv, H, KVH, causal,
+                                  window, qs, kvs, os, s); break;
+    case 96: err = tc::launch<96>(q, k, v, out, B, Sq, Skv, H, KVH, causal,
                                   window, qs, kvs, os, s); break;
     case 128: err = tc::launch<128>(q, k, v, out, B, Sq, Skv, H, KVH, causal,
                                     window, qs, kvs, os, s); break;

@@ -31,7 +31,7 @@ from repro_torch.kernels import _build, ref
 CODES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 256
 #: Head dims of the tensor-core route (bf16 only).
-TC_HEAD_DIMS = (32, 64, 128, 256)
+TC_HEAD_DIMS = (32, 64, 96, 128, 256)
 
 
 def route(dtype: torch.dtype, d: int) -> str:

@@ -295,8 +295,8 @@ def flash_attention(q, k, v, *, causal: bool = True,
     head h // (H / KVH)).  Returns (B, Sq, H, d) in q.dtype.  The launch
     is counted as ``flash_attention[window]`` when a window is set, else
     ``[causal]`` or ``[full]``, whichever route ``flash_attention.route``
-    takes (bf16 at d 32/64/128/256 on the tensor cores, the rest on the
-    CUDA cores)."""
+    takes (bf16 at d 32/64/96/128/256 on the tensor cores, the rest on
+    the CUDA cores)."""
     if not use_kernel(impl, q):
         return fa.flash_attention_plain(q, k, v, causal=causal,
                                         window=window)

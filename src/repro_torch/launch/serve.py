@@ -36,6 +36,8 @@ preloaded (see :func:`build_tuning_env`).
       --device cpu --arch qwen2-moe-a2.7b --requests 6 --gen 10
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \\
       --arch whisper-base --batch 2 --gen 5
+  PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \\
+      --arch phi-3-vision-4.2b --batch 2 --gen 5
   PYTHONPATH=src python -m repro_torch.launch.serve --engine paged \\
       --device cpu --profile-ticks --trace-export trace.json
   PYTHONPATH=src python -m repro_torch.launch.serve --fleet --device cpu \\
@@ -147,20 +149,31 @@ def serve(arch: str, *, batch: int = 4, prompt_len: int = 32, gen: int = 16,
     f32 drawn from the same numpy generator after the prompts.  The JAX
     package's ``serve`` draws its frames with ``jax.random`` in
     ``make_example_batch``, which this port cannot reproduce, so the two
-    entry points feed different frames at the same seed.
+    entry points feed different frames at the same seed.  A vision config
+    (phi-3-vision-4.2b) takes stub patch embeddings ``(batch,
+    frontend_len, frontend_dim)`` the same way, standard normal f32 from
+    the numpy generator after the prompts (the JAX package's again from
+    ``jax.random``), written over each prompt's first ``frontend_len``
+    rows.
 
     Returns ``{"generated": (batch, gen) int32 numpy array, "prefill_s",
     "decode_s", "tokens_per_s"}``; the times end in a device synchronize.
 
     Raises:
-      ValueError: ``batch``, ``prompt_len`` or ``gen`` below 1."""
+      ValueError: ``batch``, ``prompt_len`` or ``gen`` below 1, or, for a
+          vision config, ``prompt_len`` below its ``frontend_len`` patch
+          rows (checked before anything is built)."""
     if min(batch, prompt_len, gen) < 1:
         raise ValueError(f"--batch {batch}, --prompt-len {prompt_len} and "
                          f"--gen {gen} must all be >= 1")
-    dev = resolve_device(device)
     cfg = get_config(arch)
     if reduced:
         cfg = reduced_config(cfg)
+    if cfg.frontend == "vision" and prompt_len < cfg.frontend_len:
+        raise ValueError(f"--prompt-len {prompt_len} is shorter than "
+                         f"{cfg.name}'s {cfg.frontend_len} patch rows "
+                         "(frontend_len)")
+    dev = resolve_device(device)
     opts = M.RunOptions(q_chunk=min(prompt_len, 512))
     gen_t = torch.Generator(device=dev).manual_seed(seed)
     params = init_params_for_compute(M.param_specs(cfg), gen_t,
@@ -171,6 +184,10 @@ def serve(arch: str, *, batch: int = 4, prompt_len: int = 32, gen: int = 16,
     if cfg.encoder_decoder:
         req["audio"] = torch.from_numpy(rng.standard_normal(
             (batch, cfg.encoder_len, cfg.frontend_dim),
+            dtype=np.float32)).to(dev)
+    if cfg.frontend == "vision":
+        req["patches"] = torch.from_numpy(rng.standard_normal(
+            (batch, cfg.frontend_len, cfg.frontend_dim),
             dtype=np.float32)).to(dev)
     sampler = Sampler()
 

@@ -6,9 +6,9 @@ decode tick.
 
 Parameters keep the JAX pytree layout — ``embed``, ``blocks/pos{i}/...``
 with a leading stacked ``(G,)`` axis over ``num_layers = G × period``,
-``final_norm``, ``lm_head`` when untied, and an encoder-decoder model's
-``encoder/{blocks, final_norm}`` and ``frontend_proj`` — so weights
-convert 1:1.
+``final_norm``, ``lm_head`` when untied, an encoder-decoder model's
+``encoder/{blocks, final_norm}``, and ``frontend_proj`` where the model
+has a frontend (audio or vision) — so weights convert 1:1.
 Where JAX scans over the stacked axis, the port runs a Python loop over
 it.  Where JAX returns a new KV pool, the port writes the pool in place.
 """
@@ -92,15 +92,9 @@ def _block_specs(cfg: ModelConfig, *,
     an encoder-decoder model's decoder (``decoder_side``) a
     cross-attention block behind ``ln_cross``, and a dense (``mlp``) or
     MoE (``moe``) MLP behind ``ln2``, or no MLP and no ``ln2`` where
-    ``mlp_kinds()`` says ``"none"`` (a Mamba-2 layer).
-
-    Raises:
-      NotImplementedError: a vision frontend (phi-3-vision-4.2b), which
-          ROADMAP.md queue 1 item 10 ports."""
-    if cfg.frontend == "vision":
-        raise NotImplementedError(
-            f"{cfg.name}: the vision frontend (and K4/K5 at its head dim) "
-            "is not ported yet: ROADMAP.md queue 1 item 10")
+    ``mlp_kinds()`` says ``"none"`` (a Mamba-2 layer).  A vision
+    frontend adds nothing here: its one weight, ``frontend_proj``, sits
+    at the top of the tree (``param_specs``)."""
     out: Dict[str, Any] = {}
     for i, (kind, mlpk) in enumerate(zip(cfg.layer_kinds(),
                                          cfg.mlp_kinds())):
@@ -328,14 +322,32 @@ def _ring_rows(k, window: int):
 
 def _embed_inputs(params, cfg: ModelConfig, batch, *, impl: str = "auto"):
     """Token embedding of ``batch["tokens"]`` (B, S): x (B, S, D) in the
-    compute dtype; and, in an encoder-decoder model, the encoder's output
+    compute dtype.  In a vision model, where the batch holds the stub
+    patch embeddings ``batch["patches"]`` (B, P, frontend_dim), the
+    patches in the compute dtype through ``frontend_proj`` are written
+    over rows ``[0, P)`` of x, as the reference's
+    ``dynamic_update_slice`` does; without patches x is the text
+    embedding alone.  In an encoder-decoder model, the encoder's output
     for the stub frame embeddings ``batch["audio"]`` (B, L, frontend_dim):
     the frames through ``frontend_proj`` in the compute dtype, the encoder
     stack (non-causal self-attention at positions 0..L-1, the dense MLP)
     and its final norm.  Returns ``(x, enc_out)``, ``enc_out`` (B, L, D)
-    or None."""
+    or None.
+
+    Raises:
+      ValueError: patches longer than the prompt (the reference's
+          ``dynamic_update_slice`` refuses them too, with a TypeError)."""
     dt = compute_dtype(cfg)
     x = params["embed"][batch["tokens"].long()].to(dt)
+    if cfg.frontend == "vision" and "patches" in batch:
+        patches = batch["patches"]
+        n, S = patches.shape[1], x.shape[1]
+        if n > S:
+            raise ValueError(
+                f"{cfg.name}: a prompt of {S} tokens is shorter than the "
+                f"{n} patch embeddings written over its first rows "
+                "(frontend_len)")
+        x[:, :n] = patches.to(dt) @ params["frontend_proj"].to(dt)
     if not cfg.encoder_decoder:
         return x, None
     enc, enc_cfg = params["encoder"], _encoder_cfg(cfg)
@@ -381,7 +393,9 @@ def lm_loss(params, cfg: ModelConfig, batch,
           item 8) ports; a config with SSM layers, whose backward
           through the chunked SSD the SSM training slice (item 9)
           ports; an encoder-decoder config, whose loss runs the encoder
-          and the cross-attention, which item 11 ports."""
+          and the cross-attention, which item 11 ports; a vision config,
+          whose loss backpropagates into ``frontend_proj`` through the
+          patch rows, which the vision training slice (item 12) ports."""
     if cfg.moe is not None:
         raise NotImplementedError(
             f"{cfg.name}: training an MoE model (the aux load-balancing "
@@ -397,6 +411,11 @@ def lm_loss(params, cfg: ModelConfig, batch,
             f"{cfg.name}: training an encoder-decoder model (the encoder "
             "and the cross-attention under backward) is not ported yet: "
             "ROADMAP.md queue 1 item 11")
+    if cfg.frontend == "vision":
+        raise NotImplementedError(
+            f"{cfg.name}: training the vision model (the patch rows and "
+            "frontend_proj under backward) is not ported yet: ROADMAP.md "
+            "queue 1 item 12")
     params = _maybe_bf16(params, opts)
     x, _ = _embed_inputs(params, cfg, batch)
     h, _ = backbone(params, cfg, x, opts, impl="plain", train=True)
@@ -410,11 +429,12 @@ def lm_loss(params, cfg: ModelConfig, batch,
 
 def prefill(params, cfg: ModelConfig, batch, opts: RunOptions = RunOptions(),
             *, impl: str = "auto"):
-    """Run the prompts ``batch["tokens"]`` (B, S) through the model (an
-    encoder-decoder model's decoder attending to the encoder's output for
-    ``batch["audio"]``, see ``_embed_inputs``).  Returns ``(last_logits
-    (B, 1, V) f32, cache)``, the cache ``{posN: {k, v: (G, B, S, KVH,
-    hd)}}`` in the compute dtype (a ring-buffer layer's ``min(S, W)``
+    """Run the prompts ``batch["tokens"]`` (B, S) through the model (a
+    vision model's first rows the projected ``batch["patches"]`` where
+    given, an encoder-decoder model's decoder attending to the encoder's
+    output for ``batch["audio"]``, see ``_embed_inputs``).  Returns
+    ``(last_logits (B, 1, V) f32, cache)``, the cache ``{posN: {k, v: (G,
+    B, S, KVH, hd)}}`` in the compute dtype (a ring-buffer layer's ``min(S, W)``
     rows with ``opts.ring_local_cache``; an SSM layer's ``conv`` tail and
     f32 ``ssm`` state; an encoder-decoder model's ``ck``/``cv`` too, see
     ``backbone``)."""

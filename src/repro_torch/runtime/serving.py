@@ -822,7 +822,11 @@ class FixedSlotPolicy:
     encoder-decoder model's slot also holds the encoder's K/V of its
     request (``ck``/``cv``, ``encoder_len`` rows each), which prefill
     writes whole and decode only reads; the prefill's frames are the
-    reference's stub, zeros of ``(1, encoder_len, frontend_dim)``.
+    reference's stub, zeros of ``(1, encoder_len, frontend_dim)``.  A
+    vision model's prefill is fed the reference's stub patches, zeros of
+    ``(1, frontend_len, frontend_dim)``, on every admission (a resumed
+    request's replay too), so its first ``frontend_len`` rows embed as
+    zero vectors; its prompts must be at least that long (``validate``).
 
     Weights move to ``device`` and the matmul weights are cast once to the
     compute dtype; the cache lives there and is written in place.  The
@@ -891,12 +895,19 @@ class FixedSlotPolicy:
         """Reject a request this layout could never place.
 
         Raises:
-          ValueError: empty prompt, prompt >= ``max_len``, or
+          ValueError: empty prompt, prompt >= ``max_len``,
               ``prompt + max_new_tokens`` > ``max_len`` (decode would
-              write past the slot)."""
+              write past the slot), or, in a vision model, a prompt
+              shorter than the ``frontend_len`` patch rows its prefill
+              writes (the reference's prefill fails on it mid-run)."""
         total = len(req.prompt) + req.max_new_tokens
         if len(req.prompt) == 0:
             raise ValueError("empty prompt")
+        if (self.cfg.frontend == "vision"
+                and len(req.prompt) < self.cfg.frontend_len):
+            raise ValueError(f"prompt length {len(req.prompt)} < "
+                             f"frontend_len={self.cfg.frontend_len} of "
+                             f"{self.cfg.name}'s patch rows")
         if len(req.prompt) >= self.max_len:
             raise ValueError(f"prompt length {len(req.prompt)} >= "
                              f"max_len={self.max_len}")
@@ -944,6 +955,10 @@ class FixedSlotPolicy:
         P = len(src)
         batch = {"tokens": torch.from_numpy(
             np.asarray(src, np.int32)[None]).to(self.device)}
+        if self.cfg.frontend == "vision":
+            batch["patches"] = torch.zeros(
+                (1, self.cfg.frontend_len, self.cfg.frontend_dim),
+                dtype=torch.float32, device=self.device)
         if self.cfg.frontend == "audio":
             batch["audio"] = torch.zeros(
                 (1, self.cfg.encoder_len, self.cfg.frontend_dim),

@@ -136,7 +136,7 @@ def _beyond(got, want):
     return int((err > BF16_ATOL + BF16_RTOL * np.abs(want)).sum())
 
 
-@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("d", [32, 64, 96, 128])
 @pytest.mark.parametrize("case", ["causal", "window", "full"])
 def test_tensor_core_flash_arithmetic_within_the_chip_tolerance(d, case):
     q, k, v, causal, window = _flash_case(d, case)
@@ -177,7 +177,8 @@ def test_one_bf16_term_of_p_breaks_the_tolerance(d, case):
                                             "tensor cores"),
     (torch.bfloat16, 256, "tensor cores"), (torch.bfloat16, 16,
                                             "cuda cores"),
-    (torch.bfloat16, 96, "cuda cores"), (torch.float32, 128, "cuda cores")])
+    (torch.bfloat16, 96, "tensor cores"), (torch.float32, 128, "cuda cores"),
+    (torch.bfloat16, 80, "cuda cores"), (torch.float32, 96, "cuda cores")])
 def test_flash_route_is_chosen_by_dtype_and_head_dim(dtype, d, expect):
     assert tfa.route(dtype, d) == expect
 

@@ -151,8 +151,10 @@ def test_telemetry_is_accepted_and_leaves_the_flat_trace():
 def test_registry_lists_ported_archs_only():
     from repro_torch.configs import ARCH_IDS, get_config, resolve_arch
     assert set(ARCH_IDS) == {"qwen3-1.7b", "llama3-8b", "qwen2-moe-a2.7b",
-                             "gemma3-12b", "mamba2-130m", "whisper-base"}
+                             "gemma3-12b", "mamba2-130m", "whisper-base",
+                             "phi-3-vision-4.2b"}
     assert resolve_arch("whisper_base") == "whisper-base"
+    assert resolve_arch("phi_3_vision_4_2b") == "phi-3-vision-4.2b"
     assert resolve_arch("qwen2_moe_a2_7b") == "qwen2-moe-a2.7b"
     assert resolve_arch("mamba2_130m") == "mamba2-130m"
     assert resolve_arch("qwen3_1_7b") == "qwen3-1.7b"
@@ -168,7 +170,8 @@ def test_registry_lists_ported_archs_only():
 
 @pytest.mark.parametrize("arch", ["qwen3-1.7b", "llama3-8b",
                                   "qwen2-moe-a2.7b", "gemma3-12b",
-                                  "mamba2-130m", "whisper-base"])
+                                  "mamba2-130m", "whisper-base",
+                                  "phi-3-vision-4.2b"])
 def test_ported_configs_equal_the_references_field_by_field(arch):
     """Each config of the port's registry, and its reduced form, equals
     the JAX package's field by field (MoEConfig and SSMConfig compared
@@ -217,6 +220,14 @@ def test_ported_configs_equal_the_references_field_by_field(arch):
         assert (mine.encoder_decoder, mine.encoder_len, mine.frontend,
                 mine.frontend_dim) == (True, 1500, "audio", 80)
         assert not mine.tie_embeddings and not mine.qk_norm
+    if arch == "phi-3-vision-4.2b":
+        assert (mine.num_layers, mine.d_model, mine.num_heads,
+                mine.num_kv_heads, mine.head_dim, mine.d_ff,
+                mine.vocab_size) == (32, 3072, 32, 32, 96, 8192, 32_064)
+        assert (mine.frontend, mine.frontend_len, mine.frontend_dim) == \
+            ("vision", 256, 1024)
+        assert not mine.encoder_decoder and not mine.tie_embeddings
+        assert not mine.qk_norm and mine.layer_kinds() == ("attn",)
 
 
 def test_init_params_is_seeded_and_shaped():

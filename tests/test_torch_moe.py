@@ -314,15 +314,24 @@ def test_lm_loss_refuses_moe():
 
 
 def test_encoder_decoder_and_frontend_archs_stay_refused():
-    """The vision frontend stays refused; the encoder-decoder family is
-    ported (``tests/test_torch_whisper.py``), so its config now builds
-    the encoder stack and each decoder layer's cross-attention."""
+    """Training a vision model stays refused; the vision frontend's
+    serving path (``tests/test_torch_vision.py``) and the
+    encoder-decoder family (``tests/test_torch_whisper.py``) are ported,
+    so a vision config builds ``frontend_proj`` and no encoder, and an
+    encoder-decoder config the encoder stack and each decoder layer's
+    cross-attention."""
     base = dict(num_layers=2, d_model=64, num_heads=4, num_kv_heads=4,
                 d_ff=128, vocab_size=256, head_dim=16)
     vlm = TConfig(name="vlm", family="vlm", frontend="vision",
                   frontend_len=8, frontend_dim=64, **base)
+    vspecs = TM.param_specs(vlm)
+    assert vspecs["frontend_proj"].shape == (64, 64)
+    assert "encoder" not in vspecs
+    vp = TM.init_params(vspecs, torch.Generator().manual_seed(0))
+    batch = {"tokens": torch.zeros((1, 8), dtype=torch.int32),
+             "labels": torch.zeros((1, 8), dtype=torch.int32)}
     with pytest.raises(NotImplementedError, match="not ported"):
-        TM.param_specs(vlm)
+        TM.lm_loss(vp, vlm, batch)
     specs = TM.param_specs(TConfig(name="encdec", family="audio",
                                    encoder_decoder=True, num_encoder_layers=2,
                                    encoder_len=32, **base))

@@ -369,8 +369,9 @@ def test_norm_calls_per_layer(setup, monkeypatch):
 
 
 def test_lm_loss_and_the_vision_frontend_refuse(setup):
-    """Training an encoder-decoder model and the vision frontend
-    (phi-3-vision-4.2b, its config carried across field by field) raise
+    """Training an encoder-decoder model and training the vision model
+    (phi-3-vision-4.2b, its config carried across field by field, whose
+    serving path is ported: ``test_torch_vision.py``) raise
     ``NotImplementedError`` naming their ROADMAP items."""
     _, tcfg, _, tp = setup
     batch = {"tokens": torch.zeros((1, 8), dtype=torch.int32),
@@ -381,5 +382,10 @@ def test_lm_loss_and_the_vision_frontend_refuse(setup):
     vision = ModelConfig(**{f.name: getattr(get_config("phi-3-vision-4.2b"),
                                             f.name)
                             for f in dataclasses.fields(ModelConfig)})
-    with pytest.raises(NotImplementedError, match="vision"):
-        TM.param_specs(vision)
+    vision = treduced(vision, compute_dtype="float32")
+    vp = TM.init_params(TM.param_specs(vision),
+                        torch.Generator().manual_seed(0))
+    with pytest.raises(NotImplementedError,
+                       match="vision.*ROADMAP.md queue 1 item"):
+        TM.lm_loss(vp, vision, {**batch, "patches": torch.zeros(
+            (1, vision.frontend_len, vision.frontend_dim))})
