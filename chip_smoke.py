@@ -280,7 +280,37 @@ Phases, each printed as it runs:
    plain and timed; ``serve()`` at full width and ``serve --arch
    phi-3-vision-4.2b`` (reduced), and ``--engine paged`` exiting with the
    paged engine's refusal;
-13. f32 — qwen3-1.7b computing in f32 (f32 weights, pool and cache;
+13. hybrid — jamba-v0.1-52b at full width, cut in depth only to 16 of
+   its 32 layers (two whole periods of 4 Mamba-2 layers, 1 attention
+   layer and 3 Mamba-2 layers; d_model 4096, 32/8 heads of 128, SSM
+   d_inner 8192 in 128 heads of 64 with d_state 16, an MLP on every
+   layer: dense SwiGLU of 14336 on even positions, 16 experts top-2 of
+   14336 with no shared expert on odd ones; untied 65536-row head;
+   25.998 B parameters, 48.43 GiB), drawn cast on the card from a
+   generator seeded 0, on the fixed-slot ``ServingEngine`` (the
+   reference serves hybrid archs there only; the paged engine and
+   ``lm_loss`` refuse it on the card as they do in the reference).  Run
+   A: 8 slots, max_len 1056, 16 requests of 255-1024 prompt tokens and
+   32 new, every second at temperature 0.9: all finished in the
+   vocabulary, logits finite, launch counts exact (per prefill K5 causal
+   on the 2 attention layers; per decode step K4 on them at group 4;
+   per step one K3 at D = 4096, 32 fused add + norms at 4096 and 14
+   gated norms at D = 8192), the capacity path's dropped (token, expert)
+   pairs per prefill and over the decode steps (an add captured into the
+   graph), tokens/s and TTFT; the first prefill's K5 and norm calls and
+   one decode step's K4 and norm calls held to plain on their own
+   inputs (K4/K5 scaled by powers of two); the captured decode step
+   against eager bit for bit (logits, K/V and SSM states); the steady
+   step on a fresh engine (wall, busy, kernels, idle share, busy time by
+   kernel group) against its byte bound; K5 causal at 1024 and K4 over
+   8 x 1057 keys at group 4, K3 at D = 4096 and 8192 and the fused add +
+   norm at 4096 against plain, timed beside SDPA / ``F.rms_norm``; the
+   bf16 tree freed, one period (8 layers, 13.268 B parameters) drawn in
+   f32 and 8 prompts teacher-forced with the kernels against the plain
+   versions on decided positions; ``serve --arch jamba-v0.1-52b``
+   (reduced) and ``--engine paged`` exiting with the paged engine's
+   refusal (``serve()`` at full width would build all 32 layers);
+14. f32 — qwen3-1.7b computing in f32 (f32 weights, pool and cache;
    flash prefill on its CUDA-core route): 8 greedy streams teacher-forced
    through the fused tick and through ``prefill`` + ``decode_step``, each
    with the kernels and with the plain versions, whose top-1 must agree
@@ -288,7 +318,7 @@ Phases, each printed as it runs:
    logit difference there) with at least 90% of the positions decided;
    then the paged engine and ``ServingEngine`` on the same 8 requests,
    whose streams must be equal up to their first top-2 gap <= 1e-3;
-14. train — the training path, which runs the plain PyTorch versions on
+15. train — the training path, which runs the plain PyTorch versions on
    purpose (no kernel has a backward, in the port or in the reference):
    ``train()`` on qwen3-1.7b at its published width (f32 master weights
    and AdamW state, bf16 compute, remat, batch 8 x seq 1024 from the
@@ -305,7 +335,7 @@ Phases, each printed as it runs:
    resumed losses and final params, mu, nu and count against an
    uninterrupted run, and a ``save_async`` whose restored tensors equal
    the saved ones bit for bit);
-15. hpc — the fp8 GEMM kernel (K6) against its plain version, held to
+16. hpc — the fp8 GEMM kernel (K6) against its plain version, held to
    ``fp8_matmul.error_bound`` (f32 sums plus the tensor-core term of sums
    promoted every 128 products), through ``ops.fp8_matmul`` (aligned,
    ragged, bm/bn != 128) and through the per-tensor call at the n = 256,
@@ -323,7 +353,7 @@ Phases, each printed as it runs:
    kernel and with the plain version (first trailing update and refined
    solutions held); HPCG at 256³ (50 iterations, the true residual
    recomputed) and at 48³ (90 iterations, converged);
-16. summary — one JSON line listing the kernels, the card's name and power
+17. summary — one JSON line listing the kernels, the card's name and power
     limit, and as the last line ``{"ok": true, "device": {...}}``.
 
 Any failure raises: the script exits non-zero and prints no ``ok`` line.
@@ -1338,28 +1368,31 @@ def phase_variants() -> None:
 
 def norm_launches(cfg, steps: int) -> dict:
     """The norm kernels' launches over ``steps`` model steps: per step
-    layer 0's ln1 alone (K3), per layer the attention add fused into ln2
+    layer 0's ln1 alone (K3), per layer the mixer's add fused into ln2
     and the MLP add into the next ln1 or the final norm (``add_rmsnorm``),
     and, in a model with qk-norm, the q- and k-norm in one launch
-    (``rmsnorm_qk``).  A Mamba-2 layer has no MLP: per layer its block's
-    add fused into the next norm and its gated norm at d_inner (K3)."""
-    L = cfg.num_layers
-    if cfg.ssm is not None:
-        return {f"rmsnorm[D={cfg.d_model}]": steps,
-                f"add_rmsnorm[D={cfg.d_model}]": L * steps,
-                f"rmsnorm[D={cfg.ssm.expand * cfg.d_model}]": L * steps}
-    out = {f"rmsnorm[D={cfg.d_model}]": steps,
-           f"add_rmsnorm[D={cfg.d_model}]": 2 * L * steps}
+    (``rmsnorm_qk``).  A layer without an MLP (mamba2-130m's) fuses its
+    mixer's add into the next norm: one ``add_rmsnorm``.  An SSM layer
+    adds its gated norm at d_inner (K3)."""
+    L, D = cfg.num_layers, cfg.d_model
+    periods = L // cfg.scan_period()
+    with_mlp = periods * sum(k != "none" for k in cfg.mlp_kinds())
+    n_ssm = periods * cfg.layer_kinds().count("ssm")
+    out = {f"rmsnorm[D={D}]": steps,
+           f"add_rmsnorm[D={D}]": (L + with_mlp) * steps}
+    if n_ssm:
+        out[f"rmsnorm[D={cfg.ssm.expand * D}]"] = n_ssm * steps
     if cfg.qk_norm:
         out[f"rmsnorm_qk[D={cfg.head_dim}]"] = L * steps
     return out
 
 
 def layer_counts(cfg) -> tuple:
-    """(global, sliding-window) attention layers of ``cfg``."""
-    local = cfg.layer_kinds().count("attn_local") * (
-        cfg.num_layers // cfg.scan_period())
-    return cfg.num_layers - local, local
+    """(global, sliding-window) attention layers of ``cfg`` (a hybrid's
+    SSM layers are neither)."""
+    periods = cfg.num_layers // cfg.scan_period()
+    kinds = cfg.layer_kinds()
+    return periods * kinds.count("attn"), periods * kinds.count("attn_local")
 
 
 def attention_launches(cfg, kernel: str, steps: int) -> dict:
@@ -1758,17 +1791,18 @@ def _fixed_graph_vs_eager(eng, phase: str = "serve-fixed") -> None:
 
 
 def _profile_graph_decode_step(eng, phase: str = "serve-fixed",
-                               what: str = "steady decode step") -> tuple:
+                               what: str = "steady decode step",
+                               groups=SERVING_GROUPS) -> tuple:
     """The fixed-slot engine's captured decode step replayed on the inputs
-    of ``_profile_decode_step`` under ``_profile_steady``.  Returns (wall,
-    busy) in ms per step."""
+    of ``_profile_decode_step`` under ``_profile_steady`` (its busy time
+    split over ``groups``).  Returns (wall, busy) in ms per step."""
     pol = eng.policy
     tok, pos = _decode_state(eng)
     pol._feed.dev["tokens"].copy_(tok[:, 0])
     pol._feed.dev["pos"].copy_(pos)
     return _profile_steady(
         phase, f"{what}, graph replay",
-        lambda: torch.argmax(pol._decode_fn(), dim=-1).cpu())
+        lambda: torch.argmax(pol._decode_fn(), dim=-1).cpu(), groups=groups)
 
 
 def phase_serve_fixed(paged: dict) -> dict:
@@ -2812,22 +2846,28 @@ def _fleet_steady(weights) -> None:
     _check_tickets("steady fleet", _fleet_tickets(fleet))
 
 
-def _tick_bytes(eng) -> int:
-    """Bytes one fused tick of ``eng`` from ``_tick_state(eng)`` must
-    move: every weight once but the embedding, of which only the rows of
-    the 8 tokens (all of it where the head is tied to it), the K and V of
-    every seat's positions (bf16 pool; on a sliding-window layer only the
-    last W), and the f32 logits.  An MoE model's capacity path reads
-    every expert's weights each tick, so they all count."""
+def _weight_bytes(cfg, params, tokens: int) -> int:
+    """Weight bytes one model step over ``tokens`` tokens must read: every
+    weight once but the embedding, of which only the tokens' rows (all
+    of it where the head is tied to it).  An MoE model's capacity path
+    reads every expert's weights each step, so they all count."""
     from repro_torch.tree import tree_flatten_with_paths
-    cfg, params = eng.cfg, eng.params
-    state = _tick_state(eng)
-    seats = len(state["pos"])
     weights = sum(t.numel() * t.element_size() for p, t in
                   tree_flatten_with_paths(params) if p != "embed")
     emb = params["embed"]
-    weights += (emb.numel() if cfg.tie_embeddings else
-                seats * emb.shape[1]) * emb.element_size()
+    return weights + (emb.numel() if cfg.tie_embeddings else
+                      tokens * emb.shape[1]) * emb.element_size()
+
+
+def _tick_bytes(eng) -> int:
+    """Bytes one fused tick of ``eng`` from ``_tick_state(eng)`` must
+    move: the weights (``_weight_bytes``), the K and V of every seat's
+    positions (bf16 pool; on a sliding-window layer only the last W),
+    and the f32 logits."""
+    cfg = eng.cfg
+    state = _tick_state(eng)
+    seats = len(state["pos"])
+    weights = _weight_bytes(cfg, eng.params, seats)
     lengths = state["pos"] + 1
     n_global, n_local = layer_counts(cfg)
     tokens = n_global * int(lengths.sum())
@@ -2914,19 +2954,22 @@ MOE_TICK_LAYERS = 2
 MOE_FIXED_REQUESTS = 8
 
 
-def _draw_cast(arch: str, phase: str):
-    """``arch`` at full width, drawn on the card from a generator seeded
-    0, each matmul leaf cast to the compute dtype as it is drawn
+def _draw_cast(arch: str, phase: str, **overrides):
+    """``arch`` at full width (its config with ``overrides``: a depth cut
+    to fit the card, a compute dtype), drawn on the card from a generator
+    seeded 0, each matmul leaf cast to the compute dtype as it is drawn
     (``init_params_for_compute``, bit-equal to casting the drawn f32
     tree): the f32 tree never exists, only the leaf being drawn and its
     cast beside the tree so far.  Logs the tree's size and the drawing
     peak, which may not pass the tree and the largest leaf's f32 draw.
     Returns (cfg, params)."""
+    import dataclasses
     from repro_torch.configs import get_config
     from repro_torch.models import model as M
     from repro_torch.models.convert import init_params_for_compute
     from repro_torch.tree import tree_leaves
-    cfg = get_config(arch)
+    full = get_config(arch)
+    cfg = dataclasses.replace(full, **overrides)
     specs = M.param_specs(cfg)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -2937,12 +2980,15 @@ def _draw_cast(arch: str, phase: str):
     peak = torch.cuda.max_memory_allocated() - base
     held = _tree_bytes(params)
     largest = max(t.numel() for t in tree_leaves(params))
-    log(phase, f"weights: {arch}, {cfg.num_layers} layers, d_model "
+    depth = (f" of its {full.num_layers}"
+             if cfg.num_layers != full.num_layers else "")
+    log(phase, f"weights: {arch}, {cfg.num_layers}{depth} layers, d_model "
         f"{cfg.d_model}, {cfg.num_heads}/{cfg.num_kv_heads} heads of "
         f"{cfg.resolved_head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size} "
         f"{'tied' if cfg.tie_embeddings else 'untied'}: "
         f"{M.count_params(specs) / 1e9:.3f} B parameters, "
-        f"{held / 2 ** 30:.2f} GiB cast as drawn; peak "
+        f"{held / 2 ** 30:.2f} GiB cast as drawn ({cfg.compute_dtype}); "
+        f"peak "
         f"{peak / 2 ** 30:.2f} GiB while drawing (the f32 tree alone "
         f"would be {M.count_params(specs) * 4 / 2 ** 30:.2f} GiB)")
     # at most the tree and the largest leaf's f32 draw (4 bytes an
@@ -3558,14 +3604,18 @@ def _gemma_steady(eng) -> None:
         f"{busy / bound_ms:.2f}x (information)")
 
 
+ATTENTION_OPS = ("decode_attention", "flash_attention")
+NORM_OPS = ("rmsnorm", "add_rmsnorm")
+
+
 @contextlib.contextmanager
-def _recording(calls: list, when=lambda: True):
-    """``ops.decode_attention`` and ``ops.flash_attention`` watched: each
-    call launches as it would, and while ``when()`` holds a copy of its
-    arguments is appended to ``calls`` as (name, args, kwargs)."""
+def _recording(calls: list, when=lambda: True, names=ATTENTION_OPS):
+    """The ``ops`` wrappers ``names`` (by default ``ops.decode_attention``
+    and ``ops.flash_attention``) watched: each call launches as it
+    would, and while ``when()`` holds a copy of its arguments is
+    appended to ``calls`` as (name, args, kwargs)."""
     from repro_torch.kernels import ops
-    inner = {name: getattr(ops, name)
-             for name in ("decode_attention", "flash_attention")}
+    inner = {name: getattr(ops, name) for name in names}
 
     def watched(name):
         fn = inner[name]
@@ -4140,24 +4190,27 @@ def _ssm_long(cfg, params, ref) -> None:
                                f"{SSM_LONG + SSM_GEN + 1})")
 
 
-def _fixed_only_cli(arch: str, phase: str, prompt_len: int) -> None:
+def _fixed_only_cli(arch: str, phase: str, prompt_len) -> None:
     """For an arch the reference serves on fixed slots only: ``serve()``
     at full width (the static batch behind ``--engine batch``: 4 prompts
-    of ``prompt_len`` tokens, 16 new), then ``python -m
-    repro_torch.launch.serve --arch <arch>`` with its defaults (reduced
-    config), and ``--engine paged``, which must exit non-zero with the
-    paged engine's refusal."""
+    of ``prompt_len`` tokens, 16 new; none where ``prompt_len`` is None,
+    for a model whose full depth the card cannot hold: ``serve()`` builds
+    every layer), then ``python -m repro_torch.launch.serve --arch
+    <arch>`` with its defaults (reduced config), and ``--engine paged``,
+    which must exit non-zero with the paged engine's refusal."""
     from repro_torch.configs import get_config
     from repro_torch.launch.serve import serve
     vocab = get_config(arch).vocab_size
-    r = serve(arch, batch=4, prompt_len=prompt_len, gen=16, reduced=False,
-              device="cuda")
-    g = r["generated"]
-    assert g.shape == (4, 16) and ((g >= 0) & (g < vocab)).all(), g
-    log(phase, f"serve() at full width: prefill="
-        f"{r['prefill_s'] * 1e3:.0f}ms decode={r['decode_s'] * 1e3:.0f}ms "
-        f"throughput={r['tokens_per_s']:.1f} tok/s (batch 4, prompt "
-        f"{prompt_len}, 16 new)")
+    if prompt_len is not None:
+        r = serve(arch, batch=4, prompt_len=prompt_len, gen=16,
+                  reduced=False, device="cuda")
+        g = r["generated"]
+        assert g.shape == (4, 16) and ((g >= 0) & (g < vocab)).all(), g
+        log(phase, f"serve() at full width: prefill="
+            f"{r['prefill_s'] * 1e3:.0f}ms decode="
+            f"{r['decode_s'] * 1e3:.0f}ms throughput="
+            f"{r['tokens_per_s']:.1f} tok/s (batch 4, prompt "
+            f"{prompt_len}, 16 new)")
     env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
     for engine in ("batch", "paged"):
         out = subprocess.run(
@@ -4833,73 +4886,85 @@ def _flash_cuda_cores(q, k, v) -> torch.Tensor:
     return out
 
 
-def _vision_timing(cfg, flush) -> dict:
-    """K5 and K4 at phi-3-vision-4.2b's shapes (bf16, 32 heads over 32 of
-    96, unit-scale random inputs) against plain within BF16_ATOL/RTOL,
-    timed beside their plain versions, their bounds and SDPA with the
-    same mask: K5 causal over the longest prompt (1024), on the tensor
-    cores and, once, on the CUDA cores it took before; K4 over 8 slots of
-    VISION_MAX_LEN keys, every key kept.  Returns their rows."""
+def _attention_timing(cfg, phase: str, S: int, T: int, seed: int,
+                      key: str, flush, cuda_cores: bool = False) -> dict:
+    """K5 and K4 at ``cfg``'s shapes (bf16, its heads over its kv heads at
+    its head dim, unit-scale random inputs from a generator seeded
+    ``seed``) against plain within BF16_ATOL/RTOL, timed beside their
+    plain versions, their bounds and SDPA with the same mask (K/V
+    repeated to every head): K5 causal over a prompt of ``S`` tokens, on
+    the tensor cores and, with ``cuda_cores``, once on the CUDA cores;
+    K4 over 8 slots of ``T`` keys, every key kept.  Returns their rows,
+    ``flash_attention[<key>]`` and ``decode_attention[<key>]``."""
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops
     heads, kvh, d = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
     assert fa.route(torch.bfloat16, d) == "tensor cores"
-    gen = torch.Generator(device="cuda").manual_seed(44)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
 
     def draw(*shape):
         return torch.randn(shape, generator=gen, device="cuda").bfloat16()
-    S = max(VISION_FIXED_LENGTHS)
+
+    def heads_first(q, k, v):
+        return (q.transpose(1, 2).contiguous(),
+                *(t.transpose(1, 2).repeat_interleave(heads // kvh, dim=1)
+                  .contiguous() for t in (k, v)))
     q, k, v = draw(1, S, heads, d), draw(1, S, kvh, d), draw(1, S, kvh, d)
 
     def run(impl):
         return ops.flash_attention(q, k, v, causal=True, impl=impl)
     want = run("plain")
-    err = check_close(f"vision flash[causal, S={S}, d={d}]", run("kernel"),
+    err = check_close(f"{phase} flash[causal, S={S}, d={d}]", run("kernel"),
                       want, BF16_ATOL, BF16_RTOL)
-    err_cc = check_close(f"vision flash[causal, S={S}, d={d}], CUDA cores",
-                         _flash_cuda_cores(q, k, v), want, BF16_ATOL,
-                         BF16_RTOL)
     ms = cuda_ms(lambda: run("kernel"), flush)
-    cc_ms = cuda_ms(lambda: _flash_cuda_cores(q, k, v), flush)
+    cc_err = cc_time = ""
+    if cuda_cores:
+        err_cc = check_close(f"{phase} flash[causal, S={S}, d={d}], CUDA "
+                             "cores", _flash_cuda_cores(q, k, v), want,
+                             BF16_ATOL, BF16_RTOL)
+        cc_ms = cuda_ms(lambda: _flash_cuda_cores(q, k, v), flush)
+        cc_err = f" (CUDA cores {err_cc:.3e})"
+        cc_time = f" (CUDA-core route {cc_ms:.4f} ms, {cc_ms / ms:.1f}x)"
     plain_ms = cuda_ms(lambda: run("plain"), flush, iters=5)
-    qs, ks, vs = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    qs, ks, vs = heads_first(q, k, v)
     lib_ms = cuda_ms(lambda: sdpa(SDPBackend.FLASH_ATTENTION, qs, ks, vs,
                                   is_causal=True), flush)
+    del qs, ks, vs
     nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
     flops = 2.0 * d * heads * S * (S + 1)
     b_ms, b_by = bound(nbytes, flops, BF16_FLOPS)
-    log("vision", f"flash_attention[causal] S={S} H={heads} KVH={kvh} d={d}: "
-        f"max|err| {err:.3e} (CUDA cores {err_cc:.3e}) kernel {ms:.4f} ms "
-        f"(CUDA-core route {cc_ms:.4f} ms, {cc_ms / ms:.1f}x) plain "
+    log(phase, f"flash_attention[causal] S={S} H={heads} KVH={kvh} d={d}: "
+        f"max|err| {err:.3e}{cc_err} kernel {ms:.4f} ms{cc_time} plain "
         f"{plain_ms:.4f} ms {SDPA_FLASH} {lib_ms:.4f} ms bound {b_ms:.5f} ms "
         f"({b_by}, {nbytes / 1e6:.2f} MB, {flops / 1e9:.2f} GFLOP at the "
         "bf16 tensor-core rate)")
-    rows = {"flash_attention[d=96]": dict(
+    rows = {f"flash_attention[{key}]": dict(
         name="flash_attention", max_abs_err=err, ms=ms, plain_ms=plain_ms,
         bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms, library=SDPA_FLASH)}
-    B, T = 8, VISION_MAX_LEN
+    B = 8
     q, k, v = draw(B, 1, heads, d), draw(B, T, kvh, d), draw(B, T, kvh, d)
     lengths = torch.full((B,), T, dtype=torch.int32, device="cuda")
 
     def run(impl):
         return ops.decode_attention(q, k, v, lengths, impl=impl)
-    err = check_close(f"vision decode_attention[bf16, d={d}]", run("kernel"),
+    err = check_close(f"{phase} decode_attention[bf16, d={d}]", run("kernel"),
                       run("plain"), BF16_ATOL, BF16_RTOL)
-    _check_tickets("vision dense decode", da._tickets.values())
+    _check_tickets(f"{phase} dense decode", da._tickets.values())
     ms = cuda_ms(lambda: run("kernel"), flush)
     plain_ms = cuda_ms(lambda: run("plain"), flush, iters=5)
-    qs, ks, vs = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    qs, ks, vs = heads_first(q, k, v)
     lib_ms = cuda_ms(lambda: sdpa(SDPBackend.EFFICIENT_ATTENTION, qs, ks, vs),
                      flush)
+    del qs, ks, vs
     nbytes = 2 * k.numel() * 2 + 2 * q.numel() * 2 + B * 4
     b_ms, b_by = bound(nbytes, 4.0 * B * T * heads * d)
     splits, chunk = da.split_plan(B, kvh, T, _sms())
-    log("vision", f"decode_attention[bf16] {B} slots of {T} keys H={heads} "
+    log(phase, f"decode_attention[bf16] {B} slots of {T} keys H={heads} "
         f"KVH={kvh} d={d}: max|err| {err:.3e} kernel {ms:.4f} ms plain "
         f"{plain_ms:.4f} ms {SDPA_EFF} {lib_ms:.4f} ms bound {b_ms:.5f} ms "
         f"({b_by}, {nbytes / 1e6:.2f} MB; {splits} splits of {chunk})")
-    rows["decode_attention[d=96]"] = dict(
+    rows[f"decode_attention[{key}]"] = dict(
         name="decode_attention", max_abs_err=err, ms=ms, plain_ms=plain_ms,
         bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms, library=SDPA_EFF)
     return rows
@@ -4930,7 +4995,11 @@ def phase_vision():
     torch.cuda.empty_cache()
     t2 = time.perf_counter()
     flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device="cuda")
-    rows = _vision_timing(cfg, flush)
+    # K5 causal over the longest prompt (1024), beside the CUDA-core route
+    # it took before, and K4 over 8 x 1056 keys, every key kept
+    rows = _attention_timing(cfg, "vision", max(VISION_FIXED_LENGTHS),
+                             VISION_MAX_LEN, 44, "d=96", flush,
+                             cuda_cores=True)
     # K3 and the fused add + norm at d_model 3072: a decode step's 8 rows,
     # the shortest and the longest prompt, the drawn-patch checks' 2 x 700
     # rows, and f32 at the teacher-forced decode rows and prompts
@@ -4951,6 +5020,355 @@ def phase_vision():
         f"{t2 - t1:.1f} s, kernels timed {t3 - t2:.1f} s, cli "
         f"{time.perf_counter() - t3:.1f} s")
     return rows, {"vision": counts}
+
+
+HYBRID = "jamba-v0.1-52b"      # phase hybrid: 7 Mamba-2 layers to 1 attention
+HYBRID_LAYERS = 16             # two of its four periods of 8: the card holds
+#                                48.43 GiB of bf16 weights, not 32 layers' 95.85
+HYBRID_REQUESTS = 16
+HYBRID_GEN = 32
+HYBRID_MAX_LEN = 1056          # prompts of at most 1024 tokens + 32 new
+# prompt lengths every run takes: the longest first (rid 0, the prefill
+# whose K5 and norm calls are held to plain), an SSD chunk of 256 and
+# either side of it, two chunks and either side, 1000; the rest drawn in
+# [256, 1024]
+HYBRID_FIXED_LENGTHS = (1024, 255, 256, 257, 511, 512, 513, 1000)
+HYBRID_TF_MAX_LEN = 544        # f32 teacher-forced: 8 prompts of 256-512 + 31
+# a steady step's kernels by kind: the MoE tick's groups and the rest
+# (elementwise ops, the SSM recurrence step and conv, dispatch, copies)
+HYBRID_GROUPS = MOE_GROUPS + (
+    ("the rest (elementwise, SSM step, dispatch, copies)",
+     lambda key: not any(pick(key) for _, pick in MOE_GROUPS)),)
+
+
+def _hybrid_requests(cfg) -> list:
+    """HYBRID_REQUESTS prompts: HYBRID_FIXED_LENGTHS' first, then the rest
+    of them and lengths drawn in [256, 1024], shuffled."""
+    rng = np.random.default_rng(51)
+    n = HYBRID_REQUESTS - len(HYBRID_FIXED_LENGTHS)
+    rest = [*HYBRID_FIXED_LENGTHS[1:], *rng.integers(256, 1025, n)]
+    lens = [HYBRID_FIXED_LENGTHS[0],
+            *(int(rest[i]) for i in rng.permutation(len(rest)))]
+    assert max(lens) == lens[0] and max(lens) + HYBRID_GEN <= HYBRID_MAX_LEN
+    return [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+            for n in lens]
+
+
+def _norms_held(calls: list, errs: dict, what: str) -> None:
+    """Each recorded K3 / fused add + norm call (``_recording`` with
+    NORM_OPS) again with the kernel and with the plain version on its own
+    inputs, raw: the norm divides by each row's RMS, so a power-of-two
+    scale would change nothing but eps's share.  bf16 within
+    BF16_ATOL/RTOL, f32 within F32_TOL; the fused form's sum bit-equal
+    to torch's add.  ``errs`` maps ``name[D=...]`` to [calls, largest
+    |kernel - plain|]."""
+    from repro_torch.kernels import ops
+    for name, args, kw in calls:
+        fn = getattr(ops, name)
+        got, want = (fn(*args, **{**kw, "impl": impl})
+                     for impl in ("kernel", "plain"))
+        x = args[0]
+        if name == "add_rmsnorm":
+            bits = torch.int16 if x.dtype == torch.bfloat16 else torch.int32
+            assert torch.equal(got[0].view(bits), (x + args[1]).view(bits)), \
+                f"{what} {name}: s is not bit-equal to x + y"
+            got, want = got[1], want[1]
+        key = f"{name}[D={x.shape[-1]}]"
+        tol = F32_TOL if x.dtype == torch.float32 else (BF16_ATOL, BF16_RTOL)
+        err = check_close(f"{what} {key}", got, want, *tol)
+        row = errs.setdefault(key, [0, 0.0])
+        row[0] += 1
+        row[1] = max(row[1], err)
+    calls.clear()
+
+
+def _hybrid_engine(cfg, params, prompts, sampling):
+    """Run A: the fixed-slot engine (8 slots, max_len HYBRID_MAX_LEN) over
+    ``prompts``, HYBRID_GEN new tokens each, every second request
+    sampled with ``sampling`` and the others greedy: all finished in the
+    vocabulary, logits finite, launch counts exact (per prefill K5 causal
+    on each attention layer, per decode step K4 on each, and the norms:
+    ``norm_launches``).  The capacity path's dropped (token, expert)
+    pairs are counted per prefill (eager) and, by an add captured into
+    the decode graph, over the decode steps.  The first prefill's K5 and
+    norm calls are recorded in the run and held to plain on their own
+    inputs, as are one eager decode step's K4 and norm calls on the
+    engine's cache after the run (the replay is bit-equal to it:
+    ``_fixed_graph_vs_eager``).  Returns (engine, launches read just
+    after the run)."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as M
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.runtime.serving import ServingEngine
+    slots, m = 8, cfg.moe
+    periods = cfg.num_layers // cfg.scan_period()
+    n_moe = periods * cfg.mlp_kinds().count("moe")
+    n_attn = layer_counts(cfg)[0]
+    prefill_drops = []
+    decode_drops = torch.zeros((), dtype=torch.int64, device="cuda")
+    inner = moe_mod._expert_gemms_capacity
+
+    def counted(p, mc, xs, sizes, dt):
+        C = moe_mod.capacity(mc, xs.shape[0])
+        dropped = (sizes - C).clamp(min=0).sum()
+        if xs.shape[0] == slots * mc.top_k:
+            decode_drops.add_(dropped)         # replayed with the step
+        else:
+            prefill_drops.append((xs.shape[0], C, dropped))
+        return inner(p, mc, xs, sizes, dt)
+    moe_mod._expert_gemms_capacity = counted
+    try:
+        eng = ServingEngine(cfg, params, slots=slots, max_len=HYBRID_MAX_LEN,
+                            device="cuda")
+        assert eng.policy._decode_fn.graph is not None, \
+            "hybrid: the decode step was not captured"
+        decode_drops.zero_()                   # the warm-up and capture's
+        for i, p in enumerate(prompts):
+            eng.submit(p, max_new_tokens=HYBRID_GEN,
+                       sampling=sampling if i % 2 else None)
+        # a prefill's calls: K5 on each attention layer and the norms
+        per_prefill = n_attn + sum(norm_launches(cfg, 1).values())
+        calls = []
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        with _recording(calls, lambda: len(calls) < per_prefill,
+                        ATTENTION_OPS + NORM_OPS):
+            ops.reset_launches()               # the main path starts here
+            done = eng.run()
+            counts = dict(ops.launches)        # ... and ends here
+        dropped_decode = int(decode_drops)
+    finally:
+        moe_mod._expert_gemms_capacity = inner
+    assert len(done) == len(prompts), f"hybrid: {len(done)} finished"
+    for q in done:
+        assert len(q.generated) == HYBRID_GEN, q.rid
+        assert all(0 <= t < cfg.vocab_size for t in q.generated), \
+            f"hybrid: rid {q.rid} emitted a token outside the vocabulary"
+    assert bool(eng.policy.logits_finite), "hybrid: a logit was not finite"
+    ticks = eng.policy.decode_ticks
+    prefills = sum(1 for _, ev, _ in eng.trace if ev == "admit")
+    want = {"decode_attention[bf16]": n_attn * ticks,
+            "flash_attention[causal]": n_attn * prefills,
+            **norm_launches(cfg, ticks + prefills)}
+    assert counts == want, f"hybrid: launches {counts}, expected {want} " \
+        f"for {ticks} decode steps and {prefills} prefills"
+    met = eng.metrics.snapshot()
+    lens = [len(p) for p in prompts]
+    log("hybrid", f"Run A, fixed-slot engine (8 slots, max_len "
+        f"{HYBRID_MAX_LEN}): {met['completed']:.0f} requests of "
+        f"{min(lens)}-{max(lens)} prompt tokens and {HYBRID_GEN} new (every "
+        f"second at temperature {sampling.temperature}), {ticks} decode "
+        f"steps (graph replays), {prefills} prefills, "
+        f"{met['tokens_per_s']:.1f} tokens/s, mean TTFT "
+        f"{met['ttft_avg_s'] * 1e3:.1f} ms, wall {met['wall_s']:.2f} s, peak "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB allocated; "
+        f"launches {json.dumps(counts)}")
+    assert len(prefill_drops) == n_moe * prefills, len(prefill_drops)
+    per = torch.stack([d for _, _, d in prefill_drops]).reshape(
+        prefills, n_moe).sum(1).tolist()
+    routed = [tk * n_moe for tk, _, _ in prefill_drops[::n_moe]]
+    shares = [d / r for d, r in zip(per, routed)]
+    decode_routed = ticks * n_moe * slots * m.top_k
+    log("hybrid", f"capacity drops (factor {m.capacity_factor}, "
+        f"{m.num_experts} experts top-{m.top_k}, {n_moe} MoE layers): "
+        f"prefills {sum(per)} of {sum(routed)} routed (token, expert) pairs "
+        f"({sum(per) / sum(routed):.4f}; per prefill mean "
+        f"{statistics.mean(shares):.4f}, max {max(shares):.4f}, capacity "
+        f"{prefill_drops[0][1]} slots at {prefill_drops[0][0]} pairs); "
+        f"decode steps {dropped_decode} of {decode_routed} "
+        f"({dropped_decode / decode_routed:.4f}; {slots * m.top_k} pairs a "
+        f"layer into {moe_mod.capacity(m, slots * m.top_k)} slots an "
+        "expert, idle slots' rides included)")
+    attn = [c for c in calls if c[0] in ATTENTION_OPS]
+    norms = [c for c in calls if c[0] in NORM_OPS]
+    calls.clear()
+    assert len(attn) == n_attn and all(
+        c[1][0].shape[1] == lens[0] for c in attn), \
+        "hybrid: recorded the wrong prefill"
+    errs, norm_errs = {}, {}
+    _held_to_plain(attn, errs, "hybrid engine prefill")
+    _norms_held(norms, norm_errs, "hybrid engine prefill")
+    tok, pos = _decode_state(eng)
+    with _recording(calls, names=ATTENTION_OPS + NORM_OPS):
+        M.decode_step(eng.params, cfg, _clone(eng.cache), tok, pos)
+    attn = [c for c in calls if c[0] in ATTENTION_OPS]
+    norms = [c for c in calls if c[0] in NORM_OPS]
+    calls.clear()
+    assert len(attn) == n_attn, f"hybrid: {len(attn)} K4 calls in a step"
+    _held_to_plain(attn, errs, "hybrid engine decode step")
+    _norms_held(norms, norm_errs, "hybrid engine decode step")
+    log("hybrid", f"the prefill of {lens[0]} tokens and a decode step "
+        f"(positions {pos.tolist()}), every kernel call against plain on "
+        "its own inputs (calls, max|err|): " + "; ".join(
+            f"{key} {n}, {e:.3e}" for key, (n, e) in norm_errs.items())
+        + "; K4/K5 scaled within BF16_ATOL/RTOL (calls, max|err| scaled, "
+        "max|err| raw): " + "; ".join(
+            f"{key} {n}, {e:.3e}, {raw:.3e}"
+            for key, (n, e, raw) in errs.items()))
+    return eng, counts
+
+
+def _fixed_step_bytes(eng) -> int:
+    """Bytes one fixed-slot decode step of ``eng`` at ``_decode_state``'s
+    positions must move: the weights (``_weight_bytes``), the K and V
+    rows below each slot's length on the attention layers, each slot's
+    conv tail and f32 state read and written on the SSM layers, and the
+    f32 logits."""
+    cfg = eng.cfg
+    _, pos = _decode_state(eng)
+    slots = len(pos)
+    weights = _weight_bytes(cfg, eng.params, slots)
+    kv = state = 0
+    for ent in eng.cache.values():
+        for key, t in ent.items():
+            if key in ("k", "v"):
+                # (G, slots, T, KVH, hd): the rows below pos + 1
+                row = t.shape[0] * t[0, 0, 0].numel() * t.element_size()
+                kv += row * int((pos + 1).sum())
+            else:
+                state += 2 * t.numel() * t.element_size()
+    return weights + kv + state + slots * cfg.vocab_size * 4
+
+
+def _hybrid_steady(cfg, params) -> None:
+    """The steady decode step, captured by a fresh engine (no drop
+    counting in its graph) and replayed at ``_decode_state``'s
+    positions: wall, busy, kernels, idle share, its busy time by kernel
+    group (HYBRID_GROUPS), and against its byte bound."""
+    from repro_torch.runtime.serving import ServingEngine
+    eng = ServingEngine(cfg, params, slots=8, max_len=HYBRID_MAX_LEN,
+                        device="cuda")
+    wall, busy = _profile_graph_decode_step(
+        eng, "hybrid", f"{HYBRID} steady decode step", groups=HYBRID_GROUPS)
+    nbytes = _fixed_step_bytes(eng)
+    b_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    log("hybrid", f"{HYBRID} steady decode step: byte bound {b_ms:.3f} ms "
+        f"({nbytes / 1e9:.3f} GB at {HBM_BYTES_PER_S / 1e12:.2f} TB/s: every "
+        f"expert of the capacity path, the K/V rows and the states); device "
+        f"busy {busy / b_ms:.2f}x and wall {wall / b_ms:.2f}x the bound")
+
+
+def _hybrid_refusals(cfg, params) -> None:
+    """What the reference refuses for this config, refused on the card
+    too: no paged KV layout (``paged_cache_supported``; the paged engine
+    raises its message), and no training (``lm_loss`` stops at the MoE
+    check, queue 1 item 8, before the SSM one)."""
+    from repro_torch.models import model as M
+    from repro_torch.runtime.serving import PagedServingEngine
+    assert not M.paged_cache_supported(cfg)
+    try:
+        PagedServingEngine(cfg, params, device="cuda", **ENGINE_KW)
+    except ValueError as e:
+        paged = str(e)
+    else:
+        raise AssertionError("hybrid: the paged engine took the hybrid")
+    assert "use ServingEngine for ssm" in paged, paged
+    batch = {k: torch.zeros((1, 8), dtype=torch.int32, device="cuda")
+             for k in ("tokens", "labels")}
+    try:
+        M.lm_loss(params, cfg, batch)
+    except NotImplementedError as e:
+        loss = str(e)
+    else:
+        raise AssertionError("hybrid: lm_loss took the hybrid")
+    assert "item 8" in loss, loss
+    log("hybrid", f"refused as the reference refuses: PagedServingEngine "
+        f"({paged!r}); lm_loss ({loss!r})")
+
+
+def _hybrid_f32(layers: int) -> None:
+    """The first ``layers`` layers (one period: 13.268 B parameters, 49.4
+    GiB) drawn in f32 on the card after the bf16 tree is freed: 8 prompts of 256-512
+    tokens teacher-forced through ``prefill`` and F32_GEN - 1 decode
+    steps with the kernels and with the plain versions (K5 and K4 on
+    their f32 routes, K3 in f32), the kernels held to the plain versions
+    on decided positions (phase f32's method)."""
+    cfg, p32 = _draw_cast(HYBRID, "hybrid", num_layers=layers,
+                          compute_dtype="float32")
+    rng = np.random.default_rng(53)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+               for n in rng.integers(256, HYBRID_TF_MAX_LEN - F32_GEN + 2,
+                                     8)]
+    tf = _fixed_teacher_forced({"plain": (p32, cfg, "plain"),
+                                "kernel": (p32, cfg, "kernel")},
+                               prompts, HYBRID_TF_MAX_LEN)
+    stats = _new_stats()
+    for lp, lk in zip(tf["plain"], tf["kernel"]):
+        _hold_decided(stats, lk, lp)
+    _report_decided(f"f32, one period ({cfg.num_layers} layers), prefill + "
+                    "decode step", stats, "hybrid")
+
+
+def phase_hybrid():
+    """jamba-v0.1-52b at full width, HYBRID_LAYERS of its layers, on the
+    fixed-slot engine.  Returns the rows of K3 at D = 4096 and 8192, the
+    fused add + norm at 4096 and K4 and K5 at group 4, and Run A's
+    launch counts."""
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.runtime.sampler import SamplingParams
+    t0 = time.perf_counter()
+    cfg, params = _draw_cast(HYBRID, "hybrid", num_layers=HYBRID_LAYERS)
+    s, m = cfg.ssm, cfg.moe
+    d_inner = s.expand * cfg.d_model
+    log("hybrid", f"cut in depth only: {cfg.num_layers} layers, "
+        f"{cfg.num_layers // cfg.scan_period()} whole periods of "
+        f"{cfg.scan_period()} {cfg.layer_kinds()} with MLPs "
+        f"{cfg.mlp_kinds()}; SSM d_inner {d_inner} in "
+        f"{d_inner // s.head_dim} heads of {s.head_dim}, d_state "
+        f"{s.d_state}, conv {s.conv_width}, {s.n_groups} group, chunk "
+        f"{s.chunk_size}; MoE {m.num_experts} experts top-{m.top_k} of d_ff "
+        f"{m.d_ff_expert}, no shared expert, capacity factor "
+        f"{m.capacity_factor}")
+    _hybrid_refusals(cfg, params)
+    sampling = SamplingParams(temperature=0.9, seed=52)
+    eng, counts = _hybrid_engine(cfg, params, _hybrid_requests(cfg),
+                                 sampling)
+    assert eng.cache["pos4"]["k"].shape[0] == 2 and \
+        eng.cache["pos0"]["ssm"].dtype == torch.float32
+    _fixed_graph_vs_eager(eng, phase="hybrid")
+    _check_tickets("hybrid fixed-slot", [eng.policy._tickets,
+                                         *da._tickets.values()])
+    del eng
+    gc.collect()
+    _hybrid_steady(cfg, params)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device="cuda")
+    # K5 causal over the longest prompt and K4 over 8 x 1057 keys, at 32
+    # heads over 8 of 128 (group 4)
+    rows = _attention_timing(cfg, "hybrid", max(HYBRID_FIXED_LENGTHS),
+                             HYBRID_MAX_LEN + 1, 54, "G=4", flush)
+    # K3 at d_model 4096 (layer 0's ln1) and d_inner 8192 (the gated
+    # norm), the fused add + norm at 4096: a decode step's 8 rows, the
+    # longest prompt, f32 at the teacher-forced decode rows and prompts
+    D = cfg.d_model
+    rows.update(_norms_vs_plain(
+        "hybrid", 55, (D, d_inner),
+        ((8, torch.bfloat16), (max(HYBRID_FIXED_LENGTHS), torch.bfloat16),
+         (8, torch.float32), (HYBRID_TF_MAX_LEN, torch.float32)),
+        {("rmsnorm", D), ("add_rmsnorm", D), ("rmsnorm", d_inner)}, flush))
+    del flush, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    t2 = time.perf_counter()
+    _hybrid_f32(cfg.scan_period())
+    gc.collect()
+    torch.cuda.empty_cache()
+    t3 = time.perf_counter()
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+    full = get_config(HYBRID)
+    log("hybrid", f"serve() at full width not run: it builds all "
+        f"{full.num_layers} layers ("
+        f"{M.count_params(M.param_specs(full)) * 2 / 2 ** 30:.2f} GiB in "
+        "bf16), past the card; Run A is the full-width run, through "
+        "ServingEngine")
+    _fixed_only_cli(HYBRID, "hybrid", None)
+    log("hybrid", f"phase times: run A and its checks {t1 - t0:.1f} s, "
+        f"kernels timed {t2 - t1:.1f} s, f32 period {t3 - t2:.1f} s, cli "
+        f"{time.perf_counter() - t3:.1f} s")
+    return rows, {"hybrid": counts}
 
 
 # phase f32: a position is decided when the plain version's top-2 gap
@@ -5080,7 +5498,12 @@ def _fixed_teacher_forced(runs: dict, prompts, max_len: int,
             logits, rows = M.prefill(params, cfg, batch, opts, impl=impl)
             for pos, ent in caches[name].items():
                 for key, full in ent.items():
-                    full[:, a, :len(prompt)] = rows[pos][key][:, 0]
+                    # K/V rows below the prompt's length; an SSM
+                    # layer's conv tail and state whole
+                    if key in ("k", "v"):
+                        full[:, a, :len(prompt)] = rows[pos][key][:, 0]
+                    else:
+                        full[:, a] = rows[pos][key][:, 0]
             first[name].append(logits[0, -1])
     out = {name: [torch.stack(rows)] for name, rows in first.items()}
     teacher_run = next(iter(runs))
@@ -5916,6 +6339,13 @@ def main() -> int:
     torch.cuda.empty_cache()
     log("vision", f"vision state freed: "
         f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB allocated")
+    hybrid_rows, hybrid_counts = phase_hybrid()
+    results.update(hybrid_rows)
+    counts.update(hybrid_counts)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("hybrid", f"hybrid state freed: "
+        f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB allocated")
     phase_f32(prompts)
     gc.collect()
     torch.cuda.empty_cache()
@@ -5955,7 +6385,9 @@ def main() -> int:
     # under the variant's key, self- and cross-attention together) from
     # phase whisper's Run A; the norms at phi-3-vision-4.2b's width and
     # flash and the dense decode at d 96 (counted under the variant's
-    # key) from phase vision's Run A
+    # key) from phase vision's Run A; the norms at jamba-v0.1-52b's widths
+    # and flash and the dense decode at group 4 (counted under the
+    # variant's key) from phase hybrid's Run A
     for key, run, *count_key in (("paged_decode_attention[bf16]", "bf16"),
                      ("quantized_paged_decode_attention[fp8]", "fp8"),
                      ("quantized_paged_decode_attention[int8]", "int8"),
@@ -5981,6 +6413,13 @@ def main() -> int:
                      ("flash_attention[d=96]", "vision",
                       "flash_attention[causal]"),
                      ("decode_attention[d=96]", "vision",
+                      "decode_attention[bf16]"),
+                     ("rmsnorm[D=4096]", "hybrid"),
+                     ("add_rmsnorm[D=4096]", "hybrid"),
+                     ("rmsnorm[D=8192]", "hybrid"),
+                     ("flash_attention[G=4]", "hybrid",
+                      "flash_attention[causal]"),
+                     ("decode_attention[G=4]", "hybrid",
                       "decode_attention[bf16]"),
                      ("fp8_matmul[e4m3]", "hplmxp_fp8")):
         r = results[key]

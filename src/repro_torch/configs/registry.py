@@ -12,6 +12,7 @@ from repro_torch.configs.base import ModelConfig
 
 _MODULES = {
     "gemma3-12b": "gemma3_12b",
+    "jamba-v0.1-52b": "jamba_v0_1_52b",
     "llama3-8b": "llama3_8b",
     "mamba2-130m": "mamba2_130m",
     "phi-3-vision-4.2b": "phi_3_vision_4_2b",

@@ -152,7 +152,8 @@ def test_registry_lists_ported_archs_only():
     from repro_torch.configs import ARCH_IDS, get_config, resolve_arch
     assert set(ARCH_IDS) == {"qwen3-1.7b", "llama3-8b", "qwen2-moe-a2.7b",
                              "gemma3-12b", "mamba2-130m", "whisper-base",
-                             "phi-3-vision-4.2b"}
+                             "phi-3-vision-4.2b", "jamba-v0.1-52b"}
+    assert resolve_arch("jamba_v0_1_52b") == "jamba-v0.1-52b"
     assert resolve_arch("whisper_base") == "whisper-base"
     assert resolve_arch("phi_3_vision_4_2b") == "phi-3-vision-4.2b"
     assert resolve_arch("qwen2_moe_a2_7b") == "qwen2-moe-a2.7b"
@@ -171,7 +172,7 @@ def test_registry_lists_ported_archs_only():
 @pytest.mark.parametrize("arch", ["qwen3-1.7b", "llama3-8b",
                                   "qwen2-moe-a2.7b", "gemma3-12b",
                                   "mamba2-130m", "whisper-base",
-                                  "phi-3-vision-4.2b"])
+                                  "phi-3-vision-4.2b", "jamba-v0.1-52b"])
 def test_ported_configs_equal_the_references_field_by_field(arch):
     """Each config of the port's registry, and its reduced form, equals
     the JAX package's field by field (MoEConfig and SSMConfig compared
@@ -228,6 +229,19 @@ def test_ported_configs_equal_the_references_field_by_field(arch):
             ("vision", 256, 1024)
         assert not mine.encoder_decoder and not mine.tie_embeddings
         assert not mine.qk_norm and mine.layer_kinds() == ("attn",)
+    if arch == "jamba-v0.1-52b":
+        m, s = mine.moe, mine.ssm
+        assert (mine.num_layers, mine.d_model, mine.num_heads,
+                mine.num_kv_heads, mine.d_ff, mine.vocab_size) == \
+            (32, 4096, 32, 8, 14_336, 65_536)
+        assert mine.head_dim == 128 and mine.family == "hybrid"
+        assert (mine.attn_period, mine.attn_offset) == (8, 4)
+        assert (m.num_experts, m.top_k, m.d_ff_expert, m.num_shared_experts,
+                m.moe_every, m.moe_offset, m.capacity_factor) == \
+            (16, 2, 14_336, 0, 2, 1, 1.25)
+        assert (s.d_state, s.conv_width, s.expand, s.head_dim, s.n_groups,
+                s.chunk_size) == (16, 4, 2, 64, 1, 256)
+        assert mine.subquadratic and not mine.tie_embeddings
 
 
 def test_init_params_is_seeded_and_shaped():
