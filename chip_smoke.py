@@ -20,7 +20,9 @@ Phases, each printed as it runs:
    and its bf16 cache, gemma3-12b's group of 2 at head dim 256 over its
    bf16 and fp8 pools and its bf16 and f32 caches, whisper-base's group
    of 1 at head dim 64 over its bf16 and f32 caches, phi-3-vision-4.2b's
-   group of 1 at head dim 96 over its bf16 and f32 caches); the flash
+   group of 1 at head dim 96 over its bf16 and f32 caches, minicpm-2b's
+   group of 1 at head dim 64 over its bf16, fp8, int8 and f32 pools); the
+   flash
    library must hold a tensor-core instantiation for every head dim its
    route takes, d 96 among them;
 3. kernels — every kernel of the serving paths against its plain PyTorch
@@ -310,7 +312,35 @@ Phases, each printed as it runs:
    versions on decided positions; ``serve --arch jamba-v0.1-52b``
    (reduced) and ``--engine paged`` exiting with the paged engine's
    refusal (``serve()`` at full width would build all 32 layers);
-14. f32 — qwen3-1.7b computing in f32 (f32 weights, pool and cache;
+14. minicpm — minicpm-2b at full width and depth (40 layers, d_model
+   2304, 36/36 heads of 64, d_ff 5760, a tied 122753-row embedding: an
+   odd vocabulary; 2.725 B parameters), drawn cast on the card from a
+   generator seeded 0.  Run A on the paged engine (ENGINE_KW) over the
+   request stream phase 4's ``serve_paged`` draws at seed 0 for this
+   vocabulary (16 prompts of 64-511 tokens, 32 new, every second at
+   temperature 0.9), once each over a bf16, an fp8 and an int8 pool:
+   all finished in the vocabulary, logits finite, launch counts exact
+   (K1/K2 on their head-dim-64 instantiations once per layer per tick,
+   the norms per model step); the ``fused=False`` engine's greedy
+   streams and trace equal, the K1/K2 and norm calls of its 21st tick
+   held to plain on their own inputs (K1/K2 scaled by powers of two);
+   each graph replayed against eager bit for bit; tickets back at 0.
+   The same requests on the fixed-slot ``ServingEngine`` (8 slots,
+   max_len 544): launch counts exact (K4 once per layer per step, K5
+   once per layer per prompt), the first prefill's K5 and norm calls
+   and a decode step's K4 and norm calls held to plain (scaled), graph
+   == eager, the steady step profiled, the greedy tokens shared with
+   the bf16 paged run logged.  The steady graphed tick on the bf16 and
+   fp8 pools (wall, busy, kernels, idle share, the top kernels and those
+   named as the tied LM head's GEMM at N = 122753, timed alone) against
+   its byte bound; K1 and K2 (fp8, int8) at phase 3's seat lengths, K5
+   causal at 511 and K4 over 8 x 545 keys (36 heads of 64) against plain
+   and timed beside SDPA; K3 and the fused add + norm at D = 2304 against
+   plain and timed; the first 4 layers drawn in f32, 8 prompts
+   teacher-forced through chunked prefill and fused ticks over an f32
+   pool with the kernels and the plain versions, and the paged engine
+   against ``ServingEngine`` on them (phase f32's methods);
+15. f32 — qwen3-1.7b computing in f32 (f32 weights, pool and cache;
    flash prefill on its CUDA-core route): 8 greedy streams teacher-forced
    through the fused tick and through ``prefill`` + ``decode_step``, each
    with the kernels and with the plain versions, whose top-1 must agree
@@ -318,7 +348,7 @@ Phases, each printed as it runs:
    logit difference there) with at least 90% of the positions decided;
    then the paged engine and ``ServingEngine`` on the same 8 requests,
    whose streams must be equal up to their first top-2 gap <= 1e-3;
-15. train — the training path, which runs the plain PyTorch versions on
+16. train — the training path, which runs the plain PyTorch versions on
    purpose (no kernel has a backward, in the port or in the reference):
    ``train()`` on qwen3-1.7b at its published width (f32 master weights
    and AdamW state, bf16 compute, remat, batch 8 x seq 1024 from the
@@ -335,7 +365,7 @@ Phases, each printed as it runs:
    resumed losses and final params, mu, nu and count against an
    uninterrupted run, and a ``save_async`` whose restored tensors equal
    the saved ones bit for bit);
-16. hpc — the fp8 GEMM kernel (K6) against its plain version, held to
+17. hpc — the fp8 GEMM kernel (K6) against its plain version, held to
    ``fp8_matmul.error_bound`` (f32 sums plus the tensor-core term of sums
    promoted every 128 products), through ``ops.fp8_matmul`` (aligned,
    ragged, bm/bn != 128) and through the per-tensor call at the n = 256,
@@ -353,7 +383,7 @@ Phases, each printed as it runs:
    kernel and with the plain version (first trailing update and refined
    solutions held); HPCG at 256³ (50 iterations, the true residual
    recomputed) and at 48³ (90 iterations, converged);
-17. summary — one JSON line listing the kernels, the card's name and power
+18. summary — one JSON line listing the kernels, the card's name and power
     limit, and as the last line ``{"ok": true, "device": {...}}``.
 
 Any failure raises: the script exits non-zero and prints no ``ok`` line.
@@ -398,6 +428,8 @@ WHISPER = "whisper-base"       # phase whisper: 8 heads over 8 of 64 (MHA),
 WHISPER_HEAD_DIM = 64          # 6 encoder and 6 decoder layers
 VISION = "phi-3-vision-4.2b"   # phase vision: 32 heads over 32 of 96 (MHA),
 VISION_HEAD_DIM = 96           # 32 layers, 256 patch rows per prompt
+MINICPM = "minicpm-2b"         # phase minicpm: 36 heads over 36 of 64 (MHA),
+MINICPM_HEAD_DIM = 64          # 40 layers, a tied 122 753-row embedding
 SEAT_LENGTHS = (1, 16, 17, 255, 700, 1024, 1531, 2048)
 N_TABLE = 2048 // PAGE
 PREFILL_CHUNK = 128
@@ -788,7 +820,10 @@ def serving_decode_instantiations() -> set:
     (its prefill/decode check) in the dense; at phi-3-vision-4.2b's head
     dim of 96 (E = 4, lanes 24-31 of each warp empty) and group of 1
     (phase vision), a bf16 cache and an f32 one (its teacher-forced
-    checks) in the dense."""
+    checks) in the dense; at minicpm-2b's head dim of 64 (E = 2) and
+    group of 1 (phase minicpm), bf16 queries over its bf16, fp8 and int8
+    pools and f32 over an f32 pool (its teacher-forced check) in the
+    paged library."""
     from repro_torch.kernels import decode_attention as da
     e, e_gemma = da.lane_elems(HEAD_DIM), da.lane_elems(GEMMA_HEAD_DIM)
     e_whisper = da.lane_elems(WHISPER_HEAD_DIM)
@@ -803,6 +838,10 @@ def serving_decode_instantiations() -> set:
               ("f32", "f32", e, mg_moe)]
     paged += [("bf16", "bf16", e_gemma, mg_gemma),
               ("bf16", "uint8", e_gemma, mg_gemma)]
+    e_minicpm = da.lane_elems(MINICPM_HEAD_DIM)
+    paged += [("bf16", kv, e_minicpm, group_arrays(1))
+              for kv in ("bf16", "uint8", "int8")]
+    paged += [("f32", "f32", e_minicpm, group_arrays(1))]
     dense = [("bf16", "bf16", e, mg), ("f32", "f32", e, mg),
              ("bf16", "bf16", e, mg_moe), ("bf16", "bf16", e_gemma, mg_gemma),
              ("f32", "f32", e_gemma, mg_gemma),
@@ -1673,26 +1712,45 @@ def _check_tickets(what: str, tickets) -> None:
             f"{what}: tickets left at {buf.nonzero().flatten().tolist()}"
 
 
-def _eager_engine(tag: str, r: dict, cfg) -> None:
+def _eager_engine(tag: str, r: dict, cfg, phase: str = "serve",
+                  record=None) -> None:
     """The paged engine with ``fused=False`` (eager model step, host-side
-    sampling, no graph) over the requests of the graphed run ``r``, on
-    the same weights: the greedy streams and the traces must be equal."""
+    sampling, no graph) over the requests of the graphed run ``r`` (each
+    with its sampling), on the same weights: the greedy streams and the
+    traces must be equal; how many sampled streams are equal is logged.
+    With ``record`` (a list), the ``ops.paged_decode_attention`` and norm
+    calls made while the engine's decode tick count reads 20 (its 21st
+    tick and any prefill chunk of that engine step) are appended to it
+    (``_recording``)."""
     from repro_torch.runtime.serving import PagedServingEngine
     eng = PagedServingEngine(
         cfg, r["engine"].params, kv_dtype=None if tag == "bf16" else tag,
         fused=False, device="cuda", **ENGINE_KW)
-    for q in sorted(r["finished"], key=lambda q: q.rid):
-        eng.submit(q.prompt, max_new_tokens=q.max_new_tokens)
-    eager = {q.rid: q.generated for q in eng.run()}
+    reqs = sorted(r["finished"], key=lambda q: q.rid)
+    for q in reqs:
+        eng.submit(q.prompt, max_new_tokens=q.max_new_tokens,
+                   sampling=q.sampling)
+    calls = [] if record is None else record
+    with (_recording(calls, lambda: eng.policy.decode_ticks == 20,
+                     ("paged_decode_attention",) + NORM_OPS)
+          if record is not None else contextlib.nullcontext()):
+        eager = {q.rid: q.generated for q in eng.run()}
     graphed = {q.rid: q.generated for q in r["finished"]}
-    diff = [rid for rid in graphed if eager.get(rid) != graphed[rid]]
+    greedy = [q.rid for q in reqs if q.sampling.temperature <= 0]
+    diff = [rid for rid in greedy if eager.get(rid) != graphed[rid]]
     assert not diff and len(eager) == len(graphed), \
-        f"{tag}: fused=True and fused=False streams differ for rids {diff}"
+        f"{tag}: fused=True and fused=False greedy streams differ for " \
+        f"rids {diff}"
     assert eng.trace == r["engine"].trace, f"{tag}: traces differ"
+    sampled = [rid for rid in graphed if rid not in greedy]
+    same = sum(eager[rid] == graphed[rid] for rid in sampled)
     m = eng.metrics.snapshot()
-    log("serve", f"{tag}: fused=False engine (eager, host sampling) over "
-        f"the same 16 requests: streams and trace equal to the graphed "
-        f"run's; {eng.policy.decode_ticks} decode ticks, "
+    log(phase, f"{tag}: fused=False engine (eager, host sampling) over "
+        f"the same {len(reqs)} requests: greedy streams ({len(greedy)}) and "
+        f"trace equal to the graphed run's"
+        + (f", sampled streams equal {same}/{len(sampled)}" if sampled
+           else "")
+        + f"; {eng.policy.decode_ticks} decode ticks, "
         f"{m['tokens_per_s']:.1f} tokens/s, mean TTFT "
         f"{m['ttft_avg_s'] * 1e3:.1f} ms, wall {m['wall_s']:.2f} s "
         f"(graphed: {r['metrics']['tokens_per_s']:.1f} tokens/s, wall "
@@ -2444,17 +2502,20 @@ def _model_window(cfg):
 
 
 def _model_attention(cfg, phase: str, seats, n_table: int,
-                     flush=None) -> dict:
+                     flush=None, pools=("bf16", "fp8"),
+                     row_key=None) -> dict:
     """K1 and K2 against their plain versions at the shapes ``cfg``'s
     model gives them: bf16 queries of its heads over its kv heads at its
     head dim (llama3-8b: 32 over 8 of d 128, GQA group 4; qwen2-moe-a2.7b:
     16 over 16 of d 128, group 1; gemma3-12b: 16 over 8 of d 256, group
-    2), seats of ``seats`` tokens in tables of ``n_table`` pages, over a
-    bf16 pool and an fp8 one, within BF16_ATOL/RTOL; on a model with
+    2; minicpm-2b: 36 over 36 of d 64, group 1), seats of ``seats``
+    tokens in tables of ``n_table`` pages, over each pool of ``pools``
+    (bf16, fp8, int8), within BF16_ATOL/RTOL; on a model with
     sliding-window layers with its window and without; the tickets back
     at 0.  With ``flush`` each is timed beside its plain version, its
     bound and SDPA over the gathered cache with the same mask, and the
-    windowed ones' rows are returned."""
+    windowed ones' rows are returned, and with ``row_key`` the
+    unwindowed ones' too, as ``<kernel>[<pool>,<row_key>]``."""
     from repro_torch.core.mixed_precision import (dequantize_kv_page,
                                                   quantize_kv_page)
     from repro_torch.kernels import decode_attention as da
@@ -2468,13 +2529,17 @@ def _model_attention(cfg, phase: str, seats, n_table: int,
     shape = (P, PAGE, kvh, d)
     k, v = (torch.randn(shape, generator=gen, device="cuda")
             for _ in range(2))
-    (kq, ks), (vq, vs) = quantize_kv_page(k, "fp8"), quantize_kv_page(v,
-                                                                       "fp8")
-    pools = {"bf16": (k.bfloat16(), v.bfloat16(), None, None),
-             "fp8": (kq, vq, ks, vs)}
+    stored = {}
+    for dt in pools:
+        if dt == "bf16":
+            stored[dt] = (k.bfloat16(), v.bfloat16(), None, None)
+        else:
+            (kq, ks), (vq, vs) = (quantize_kv_page(k, dt),
+                                  quantize_kv_page(v, dt))
+            stored[dt] = (kq, vq, ks, vs)
     del k, v
     rows = {}
-    for dt, (kp, vp, ksc, vsc) in pools.items():
+    for dt, (kp, vp, ksc, vsc) in stored.items():
         name = ("paged_decode_attention" if ksc is None
                 else "quantized_paged_decode_attention")
         for window in ((W, None) if W else (None,)):
@@ -2516,11 +2581,11 @@ def _model_attention(cfg, phase: str, seats, n_table: int,
             log(phase, f"{what} kernel {ms:.4f} ms plain {plain_ms:.4f} ms "
                 f"{SDPA_EFF} {lib_ms:.4f} ms bound {b_ms:.4f} ms ({b_by}, "
                 f"{nbytes / 1e6:.2f} MB, {kept} keys)")
-            if window:
-                rows[tag] = dict(name=name, max_abs_err=err, ms=ms,
-                                 plain_ms=plain_ms, bound_ms=b_ms,
-                                 bound_by=b_by, library_ms=lib_ms,
-                                 library=SDPA_EFF)
+            if window or row_key:
+                rows[tag if window else f"{name}[{dt},{row_key}]"] = dict(
+                    name=name, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                    bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+                    library=SDPA_EFF)
     _check_tickets(f"{cfg.name} paged decode", da._tickets.values())
     if flush is not None:
         splits, chunk = da.split_plan(A, kvh, n_table * PAGE, _sms())
@@ -3622,7 +3687,9 @@ def _recording(calls: list, when=lambda: True, names=ATTENTION_OPS):
 
         def call(*args, **kw):
             if when():
-                calls.append((name, [a.clone() for a in args], dict(kw)))
+                calls.append((name, [a.clone() for a in args],
+                              {k: v.clone() if isinstance(v, torch.Tensor)
+                               else v for k, v in kw.items()}))
             return fn(*args, **kw)
         return call
     for name in inner:
@@ -3675,6 +3742,55 @@ def _held_to_plain(calls: list, errs: dict,
         row = errs.setdefault(key, [0, 0.0, 0.0])
         row[0] += 1
         row[1], row[2] = max(row[1], err), max(row[2], raw.item())
+    calls.clear()
+
+
+def _paged_held_to_plain(calls: list, errs: dict, what: str) -> None:
+    """Each recorded K1/K2 call (``_recording`` of
+    ``ops.paged_decode_attention``) again, with the kernel and with the
+    plain version, on its own pool with q scaled by a power of two so
+    that no score can pass 4 (the largest query row's norm times the
+    pool's largest key row's, dequantized) and v by one to |v| <= 1: a
+    bf16 pool's V pages are scaled, a quantized pool's V scales (both
+    exact).  Within F32_TOL for f32 queries, BF16_ATOL/RTOL for bf16
+    ones (``_held_to_plain``'s reasons).  ``errs`` maps
+    ``<kernel>[<pool>]`` to [calls, largest scaled |kernel - plain|,
+    largest raw one]."""
+    import math
+    from repro_torch.core.mixed_precision import dequantize_kv_page
+    from repro_torch.kernels import ops
+    for _, args, kw in calls:
+        q, kp, vp, *rest = args
+        ks, vs = kw.get("k_scale"), kw.get("v_scale")
+
+        def run(impl, q=q, vp=vp, vs=vs, rest=rest, kw=kw):
+            return ops.paged_decode_attention(
+                q, kp, vp, *rest, **{**kw, "v_scale": vs, "impl": impl})
+        raw = (run("kernel") - run("plain")).abs().max().item()
+        kd = kp.float() if ks is None else dequantize_kv_page(kp, ks)
+        vmax = (vp.float() if vs is None
+                else dequantize_kv_page(vp, vs)).abs().max().item()
+        top = (q.float().norm(dim=-1).max() * kd.norm(dim=-1).max()
+               * q.shape[-1] ** -0.5).item()
+        del kd
+        a = max(0, math.ceil(math.log2(top / 4))) if top else 0
+        b = max(0, math.ceil(math.log2(vmax))) if vmax else 0
+        qs = q * 2.0 ** -a
+        if vs is None:
+            vps, vss = vp * 2.0 ** -b, None
+        else:
+            vps, vss = vp, vs * 2.0 ** -b
+        pool = {torch.float32: "f32", torch.bfloat16: "bf16",
+                torch.uint8: "fp8", torch.int8: "int8"}[kp.dtype]
+        key = (f"{'quantized_' if vs is not None else ''}"
+               f"paged_decode_attention[{pool}]")
+        tol = F32_TOL if q.dtype == torch.float32 else (BF16_ATOL, BF16_RTOL)
+        got, want = (run(impl, q=qs, vp=vps, vs=vss)
+                     for impl in ("kernel", "plain"))
+        err = check_close(f"{what} {key}, scaled inputs", got, want, *tol)
+        row = errs.setdefault(key, [0, 0.0, 0.0])
+        row[0] += 1
+        row[1], row[2] = max(row[1], err), max(row[2], raw)
     calls.clear()
 
 
@@ -5371,6 +5487,275 @@ def phase_hybrid():
     return rows, {"hybrid": counts}
 
 
+MINICPM_REQUESTS = 16
+MINICPM_GEN = 32
+MINICPM_TF_LAYERS = 4          # the f32 teacher-forced check's depth
+MINICPM_TF_PROMPTS = 8
+
+
+def _minicpm_requests(cfg) -> list:
+    """(prompt, sampling) of MINICPM_REQUESTS requests: the stream phase
+    serve's ``serve_paged`` draws at seed 0 (a length in [64, 512), the
+    prompt, a budget of 32), drawn for this vocabulary; every second
+    request at temperature 0.9, the others greedy."""
+    from repro_torch.runtime.sampler import SamplingParams
+    rng = np.random.default_rng(0)
+    out = []
+    for i in range(MINICPM_REQUESTS):
+        n = int(rng.integers(64, ENGINE_KW["max_seq_len"] - MINICPM_GEN))
+        prompt = rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+        assert int(rng.integers(MINICPM_GEN, MINICPM_GEN + 1)) == MINICPM_GEN
+        out.append((prompt, SamplingParams(temperature=0.9, seed=60 + i)
+                    if i % 2 else None))
+    return out
+
+
+def _minicpm_paged(cfg, params, requests, tag: str):
+    """Run A on the graphed paged engine (ENGINE_KW) with a ``tag`` pool:
+    ``_check_run``'s checks (all finished in the vocabulary, logits
+    finite, K1/K2 once per layer per tick and the norms per model step,
+    exactly); then the ``fused=False`` engine's greedy streams and trace,
+    its 21st tick's K1/K2 and norm calls held to plain, each graph
+    against eager bit for bit and the tickets back at 0.  Returns (run,
+    launches read just after it)."""
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import ops
+    from repro_torch.runtime.serving import PagedServingEngine
+    eng = PagedServingEngine(cfg, params,
+                             kv_dtype=None if tag == "bf16" else tag,
+                             device="cuda", **ENGINE_KW)
+    assert eng.policy._tick_fn.graph is not None, \
+        "minicpm: the fused tick was not captured"
+    for prompt, sp in requests:
+        eng.submit(prompt, max_new_tokens=MINICPM_GEN, sampling=sp)
+    ops.reset_launches()                       # the main path starts here
+    done = eng.run()
+    counts = dict(ops.launches)                # ... and ends here
+    r = {"finished": done, "metrics": eng.metrics.snapshot(), "engine": eng}
+    _check_run(tag, r, cfg, counts, phase="minicpm",
+               requests=len(requests), gen=MINICPM_GEN)
+    calls = []
+    _eager_engine(tag, r, cfg, phase="minicpm", record=calls)
+    paged = [c for c in calls if c[0] == "paged_decode_attention"]
+    norms = [c for c in calls if c[0] in NORM_OPS]
+    per_step = sum(norm_launches(cfg, 1).values())
+    assert len(paged) == cfg.num_layers and norms and \
+        len(norms) % per_step == 0, \
+        f"minicpm {tag}: recorded {len(paged)} K1/K2 and {len(norms)} " \
+        "norm calls in a tick and the chunks beside it"
+    lengths = paged[0][1][4].tolist()
+    chunks = len(norms) // per_step - 1
+    errs, norm_errs = {}, {}
+    _paged_held_to_plain(paged, errs, f"minicpm {tag} engine tick")
+    _norms_held(norms, norm_errs, f"minicpm {tag} engine tick")
+    log("minicpm", f"{tag}: the fused=False engine's 21st tick (seat "
+        f"lengths {lengths}) and {chunks} prefill chunks beside it, "
+        "every kernel call against plain on its own "
+        "inputs (calls, max|err|): " + "; ".join(
+            f"{key} {n}, {e:.3e}" for key, (n, e) in norm_errs.items())
+        + "; K1/K2 scaled within BF16_ATOL/RTOL (calls, max|err| scaled, "
+        "max|err| raw): " + "; ".join(
+            f"{key} {n}, {e:.3e}, {raw:.3e}"
+            for key, (n, e, raw) in errs.items()))
+    gc.collect()
+    torch.cuda.empty_cache()
+    _graph_vs_eager(tag, eng, phase="minicpm")
+    _check_tickets(f"minicpm {tag}: after the graphed runs",
+                   [eng.policy._tickets, *da._tickets.values()])
+    return r, counts
+
+
+def _minicpm_fixed(cfg, params, requests, paged: dict) -> dict:
+    """The same requests on the fixed-slot ``ServingEngine`` (8 slots,
+    MAX_LEN): all finished in the vocabulary, logits finite, K4 once per
+    layer per decode step and K5 once per layer per prompt, the norms per
+    model call, exactly; the first prefill's K5 and norm calls and one
+    eager decode step's K4 and norm calls held to plain on their own
+    inputs (K4/K5 scaled); the captured step against eager bit for bit,
+    the tickets back at 0, the steady step profiled; and, as
+    information, the greedy tokens it shares with the bf16 paged run
+    ``paged``.  Returns the launches read just after the run."""
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as M
+    from repro_torch.runtime.serving import ServingEngine
+    L = cfg.num_layers
+    eng = ServingEngine(cfg, params, slots=8, max_len=MAX_LEN, device="cuda")
+    for prompt, sp in requests:
+        eng.submit(prompt, max_new_tokens=MINICPM_GEN, sampling=sp)
+    per_prefill = L + sum(norm_launches(cfg, 1).values())
+    calls = []
+    with _recording(calls, lambda: len(calls) < per_prefill,
+                    ATTENTION_OPS + NORM_OPS):
+        ops.reset_launches()                   # the main path starts here
+        done = eng.run()
+        counts = dict(ops.launches)            # ... and ends here
+    assert len(done) == len(requests), f"minicpm fixed-slot: {len(done)}"
+    for q in done:
+        assert len(q.generated) == MINICPM_GEN, q.rid
+        assert all(0 <= t < cfg.vocab_size for t in q.generated), \
+            f"minicpm fixed-slot: rid {q.rid} emitted a token outside " \
+            "the vocabulary"
+    assert bool(eng.policy.logits_finite), \
+        "minicpm fixed-slot: a logit was not finite"
+    ticks = eng.policy.decode_ticks
+    prefills = sum(1 for _, ev, _ in eng.trace if ev == "admit")
+    want = {"decode_attention[bf16]": L * ticks,
+            "flash_attention[causal]": L * prefills,
+            **norm_launches(cfg, ticks + prefills)}
+    assert counts == want, f"minicpm fixed-slot: launches {counts}, " \
+        f"expected {want} for {ticks} decode steps and {prefills} prefills"
+    m = eng.metrics.snapshot()
+    log("minicpm", f"fixed-slot engine (8 slots, max_len {MAX_LEN}): "
+        f"{m['completed']:.0f} requests, {ticks} decode steps (graph "
+        f"replays), {prefills} prefills, {m['tokens_per_s']:.1f} tokens/s, "
+        f"mean TTFT {m['ttft_avg_s'] * 1e3:.1f} ms, wall {m['wall_s']:.2f} "
+        f"s; launches {json.dumps(counts)}")
+    first = len(requests[0][0])
+    attn = [c for c in calls if c[0] in ATTENTION_OPS]
+    norms = [c for c in calls if c[0] in NORM_OPS]
+    calls.clear()
+    assert len(attn) == L and all(c[1][0].shape[1] == first for c in attn), \
+        "minicpm fixed-slot: recorded the wrong prefill"
+    errs, norm_errs = {}, {}
+    _held_to_plain(attn, errs, "minicpm fixed-slot prefill")
+    _norms_held(norms, norm_errs, "minicpm fixed-slot prefill")
+    tok, pos = _decode_state(eng)
+    with _recording(calls, names=ATTENTION_OPS + NORM_OPS):
+        M.decode_step(eng.params, cfg, _clone(eng.cache), tok, pos)
+    attn = [c for c in calls if c[0] in ATTENTION_OPS]
+    norms = [c for c in calls if c[0] in NORM_OPS]
+    calls.clear()
+    assert len(attn) == L, f"minicpm: {len(attn)} K4 calls in a step"
+    _held_to_plain(attn, errs, "minicpm fixed-slot decode step")
+    _norms_held(norms, norm_errs, "minicpm fixed-slot decode step")
+    log("minicpm", f"fixed-slot: the prefill of {first} tokens and a decode "
+        f"step (positions {pos.tolist()}), every kernel call against plain "
+        "on its own inputs (calls, max|err|): " + "; ".join(
+            f"{key} {n}, {e:.3e}" for key, (n, e) in norm_errs.items())
+        + "; K4/K5 scaled within BF16_ATOL/RTOL (calls, max|err| scaled, "
+        "max|err| raw): " + "; ".join(
+            f"{key} {n}, {e:.3e}, {raw:.3e}"
+            for key, (n, e, raw) in errs.items()))
+    _fixed_graph_vs_eager(eng, phase="minicpm")
+    _check_tickets("minicpm fixed-slot", [eng.policy._tickets,
+                                          *da._tickets.values()])
+    _profile_graph_decode_step(eng, "minicpm",
+                               f"{MINICPM} fixed-slot decode step")
+    # information, not a gate: whole-prompt and chunked prefill round
+    # bf16 differently, so greedy streams part at near-ties
+    paged_gen = {q.rid: q.generated for q in paged["finished"]}
+    greedy = [q for q in done if q.sampling.temperature <= 0]
+    equal = sum(a == b for q in greedy
+                for a, b in zip(q.generated, paged_gen[q.rid]))
+    same = sum(q.generated == paged_gen[q.rid] for q in greedy)
+    log("minicpm", f"greedy tokens shared with the bf16 paged engine: "
+        f"{equal}/{len(greedy) * MINICPM_GEN} position-wise, "
+        f"{same}/{len(greedy)} greedy streams identical")
+    return counts
+
+
+def _minicpm_steady(tag: str, eng, flush) -> None:
+    """The steady graphed tick (8 seats) profiled: wall, busy, kernels,
+    idle share and the top kernels, with the kernels named as the tied
+    LM head's GEMM (8 rows against the 122 753 x 2304 embedding, timed
+    alone beside its byte bound), and the tick against its byte bound."""
+    pol = eng.policy
+    h = torch.randn((8, 1, eng.cfg.d_model), device="cuda").bfloat16()
+    w = pol.params["embed"]
+
+    def head():
+        return h @ w.T
+    # the profiler here keeps about half of a short window's kernels:
+    # 20 products, so that some of them are named
+    try:
+        prof, _ = profiled(lambda: [head() for _ in range(20)])
+        head_keys = {a.key for a in prof.key_averages()
+                     if a.device_type == torch.autograd.DeviceType.CUDA
+                     and a.self_device_time_total > 0}
+    except ProfilerLostTime as e:
+        log("minicpm", f"{tag}: the LM head's kernels not named ({e})")
+        head_keys = set()
+    head_ms = cuda_ms(head, flush)
+    hb = w.numel() * w.element_size() + 8 * w.shape[0] * 2
+    log("minicpm", f"{tag}: LM head GEMM (M = 8, N = {w.shape[0]}, K = "
+        f"{w.shape[1]}) alone {head_ms:.4f} ms against its byte bound "
+        f"{hb / HBM_BYTES_PER_S * 1e3:.4f} ms ({hb / 1e6:.1f} MB); kernels "
+        + "; ".join(k[:110] for k in sorted(head_keys)))
+    groups = SERVING_GROUPS + (
+        ("kernels named as the LM head's GEMM", lambda key: key in head_keys),)
+    _, busy = _profile_graph_tick(f"{tag} pool", eng, phase="minicpm",
+                                  groups=groups)
+    nbytes = _tick_bytes(eng)
+    b_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    log("minicpm", f"{tag} pool tick: device busy {busy:.3f} ms against the "
+        f"byte bound {b_ms:.3f} ms ({nbytes / 1e9:.3f} GB at "
+        f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s, K/V as bf16): "
+        f"{busy / b_ms:.2f}x (information)")
+
+
+def phase_minicpm():
+    """minicpm-2b at full width and depth on the paged and fixed-slot
+    engines.  Returns the rows of K1/K2 at d 64, K4/K5 at d 64 with 36
+    heads and K3 and the fused add + norm at D = 2304, and the launch
+    counts of Run A by engine and pool."""
+    t0 = time.perf_counter()
+    cfg, params = _draw_cast(MINICPM, "minicpm")
+    kv = 2 * cfg.num_layers * cfg.num_kv_heads * cfg.resolved_head_dim * 2
+    log("minicpm", f"MHA {cfg.num_heads}/{cfg.num_kv_heads} heads of "
+        f"{cfg.resolved_head_dim}: {kv} bytes of bf16 K/V per token; pool "
+        f"{ENGINE_KW['num_pages']} pages of {PAGE}")
+    requests = _minicpm_requests(cfg)
+    runs, counts = {}, {}
+    for tag in ("bf16", "fp8", "int8"):
+        runs[tag], counts[f"minicpm_{tag}"] = _minicpm_paged(
+            cfg, params, requests, tag)
+    t1 = time.perf_counter()
+    counts["minicpm_fixed"] = _minicpm_fixed(cfg, params, requests,
+                                             runs["bf16"])
+    gc.collect()
+    torch.cuda.empty_cache()
+    t2 = time.perf_counter()
+    flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device="cuda")
+    for tag in ("bf16", "fp8"):
+        _minicpm_steady(tag, runs[tag]["engine"], flush)
+    del runs
+    gc.collect()
+    torch.cuda.empty_cache()
+    t3 = time.perf_counter()
+    # K1/K2 at phase serve's seat lengths (1-2048) over the three pools;
+    # K5 causal over the widest prompt, K4 over 8 slots of MAX_LEN + 1
+    # keys; K3 and the fused add + norm at d_model 2304 (a 4096-wide
+    # block, its tail masked): a tick's 8 rows, a prefill chunk, the
+    # widest prompt, f32 at the teacher-forced tick and chunk
+    rows = _model_attention(cfg, "minicpm", SEAT_LENGTHS, N_TABLE, flush,
+                            pools=("bf16", "fp8", "int8"), row_key="d=64")
+    rows.update(_attention_timing(cfg, "minicpm", PREFILL_S, MAX_LEN + 1, 61,
+                                  "d=64,H=36", flush))
+    D = cfg.d_model
+    rows.update(_norms_vs_plain(
+        "minicpm", 62, (D,),
+        ((8, torch.bfloat16), (PREFILL_CHUNK, torch.bfloat16),
+         (PREFILL_S, torch.bfloat16), (8, torch.float32),
+         (PREFILL_CHUNK, torch.float32)),
+        {("rmsnorm", D), ("add_rmsnorm", D)}, flush))
+    del flush, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    t4 = time.perf_counter()
+    cfg32, p32 = _draw_cast(MINICPM, "minicpm", num_layers=MINICPM_TF_LAYERS,
+                            compute_dtype="float32")
+    prompts = [p for p, _ in requests[:MINICPM_TF_PROMPTS]]
+    _f32_paged_teacher_forced(
+        cfg32, p32, prompts, what=f"f32, the first {MINICPM_TF_LAYERS} "
+        "layers, fused tick (paged, f32 pool)", phase="minicpm")
+    _f32_engines(cfg32, p32, prompts, phase="minicpm")
+    log("minicpm", f"phase times: run A paged {t1 - t0:.1f} s, fixed slots "
+        f"{t2 - t1:.1f} s, steady ticks {t3 - t2:.1f} s, kernels timed "
+        f"{t4 - t3:.1f} s, f32 {time.perf_counter() - t4:.1f} s")
+    return rows, counts
+
+
 # phase f32: a position is decided when the plain version's top-2 gap
 # exceeds twice the largest |kernel - plain| logit difference there (the
 # workload-7 method of docs/benchmarks.md): there the two must pick the
@@ -5533,7 +5918,7 @@ def _f32_fixed_teacher_forced(cfg, params, prompts) -> None:
     _report_decided("prefill + decode step (fixed-slot, f32 cache)", stats)
 
 
-def _f32_engines(cfg, params, prompts) -> dict:
+def _f32_engines(cfg, params, prompts, phase: str = "f32") -> dict:
     """The paged engine and ``ServingEngine`` (the reference's equivalence
     oracle) on the same greedy requests, f32 pool and cache.  Each stream
     must equal the other engine's up to its first position where the
@@ -5559,15 +5944,15 @@ def _f32_engines(cfg, params, prompts) -> dict:
         done = {q.rid: q.generated for q in eng.run()}
         counts[name] = dict(ops.launches)      # ... and ends here
         assert sorted(done) == rids and bool(eng.policy.logits_finite), \
-            f"f32 {name} engine: finished {sorted(done)}"
+            f"{phase} {name} engine: finished {sorted(done)}"
         streams[name] = [done[r] for r in rids]
-        log("f32", f"{name} engine: {len(done)} requests, launches "
+        log(phase, f"{name} engine: {len(done)} requests, launches "
             f"{json.dumps(counts[name])}")
         del eng
     for name, key in (("paged", "paged_decode_attention[f32]"),
                       ("fixed", "decode_attention[f32]"),
                       ("fixed", "flash_attention[causal]")):
-        assert counts[name].get(key, 0) > 0, f"f32 {name}: {key} never ran"
+        assert counts[name].get(key, 0) > 0, f"{phase} {name}: {key} never ran"
     out_w = M._output_weight(params, cfg)
     opts = M.RunOptions(q_chunk=512)
     compared, equal_streams = 0, 0
@@ -5584,12 +5969,12 @@ def _f32_engines(cfg, params, prompts) -> dict:
         first_diff = next((i for i, (x, y) in enumerate(zip(gp, gf))
                            if x != y), len(gp))
         assert first_diff >= undecided, \
-            f"f32 request {a}: the engines part at token {first_diff}, " \
+            f"{phase} request {a}: the engines part at token {first_diff}, " \
             f"before the first gap <= {F32_GAP} (token {undecided}; gaps " \
             f"{[f'{g:.2e}' for g in gaps[:first_diff + 1]]})"
         compared += undecided
         equal_streams += first_diff == len(gp)
-    log("f32", f"paged engine vs ServingEngine: {compared}/"
+    log(phase, f"paged engine vs ServingEngine: {compared}/"
         f"{len(prompts) * F32_GEN} tokens compared (each stream up to its "
         f"first top-2 gap <= {F32_GAP}), all equal; {equal_streams}/"
         f"{len(prompts)} streams identical throughout")
@@ -6346,6 +6731,13 @@ def main() -> int:
     torch.cuda.empty_cache()
     log("hybrid", f"hybrid state freed: "
         f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB allocated")
+    minicpm_rows, minicpm_counts = phase_minicpm()
+    results.update(minicpm_rows)
+    counts.update(minicpm_counts)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("minicpm", f"minicpm state freed: "
+        f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB allocated")
     phase_f32(prompts)
     gc.collect()
     torch.cuda.empty_cache()
@@ -6387,7 +6779,10 @@ def main() -> int:
     # flash and the dense decode at d 96 (counted under the variant's
     # key) from phase vision's Run A; the norms at jamba-v0.1-52b's widths
     # and flash and the dense decode at group 4 (counted under the
-    # variant's key) from phase hybrid's Run A
+    # variant's key) from phase hybrid's Run A; the paged attention
+    # kernels at d 64 and the norms at minicpm-2b's width from phase
+    # minicpm's paged Run A with their pool, flash and the dense decode at
+    # d 64 with 36 heads from its fixed-slot run
     for key, run, *count_key in (("paged_decode_attention[bf16]", "bf16"),
                      ("quantized_paged_decode_attention[fp8]", "fp8"),
                      ("quantized_paged_decode_attention[int8]", "int8"),
@@ -6420,6 +6815,19 @@ def main() -> int:
                      ("flash_attention[G=4]", "hybrid",
                       "flash_attention[causal]"),
                      ("decode_attention[G=4]", "hybrid",
+                      "decode_attention[bf16]"),
+                     ("paged_decode_attention[bf16,d=64]", "minicpm_bf16",
+                      "paged_decode_attention[bf16]"),
+                     ("quantized_paged_decode_attention[fp8,d=64]",
+                      "minicpm_fp8", "quantized_paged_decode_attention[fp8]"),
+                     ("quantized_paged_decode_attention[int8,d=64]",
+                      "minicpm_int8",
+                      "quantized_paged_decode_attention[int8]"),
+                     ("rmsnorm[D=2304]", "minicpm_bf16"),
+                     ("add_rmsnorm[D=2304]", "minicpm_bf16"),
+                     ("flash_attention[d=64,H=36]", "minicpm_fixed",
+                      "flash_attention[causal]"),
+                     ("decode_attention[d=64,H=36]", "minicpm_fixed",
                       "decode_attention[bf16]"),
                      ("fp8_matmul[e4m3]", "hplmxp_fp8")):
         r = results[key]

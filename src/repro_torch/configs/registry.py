@@ -15,6 +15,7 @@ _MODULES = {
     "jamba-v0.1-52b": "jamba_v0_1_52b",
     "llama3-8b": "llama3_8b",
     "mamba2-130m": "mamba2_130m",
+    "minicpm-2b": "minicpm_2b",
     "phi-3-vision-4.2b": "phi_3_vision_4_2b",
     "qwen2-moe-a2.7b": "qwen2_moe_a2_7b",
     "qwen3-1.7b": "qwen3_1_7b",

@@ -152,7 +152,9 @@ def test_registry_lists_ported_archs_only():
     from repro_torch.configs import ARCH_IDS, get_config, resolve_arch
     assert set(ARCH_IDS) == {"qwen3-1.7b", "llama3-8b", "qwen2-moe-a2.7b",
                              "gemma3-12b", "mamba2-130m", "whisper-base",
-                             "phi-3-vision-4.2b", "jamba-v0.1-52b"}
+                             "phi-3-vision-4.2b", "jamba-v0.1-52b",
+                             "minicpm-2b"}
+    assert resolve_arch("minicpm_2b") == "minicpm-2b"
     assert resolve_arch("jamba_v0_1_52b") == "jamba-v0.1-52b"
     assert resolve_arch("whisper_base") == "whisper-base"
     assert resolve_arch("phi_3_vision_4_2b") == "phi-3-vision-4.2b"
@@ -161,7 +163,7 @@ def test_registry_lists_ported_archs_only():
     assert resolve_arch("qwen3_1_7b") == "qwen3-1.7b"
     assert resolve_arch("gemma3_12b") == "gemma3-12b"
     with pytest.raises(KeyError, match="known"):
-        get_config("minicpm-2b")
+        get_config("grok-1-314b")
     cfg = get_config("qwen3-1.7b")
     assert (cfg.num_layers, cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
             cfg.d_ff, cfg.vocab_size, cfg.head_dim) == \
@@ -172,7 +174,8 @@ def test_registry_lists_ported_archs_only():
 @pytest.mark.parametrize("arch", ["qwen3-1.7b", "llama3-8b",
                                   "qwen2-moe-a2.7b", "gemma3-12b",
                                   "mamba2-130m", "whisper-base",
-                                  "phi-3-vision-4.2b", "jamba-v0.1-52b"])
+                                  "phi-3-vision-4.2b", "jamba-v0.1-52b",
+                                  "minicpm-2b"])
 def test_ported_configs_equal_the_references_field_by_field(arch):
     """Each config of the port's registry, and its reduced form, equals
     the JAX package's field by field (MoEConfig and SSMConfig compared
@@ -242,6 +245,15 @@ def test_ported_configs_equal_the_references_field_by_field(arch):
         assert (s.d_state, s.conv_width, s.expand, s.head_dim, s.n_groups,
                 s.chunk_size) == (16, 4, 2, 64, 1, 256)
         assert mine.subquadratic and not mine.tie_embeddings
+    if arch == "minicpm-2b":
+        assert (mine.num_layers, mine.d_model, mine.num_heads,
+                mine.num_kv_heads, mine.head_dim, mine.d_ff,
+                mine.vocab_size) == (40, 2304, 36, 36, 64, 5760, 122_753)
+        assert mine.family == "dense" and mine.tie_embeddings
+        assert not mine.qk_norm and mine.layer_kinds() == ("attn",)
+        assert mine.pad_heads_to is None and mine.padded_heads == 36
+        from repro_torch.configs import minicpm_2b
+        assert minicpm_2b.SCHEDULE == "wsd"
 
 
 def test_init_params_is_seeded_and_shaped():
