@@ -21,10 +21,11 @@ Phases, each printed as it runs:
    bf16 and fp8 pools and its bf16 and f32 caches, whisper-base's group
    of 1 at head dim 64 over its bf16 and f32 caches, phi-3-vision-4.2b's
    group of 1 at head dim 96 over its bf16 and f32 caches, minicpm-2b's
-   group of 1 at head dim 64 over its bf16, fp8, int8 and f32 pools); the
-   flash
-   library must hold a tensor-core instantiation for every head dim its
-   route takes, d 96 among them;
+   group of 1 at head dim 64 over its bf16, fp8, int8 and f32 pools,
+   grok-1-314b's group of 6 (the MG = 8 instantiations, rows 6-7 of each
+   group empty) over its bf16, fp8, int8 and f32 pools and its bf16 and
+   f32 caches); the flash library must hold a tensor-core instantiation
+   for every head dim its route takes, d 96 among them;
 3. kernels — every kernel of the serving paths against its plain PyTorch
    version at the serving shapes of qwen3-1.7b (H=16, KVH=8, d=128;
    paged decode: page 16, 8 seats with lengths from 1 to 2048; dense
@@ -43,9 +44,11 @@ Phases, each printed as it runs:
    decode at the edges of their split-K plans (lengths chunk - 1, chunk,
    chunk + 1, seats whose later splits are all empty, the full width; the
    tickets must be back at zero after the launches); then the same checks
-   off those shapes (f32 queries, pools and caches, GQA groups 1 and 4,
-   head dims 16 to 256, odd cache lengths, sliding-window and non-causal
-   flash on both routes, f32 RMSNorm; at d 96 dense decode over lengths
+   off those shapes (f32 queries, pools and caches, GQA groups 1, 4 and 6
+   (48 heads over 8 of 128: paged over bf16, fp8 and f32 pools, dense in
+   bf16 and f32, flash causal on both routes), head dims 16 to 256, odd
+   cache lengths, sliding-window and non-causal flash on both routes,
+   f32 RMSNorm; at d 96 dense decode over lengths
    1, 9, 64 and 200 and tensor-core flash causal at 77 and non-causal at
    96 x 200);
 4. serve — ``serve_paged`` at the full width of qwen3-1.7b (28 layers,
@@ -340,7 +343,38 @@ Phases, each printed as it runs:
    teacher-forced through chunked prefill and fused ticks over an f32
    pool with the kernels and the plain versions, and the paged engine
    against ``ServingEngine`` on them (phase f32's methods);
-15. f32 — qwen3-1.7b computing in f32 (f32 weights, pool and cache;
+15. grok — grok-1-314b at full width, cut in depth only to 4 of its 64
+   layers (d_model 6144, 48/8 heads of 128: a GQA group of 6, 8 experts
+   top-2 of d_ff 32768 on every layer with no shared expert at capacity
+   factor 1.25, untied 131072-row head; 21.29 B parameters, 39.66 GiB),
+   drawn cast on the card from a generator seeded 0.  Run A on the paged
+   engine (ENGINE_KW) over phase 14's request stream drawn for this
+   vocabulary, once each over a bf16, an fp8 and an int8 pool: all
+   finished in the vocabulary, logits finite, launch counts exact (K1/K2
+   on their MG = 8 instantiations 4 a tick, the norms per model step),
+   each graph replayed against eager bit for bit, tickets back at 0; on
+   the bf16 and fp8 pools the ``fused=False`` engine's greedy streams and
+   trace equal, the capacity path's dropped (token, expert) pairs logged
+   per chunk and per tick, and its 21st tick's K1/K2 and norm calls held
+   to plain (scaled); on the int8 pool one fused tick's K2 and norm calls
+   held to plain.  The first 8 requests on the fixed-slot
+   ``ServingEngine`` (8 slots, max_len 544): K4 4 a step and K5 4 a
+   prompt exactly, the first prefill's and a decode step's K4/K5 and norm
+   calls held to plain, graph == eager, the steady step profiled against
+   its byte bound.  The steady graphed tick on the bf16 and fp8 pools
+   (wall, busy, kernels, idle share, busy time by kernel group, the
+   expert products alone) against its byte bound; the first layer
+   widened to f32: the bf16 tick with the kernels no further from the f32
+   tick than 1.5x the plain versions' (routed as the f32 tick; the
+   planted dropped page failing both limits), then 8 prompts
+   teacher-forced with the kernels and the plain versions in f32 (router
+   top-2 flips logged).  K1 and K2 (fp8, int8) at phase 3's seat lengths,
+   K5 causal at 511 and K4 over 8 x 545 keys at 48 heads over 8 against
+   plain, timed beside SDPA with K/V repeated; K3 and the fused add +
+   norm at D = 6144 against plain, timed; ``serve --arch grok-1-314b`` on
+   both engines (reduced; ``serve()`` at full width would build all 64
+   layers);
+16. f32 — qwen3-1.7b computing in f32 (f32 weights, pool and cache;
    flash prefill on its CUDA-core route): 8 greedy streams teacher-forced
    through the fused tick and through ``prefill`` + ``decode_step``, each
    with the kernels and with the plain versions, whose top-1 must agree
@@ -348,7 +382,7 @@ Phases, each printed as it runs:
    logit difference there) with at least 90% of the positions decided;
    then the paged engine and ``ServingEngine`` on the same 8 requests,
    whose streams must be equal up to their first top-2 gap <= 1e-3;
-16. train — the training path, which runs the plain PyTorch versions on
+17. train — the training path, which runs the plain PyTorch versions on
    purpose (no kernel has a backward, in the port or in the reference):
    ``train()`` on qwen3-1.7b at its published width (f32 master weights
    and AdamW state, bf16 compute, remat, batch 8 x seq 1024 from the
@@ -365,7 +399,7 @@ Phases, each printed as it runs:
    resumed losses and final params, mu, nu and count against an
    uninterrupted run, and a ``save_async`` whose restored tensors equal
    the saved ones bit for bit);
-17. hpc — the fp8 GEMM kernel (K6) against its plain version, held to
+18. hpc — the fp8 GEMM kernel (K6) against its plain version, held to
    ``fp8_matmul.error_bound`` (f32 sums plus the tensor-core term of sums
    promoted every 128 products), through ``ops.fp8_matmul`` (aligned,
    ragged, bm/bn != 128) and through the per-tensor call at the n = 256,
@@ -383,7 +417,13 @@ Phases, each printed as it runs:
    kernel and with the plain version (first trailing update and refined
    solutions held); HPCG at 256³ (50 iterations, the true residual
    recomputed) and at 48³ (90 iterations, converged);
-18. summary — one JSON line listing the kernels, the card's name and power
+19. cli — ``python -m repro_torch.launch.serve`` as phases 7-15 queued it
+   (``--fleet``; ``--arch <arch>`` on both engines for qwen2-moe-a2.7b,
+   gemma3-12b and grok-1-314b; for mamba2-130m, whisper-base,
+   phi-3-vision-4.2b and jamba-v0.1-52b ``--engine batch`` and
+   ``--engine paged``, which must exit with the paged engine's refusal),
+   six processes at a time, each checked as its phase asked;
+20. summary — one JSON line listing the kernels, the card's name and power
     limit, and as the last line ``{"ok": true, "device": {...}}``.
 
 Any failure raises: the script exits non-zero and prints no ``ok`` line.
@@ -430,6 +470,8 @@ VISION = "phi-3-vision-4.2b"   # phase vision: 32 heads over 32 of 96 (MHA),
 VISION_HEAD_DIM = 96           # 32 layers, 256 patch rows per prompt
 MINICPM = "minicpm-2b"         # phase minicpm: 36 heads over 36 of 64 (MHA),
 MINICPM_HEAD_DIM = 64          # 40 layers, a tied 122 753-row embedding
+GROK = "grok-1-314b"           # phase grok: 48 heads over 8 of 128 (GQA
+GROK_H = 48                    # group 6), 8 experts top-2 on every layer
 SEAT_LENGTHS = (1, 16, 17, 255, 700, 1024, 1531, 2048)
 N_TABLE = 2048 // PAGE
 PREFILL_CHUNK = 128
@@ -823,7 +865,11 @@ def serving_decode_instantiations() -> set:
     checks) in the dense; at minicpm-2b's head dim of 64 (E = 2) and
     group of 1 (phase minicpm), bf16 queries over its bf16, fp8 and int8
     pools and f32 over an f32 pool (its teacher-forced check) in the
-    paged library."""
+    paged library; at grok-1-314b's group of 6 (MG = 8, rows 6-7 of each
+    group empty; phase grok, head dim 128), bf16 queries over its bf16,
+    fp8 and int8 pools and f32 over an f32 pool (its f32 checks) in the
+    paged library, a bf16 cache and an f32 one (phase variants) in the
+    dense."""
     from repro_torch.kernels import decode_attention as da
     e, e_gemma = da.lane_elems(HEAD_DIM), da.lane_elems(GEMMA_HEAD_DIM)
     e_whisper = da.lane_elems(WHISPER_HEAD_DIM)
@@ -842,13 +888,17 @@ def serving_decode_instantiations() -> set:
     paged += [("bf16", kv, e_minicpm, group_arrays(1))
               for kv in ("bf16", "uint8", "int8")]
     paged += [("f32", "f32", e_minicpm, group_arrays(1))]
+    mg_grok = group_arrays(GROK_H // KVH)
+    paged += [("bf16", kv, e, mg_grok) for kv in ("bf16", "uint8", "int8")]
+    paged += [("f32", "f32", e, mg_grok)]
     dense = [("bf16", "bf16", e, mg), ("f32", "f32", e, mg),
              ("bf16", "bf16", e, mg_moe), ("bf16", "bf16", e_gemma, mg_gemma),
              ("f32", "f32", e_gemma, mg_gemma),
              ("bf16", "bf16", e_whisper, group_arrays(1)),
              ("f32", "f32", e_whisper, group_arrays(1)),
              ("bf16", "bf16", e_vision, group_arrays(1)),
-             ("f32", "f32", e_vision, group_arrays(1))]
+             ("f32", "f32", e_vision, group_arrays(1)),
+             ("bf16", "bf16", e, mg_grok), ("f32", "f32", e, mg_grok)]
     return ({(lib, (q, kv, el, addr, g))
              for lib, addr, insts in (
                  ("paged_decode_attention", "PagedAddr", paged),
@@ -1304,8 +1354,10 @@ def _flash_kernel(gen: torch.Generator, flush: torch.Tensor) -> dict:
 
 def phase_variants() -> None:
     """The kernels against their plain versions off the main path's
-    shapes: f32 queries and pools, GQA groups 1 and 4 (llama3-8b),
-    smaller head dims (the reduced configs), f32 RMSNorm; and at d 96
+    shapes: f32 queries and pools, GQA groups 1, 4 (llama3-8b) and 6
+    (grok-1-314b: bf16 queries over bf16 and fp8 pools and f32 over f32,
+    dense decode in bf16 and f32, flash causal on both routes), smaller
+    head dims (the reduced configs), f32 RMSNorm; and at d 96
     (phi-3-vision-4.2b), where a lane or descriptor fault shows at a size
     a log can hold: dense decode over lengths 1, 9, 64 and 200 (E = 4,
     the last 8 lanes of every warp empty), and flash on the tensor cores
@@ -1317,7 +1369,11 @@ def phase_variants() -> None:
     cases = [  # (H, KVH, d, q dtype, pool)
         (16, 8, 128, torch.float32, "f32"), (16, 8, 128, torch.bfloat16, "f32"),
         (32, 8, 128, torch.bfloat16, "bf16"), (8, 8, 64, torch.float32, "fp8"),
-        (4, 4, 16, torch.float32, "int8"), (4, 2, 16, torch.float32, "bf16")]
+        (4, 4, 16, torch.float32, "int8"), (4, 2, 16, torch.float32, "bf16"),
+        # grok-1-314b's group of 6 on the MG = 8 instantiations
+        (GROK_H, 8, 128, torch.bfloat16, "bf16"),
+        (GROK_H, 8, 128, torch.bfloat16, "fp8"),
+        (GROK_H, 8, 128, torch.float32, "f32")]
     lengths = torch.tensor([1, 9, 64, 200], dtype=torch.int32, device="cuda")
     n = 16
     table = (torch.randperm(4 * n, generator=gen, device="cuda") + 1).int()
@@ -1354,7 +1410,9 @@ def phase_variants() -> None:
         (3, 96, 4, 1, 32, torch.bfloat16, torch.bfloat16),
         (4, 255, 32, 8, 128, torch.bfloat16, torch.bfloat16),
         (2, 545, 16, 8, 128, torch.float32, torch.bfloat16),
-        (2, 100, 8, 8, 256, torch.float32, torch.float32)]
+        (2, 100, 8, 8, 256, torch.float32, torch.float32),
+        (3, 545, GROK_H, 8, 128, torch.bfloat16, torch.bfloat16),
+        (2, 200, GROK_H, 8, 128, torch.float32, torch.float32)]
     for B, T, H_, KVH_, d, qdt, kdt in dense:
         q = torch.randn((B, 1, H_, d), generator=gen, device="cuda").to(qdt)
         k = torch.randn((B, T, KVH_, d), generator=gen, device="cuda").to(kdt)
@@ -1387,7 +1445,9 @@ def phase_variants() -> None:
         (1, 37, 37, 4, 2, 16, torch.float32, True, None),
         (1, 300, 300, 4, 4, 256, torch.bfloat16, True, None),
         (2, 77, 77, 4, 4, 96, torch.bfloat16, True, None),
-        (2, 96, 200, 4, 2, 96, torch.bfloat16, False, None)]
+        (2, 96, 200, 4, 2, 96, torch.bfloat16, False, None),
+        (1, 300, 300, GROK_H, 8, 128, torch.bfloat16, True, None),
+        (1, 77, 77, GROK_H, 8, 128, torch.float32, True, None)]
     for B, Sq, Skv, H_, KVH_, d, dt, causal, window in flash:
         q = torch.randn((B, Sq, H_, d), generator=gen, device="cuda").to(dt)
         k = torch.randn((B, Skv, KVH_, d), generator=gen, device="cuda").to(dt)
@@ -2944,19 +3004,18 @@ def _tick_bytes(eng) -> int:
 
 def _fleet_cli() -> None:
     """``python -m repro_torch.launch.serve --fleet`` with the reference's
-    defaults (reduced configs, ``qwen3-1.7b:2,llama3-8b``) on the card."""
-    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
-    out = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve",
-                          "--fleet"], cwd=ROOT, env=env, capture_output=True,
-                         text=True, timeout=600)
-    assert out.returncode == 0, f"serve --fleet: rc {out.returncode}\n" \
-        f"{out.stderr[-3000:]}"
-    lines = [ln for ln in out.stdout.splitlines()
-             if ln.startswith("[serve.fleet]")]
-    assert lines and "device=cuda" in lines[0] and "8 requests" in lines[0], \
-        out.stdout[-2000:]
-    for ln in lines:
-        log("fleet", f"cli: {ln}")
+    defaults (reduced configs, ``qwen3-1.7b:2,llama3-8b``) on the card,
+    queued for ``phase_cli``."""
+    def check(out):
+        assert out.returncode == 0, f"serve --fleet: rc {out.returncode}\n" \
+            f"{out.stderr[-3000:]}"
+        lines = [ln for ln in out.stdout.splitlines()
+                 if ln.startswith("[serve.fleet]")]
+        assert lines and "device=cuda" in lines[0] and \
+            "8 requests" in lines[0], out.stdout[-2000:]
+        for ln in lines:
+            log("fleet", f"cli: {ln}")
+    CLI_JOBS.append((["--fleet"], check))
 
 
 def phase_fleet() -> None:
@@ -2992,11 +3051,10 @@ def phase_fleet() -> None:
     del weights
     gc.collect()
     torch.cuda.empty_cache()
-    t3 = time.perf_counter()
     _fleet_cli()
     log("fleet", f"phase times: run A and solo {t1 - t0:.1f} s, run B and "
-        f"telemetry {t2 - t1:.1f} s, steady profile {t3 - t2:.1f} s, cli "
-        f"{time.perf_counter() - t3:.1f} s; peak "
+        f"telemetry {t2 - t1:.1f} s, steady profile "
+        f"{time.perf_counter() - t2:.1f} s; peak "
         f"{peak:.2f} GiB allocated (max_memory_allocated)")
 
 
@@ -3136,14 +3194,12 @@ def _moe_check(tag: str, eng, counts: dict, gaps: int) -> None:
         "had an idle seat below a decoding one; no preemption")
 
 
-def _moe_drops(cfg, params, prompts, sampling, ref) -> None:
-    """The same requests and arrivals through the ``fused=False`` engine
-    (eager model steps, host sampling), whose streams and trace must
-    equal the graphed run ``ref``'s, with every capacity-path call
-    recorded: the dropped (token, expert) pairs per prefill chunk and
-    per decode tick (information)."""
+@contextlib.contextmanager
+def _capacity_calls(seen: list):
+    """``moe._expert_gemms_capacity`` watched: each call runs as it
+    would, and its (routed (token, expert) pairs, C, dropped pairs on
+    the device) is appended to ``seen``."""
     from repro_torch.models import moe as moe_mod
-    seen = []
     inner = moe_mod._expert_gemms_capacity
 
     def recording(p, m, xs, sizes, dt):
@@ -3152,16 +3208,16 @@ def _moe_drops(cfg, params, prompts, sampling, ref) -> None:
         return inner(p, m, xs, sizes, dt)
     moe_mod._expert_gemms_capacity = recording
     try:
-        eng, _, _ = _moe_run(cfg, params, prompts, sampling, fused=False)
+        yield
     finally:
         moe_mod._expert_gemms_capacity = inner
-    want = {q.rid: q.generated for q in ref.finished}
-    got = {q.rid: q.generated for q in eng.finished}
-    diff = [rid for rid in want if got.get(rid) != want[rid]]
-    assert not diff and len(got) == len(want), \
-        f"moe: fused=True and fused=False streams differ for rids {diff}"
-    assert eng.trace == ref.trace, \
-        "moe: fused=True and fused=False traces differ"
+
+
+def _log_drops(phase: str, cfg, seen: list) -> None:
+    """The dropped (token, expert) pairs of the capacity-path calls
+    ``seen`` (``_capacity_calls``, one per layer of each model step of a
+    paged engine), per prefill chunk and per decode tick
+    (information)."""
     L, k = cfg.num_layers, cfg.moe.top_k
     assert len(seen) % L == 0, len(seen)
     dropped = torch.stack([d for _, _, d in seen]).reshape(-1, L).sum(1)
@@ -3172,12 +3228,31 @@ def _moe_drops(cfg, params, prompts, sampling, ref) -> None:
         mine = [(C, d) for t, C, d in steps if t == tk]
         drops = [d for _, d in mine]
         routed = len(mine) * tk * L
-        log("moe", f"drops per {name} ({tk} (token, expert) pairs per "
+        log(phase, f"drops per {name} ({tk} (token, expert) pairs per "
             f"layer into {cfg.moe.num_experts} experts of {mine[0][0]} "
             f"slots): {len(mine)} {name}s, {sum(drops)} of {routed} routed "
             f"pairs dropped ({sum(drops) / routed:.4f}); per {name} mean "
             f"{sum(drops) / len(mine):.2f}, max {max(drops)}, "
             f"{sum(d > 0 for d in drops)} with drops")
+
+
+def _moe_drops(cfg, params, prompts, sampling, ref) -> None:
+    """The same requests and arrivals through the ``fused=False`` engine
+    (eager model steps, host sampling), whose streams and trace must
+    equal the graphed run ``ref``'s, with every capacity-path call
+    recorded: the dropped (token, expert) pairs per prefill chunk and
+    per decode tick (information)."""
+    seen = []
+    with _capacity_calls(seen):
+        eng, _, _ = _moe_run(cfg, params, prompts, sampling, fused=False)
+    want = {q.rid: q.generated for q in ref.finished}
+    got = {q.rid: q.generated for q in eng.finished}
+    diff = [rid for rid in want if got.get(rid) != want[rid]]
+    assert not diff and len(got) == len(want), \
+        f"moe: fused=True and fused=False streams differ for rids {diff}"
+    assert eng.trace == ref.trace, \
+        "moe: fused=True and fused=False traces differ"
+    _log_drops("moe", cfg, seen)
     log("moe", f"fused=False engine (eager, host sampling): streams and "
         f"trace equal to the graphed run's; {eng.policy.decode_ticks} "
         f"decode ticks, {eng.metrics.snapshot()['tokens_per_s']:.1f} "
@@ -3234,21 +3309,22 @@ def _moe_syncs(eng) -> None:
         f"pull ({dict(syncs)} over {STEADY_TICKS} ticks)")
 
 
-def _moe_steady(eng) -> None:
+def _moe_steady(eng, phase: str = "moe", tag: str = "bf16 pool") -> None:
     """The graphed tick replayed at 8 decoding seats (``_tick_state``):
     wall, busy, kernels, idle share; its busy time against its byte
-    bound (every expert's weights each tick); the expert products' time
-    and share of the busy time (information)."""
-    wall, busy = _profile_graph_tick(f"{MOE} bf16 pool", eng, phase="moe",
+    bound (every expert's weights each tick; K/V counted as bf16); the
+    expert products' time and share of the busy time (information)."""
+    cfg = eng.cfg
+    wall, busy = _profile_graph_tick(f"{cfg.name} {tag}", eng, phase=phase,
                                      groups=MOE_GROUPS)
     nbytes = _tick_bytes(eng)
     bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    cfg = eng.cfg
     m = cfg.moe
     expert_bytes = 3 * cfg.num_layers * m.num_experts * cfg.d_model * \
         m.d_ff_expert * 2
     expert_ms = _moe_expert_ms(eng)
-    log("moe", f"{MOE} tick: device busy {busy:.3f} ms (wall {wall:.2f} "
+    log(phase, f"{cfg.name} {tag} tick: device busy {busy:.3f} ms (wall "
+        f"{wall:.2f} "
         f"ms) against the byte bound {bound_ms:.3f} ms ({nbytes / 1e9:.2f} "
         f"GB at {HBM_BYTES_PER_S / 1e12:.2f} TB/s): {busy / bound_ms:.2f}x; "
         f"the expert products alone {expert_ms:.3f} ms by CUDA events, "
@@ -3301,34 +3377,36 @@ def _router_flips(run) -> tuple:
     return rows, flipped, tokens, tok_flipped
 
 
-def _moe_f32(eng, prompts) -> None:
-    """The model cut to its first MOE_F32_LAYERS layers (widths unchanged:
-    the 24 layers' f32 weights, 53 GiB, do not fit beside the bf16 tree),
-    widened to f32: on its first MOE_TICK_LAYERS layers the bf16 tick
-    with the kernels held to the f32 tick against the plain versions',
-    both routed as the f32 tick (``_tick_vs_f32``, with its planted
-    fault), then the kernels against the plain versions in f32,
-    teacher-forced by phase f32's method over 8 prompts, counting the
-    router's top-k flips between the two (information)."""
+def _moe_f32(eng, prompts, phase: str = "moe", layers: int = MOE_F32_LAYERS,
+             tick_layers: int = MOE_TICK_LAYERS) -> None:
+    """The model cut to its first ``layers`` layers (widths unchanged:
+    qwen2-moe-a2.7b's 24 layers' f32 weights, 53 GiB, do not fit beside
+    the bf16 tree), widened to f32: on its first ``tick_layers`` layers
+    the bf16 tick with the kernels held to the f32 tick against the
+    plain versions', both routed as the f32 tick (``_tick_vs_f32``, with
+    its planted fault), then the kernels against the plain versions in
+    f32, teacher-forced by phase f32's method over 8 prompts, counting
+    the router's top-k flips between the two (information)."""
     import dataclasses
     from repro_torch.tree import tree_map
+    name = eng.cfg.name
     params, _, cfg = _first_layers(eng.params, eng.policy.cache, eng.cfg,
-                                   MOE_F32_LAYERS)
+                                   layers)
     wide = tree_map(lambda t: t.float(), params)
-    log("moe", f"f32 checks on the first {MOE_F32_LAYERS} of "
+    log(phase, f"f32 checks on the first {layers} of "
         f"{eng.cfg.num_layers} layers (widths unchanged): "
         f"{_tree_bytes(wide) / 2 ** 30:.2f} GiB of f32 weights")
-    _tick_vs_f32(f"{MOE} (first {MOE_TICK_LAYERS} layers)", eng,
-                 phase="moe", wide=dict(wide, blocks=tree_map(
-                     lambda t: t[:MOE_TICK_LAYERS], wide["blocks"])))
+    _tick_vs_f32(f"{name} (first {tick_layers} layers)", eng,
+                 phase=phase, wide=dict(wide, blocks=tree_map(
+                     lambda t: t[:tick_layers], wide["blocks"])))
     gc.collect()
     f32 = dataclasses.replace(cfg, compute_dtype="float32")
     rows, flipped, tokens, tok_flipped = _router_flips(
         lambda: _f32_paged_teacher_forced(
-            f32, wide, prompts, phase="moe",
-            what=f"{MOE} fused tick (paged, f32 pool, first "
-                 f"{MOE_F32_LAYERS} layers)"))
-    log("moe", f"router top-{cfg.moe.top_k} sets differing between the "
+            f32, wide, prompts, phase=phase,
+            what=f"{name} fused tick (paged, f32 pool, first "
+                 f"{layers} layers)"))
+    log(phase, f"router top-{cfg.moe.top_k} sets differing between the "
         f"kernels' and the plain versions' f32 runs: {flipped} of {rows} "
         f"(token, layer) rows, at {tok_flipped} of {tokens} tokens "
         "(information)")
@@ -3492,22 +3570,20 @@ def _fixed_attention(cfg, prompts, phase: str, max_len: int, gen: int,
 def _serve_cli(arch: str, phase: str) -> None:
     """``python -m repro_torch.launch.serve --arch <arch>`` on both
     engines (``--engine paged`` and the static batch) with their
-    defaults (reduced config) on the card."""
-    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    defaults (reduced config) on the card, queued for ``phase_cli``."""
     for engine, tag, want in (("paged", "[serve.paged]", "8 requests"),
                               ("batch", "[serve]", "throughput=")):
-        out = subprocess.run(
-            [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
-             arch, "--engine", engine], cwd=ROOT, env=env,
-            capture_output=True, text=True, timeout=600)
-        assert out.returncode == 0, f"serve --arch {arch} --engine " \
-            f"{engine}: rc {out.returncode}\n{out.stderr[-3000:]}"
-        lines = [ln for ln in out.stdout.splitlines() if ln.startswith(tag)]
-        assert any(want in ln for ln in lines), out.stdout[-2000:]
-        if engine == "paged":
-            assert "device=cuda" in lines[0], lines[0]
-        for ln in lines:
-            log(phase, f"cli --engine {engine}: {ln}")
+        def check(out, engine=engine, tag=tag, want=want):
+            assert out.returncode == 0, f"serve --arch {arch} --engine " \
+                f"{engine}: rc {out.returncode}\n{out.stderr[-3000:]}"
+            lines = [ln for ln in out.stdout.splitlines()
+                     if ln.startswith(tag)]
+            assert any(want in ln for ln in lines), out.stdout[-2000:]
+            if engine == "paged":
+                assert "device=cuda" in lines[0], lines[0]
+            for ln in lines:
+                log(phase, f"cli --engine {engine}: {ln}")
+        CLI_JOBS.append((["--arch", arch, "--engine", engine], check))
 
 
 def phase_moe() -> None:
@@ -3554,11 +3630,10 @@ def phase_moe() -> None:
     del params
     gc.collect()
     torch.cuda.empty_cache()
-    t3 = time.perf_counter()
     _serve_cli(MOE, "moe")
     log("moe", f"phase times: run A and its checks {t1 - t0:.1f} s, f32 "
-        f"{t2 - t1:.1f} s, run B and fixed-slot {t3 - t2:.1f} s, cli "
-        f"{time.perf_counter() - t3:.1f} s; peak {peak:.2f} GiB allocated "
+        f"{t2 - t1:.1f} s, run B and fixed-slot "
+        f"{time.perf_counter() - t2:.1f} s; peak {peak:.2f} GiB allocated "
         "(max_memory_allocated)")
 
 
@@ -4020,11 +4095,10 @@ def phase_gemma():
     torch.cuda.empty_cache()
     t3 = time.perf_counter()
     _gemma_ring()
-    t4 = time.perf_counter()
     _serve_cli(GEMMA, "gemma")
     log("gemma", f"phase times: run A and its checks {t1 - t0:.1f} s, the "
         f"f32 tick {t2 - t1:.1f} s, run B and fixed-slot {t3 - t2:.1f} s, "
-        f"ring cache {t4 - t3:.1f} s, cli {time.perf_counter() - t4:.1f} s; "
+        f"ring cache {time.perf_counter() - t3:.1f} s; "
         f"peak {peak:.2f} GiB allocated (max_memory_allocated) before the "
         "ring check")
     return rows, {"gemma_bf16": counts_a, "gemma_fp8": counts_b,
@@ -4313,7 +4387,8 @@ def _fixed_only_cli(arch: str, phase: str, prompt_len) -> None:
     for a model whose full depth the card cannot hold: ``serve()`` builds
     every layer), then ``python -m repro_torch.launch.serve --arch
     <arch>`` with its defaults (reduced config), and ``--engine paged``,
-    which must exit non-zero with the paged engine's refusal."""
+    which must exit non-zero with the paged engine's refusal (the CLI
+    runs queued for ``phase_cli``)."""
     from repro_torch.configs import get_config
     from repro_torch.launch.serve import serve
     vocab = get_config(arch).vocab_size
@@ -4327,25 +4402,22 @@ def _fixed_only_cli(arch: str, phase: str, prompt_len) -> None:
             f"{r['decode_s'] * 1e3:.0f}ms throughput="
             f"{r['tokens_per_s']:.1f} tok/s (batch 4, prompt "
             f"{prompt_len}, 16 new)")
-    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
-    for engine in ("batch", "paged"):
-        out = subprocess.run(
-            [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
-             arch, "--engine", engine], cwd=ROOT, env=env,
-            capture_output=True, text=True, timeout=600)
-        if engine == "batch":
-            assert out.returncode == 0 and "throughput=" in out.stdout, \
-                f"serve --arch {arch}: rc {out.returncode}\n" \
-                f"{out.stderr[-3000:]}"
-            for ln in out.stdout.splitlines():
-                log(phase, f"cli --engine batch: {ln}")
-        else:
-            msg = "use ServingEngine for ssm/enc-dec/frontend archs"
-            assert out.returncode != 0 and msg in out.stderr, \
-                f"serve --arch {arch} --engine paged: rc " \
-                f"{out.returncode}\n{out.stderr[-3000:]}"
-            log(phase, f"cli --engine paged: rc {out.returncode}, "
-                f"{out.stderr.strip().splitlines()[-1]}")
+    def batch(out):
+        assert out.returncode == 0 and "throughput=" in out.stdout, \
+            f"serve --arch {arch}: rc {out.returncode}\n" \
+            f"{out.stderr[-3000:]}"
+        for ln in out.stdout.splitlines():
+            log(phase, f"cli --engine batch: {ln}")
+
+    def paged(out):
+        msg = "use ServingEngine for ssm/enc-dec/frontend archs"
+        assert out.returncode != 0 and msg in out.stderr, \
+            f"serve --arch {arch} --engine paged: rc " \
+            f"{out.returncode}\n{out.stderr[-3000:]}"
+        log(phase, f"cli --engine paged: rc {out.returncode}, "
+            f"{out.stderr.strip().splitlines()[-1]}")
+    CLI_JOBS.append((["--arch", arch, "--engine", "batch"], batch))
+    CLI_JOBS.append((["--arch", arch, "--engine", "paged"], paged))
 
 
 def phase_ssm():
@@ -4387,7 +4459,7 @@ def phase_ssm():
     t3 = time.perf_counter()
     _fixed_only_cli(MAMBA, "ssm", 1000)
     log("ssm", f"phase times: run A and the norms {t1 - t0:.1f} s, the f32 "
-        f"checks {t2 - t1:.1f} s, the long prompt {t3 - t2:.1f} s, cli "
+        f"checks {t2 - t1:.1f} s, the long prompt {t3 - t2:.1f} s, serve() "
         f"{time.perf_counter() - t3:.1f} s")
     return rows, {"ssm": counts}
 
@@ -4722,8 +4794,8 @@ def phase_whisper():
     t2 = time.perf_counter()
     _fixed_only_cli(WHISPER, "whisper", 128)
     log("whisper", f"phase times: run A {t1 - t0:.1f} s, kernels against "
-        f"plain and timed {t2 - t1:.1f} s, cli {time.perf_counter() - t2:.1f}"
-        " s")
+        f"plain and timed {t2 - t1:.1f} s, serve() "
+        f"{time.perf_counter() - t2:.1f} s")
     return rows, {"whisper": counts}
 
 
@@ -5133,7 +5205,7 @@ def phase_vision():
     t3 = time.perf_counter()
     _fixed_only_cli(VISION, "vision", VISION_SERVE_PROMPT)
     log("vision", f"phase times: run A {t1 - t0:.1f} s, drawn patches "
-        f"{t2 - t1:.1f} s, kernels timed {t3 - t2:.1f} s, cli "
+        f"{t2 - t1:.1f} s, kernels timed {t3 - t2:.1f} s, serve() "
         f"{time.perf_counter() - t3:.1f} s")
     return rows, {"vision": counts}
 
@@ -5482,42 +5554,56 @@ def phase_hybrid():
         "ServingEngine")
     _fixed_only_cli(HYBRID, "hybrid", None)
     log("hybrid", f"phase times: run A and its checks {t1 - t0:.1f} s, "
-        f"kernels timed {t2 - t1:.1f} s, f32 period {t3 - t2:.1f} s, cli "
-        f"{time.perf_counter() - t3:.1f} s")
+        f"kernels timed {t2 - t1:.1f} s, f32 period {t3 - t2:.1f} s")
     return rows, {"hybrid": counts}
 
 
-MINICPM_REQUESTS = 16
-MINICPM_GEN = 32
+STREAM_REQUESTS = 16
+STREAM_GEN = 32
 MINICPM_TF_LAYERS = 4          # the f32 teacher-forced check's depth
 MINICPM_TF_PROMPTS = 8
 
 
-def _minicpm_requests(cfg) -> list:
-    """(prompt, sampling) of MINICPM_REQUESTS requests: the stream phase
+def _stream_requests(cfg) -> list:
+    """(prompt, sampling) of STREAM_REQUESTS requests: the stream phase
     serve's ``serve_paged`` draws at seed 0 (a length in [64, 512), the
-    prompt, a budget of 32), drawn for this vocabulary; every second
+    prompt, a budget of 32), drawn for ``cfg``'s vocabulary; every second
     request at temperature 0.9, the others greedy."""
     from repro_torch.runtime.sampler import SamplingParams
     rng = np.random.default_rng(0)
     out = []
-    for i in range(MINICPM_REQUESTS):
-        n = int(rng.integers(64, ENGINE_KW["max_seq_len"] - MINICPM_GEN))
+    for i in range(STREAM_REQUESTS):
+        n = int(rng.integers(64, ENGINE_KW["max_seq_len"] - STREAM_GEN))
         prompt = rng.integers(0, cfg.vocab_size, n).astype(np.int32)
-        assert int(rng.integers(MINICPM_GEN, MINICPM_GEN + 1)) == MINICPM_GEN
+        assert int(rng.integers(STREAM_GEN, STREAM_GEN + 1)) == STREAM_GEN
         out.append((prompt, SamplingParams(temperature=0.9, seed=60 + i)
                     if i % 2 else None))
     return out
 
 
-def _minicpm_paged(cfg, params, requests, tag: str):
+def _held_line(what: str, errs: dict, norm_errs: dict) -> str:
+    """The log line of ``_paged_held_to_plain``/``_held_to_plain``'s
+    ``errs`` and ``_norms_held``'s ``norm_errs``."""
+    return (f"{what}, every kernel call against plain on its own inputs "
+            "(calls, max|err|): " + "; ".join(
+                f"{key} {n}, {e:.3e}" for key, (n, e) in norm_errs.items())
+            + "; attention scaled within BF16_ATOL/RTOL (calls, max|err| "
+            "scaled, max|err| raw): " + "; ".join(
+                f"{key} {n}, {e:.3e}, {raw:.3e}"
+                for key, (n, e, raw) in errs.items()))
+
+
+def _paged_run_a(cfg, params, requests, tag: str, phase: str,
+                 eager: bool = True):
     """Run A on the graphed paged engine (ENGINE_KW) with a ``tag`` pool:
     ``_check_run``'s checks (all finished in the vocabulary, logits
     finite, K1/K2 once per layer per tick and the norms per model step,
-    exactly); then the ``fused=False`` engine's greedy streams and trace,
-    its 21st tick's K1/K2 and norm calls held to plain, each graph
-    against eager bit for bit and the tickets back at 0.  Returns (run,
-    launches read just after it)."""
+    exactly); then, with ``eager``, the ``fused=False`` engine's greedy
+    streams and trace, its 21st tick's K1/K2 and norm calls held to plain
+    and, on an MoE model, its capacity drops logged; without, one fused
+    tick from ``_tick_state`` with its K1/K2 and norm calls held to
+    plain; each graph against eager bit for bit and the tickets back at
+    0.  Returns (run, launches read just after it)."""
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import ops
     from repro_torch.runtime.serving import PagedServingEngine
@@ -5525,56 +5611,63 @@ def _minicpm_paged(cfg, params, requests, tag: str):
                              kv_dtype=None if tag == "bf16" else tag,
                              device="cuda", **ENGINE_KW)
     assert eng.policy._tick_fn.graph is not None, \
-        "minicpm: the fused tick was not captured"
+        f"{phase}: the fused tick was not captured"
     for prompt, sp in requests:
-        eng.submit(prompt, max_new_tokens=MINICPM_GEN, sampling=sp)
+        eng.submit(prompt, max_new_tokens=STREAM_GEN, sampling=sp)
     ops.reset_launches()                       # the main path starts here
     done = eng.run()
     counts = dict(ops.launches)                # ... and ends here
     r = {"finished": done, "metrics": eng.metrics.snapshot(), "engine": eng}
-    _check_run(tag, r, cfg, counts, phase="minicpm",
-               requests=len(requests), gen=MINICPM_GEN)
-    calls = []
-    _eager_engine(tag, r, cfg, phase="minicpm", record=calls)
+    _check_run(tag, r, cfg, counts, phase=phase,
+               requests=len(requests), gen=STREAM_GEN)
+    calls, seen = [], []
+    names = ("paged_decode_attention",) + NORM_OPS
+    if eager:
+        with (_capacity_calls(seen) if cfg.moe is not None
+              else contextlib.nullcontext()):
+            _eager_engine(tag, r, cfg, phase=phase, record=calls)
+        what = "the fused=False engine's 21st tick"
+    else:
+        with _recording(calls, names=names):
+            _tick(eng, _clone(eng.policy.cache), _tick_state(eng), "kernel")
+        what = "one fused tick of the graphed engine's pool"
+    if seen:
+        _log_drops(phase, cfg, seen)
     paged = [c for c in calls if c[0] == "paged_decode_attention"]
     norms = [c for c in calls if c[0] in NORM_OPS]
     per_step = sum(norm_launches(cfg, 1).values())
     assert len(paged) == cfg.num_layers and norms and \
         len(norms) % per_step == 0, \
-        f"minicpm {tag}: recorded {len(paged)} K1/K2 and {len(norms)} " \
+        f"{phase} {tag}: recorded {len(paged)} K1/K2 and {len(norms)} " \
         "norm calls in a tick and the chunks beside it"
     lengths = paged[0][1][4].tolist()
     chunks = len(norms) // per_step - 1
     errs, norm_errs = {}, {}
-    _paged_held_to_plain(paged, errs, f"minicpm {tag} engine tick")
-    _norms_held(norms, norm_errs, f"minicpm {tag} engine tick")
-    log("minicpm", f"{tag}: the fused=False engine's 21st tick (seat "
-        f"lengths {lengths}) and {chunks} prefill chunks beside it, "
-        "every kernel call against plain on its own "
-        "inputs (calls, max|err|): " + "; ".join(
-            f"{key} {n}, {e:.3e}" for key, (n, e) in norm_errs.items())
-        + "; K1/K2 scaled within BF16_ATOL/RTOL (calls, max|err| scaled, "
-        "max|err| raw): " + "; ".join(
-            f"{key} {n}, {e:.3e}, {raw:.3e}"
-            for key, (n, e, raw) in errs.items()))
+    _paged_held_to_plain(paged, errs, f"{phase} {tag} engine tick")
+    _norms_held(norms, norm_errs, f"{phase} {tag} engine tick")
+    log(phase, _held_line(f"{tag}: {what} (seat lengths {lengths}) and "
+                          f"{chunks} prefill chunks beside it", errs,
+                          norm_errs))
     gc.collect()
     torch.cuda.empty_cache()
-    _graph_vs_eager(tag, eng, phase="minicpm")
-    _check_tickets(f"minicpm {tag}: after the graphed runs",
+    _graph_vs_eager(tag, eng, phase=phase)
+    _check_tickets(f"{phase} {tag}: after the graphed runs",
                    [eng.policy._tickets, *da._tickets.values()])
     return r, counts
 
 
-def _minicpm_fixed(cfg, params, requests, paged: dict) -> dict:
-    """The same requests on the fixed-slot ``ServingEngine`` (8 slots,
+def _fixed_run_a(cfg, params, requests, paged: dict, phase: str,
+                 groups=SERVING_GROUPS) -> dict:
+    """The requests on the fixed-slot ``ServingEngine`` (8 slots,
     MAX_LEN): all finished in the vocabulary, logits finite, K4 once per
     layer per decode step and K5 once per layer per prompt, the norms per
     model call, exactly; the first prefill's K5 and norm calls and one
     eager decode step's K4 and norm calls held to plain on their own
     inputs (K4/K5 scaled); the captured step against eager bit for bit,
-    the tickets back at 0, the steady step profiled; and, as
-    information, the greedy tokens it shares with the bf16 paged run
-    ``paged``.  Returns the launches read just after the run."""
+    the tickets back at 0, the steady step profiled (its busy time split
+    over ``groups``) against its byte bound; and, as information, the
+    greedy tokens it shares with the bf16 paged run ``paged``.  Returns
+    the launches read just after the run."""
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import ops
     from repro_torch.models import model as M
@@ -5582,7 +5675,7 @@ def _minicpm_fixed(cfg, params, requests, paged: dict) -> dict:
     L = cfg.num_layers
     eng = ServingEngine(cfg, params, slots=8, max_len=MAX_LEN, device="cuda")
     for prompt, sp in requests:
-        eng.submit(prompt, max_new_tokens=MINICPM_GEN, sampling=sp)
+        eng.submit(prompt, max_new_tokens=STREAM_GEN, sampling=sp)
     per_prefill = L + sum(norm_launches(cfg, 1).values())
     calls = []
     with _recording(calls, lambda: len(calls) < per_prefill,
@@ -5590,23 +5683,23 @@ def _minicpm_fixed(cfg, params, requests, paged: dict) -> dict:
         ops.reset_launches()                   # the main path starts here
         done = eng.run()
         counts = dict(ops.launches)            # ... and ends here
-    assert len(done) == len(requests), f"minicpm fixed-slot: {len(done)}"
+    assert len(done) == len(requests), f"{phase} fixed-slot: {len(done)}"
     for q in done:
-        assert len(q.generated) == MINICPM_GEN, q.rid
+        assert len(q.generated) == STREAM_GEN, q.rid
         assert all(0 <= t < cfg.vocab_size for t in q.generated), \
-            f"minicpm fixed-slot: rid {q.rid} emitted a token outside " \
+            f"{phase} fixed-slot: rid {q.rid} emitted a token outside " \
             "the vocabulary"
     assert bool(eng.policy.logits_finite), \
-        "minicpm fixed-slot: a logit was not finite"
+        f"{phase} fixed-slot: a logit was not finite"
     ticks = eng.policy.decode_ticks
     prefills = sum(1 for _, ev, _ in eng.trace if ev == "admit")
     want = {"decode_attention[bf16]": L * ticks,
             "flash_attention[causal]": L * prefills,
             **norm_launches(cfg, ticks + prefills)}
-    assert counts == want, f"minicpm fixed-slot: launches {counts}, " \
+    assert counts == want, f"{phase} fixed-slot: launches {counts}, " \
         f"expected {want} for {ticks} decode steps and {prefills} prefills"
     m = eng.metrics.snapshot()
-    log("minicpm", f"fixed-slot engine (8 slots, max_len {MAX_LEN}): "
+    log(phase, f"fixed-slot engine (8 slots, max_len {MAX_LEN}): "
         f"{m['completed']:.0f} requests, {ticks} decode steps (graph "
         f"replays), {prefills} prefills, {m['tokens_per_s']:.1f} tokens/s, "
         f"mean TTFT {m['ttft_avg_s'] * 1e3:.1f} ms, wall {m['wall_s']:.2f} "
@@ -5616,32 +5709,33 @@ def _minicpm_fixed(cfg, params, requests, paged: dict) -> dict:
     norms = [c for c in calls if c[0] in NORM_OPS]
     calls.clear()
     assert len(attn) == L and all(c[1][0].shape[1] == first for c in attn), \
-        "minicpm fixed-slot: recorded the wrong prefill"
+        f"{phase} fixed-slot: recorded the wrong prefill"
     errs, norm_errs = {}, {}
-    _held_to_plain(attn, errs, "minicpm fixed-slot prefill")
-    _norms_held(norms, norm_errs, "minicpm fixed-slot prefill")
+    _held_to_plain(attn, errs, f"{phase} fixed-slot prefill")
+    _norms_held(norms, norm_errs, f"{phase} fixed-slot prefill")
     tok, pos = _decode_state(eng)
     with _recording(calls, names=ATTENTION_OPS + NORM_OPS):
         M.decode_step(eng.params, cfg, _clone(eng.cache), tok, pos)
     attn = [c for c in calls if c[0] in ATTENTION_OPS]
     norms = [c for c in calls if c[0] in NORM_OPS]
     calls.clear()
-    assert len(attn) == L, f"minicpm: {len(attn)} K4 calls in a step"
-    _held_to_plain(attn, errs, "minicpm fixed-slot decode step")
-    _norms_held(norms, norm_errs, "minicpm fixed-slot decode step")
-    log("minicpm", f"fixed-slot: the prefill of {first} tokens and a decode "
-        f"step (positions {pos.tolist()}), every kernel call against plain "
-        "on its own inputs (calls, max|err|): " + "; ".join(
-            f"{key} {n}, {e:.3e}" for key, (n, e) in norm_errs.items())
-        + "; K4/K5 scaled within BF16_ATOL/RTOL (calls, max|err| scaled, "
-        "max|err| raw): " + "; ".join(
-            f"{key} {n}, {e:.3e}, {raw:.3e}"
-            for key, (n, e, raw) in errs.items()))
-    _fixed_graph_vs_eager(eng, phase="minicpm")
-    _check_tickets("minicpm fixed-slot", [eng.policy._tickets,
-                                          *da._tickets.values()])
-    _profile_graph_decode_step(eng, "minicpm",
-                               f"{MINICPM} fixed-slot decode step")
+    assert len(attn) == L, f"{phase}: {len(attn)} K4 calls in a step"
+    _held_to_plain(attn, errs, f"{phase} fixed-slot decode step")
+    _norms_held(norms, norm_errs, f"{phase} fixed-slot decode step")
+    log(phase, _held_line(f"fixed-slot: the prefill of {first} tokens and "
+                          f"a decode step (positions {pos.tolist()})", errs,
+                          norm_errs))
+    _fixed_graph_vs_eager(eng, phase=phase)
+    _check_tickets(f"{phase} fixed-slot", [eng.policy._tickets,
+                                           *da._tickets.values()])
+    what = f"{cfg.name} fixed-slot decode step"
+    wall, busy = _profile_graph_decode_step(eng, phase, what, groups=groups)
+    nbytes = _fixed_step_bytes(eng)
+    b_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    log(phase, f"{what}: byte bound {b_ms:.3f} ms ({nbytes / 1e9:.3f} GB at "
+        f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s); device busy "
+        f"{busy / b_ms:.2f}x and wall {wall / b_ms:.2f}x the bound "
+        "(information)")
     # information, not a gate: whole-prompt and chunked prefill round
     # bf16 differently, so greedy streams part at near-ties
     paged_gen = {q.rid: q.generated for q in paged["finished"]}
@@ -5649,8 +5743,8 @@ def _minicpm_fixed(cfg, params, requests, paged: dict) -> dict:
     equal = sum(a == b for q in greedy
                 for a, b in zip(q.generated, paged_gen[q.rid]))
     same = sum(q.generated == paged_gen[q.rid] for q in greedy)
-    log("minicpm", f"greedy tokens shared with the bf16 paged engine: "
-        f"{equal}/{len(greedy) * MINICPM_GEN} position-wise, "
+    log(phase, f"greedy tokens shared with the bf16 paged engine: "
+        f"{equal}/{len(greedy) * STREAM_GEN} position-wise, "
         f"{same}/{len(greedy)} greedy streams identical")
     return counts
 
@@ -5705,14 +5799,14 @@ def phase_minicpm():
     log("minicpm", f"MHA {cfg.num_heads}/{cfg.num_kv_heads} heads of "
         f"{cfg.resolved_head_dim}: {kv} bytes of bf16 K/V per token; pool "
         f"{ENGINE_KW['num_pages']} pages of {PAGE}")
-    requests = _minicpm_requests(cfg)
+    requests = _stream_requests(cfg)
     runs, counts = {}, {}
     for tag in ("bf16", "fp8", "int8"):
-        runs[tag], counts[f"minicpm_{tag}"] = _minicpm_paged(
-            cfg, params, requests, tag)
+        runs[tag], counts[f"minicpm_{tag}"] = _paged_run_a(
+            cfg, params, requests, tag, "minicpm")
     t1 = time.perf_counter()
-    counts["minicpm_fixed"] = _minicpm_fixed(cfg, params, requests,
-                                             runs["bf16"])
+    counts["minicpm_fixed"] = _fixed_run_a(cfg, params, requests,
+                                           runs["bf16"], "minicpm")
     gc.collect()
     torch.cuda.empty_cache()
     t2 = time.perf_counter()
@@ -5753,6 +5847,93 @@ def phase_minicpm():
     log("minicpm", f"phase times: run A paged {t1 - t0:.1f} s, fixed slots "
         f"{t2 - t1:.1f} s, steady ticks {t3 - t2:.1f} s, kernels timed "
         f"{t4 - t3:.1f} s, f32 {time.perf_counter() - t4:.1f} s")
+    return rows, counts
+
+
+# phase grok: grok-1-314b at full width, cut in depth only.  A layer holds
+# 4.92 B parameters (8 experts of 3 x 6144 x 32 768); four layers and the
+# untied embedding and head are 21.29 B, 39.66 GiB in bf16, and drawing
+# them peaks at the tree plus the (4, 8, 6144, 32 768) expert leaf's f32
+# draw, 24 GiB.  Six layers (57.99 GiB) and that leaf's f32 draw (36 GiB)
+# would not fit the card without drawing the leaf in slices, which would
+# no longer equal the drawn tree bit for bit (``init_params_for_compute``)
+GROK_LAYERS = 4
+GROK_F32_LAYERS = 1      # the f32 checks' depth: 24.3 GiB widened
+GROK_FIXED_REQUESTS = 8
+
+
+def phase_grok():
+    """grok-1-314b at full width, GROK_LAYERS of its 64 layers, on the
+    paged and fixed-slot engines: its group of 6 runs K1/K2/K4 on their
+    MG = 8 instantiations.  Returns the rows of K1/K2 (bf16, fp8, int8),
+    K4 and K5 at group 6 and K3 and the fused add + norm at D = 6144, and
+    the launch counts of Run A by engine and pool."""
+    t0 = time.perf_counter()
+    cfg, params = _draw_cast(GROK, "grok", num_layers=GROK_LAYERS)
+    m, G = cfg.moe, cfg.num_heads // cfg.num_kv_heads
+    kv = 2 * cfg.num_layers * cfg.num_kv_heads * cfg.resolved_head_dim * 2
+    log("grok", f"GQA {cfg.num_heads}/{cfg.num_kv_heads} heads of "
+        f"{cfg.resolved_head_dim}: group {G} on the decode kernels' MG = "
+        f"{group_arrays(G)} instantiation (rows {G}-{group_arrays(G) - 1} "
+        f"of each group empty); {m.num_experts} experts top-{m.top_k} of "
+        f"d_ff {m.d_ff_expert} on every layer, no shared expert, capacity "
+        f"factor {m.capacity_factor}; {kv} bytes of bf16 K/V per token")
+    requests = _stream_requests(cfg)
+    runs, counts = {}, {}
+    for tag in ("bf16", "fp8", "int8"):
+        runs[tag], counts[f"grok_{tag}"] = _paged_run_a(
+            cfg, params, requests, tag, "grok", eager=tag != "int8")
+    t1 = time.perf_counter()
+    counts["grok_fixed"] = _fixed_run_a(
+        cfg, params, requests[:GROK_FIXED_REQUESTS], runs["bf16"], "grok",
+        groups=MOE_GROUPS)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t2 = time.perf_counter()
+    _moe_steady(runs["bf16"]["engine"], phase="grok")
+    _moe_steady(runs["fp8"]["engine"], phase="grok", tag="fp8 pool")
+    _moe_f32(runs["bf16"]["engine"],
+             [p for p, _ in requests[:MINICPM_TF_PROMPTS]], phase="grok",
+             layers=GROK_F32_LAYERS, tick_layers=GROK_F32_LAYERS)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    del runs
+    gc.collect()
+    torch.cuda.empty_cache()
+    t3 = time.perf_counter()
+    # K1/K2 at phase 3's seat lengths (1-2048, the bytes of the qwen3-1.7b
+    # rows) over the three pools; K5 causal over the widest prompt, K4
+    # over 8 slots of MAX_LEN + 1 keys, 48 heads over 8; K3 and the fused
+    # add + norm at d_model 6144 (an 8192-wide block, its tail masked): a
+    # tick's 8 rows, a prefill chunk, the widest prompt, f32 at the
+    # teacher-forced tick and chunk
+    flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device="cuda")
+    rows = _model_attention(cfg, "grok", SEAT_LENGTHS, N_TABLE, flush,
+                            pools=("bf16", "fp8", "int8"), row_key="G=6")
+    rows.update(_attention_timing(cfg, "grok", PREFILL_S, MAX_LEN + 1, 71,
+                                  "G=6", flush))
+    D = cfg.d_model
+    rows.update(_norms_vs_plain(
+        "grok", 72, (D,),
+        ((8, torch.bfloat16), (PREFILL_CHUNK, torch.bfloat16),
+         (PREFILL_S, torch.bfloat16), (8, torch.float32),
+         (PREFILL_CHUNK, torch.float32)),
+        {("rmsnorm", D), ("add_rmsnorm", D)}, flush))
+    del flush, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    t4 = time.perf_counter()
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+    full = get_config(GROK)
+    log("grok", f"serve() at full width not run: it builds all "
+        f"{full.num_layers} layers ("
+        f"{M.count_params(M.param_specs(full)) * 2 / 2 ** 30:.2f} GiB in "
+        "bf16), past the card; Run A is the full-width run")
+    _serve_cli(GROK, "grok")
+    log("grok", f"phase times: run A paged {t1 - t0:.1f} s, fixed slots "
+        f"{t2 - t1:.1f} s, steady ticks and f32 {t3 - t2:.1f} s, kernels "
+        f"timed {t4 - t3:.1f} s; peak {peak:.2f} GiB allocated "
+        "(max_memory_allocated)")
     return rows, counts
 
 
@@ -6657,6 +6838,37 @@ def phase_hpc() -> tuple:
     return results, counts
 
 
+# the serving CLIs: each phase queues its own runs of ``python -m
+# repro_torch.launch.serve`` (arguments and a check of the finished
+# process), and ``phase_cli`` runs them all after the last phase,
+# CLI_PARALLEL at a time.  A run spends most of its 15-35 s starting
+# Python, torch and a CUDA context and little on the card (reduced
+# configs), and run one after another inside their phases they took
+# ~250 s of the script
+CLI_JOBS: list = []
+CLI_PARALLEL = 6
+
+
+def phase_cli() -> None:
+    """Every queued CLI run, CLI_PARALLEL processes at a time, each
+    waited for (600 s at most), then each checked as its phase asked."""
+    from concurrent.futures import ThreadPoolExecutor
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+
+    def run(args):
+        return subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.serve", *args],
+            cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(CLI_PARALLEL) as pool:
+        outs = list(pool.map(run, [args for args, _ in CLI_JOBS]))
+    for (_, check), out in zip(CLI_JOBS, outs):
+        check(out)
+    log("cli", f"{len(outs)} serving CLI runs, {CLI_PARALLEL} at a time: "
+        f"{time.perf_counter() - t0:.1f} s")
+    CLI_JOBS.clear()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs the "
@@ -6738,6 +6950,13 @@ def main() -> int:
     torch.cuda.empty_cache()
     log("minicpm", f"minicpm state freed: "
         f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB allocated")
+    grok_rows, grok_counts = phase_grok()
+    results.update(grok_rows)
+    counts.update(grok_counts)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("grok", f"grok state freed: "
+        f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB allocated")
     phase_f32(prompts)
     gc.collect()
     torch.cuda.empty_cache()
@@ -6745,6 +6964,9 @@ def main() -> int:
     hpc_results, hpc_counts = phase_hpc()
     results.update(hpc_results)
     counts["hplmxp_fp8"] = hpc_counts["fp8"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_cli()
     source = "src/repro_torch/kernels/"
     meta = {
         "paged_decode_attention": (
@@ -6782,7 +7004,10 @@ def main() -> int:
     # variant's key) from phase hybrid's Run A; the paged attention
     # kernels at d 64 and the norms at minicpm-2b's width from phase
     # minicpm's paged Run A with their pool, flash and the dense decode at
-    # d 64 with 36 heads from its fixed-slot run
+    # d 64 with 36 heads from its fixed-slot run; the paged attention
+    # kernels at group 6, counted under the pool's key, and the norms at
+    # grok-1-314b's width from phase grok's paged Run A with their pool,
+    # flash and the dense decode at group 6 from its fixed-slot run
     for key, run, *count_key in (("paged_decode_attention[bf16]", "bf16"),
                      ("quantized_paged_decode_attention[fp8]", "fp8"),
                      ("quantized_paged_decode_attention[int8]", "int8"),
@@ -6828,6 +7053,18 @@ def main() -> int:
                      ("flash_attention[d=64,H=36]", "minicpm_fixed",
                       "flash_attention[causal]"),
                      ("decode_attention[d=64,H=36]", "minicpm_fixed",
+                      "decode_attention[bf16]"),
+                     ("paged_decode_attention[bf16,G=6]", "grok_bf16",
+                      "paged_decode_attention[bf16]"),
+                     ("quantized_paged_decode_attention[fp8,G=6]",
+                      "grok_fp8", "quantized_paged_decode_attention[fp8]"),
+                     ("quantized_paged_decode_attention[int8,G=6]",
+                      "grok_int8", "quantized_paged_decode_attention[int8]"),
+                     ("rmsnorm[D=6144]", "grok_bf16"),
+                     ("add_rmsnorm[D=6144]", "grok_bf16"),
+                     ("flash_attention[G=6]", "grok_fixed",
+                      "flash_attention[causal]"),
+                     ("decode_attention[G=6]", "grok_fixed",
                       "decode_attention[bf16]"),
                      ("fp8_matmul[e4m3]", "hplmxp_fp8")):
         r = results[key]

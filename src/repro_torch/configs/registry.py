@@ -1,8 +1,8 @@
 """Architecture registry of the port.
 
-``get_config(arch_id)`` returns the exact assigned ModelConfig.  Only the
-architectures the port serves so far are listed; ROADMAP.md names the
-rest of the JAX package's registry, which later slices add here.
+``get_config(arch_id)`` returns the exact assigned ModelConfig.  Every
+architecture of the JAX package's registry is listed, each with the
+port's own copy of its config.
 """
 from __future__ import annotations
 
@@ -12,6 +12,7 @@ from repro_torch.configs.base import ModelConfig
 
 _MODULES = {
     "gemma3-12b": "gemma3_12b",
+    "grok-1-314b": "grok_1_314b",
     "jamba-v0.1-52b": "jamba_v0_1_52b",
     "llama3-8b": "llama3_8b",
     "mamba2-130m": "mamba2_130m",

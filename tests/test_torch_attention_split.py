@@ -104,14 +104,16 @@ def emulate_flash_tc(q, k, v, *, causal, window, p_dtype=torch.bfloat16,
     return out.permute(0, 2, 1, 3).to(torch.bfloat16)
 
 
-def _flash_case(d, case):
-    """bf16 inputs of one mask case at head dim d (B 1, H 4, KVH 2)."""
+def _flash_case(d, case, heads=4):
+    """bf16 inputs of one mask case at head dim d (B 1, H ``heads``, KVH
+    2)."""
     sq, skv, causal, window = {
         "causal": (100, 100, True, None),
         "window": (150, 150, True, 40),
         "full": (96, 200, False, None)}[case]
-    rng = np.random.default_rng(d * 7 + sq)
-    q = _bf16(rng, (1, sq, 4, d))
+    rng = np.random.default_rng(d * 7 + sq if heads == 4
+                                else (d * 7 + sq, heads))
+    q = _bf16(rng, (1, sq, heads, d))
     k = _bf16(rng, (1, skv, 2, d))
     v = _bf16(rng, (1, skv, 2, d))
     return q, k, v, causal, window
@@ -146,6 +148,24 @@ def test_tensor_core_flash_arithmetic_within_the_chip_tolerance(d, case):
         assert _beyond(got.float().numpy(), want) == 0
     # out is a convex combination of v rows: |out| <= max |v|
     assert got.float().abs().max() <= np.abs(_f32(v)).max()
+
+
+@pytest.mark.parametrize("case", ["causal", "window", "full"])
+def test_tensor_core_flash_arithmetic_at_a_group_of_6(case):
+    """grok-1-314b's GQA group: 12 query heads over 2 kv heads at d 128,
+    head h reading kv head h // 6, within the chip's tolerance of the
+    Pallas kernel and the oracle."""
+    q, k, v, causal, window = _flash_case(128, case, heads=12)
+    got = emulate_flash_tc(q, k, v, causal=causal, window=window)
+    assert got.shape == q.shape and bool(torch.isfinite(got.float()).all())
+    for want in _flash_wants(q, k, v, causal, window):
+        assert _beyond(got.float().numpy(), want) == 0
+    # a wrong group mapping (head h on kv head h // 4) fails it
+    bad = emulate_flash_tc(q, np.repeat(k, 3, axis=2)[:, :, ::2],
+                           np.repeat(v, 3, axis=2)[:, :, ::2], causal=causal,
+                           window=window)
+    assert _beyond(bad.float().numpy(), _flash_wants(
+        q, k, v, causal, window)[0]) > 0
 
 
 @pytest.mark.parametrize("d", [32, 64, 128])
@@ -420,7 +440,7 @@ def _dense_within(got, want, dtype):
 
 
 @pytest.mark.parametrize("dtype", ["bf16", "f32"])
-@pytest.mark.parametrize("group", [1, 2, 4, 8])
+@pytest.mark.parametrize("group", [1, 2, 4, 6, 8])
 def test_dense_split_k_matches_the_pallas_decode_kernel(group, dtype):
     assert DENSE_SPLITS > 2 and DENSE_CHUNK < MAX_LEN     # the case splits
     case = _dense_case(20 + group, group, dtype)

@@ -149,11 +149,15 @@ def test_telemetry_is_accepted_and_leaves_the_flat_trace():
 
 
 def test_registry_lists_ported_archs_only():
+    from repro.configs import ARCH_IDS as JAX_ARCH_IDS
     from repro_torch.configs import ARCH_IDS, get_config, resolve_arch
     assert set(ARCH_IDS) == {"qwen3-1.7b", "llama3-8b", "qwen2-moe-a2.7b",
                              "gemma3-12b", "mamba2-130m", "whisper-base",
                              "phi-3-vision-4.2b", "jamba-v0.1-52b",
-                             "minicpm-2b"}
+                             "minicpm-2b", "grok-1-314b"}
+    # every config of the reference's registry is ported
+    assert set(ARCH_IDS) == set(JAX_ARCH_IDS) and len(ARCH_IDS) == 10
+    assert resolve_arch("grok_1_314b") == "grok-1-314b"
     assert resolve_arch("minicpm_2b") == "minicpm-2b"
     assert resolve_arch("jamba_v0_1_52b") == "jamba-v0.1-52b"
     assert resolve_arch("whisper_base") == "whisper-base"
@@ -163,7 +167,9 @@ def test_registry_lists_ported_archs_only():
     assert resolve_arch("qwen3_1_7b") == "qwen3-1.7b"
     assert resolve_arch("gemma3_12b") == "gemma3-12b"
     with pytest.raises(KeyError, match="known"):
-        get_config("grok-1-314b")
+        get_config("grok-2")
+    with pytest.raises(KeyError, match="known"):
+        resolve_arch("grok_2")
     cfg = get_config("qwen3-1.7b")
     assert (cfg.num_layers, cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
             cfg.d_ff, cfg.vocab_size, cfg.head_dim) == \
@@ -175,7 +181,7 @@ def test_registry_lists_ported_archs_only():
                                   "qwen2-moe-a2.7b", "gemma3-12b",
                                   "mamba2-130m", "whisper-base",
                                   "phi-3-vision-4.2b", "jamba-v0.1-52b",
-                                  "minicpm-2b"])
+                                  "minicpm-2b", "grok-1-314b"])
 def test_ported_configs_equal_the_references_field_by_field(arch):
     """Each config of the port's registry, and its reduced form, equals
     the JAX package's field by field (MoEConfig and SSMConfig compared
@@ -254,6 +260,16 @@ def test_ported_configs_equal_the_references_field_by_field(arch):
         assert mine.pad_heads_to is None and mine.padded_heads == 36
         from repro_torch.configs import minicpm_2b
         assert minicpm_2b.SCHEDULE == "wsd"
+    if arch == "grok-1-314b":
+        m = mine.moe
+        assert (mine.num_layers, mine.d_model, mine.num_heads,
+                mine.num_kv_heads, mine.head_dim, mine.d_ff,
+                mine.vocab_size) == (64, 6144, 48, 8, 128, 32_768, 131_072)
+        assert mine.num_heads // mine.num_kv_heads == 6
+        assert (m.num_experts, m.top_k, m.d_ff_expert, m.num_shared_experts,
+                m.moe_every, m.capacity_factor) == (8, 2, 32_768, 0, 1, 1.25)
+        assert mine.family == "moe" and not mine.tie_embeddings
+        assert not mine.qk_norm and mine.mlp_kinds() == ("moe",)
 
 
 def test_init_params_is_seeded_and_shaped():

@@ -68,7 +68,7 @@ def _flat_ref_inputs(q, k, v, table, lengths, ks=None, vs=None):
 
 # -- K1: paged decode attention ----------------------------------------------
 
-@pytest.mark.parametrize("group", [1, 2, 4])
+@pytest.mark.parametrize("group", [1, 2, 4, 6])
 @pytest.mark.parametrize("page", [4, 8, 16])
 def test_paged_decode_plain_matches_pallas_and_oracle(group, page):
     q, k, v, table, lengths = _paged_case(group * 100 + page, group, page)
@@ -105,7 +105,7 @@ def test_decode_attention_ref_matches_jax_at_odd_lengths():
 # -- K2: quantized paged decode attention ------------------------------------
 
 @pytest.mark.parametrize("kv_dtype", ["fp8", "int8"])
-@pytest.mark.parametrize("group", [1, 2, 4])
+@pytest.mark.parametrize("group", [1, 2, 4, 6])
 def test_quantized_paged_decode_plain_matches_pallas(kv_dtype, group):
     q, k, v, table, lengths = _paged_case(7 + group, group, 8)
     kq, ks = (np.asarray(a) for a in jmp.quantize_kv_page(k, kv_dtype))
