@@ -6206,6 +6206,26 @@ TRAIN_F32_TOL = {"loss": 1e-5, "grad_norm": 1e-3, "lr": 1e-6,
 RESUME_LOSS_ATOL, RESUME_STATE_RTOL = 1e-3, 1e-3
 
 
+def _trained(losses, steps: int) -> tuple:
+    """Check a full-width run: ``steps`` finite losses falling by the
+    reference's criterion (the mean of the last 5 below the mean of the
+    first 5 by more than 0.05) and no kernel launched (every counter of
+    ``kernels/ops.py`` still 0: no kernel has a backward).  Returns the
+    two means."""
+    from repro_torch.kernels import ops
+    launched = {k: n for k, n in ops.launches.items() if n}
+    if launched:
+        raise AssertionError(f"kernels launched by the train step: "
+                             f"{launched}")
+    if not all(np.isfinite(losses)) or len(losses) != steps:
+        raise AssertionError(f"losses {losses}")
+    first, last = np.mean(losses[:5]), np.mean(losses[-5:])
+    if not last < first - 0.05:
+        raise AssertionError(f"loss did not fall: mean of the first 5 "
+                             f"{first:.4f}, of the last 5 {last:.4f}")
+    return first, last
+
+
 def _train_full_width() -> None:
     """``train()`` on qwen3-1.7b at its published width: losses finite
     and falling by the reference's criterion, no kernel launched, wall
@@ -6219,18 +6239,9 @@ def _train_full_width() -> None:
                    seq=TRAIN_SEQ, reduced=False, log_every=10,
                    lr_peak=TRAIN_LR, device="cuda")
     wall = time.perf_counter() - t0
-    launched = {k: n for k, n in ops.launches.items() if n}
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     log("train", "losses " + " ".join(f"{x:.4f}" for x in losses))
-    if launched:
-        raise AssertionError(f"kernels launched by the train step: "
-                             f"{launched}")
-    if not all(np.isfinite(losses)) or len(losses) != TRAIN_STEPS:
-        raise AssertionError(f"losses {losses}")
-    first, last = np.mean(losses[:5]), np.mean(losses[-5:])
-    if not last < first - 0.05:
-        raise AssertionError(f"loss did not fall: mean of the first 5 "
-                             f"{first:.4f}, of the last 5 {last:.4f}")
+    first, last = _trained(losses, TRAIN_STEPS)
     log("train", f"qwen3-1.7b full width (f32 master weights + AdamW, "
         f"bf16 compute, remat) through train(), batch {TRAIN_BATCH} x seq "
         f"{TRAIN_SEQ}, {TRAIN_STEPS} steps in {wall:.1f} s, peak lr "
@@ -6322,31 +6333,175 @@ def _profile_train_step() -> None:
         f"{fwd_bwd:.1f} ms, AdamW {adam:.1f} ms")
 
 
-def _train_card_vs_cpu() -> None:
-    """Three train steps of the reduced f32 qwen3-1.7b on the card and on
-    the CPU from the same params and batches."""
-    from repro_torch.configs import ShapeConfig, get_config, reduced_config
+# the reduced f32 configs held card against CPU over three train steps;
+# the vision and encoder-decoder models' wq/wk scaled to their true fan-in
+# first (_true_fan_in), as the CPU parity tests do
+# (tests/_torch_train_inputs.py) and as their full-width runs do
+TRAIN_VS_CPU = (ARCH, "phi-3-vision-4.2b", "whisper-base", "mamba2-130m")
+TRUE_FAN_IN = ("phi-3-vision-4.2b", "whisper-base")
+
+
+def _true_fan_in(tree, d_model: int):
+    """Scale each attention block's stacked ``wq`` and ``wk`` (G, d_model,
+    heads, hd) in place by sqrt(G / d_model): the reference's
+    ``init_params`` takes a stacked leaf's fan-in to be G, which without
+    qk-norm makes these models' softmax nearly one-hot, their reduced f32
+    trajectories part by more than rounding, and their full-width losses
+    barely move (PERF.md §6)."""
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            _true_fan_in(v, d_model)
+        elif k in ("wq", "wk"):
+            v.mul_((v.shape[0] / d_model) ** 0.5)
+    return tree
+
+
+def _family_batches(cfg, batch: int, seq: int, device: str):
+    """``get(step)``: the token pipeline's batch at ``step`` on ``device``,
+    with a vision model's ``patches`` (batch, frontend_len, frontend_dim)
+    or an encoder-decoder model's ``audio`` (batch, encoder_len,
+    frontend_dim) drawn standard-normal on the CPU from a generator
+    seeded with ``step``, so that every device gets the same inputs."""
     from repro_torch.data.pipeline import TokenPipeline
+    pipe = TokenPipeline(cfg.vocab_size, seq, batch, device=device)
+
+    def get(step: int) -> dict:
+        b = pipe.get_batch(step)
+        gen = torch.Generator().manual_seed(step)
+        if cfg.frontend == "vision":
+            b["patches"] = torch.randn(
+                (batch, cfg.frontend_len, cfg.frontend_dim),
+                generator=gen).to(device)
+        if cfg.encoder_decoder:
+            b["audio"] = torch.randn(
+                (batch, cfg.encoder_len, cfg.frontend_dim),
+                generator=gen).to(device)
+        return b
+    return get
+
+
+# full-width training of the frontend and SSM families (arch, batch,
+# seq, steps, peak lr): mamba2-130m at 4 SSD chunks of 256 through
+# train() on the streamed token pipeline, at the peak lr of the
+# reference's system test (tests/test_system.py: 3e-3; at 1e-3 it fell
+# 0.043 in 20 steps); whisper-base at Whisper's text context of 448
+# decoder tokens (arXiv:2212.04356) over 1500 frames and
+# phi-3-vision-4.2b with its 256 patch rows, each on one batch repeated
+# (streamed, their losses fell 0.003-0.074 in 20 steps, within the
+# noise of the 0.05 criterion; PERF.md §6).  Steps: the fewest
+# that show the fall (_trained needs 10 for its two means of 5)
+FAMILY_TRAIN = (("mamba2-130m", 8, 1024, 20, 3e-3),
+                ("whisper-base", 8, 448, 10, TRAIN_LR),
+                ("phi-3-vision-4.2b", 8, 1024, 10, TRAIN_LR))
+
+
+def _train_family(arch: str, batch: int, seq: int, steps: int,
+                  lr: float) -> None:
+    """``arch`` trained at its published width, f32 master weights and
+    AdamW, bf16 compute, remat: mamba2-130m through ``train()``, the
+    frontend models through ``build_cell(...).fn`` (``train()``'s
+    options and schedule; ``wq``/``wk`` at their true fan-in) on one
+    batch of ``_family_batches`` repeated; losses finite and falling and
+    no kernel launched (``_trained``), then the steady step under
+    ``_profile_steady`` (wall, tokens/s, busy time, idle share, the
+    kernel groups) and the peak memory of the whole."""
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.steps import build_cell
+    from repro_torch.launch.train import make_train_state, train
+    from repro_torch.models import model as M
+    cfg = get_config(arch)
+    cell = build_cell(cfg, ShapeConfig("custom", seq, batch, "train"),
+                      M.RunOptions(q_chunk=min(seq, 512),
+                                   xent_chunk=min(seq, 512)),
+                      lr_peak=lr, total_steps=max(10 * steps, 100))
+    b = _family_batches(cfg, batch, seq, "cuda")(0)
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    if cfg.frontend is None:
+        losses = train(arch, steps=steps, batch=batch, seq=seq,
+                       reduced=False, log_every=steps, lr_peak=lr,
+                       device="cuda")
+    params, opt = make_train_state(
+        cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    if cfg.frontend is not None:
+        _true_fan_in(params, cfg.d_model)
+        losses = []
+        for _ in range(steps):
+            params, opt, m = cell.fn(params, opt, b)
+            losses.append(m["loss"])
+        losses = torch.stack(losses).tolist()
+    wall = time.perf_counter() - t0
+    log("train", f"{arch} losses " + " ".join(f"{x:.4f}" for x in losses))
+    first, last = _trained(losses, steps)
+
+    def step():
+        cell.fn(params, opt, b)
+        torch.cuda.synchronize()
+    ms, busy = _profile_steady("train", f"{arch} steady train step", step,
+                               steps=1, groups=TRAIN_GROUPS, top=8)
+    _trained(losses, steps)                    # the profiled steps too
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    inputs = {k: tuple(v.shape) for k, v in b.items() if k != "labels"}
+    how = ("train(), streamed" if cfg.frontend is None
+           else "build_cell.fn, one batch repeated")
+    log("train", f"{arch} full width ({M.count_params(M.param_specs(cfg))} "
+        f"params; {how}, inputs {inputs}, peak lr {lr}): {steps} steps in "
+        f"{wall:.1f} s, "
+        f"loss {first:.4f} -> {last:.4f} (means of the first and last 5); "
+        f"steady step {ms:.1f} ms (host clock, 1 step after 2), "
+        f"{batch * seq / ms * 1e3:.0f} tokens/s, busy {busy:.1f} ms; peak "
+        f"{peak:.2f} GiB allocated; kernel launches 0")
+
+
+def _train_families() -> None:
+    """``_train_family`` for each of ``FAMILY_TRAIN``, the card's memory
+    freed between them."""
+    for arch, *run in FAMILY_TRAIN:
+        t0 = time.perf_counter()
+        _train_family(arch, *run)
+        gc.collect()
+        torch.cuda.empty_cache()
+        log("train", f"{arch}: {time.perf_counter() - t0:.1f} s")
+
+
+def _train_card_vs_cpu() -> None:
+    """``_card_vs_cpu`` for each config of ``TRAIN_VS_CPU``."""
+    for arch in TRAIN_VS_CPU:
+        _card_vs_cpu(arch)
+
+
+def _card_vs_cpu(arch: str) -> None:
+    """Three train steps of the reduced f32 ``arch`` on the card and on
+    the CPU from the same params and batches (``_family_batches``)."""
+    from repro_torch.configs import ShapeConfig, get_config, reduced_config
     from repro_torch.launch.steps import build_cell
     from repro_torch.launch.train import make_train_state
     from repro_torch.models import model as M
     from repro_torch.tree import tree_leaves, tree_map
-    cfg = reduced_config(get_config(ARCH), compute_dtype="float32")
+    cfg = reduced_config(get_config(arch), compute_dtype="float32")
     batch, seq = 8, 64
     cell = build_cell(cfg, ShapeConfig("custom", seq, batch, "train"),
                       M.RunOptions(q_chunk=seq, xent_chunk=seq),
                       lr_peak=3e-3, total_steps=300)
-    p0, _ = make_train_state(cfg, torch.Generator().manual_seed(0), "cpu")
-    runs = {}
-    for dev in ("cpu", "cuda"):
+
+    def state():
         params, opt = make_train_state(cfg, torch.Generator().manual_seed(0),
                                        "cpu")
+        if arch in TRUE_FAN_IN:
+            _true_fan_in(params, cfg.d_model)
+        return params, opt
+    p0, _ = state()
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        params, opt = state()
         params = tree_map(lambda t: t.to(dev), params)
         opt = tree_map(lambda t: t.to(dev), opt)
-        pipe = TokenPipeline(cfg.vocab_size, seq, batch, device=dev)
+        get = _family_batches(cfg, batch, seq, dev)
         metrics = []
         for step in range(3):
-            params, opt, m = cell.fn(params, opt, pipe.get_batch(step))
+            params, opt, m = cell.fn(params, opt, get(step))
             metrics.append({k: float(m[k]) for k in
                             ("loss", "grad_norm", "lr")})
         runs[dev] = (metrics, [t.cpu() for t in tree_leaves(params)])
@@ -6367,7 +6522,7 @@ def _train_card_vs_cpu() -> None:
                              f"{worst_p:.3e}, update error {worst_u:.3e}")
     gn_err = max(abs(a["grad_norm"] - b["grad_norm"]) / a["grad_norm"]
                  for a, b in zip(mc, mg))
-    log("train", "reduced f32 qwen3-1.7b, 3 steps, card vs CPU: losses "
+    log("train", f"reduced f32 {arch}, 3 steps, card vs CPU: losses "
         + ", ".join(f"{a['loss']:.6f}/{b['loss']:.6f}" for a, b in
                     zip(mc, mg))
         + f"; grad norms within {gn_err:.2e} relative; params max |Δ| "
@@ -6465,10 +6620,11 @@ def _train_restart(device: str = "cuda") -> None:
 
 
 def phase_train() -> None:
-    """Training on the card: full width through ``train()``, the reduced
-    f32 step against the CPU, and a checkpoint restart."""
+    """Training on the card: qwen3-1.7b at full width through ``train()``
+    and its steady step, the frontend and SSM families at full width
+    (``_train_families``), the reduced f32 steps against the CPU, and a
+    checkpoint restart."""
     t0 = time.perf_counter()
-    torch.cuda.reset_peak_memory_stats()
     _train_full_width()
     gc.collect()
     torch.cuda.empty_cache()
@@ -6476,13 +6632,15 @@ def phase_train() -> None:
     gc.collect()
     torch.cuda.empty_cache()
     t1 = time.perf_counter()
+    _train_families()
+    t2 = time.perf_counter()
     _train_card_vs_cpu()
     _train_restart()
     gc.collect()
     torch.cuda.empty_cache()
-    log("train", f"phase times: full width {t1 - t0:.1f} s, reduced checks "
-        f"{time.perf_counter() - t1:.1f} s; phase peak "
-        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB allocated")
+    log("train", f"phase times: qwen3-1.7b full width {t1 - t0:.1f} s, "
+        f"the families at full width {t2 - t1:.1f} s, reduced checks "
+        f"{time.perf_counter() - t2:.1f} s")
 
 
 def check_fp8(name: str, got: torch.Tensor, want: torch.Tensor, a_q, b_q,

@@ -35,11 +35,13 @@ class Cell:
 
 def value_and_grad(params, cfg: ModelConfig, batch, opts: M.RunOptions):
     """``((loss, metrics), grads)`` of ``lm_loss`` at ``params``: the
-    grads a tree like ``params``, everything detached."""
+    grads a tree like ``params``, everything detached; a leaf the loss
+    does not read (a vision model's ``frontend_proj`` on a batch without
+    ``patches``) gets zeros, as ``jax.grad`` gives it."""
     leaves = tree_map(lambda p: p.detach().requires_grad_(True), params)
     loss, metrics = M.lm_loss(leaves, cfg, batch, opts)
-    grads = tree_unflatten(leaves, torch.autograd.grad(loss,
-                                                       tree_leaves(leaves)))
+    grads = tree_unflatten(leaves, torch.autograd.grad(
+        loss, tree_leaves(leaves), materialize_grads=True))
     return ((loss.detach(), {k: v.detach() for k, v in metrics.items()}),
             grads)
 

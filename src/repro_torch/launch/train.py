@@ -7,6 +7,15 @@ committed checkpoint and replays the deterministic token stream from the
 restored step.  The train step runs the model's plain PyTorch versions
 on purpose: no kernel of the port, nor of the reference, has a backward.
 
+``train()`` feeds the token pipeline's batches, ``tokens`` and
+``labels`` alone, as the reference's does: an encoder-decoder model
+(whisper-base) fails at its first step for want of ``audio`` (KeyError;
+the reference's jitted step raises a ValueError naming it), and a vision
+model (phi-3-vision-4.2b) trains on text, no patch rows written (the
+reference's jitted step refuses a batch without ``patches`` the same
+way).  A caller with frames or patches adds them to the batch of
+``launch.steps.build_cell(...).fn``.
+
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
       --steps 3 --batch 4 --seq 64
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-1.7b \\

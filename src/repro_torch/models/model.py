@@ -326,9 +326,11 @@ def _embed_inputs(params, cfg: ModelConfig, batch, *, impl: str = "auto"):
     patch embeddings ``batch["patches"]`` (B, P, frontend_dim), the
     patches in the compute dtype through ``frontend_proj`` are written
     over rows ``[0, P)`` of x, as the reference's
-    ``dynamic_update_slice`` does; without patches x is the text
-    embedding alone.  In an encoder-decoder model, the encoder's output
-    for the stub frame embeddings ``batch["audio"]`` (B, L, frontend_dim):
+    ``dynamic_update_slice`` does (under autograd the embedding rows
+    overwritten get no gradient from those positions, ``frontend_proj``
+    all of it); without patches x is the text embedding alone.  In an
+    encoder-decoder model, the encoder's output for the stub frame
+    embeddings ``batch["audio"]`` (B, L, frontend_dim):
     the frames through ``frontend_proj`` in the compute dtype, the encoder
     stack (non-causal self-attention at positions 0..L-1, the dense MLP)
     and its final norm.  Returns ``(x, enc_out)``, ``enc_out`` (B, L, D)
@@ -373,52 +375,42 @@ def _maybe_bf16(params, opts: RunOptions):
 def lm_loss(params, cfg: ModelConfig, batch,
             opts: RunOptions = RunOptions()):
     """Mean next-token cross-entropy of ``batch`` (``tokens``, ``labels``:
-    (B, S) int32; labels < 0 are masked).  Returns ``(loss, {"xent",
-    "aux_loss"})``, 0-d f32 tensors; ``aux_loss`` is the reference's sum
-    over no MoE layer, 0.
+    (B, S) int32; labels < 0 are masked; a vision model's batch may
+    carry ``patches`` (B, frontend_len, frontend_dim) f32, an
+    encoder-decoder model's must carry ``audio`` (B, encoder_len,
+    frontend_dim) f32).  Returns ``(loss, {"xent", "aux_loss"})``, 0-d
+    f32 tensors; ``aux_loss`` is the reference's sum over no MoE layer,
+    0.
 
-    The forward is the reference's, in plain PyTorch (``impl="plain"``:
-    no kernel of the port has a backward, and neither has the
-    reference's): the dense query-chunked attention, each residual add
-    fused into the norm that reads it (the plain ``add_rmsnorm``,
-    bit-equal to the reference's add, then norm), layers remat'd per
-    ``opts``, and the chunked cross-entropy against the output weight in
-    the compute dtype (``softmax_xent_chunked`` then rounds it to bf16,
-    as the reference does even in f32 configs).
+    The forward is the reference's, in plain PyTorch throughout
+    (``impl="plain"``: no kernel of the port has a backward, and neither
+    has the reference's): the patch rows or the encoder stack
+    (``_embed_inputs``; the encoder is not remat'd, as in the
+    reference), the dense query-chunked attention (non-causal against
+    the encoder's output in a decoder's cross-attention), the SSM
+    block's chunked SSD, each residual add fused into the norm that
+    reads it (the plain ``add_rmsnorm``, bit-equal to the reference's
+    add, then norm), the decoder's layers remat'd per ``opts``, and the
+    chunked cross-entropy against the output weight in the compute dtype
+    (``softmax_xent_chunked`` then rounds it to bf16, as the reference
+    does even in f32 configs).
 
     Raises:
-      NotImplementedError: an MoE config: its loss adds the weighted
-          load-balancing aux loss and backpropagates through the
-          dispatch, which the MoE training slice (ROADMAP.md queue 1
-          item 8) ports; a config with SSM layers, whose backward
-          through the chunked SSD the SSM training slice (item 9)
-          ports; an encoder-decoder config, whose loss runs the encoder
-          and the cross-attention, which item 11 ports; a vision config,
-          whose loss backpropagates into ``frontend_proj`` through the
-          patch rows, which the vision training slice (item 12) ports."""
+      NotImplementedError: an MoE config (a hybrid one too): its loss
+          adds the weighted load-balancing aux loss and backpropagates
+          through the dispatch, which the MoE training slice (ROADMAP.md
+          queue 1 item 8) ports.
+      KeyError: an encoder-decoder batch without ``audio``, as in the
+          reference."""
     if cfg.moe is not None:
         raise NotImplementedError(
             f"{cfg.name}: training an MoE model (the aux load-balancing "
             "loss, backward through the dispatch) is not ported yet: "
             "ROADMAP.md queue 1 item 8")
-    if "ssm" in cfg.layer_kinds():
-        raise NotImplementedError(
-            f"{cfg.name}: training a model with SSM layers (backward "
-            "through the chunked SSD scan) is not ported yet: ROADMAP.md "
-            "queue 1 item 9")
-    if cfg.encoder_decoder:
-        raise NotImplementedError(
-            f"{cfg.name}: training an encoder-decoder model (the encoder "
-            "and the cross-attention under backward) is not ported yet: "
-            "ROADMAP.md queue 1 item 11")
-    if cfg.frontend == "vision":
-        raise NotImplementedError(
-            f"{cfg.name}: training the vision model (the patch rows and "
-            "frontend_proj under backward) is not ported yet: ROADMAP.md "
-            "queue 1 item 12")
     params = _maybe_bf16(params, opts)
-    x, _ = _embed_inputs(params, cfg, batch)
-    h, _ = backbone(params, cfg, x, opts, impl="plain", train=True)
+    x, enc_out = _embed_inputs(params, cfg, batch, impl="plain")
+    h, _ = backbone(params, cfg, x, opts, enc_out=enc_out, impl="plain",
+                    train=True)
     total, count = softmax_xent_chunked(
         h, _output_weight(params, cfg).to(h.dtype), batch["labels"],
         chunk=opts.xent_chunk)

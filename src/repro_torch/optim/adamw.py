@@ -50,7 +50,11 @@ def adamw_update(grads, opt_state, params, lr,
     or a 0-d tensor on the params' device.
 
     ``params`` and ``opt_state`` are updated in place and returned:
-    ``(params, opt_state, {"grad_norm"})``, the norm before clipping."""
+    ``(params, opt_state, {"grad_norm"})``, the norm before clipping.
+    Each product and sum is rounded as in the reference's expression;
+    the moments and f32 params are updated in place, so a leaf's
+    update holds at most two temporaries of its size (a full-width
+    phi-3-vision-4.2b's largest leaf is 3 GiB in f32)."""
     count = opt_state["count"].add_(1)
     gnorm = global_norm(grads)
     scale = None
@@ -63,9 +67,21 @@ def adamw_update(grads, opt_state, params, lr,
                             tree_leaves(opt_state["nu"]),
                             tree_leaves(params)):
         g = g.float() if scale is None else g.float() * scale
-        mu.copy_(cfg.b1 * mu.float() + (1 - cfg.b1) * g)
-        nu.copy_(cfg.b2 * nu.float() + (1 - cfg.b2) * torch.square(g))
-        step = (mu.float() / b1c) / (torch.sqrt(nu.float() / b2c) + cfg.eps)
-        p32 = p.float()
-        p.copy_(p32 - lr * (step + cfg.weight_decay * p32))
+        _update(mu, lambda m: m.mul_(cfg.b1).add_(g * (1 - cfg.b1)))
+        _update(nu, lambda v: v.mul_(cfg.b2).add_(
+            torch.square(g).mul_(1 - cfg.b2)))
+        del g
+        step = (mu.float() / b1c).div_(
+            (nu.float() / b2c).sqrt_().add_(cfg.eps))
+        _update(p, lambda q: q.sub_(step.add_(q * cfg.weight_decay)
+                                    .mul_(lr)))
     return params, opt_state, {"grad_norm": gnorm}
+
+
+def _update(t: torch.Tensor, fn) -> None:
+    """``t.copy_(fn(t.float()))``, ``fn`` working in place: on ``t``
+    itself where ``t`` is f32."""
+    t32 = t.float()
+    fn(t32)
+    if t32 is not t:
+        t.copy_(t32)

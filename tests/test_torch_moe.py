@@ -22,6 +22,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from _torch_train_inputs import loss_at_init
 
 from repro.configs import get_config, reduced_config
 from repro.configs.base import ModelConfig, MoEConfig
@@ -314,12 +315,12 @@ def test_lm_loss_refuses_moe():
 
 
 def test_encoder_decoder_and_frontend_archs_stay_refused():
-    """Training a vision model stays refused; the vision frontend's
-    serving path (``tests/test_torch_vision.py``) and the
-    encoder-decoder family (``tests/test_torch_whisper.py``) are ported,
-    so a vision config builds ``frontend_proj`` and no encoder, and an
-    encoder-decoder config the encoder stack and each decoder layer's
-    cross-attention."""
+    """(The name is from when training a vision model was refused.)  A
+    vision config builds ``frontend_proj`` and no encoder, and trains:
+    the loss at initialization is finite and near ln(vocab) and
+    ``frontend_proj`` takes a gradient through the patch rows; an
+    encoder-decoder config builds the encoder stack and each decoder
+    layer's cross-attention."""
     base = dict(num_layers=2, d_model=64, num_heads=4, num_kv_heads=4,
                 d_ff=128, vocab_size=256, head_dim=16)
     vlm = TConfig(name="vlm", family="vlm", frontend="vision",
@@ -328,10 +329,7 @@ def test_encoder_decoder_and_frontend_archs_stay_refused():
     assert vspecs["frontend_proj"].shape == (64, 64)
     assert "encoder" not in vspecs
     vp = TM.init_params(vspecs, torch.Generator().manual_seed(0))
-    batch = {"tokens": torch.zeros((1, 8), dtype=torch.int32),
-             "labels": torch.zeros((1, 8), dtype=torch.int32)}
-    with pytest.raises(NotImplementedError, match="not ported"):
-        TM.lm_loss(vp, vlm, batch)
+    assert loss_at_init(vp, vlm)["frontend_proj"].abs().max() > 0
     specs = TM.param_specs(TConfig(name="encdec", family="audio",
                                    encoder_decoder=True, num_encoder_layers=2,
                                    encoder_len=32, **base))

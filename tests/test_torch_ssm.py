@@ -24,6 +24,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from _torch_train_inputs import loss_at_init
 
 from repro.configs import get_config, reduced_config
 from repro.models import model as JM
@@ -334,8 +335,11 @@ def test_norm_launches_per_ssm_layer(model_setup, monkeypatch):
 
 
 def test_lm_loss_refuses_ssm(model_setup):
+    """(The name is from when ``lm_loss`` refused SSM configs.)  The loss
+    at initialization over two SSD chunks is finite and near ln(vocab),
+    and the gradient reaches the SSM's own leaves through the chunked
+    SSD's backward (JAX's gradients: ``test_torch_train_parts.py``)."""
     _, tcfg, _, tp = model_setup
-    batch = {"tokens": torch.zeros((1, 8), dtype=torch.int32),
-             "labels": torch.zeros((1, 8), dtype=torch.int32)}
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TM.lm_loss(tp, tcfg, batch)
+    grads = loss_at_init(tp, tcfg, seq=2 * tcfg.ssm.chunk_size)
+    mixer = grads["blocks"]["pos0"]["mixer"]
+    assert all(mixer[k].abs().max() > 0 for k in ("A_log", "dt_bias", "D"))

@@ -15,9 +15,19 @@ configs, lr 3e-3 peak with warmup over 3 of 300 steps.  Tolerances:
   nearly cancel: losses rtol 2e-4, grad norms rtol 5e-3, lr rtol 1e-6,
   the update within 0.1 of its norm.
 
+The vision, encoder-decoder and SSM configs take the same f32 limits:
+both packages get the same ``patches`` or ``audio`` arrays added to the
+token pipelines' batches, and the vision and encoder-decoder models'
+``wq``/``wk`` are scaled to their true fan-in on both sides
+(``_torch_train_inputs.TRUE_FAN_IN`` says why).
+
 ``train()`` on the CPU at the reference's system-test settings
-(``tests/test_system.py``, qwen3-1.7b: the port serves mamba2-130m but
-does not train it yet).
+(``tests/test_system.py``: qwen3-1.7b, and mamba2-130m across an
+injected failure and a restart).  ``train()`` feeds the token pipeline's
+text alone, as the reference's does: whisper-base fails in both
+packages for want of ``audio``; the port's phi-3-vision-4.2b trains on
+text, where the reference's jitted step refuses a batch without
+``patches``.
 """
 import dataclasses
 
@@ -25,12 +35,14 @@ import jax
 import numpy as np
 import pytest
 import torch
+from _torch_train_inputs import TRUE_FAN_IN, frontend_inputs, true_fan_in
 
 from repro.configs import get_config, reduced_config
 from repro.configs.base import ShapeConfig
 from repro.data.pipeline import TokenPipeline as JPipeline
 from repro.launch.mesh import make_host_mesh
 from repro.launch.steps import build_cell as jbuild_cell
+from repro.launch.train import train as jtrain
 from repro.models import model as JM
 from repro.optim.adamw import init_opt_state as jinit_opt_state
 from repro_torch.checkpoint.manager import CheckpointManager
@@ -52,7 +64,10 @@ TOL = {"float32": dict(loss=1e-5, grad_norm=1e-3, param=5e-5, update=1e-3),
 
 @pytest.mark.parametrize("arch,dtype", [("qwen3-1.7b", "float32"),
                                         ("llama3-8b", "float32"),
-                                        ("qwen3-1.7b", "bfloat16")])
+                                        ("qwen3-1.7b", "bfloat16"),
+                                        ("phi-3-vision-4.2b", "float32"),
+                                        ("whisper-base", "float32"),
+                                        ("mamba2-130m", "float32")])
 def test_train_step_matches_jax_over_three_steps(arch, dtype):
     cfg = reduced_config(get_config(arch), compute_dtype=dtype)
     tcfg = treduced(tget(arch), compute_dtype=dtype)
@@ -65,6 +80,9 @@ def test_train_step_matches_jax_over_three_steps(arch, dtype):
                        TM.RunOptions(q_chunk=16, xent_chunk=16),
                        lr_peak=3e-3, total_steps=300)
     jp = JM.init_params(JM.param_specs(cfg), jax.random.PRNGKey(0))
+    if arch in TRUE_FAN_IN:
+        jp = jax.tree.map(jax.numpy.asarray, true_fan_in(
+            jax.tree.map(np.asarray, jp), cfg.d_model))
     p0 = jax.tree.leaves(jax.tree.map(np.asarray, jp))
     jo = jinit_opt_state(jp)
     tp = params_from_jax(jax.tree.map(np.asarray, jp))
@@ -75,8 +93,11 @@ def test_train_step_matches_jax_over_three_steps(arch, dtype):
     with mesh:
         fn = jax.jit(cell.fn)
         for step in range(3):
-            jp, jo, jm = fn(jp, jo, jpipe.get_batch(step))
-            tp, to, tm = tcell.fn(tp, to, tpipe.get_batch(step))
+            extra = frontend_inputs(cfg, B, step)
+            jp, jo, jm = fn(jp, jo, {**jpipe.get_batch(step), **extra})
+            tp, to, tm = tcell.fn(tp, to, {
+                **tpipe.get_batch(step),
+                **{k: torch.from_numpy(v) for k, v in extra.items()}})
             for key, rtol in (("loss", tol["loss"]), ("xent", tol["loss"]),
                               ("grad_norm", tol["grad_norm"]), ("lr", 1e-6)):
                 np.testing.assert_allclose(float(tm[key]), float(jm[key]),
@@ -143,6 +164,46 @@ def test_injected_failure_then_recovery_replays_the_stream(tmp_path):
     assert len(resumed) == 4                    # steps 10..13
     whole = T.train("qwen3-1.7b", steps=14, total_steps=200, **kw)
     np.testing.assert_allclose(resumed, whole[10:], rtol=1e-6)
+
+
+def test_mamba2_injected_failure_then_recovery_replays_the_stream(tmp_path):
+    """The reference's system test (``tests/test_system.py``: mamba2-130m,
+    batch 4 × 64, a failure injected at step 12 with checkpoints every 5)
+    on the port, reduced, on the CPU: the restart resumes from step 10
+    and its losses equal an uninterrupted run's (the SSD's backward runs
+    the same ops in the same order in both)."""
+    kw = dict(batch=4, seq=64, reduced=True, log_every=1000, device="cpu")
+    ck = str(tmp_path / "ck")
+    with pytest.raises(RuntimeError, match="injected failure"):
+        T.train("mamba2-130m", steps=20, ckpt_dir=ck, ckpt_every=5,
+                fail_at_step=12, **kw)
+    assert CheckpointManager(ck).steps() == [5, 10]
+    resumed = T.train("mamba2-130m", steps=14, ckpt_dir=ck, ckpt_every=100,
+                      total_steps=200, **kw)
+    assert len(resumed) == 4                    # steps 10..13
+    whole = T.train("mamba2-130m", steps=14, total_steps=200, **kw)
+    assert np.isfinite(whole).all()
+    np.testing.assert_allclose(resumed, whole[10:], rtol=1e-6)
+
+
+def test_train_feeds_text_alone_as_the_reference_does():
+    """``train()`` feeds the token pipeline's ``tokens``/``labels`` only,
+    in both packages.  The encoder-decoder model fails for want of
+    ``audio`` in both (the port: a KeyError from the loss; the
+    reference: a ValueError from its jitted step, whose input shardings
+    expect ``audio``).  The port's vision model trains on text, as both
+    packages' ``lm_loss`` allows (no patch rows are written); the
+    reference's ``train()`` refuses it the same way, for want of
+    ``patches``."""
+    kw = dict(steps=2, batch=2, seq=16, reduced=True, log_every=1000)
+    losses = T.train("phi-3-vision-4.2b", device="cpu", **kw)
+    assert len(losses) == 2 and np.isfinite(losses).all()
+    with pytest.raises(ValueError, match="patches"):
+        jtrain("phi-3-vision-4.2b", **kw)
+    for run in (lambda: jtrain("whisper-base", **kw),
+                lambda: T.train("whisper-base", device="cpu", **kw)):
+        with pytest.raises((KeyError, ValueError), match="audio"):
+            run()
 
 
 def test_make_train_state_is_f32_and_seeded():

@@ -17,7 +17,16 @@ Tolerances, f32 throughout:
   the output weight's grad, rounded to bf16 chunk by chunk on both sides,
   may land one bf16 step apart where the f32 sums straddle a rounding
   boundary: within 2^-7 of each element's magnitude (one step of bf16's
-  7-bit mantissa) plus 1e-4 of the largest;
+  7-bit mantissa) plus 1e-4 of the largest.  The same limits hold for
+  the vision model (``patches``), the encoder-decoder model (``audio``;
+  its encoder's leaves with remat on and off) and the SSM (S = 32 spans
+  two SSD chunks of 16; the port's loop over chunks sums in another
+  order than JAX's ``associative_scan``, and its leaves come within
+  3e-5 of their largest, so they need no limit of their own).  The
+  vision and encoder-decoder models' ``wq``/``wk`` are scaled to their
+  true fan-in on both sides (``_torch_train_inputs.TRUE_FAN_IN`` says
+  why); their gradients then come within 9.4e-5, the encoder's within
+  4e-6;
 - remat on and off: bit-equal (backward recomputes the same ops);
 - microbatches: the tolerance of ``tests/test_torch_train.py``'s f32
   steps.
@@ -29,6 +38,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from _torch_train_inputs import TRUE_FAN_IN, frontend_inputs, true_fan_in
 
 from repro.configs import get_config, reduced_config
 from repro.configs.base import ShapeConfig
@@ -45,6 +55,7 @@ from repro_torch.configs import ShapeConfig as TShapeConfig
 from repro_torch.configs import get_config as tget
 from repro_torch.configs import reduced_config as treduced
 from repro_torch.data.pipeline import TokenPipeline
+from repro_torch.kernels import ops as tops
 from repro_torch.launch.steps import build_cell, value_and_grad
 from repro_torch.models import model as TM
 from repro_torch.models import modules as TMod
@@ -70,11 +81,22 @@ def _setup(arch):
     tcfg = treduced(tget(arch), compute_dtype="float32")
     assert dataclasses.asdict(cfg) == dataclasses.asdict(tcfg)
     jp = JM.init_params(JM.param_specs(cfg), jax.random.PRNGKey(0))
+    if arch in TRUE_FAN_IN:
+        jp = jax.tree.map(jnp.asarray, true_fan_in(_np_tree(jp),
+                                                   cfg.d_model))
     return cfg, tcfg, jp, params_from_jax(_np_tree(jp))
 
 
 def _batch(cfg, step=0):
-    return JPipeline(cfg.vocab_size, S, B).get_batch(step)
+    """The token pipeline's batch at ``step`` as numpy arrays, with the
+    frontend's inputs at seed ``step``."""
+    return {**{k: np.asarray(v) for k, v in
+               JPipeline(cfg.vocab_size, S, B).get_batch(step).items()},
+            **frontend_inputs(cfg, B, step)}
+
+
+def _tb(batch):
+    return {k: torch.from_numpy(np.array(v)) for k, v in batch.items()}
 
 
 def _assert_grads(jgrads, tgrads, head: str):
@@ -239,24 +261,89 @@ def test_count_and_abstract_params_match_jax():
         < 1.75e9
 
 
-@pytest.mark.parametrize("arch,head", [("qwen3-1.7b", "embed"),
-                                       ("llama3-8b", "lm_head")])
-def test_lm_loss_value_and_grads_match_jax(arch, head):
+def _loss_and_grads_vs_jax(arch, head, *, remat=True):
+    """``lm_loss`` and its gradients at ``_setup(arch)``'s params and
+    ``_batch``: loss rtol 1e-5 and ``_assert_grads``.  Returns the
+    port's ``(loss, grads)``."""
     cfg, tcfg, jp, tp = _setup(arch)
     assert cfg.tie_embeddings == (head == "embed")
     batch = _batch(cfg)
-    opts = JM.RunOptions(q_chunk=16, xent_chunk=16)
+    opts = JM.RunOptions(q_chunk=16, xent_chunk=16, remat=remat)
     (jl, jm), jg = jax.jit(jax.value_and_grad(
         lambda p, b: JM.lm_loss(p, cfg, b, SINGLE_DEVICE_RULES, opts),
         has_aux=True))(jp, batch)
-    tb = {k: torch.from_numpy(np.array(v)) for k, v in batch.items()}
     (tl, tm), tg = value_and_grad(
-        tp, tcfg, tb, TM.RunOptions(q_chunk=16, xent_chunk=16))
+        tp, tcfg, _tb(batch), TM.RunOptions(q_chunk=16, xent_chunk=16,
+                                            remat=remat))
     np.testing.assert_allclose(float(tl), float(jl), rtol=1e-5)
     np.testing.assert_allclose(float(tm["xent"]), float(jm["xent"]),
                                rtol=1e-5)
     assert float(tm["aux_loss"]) == float(jm["aux_loss"]) == 0.0
     _assert_grads(jg, tg, head)
+    return tl, tg
+
+
+@pytest.mark.parametrize("arch,head", [("qwen3-1.7b", "embed"),
+                                       ("llama3-8b", "lm_head"),
+                                       ("phi-3-vision-4.2b", "lm_head"),
+                                       ("whisper-base", "lm_head"),
+                                       ("mamba2-130m", "embed")])
+def test_lm_loss_value_and_grads_match_jax(arch, head):
+    """The vision batch carries ``patches``, the encoder-decoder batch
+    ``audio``; the SSM's sequence spans two SSD chunks."""
+    if arch == "mamba2-130m":
+        assert S == 2 * treduced(tget(arch)).ssm.chunk_size
+    _, g = _loss_and_grads_vs_jax(arch, head)
+    reached = {"phi-3-vision-4.2b": lambda: [g["frontend_proj"]],
+               "whisper-base": lambda: [g["frontend_proj"],
+                                        *tree_leaves(g["encoder"])],
+               "mamba2-130m": lambda: [g["blocks"]["pos0"]["mixer"][k]
+                                       for k in ("A_log", "dt_bias", "D",
+                                                 "conv_w")]}
+    assert all(t.abs().max() > 0 for t in reached.get(arch, list)())
+
+
+def test_encoder_grads_match_jax_with_remat_off_and_equal_remat_on():
+    """The encoder's output reaches each remat'd decoder layer only
+    through the cross-attention closure, so its gradient flows back
+    through the checkpoint's saved-tensor hooks: with remat off too every
+    leaf meets JAX's (``remat=False`` on both sides), and the port's
+    loss and gradients with remat on and off are bit-equal."""
+    l_off, g_off = _loss_and_grads_vs_jax("whisper-base", "lm_head",
+                                          remat=False)
+    _, tcfg, _, tp = _setup("whisper-base")
+    (l_on, _), g_on = value_and_grad(tp, tcfg, _tb(_batch(tcfg)),
+                                     TM.RunOptions(q_chunk=16,
+                                                   xent_chunk=16))
+    assert torch.equal(l_on, l_off)
+    assert all(torch.equal(a, b) for a, b in zip(tree_leaves(g_on),
+                                                 tree_leaves(g_off)))
+    assert all(g.abs().max() > 0 for g in tree_leaves(g_on["encoder"]))
+
+
+@pytest.mark.parametrize("arch", ["whisper-base", "phi-3-vision-4.2b"])
+def test_lm_loss_routes_every_op_to_plain(arch, monkeypatch):
+    """No kernel has a backward, so every route under ``lm_loss`` is
+    ``impl="plain"``: each ``ops.use_kernel`` call (attention asks it
+    before ``ops.flash_attention``) and each ``ops`` wrapper's ``impl``,
+    the whisper encoder's attention and norms among them, which
+    ``"auto"`` would send to K5 and K3 on the card.  On the CPU ``"auto"``
+    runs the plain versions too, so only the argument shows the route."""
+    _, tcfg, _, tp = _setup(arch)
+    routes = []
+    for name in ("use_kernel", "flash_attention", "rmsnorm", "add_rmsnorm",
+                 "rmsnorm_qk"):
+        fn = getattr(tops, name)
+
+        def spy(*a, _n=name, _f=fn, **k):
+            impl = a[0] if _n == "use_kernel" else k.get("impl", "auto")
+            routes.append((_n, impl))
+            return _f(*a, **k)
+        monkeypatch.setattr(tops, name, spy)
+    value_and_grad(tp, tcfg, _tb(_batch(tcfg)),
+                   TM.RunOptions(q_chunk=16, xent_chunk=16))
+    assert {n for n, _ in routes} == {"use_kernel", "rmsnorm", "add_rmsnorm"}
+    assert {impl for _, impl in routes} == {"plain"}, routes
 
 
 def test_remat_on_equals_off_and_dots_policy_is_refused():
@@ -284,16 +371,16 @@ def test_bf16_weights_matches_jax():
     opts = JM.RunOptions(q_chunk=16, xent_chunk=16, bf16_weights=True)
     jl, _ = jax.jit(lambda p, b: JM.lm_loss(p, cfg, b, SINGLE_DEVICE_RULES,
                                              opts))(jp, batch)
-    tb = {k: torch.from_numpy(np.array(v)) for k, v in batch.items()}
-    tl, _ = TM.lm_loss(tp, tcfg, tb, TM.RunOptions(
+    tl, _ = TM.lm_loss(tp, tcfg, _tb(batch), TM.RunOptions(
         q_chunk=16, xent_chunk=16, bf16_weights=True))
     # bf16 weights with f32 activations: the products promote to f32, so
     # only the summation order differs
     np.testing.assert_allclose(float(tl), float(jl), rtol=1e-5)
 
 
-def test_microbatches_match_jax_accumulation():
-    cfg, tcfg, jp, tp = _setup("qwen3-1.7b")
+def _microbatch_steps(arch):
+    """Two steps at ``microbatches=2`` against JAX's accumulation."""
+    cfg, tcfg, jp, tp = _setup(arch)
     mesh = make_host_mesh()
     shape = ShapeConfig("custom", S, B, "train")
     jopts = JM.RunOptions(q_chunk=16, xent_chunk=16, microbatches=2)
@@ -309,8 +396,10 @@ def test_microbatches_match_jax_accumulation():
     with mesh:
         fn = jax.jit(cell.fn)
         for step in range(2):
-            jp, jo, jm = fn(jp, jo, jpipe.get_batch(step))
-            tp, to, tm = tcell.fn(tp, to, tpipe.get_batch(step))
+            extra = frontend_inputs(cfg, B, step)
+            jp, jo, jm = fn(jp, jo, {**jpipe.get_batch(step), **extra})
+            tp, to, tm = tcell.fn(tp, to, {**tpipe.get_batch(step),
+                                           **_tb(extra)})
             for key in ("loss", "xent"):
                 np.testing.assert_allclose(float(tm[key]), float(jm[key]),
                                            rtol=1e-5)
@@ -318,6 +407,17 @@ def test_microbatches_match_jax_accumulation():
                                        float(jm["grad_norm"]), rtol=1e-4)
     for a, t in zip(jax.tree.leaves(jp), tree_leaves(tp)):
         np.testing.assert_allclose(t.numpy(), np.asarray(a), atol=5e-5)
+
+
+def test_microbatches_match_jax_accumulation():
+    _microbatch_steps("qwen3-1.7b")
+
+
+@pytest.mark.parametrize("arch", ["phi-3-vision-4.2b", "whisper-base"])
+def test_microbatches_split_patches_and_audio(arch):
+    """The split slices every batch key: each microbatch carries its own
+    rows of ``patches`` or ``audio``, as the reference's ``reshape``."""
+    _microbatch_steps(arch)
 
 
 # ---------------------------------------------------------------------------

@@ -5,8 +5,9 @@ JAX-initialized weights carried across by ``params_from_jax`` and
 tokens and patches from numpy seeds: the parameter tree, the embedding
 with the projected patches written over the first rows, ``prefill``
 with every cache leaf, several ``decode_step``s, a reduced config at
-the full model's head dim of 96, bf16, prefill/decode consistency, and
-the refusals (a prompt shorter than the patches, training).
+the full model's head dim of 96, bf16, prefill/decode consistency, the
+refusal of a prompt shorter than the patches, and the loss at
+initialization.
 
 Tolerances:
 
@@ -29,6 +30,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from _torch_train_inputs import loss_at_init
 
 from repro.configs import get_config, reduced_config
 from repro.models import model as JM
@@ -324,12 +326,12 @@ def test_short_prompt_is_refused_by_both(setup):
 
 
 def test_lm_loss_refuses_the_vision_model(setup):
-    """Training the vision model raises ``NotImplementedError`` naming
-    its ROADMAP item; the reference trains it."""
+    """(The name is from when ``lm_loss`` refused the vision model.)  With
+    ``patches`` the loss at initialization is finite and near ln(vocab)
+    and ``frontend_proj`` takes a gradient through the patch rows; on
+    text alone it takes zeros, as ``jax.grad`` gives an unread leaf
+    (JAX's gradients with patches: ``test_torch_train_parts.py``)."""
     _, tcfg, _, tp = setup
-    batch = {"tokens": torch.zeros((1, 8), dtype=torch.int32),
-             "labels": torch.zeros((1, 8), dtype=torch.int32),
-             "patches": torch.zeros((1, 8, tcfg.frontend_dim))}
-    with pytest.raises(NotImplementedError,
-                       match="vision model.*queue 1 item 12"):
-        TM.lm_loss(tp, tcfg, batch)
+    assert loss_at_init(tp, tcfg)["frontend_proj"].abs().max() > 0
+    text = loss_at_init(tp, tcfg, frontend=False)
+    assert not text["frontend_proj"].any()

@@ -5,7 +5,8 @@ JAX-initialized weights carried across by ``params_from_jax`` and
 tokens and frames from numpy seeds: non-causal and cross attention,
 cross decode, the encoder's output, ``prefill`` with every cache leaf,
 several ``decode_step``s, bf16, prefill/decode consistency, the norm
-calls per layer, and the refusals (training, the vision frontend).
+calls per layer, and the loss at initialization (the encoder's
+gradients; the vision frontend's too).
 
 Tolerances:
 
@@ -29,6 +30,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from _torch_train_inputs import loss_at_init
 
 from repro.configs import get_config, reduced_config
 from repro.models import attention as jattn
@@ -37,13 +39,13 @@ from repro.models.modules import count_params as jcount
 from repro.parallel.sharding import SINGLE_DEVICE_RULES
 from repro_torch.configs import get_config as tget
 from repro_torch.configs import reduced_config as treduced
-from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops as tops
 from repro_torch.models import attention as tattn
 from repro_torch.models import model as TM
 from repro_torch.models.convert import (cast_for_compute,
                                         init_params_for_compute,
                                         params_from_jax)
+from repro_torch.tree import tree_leaves
 
 ARCH = "whisper-base"
 F32_REL = 1e-5
@@ -369,23 +371,20 @@ def test_norm_calls_per_layer(setup, monkeypatch):
 
 
 def test_lm_loss_and_the_vision_frontend_refuse(setup):
-    """Training an encoder-decoder model and training the vision model
-    (phi-3-vision-4.2b, its config carried across field by field, whose
-    serving path is ported: ``test_torch_vision.py``) raise
-    ``NotImplementedError`` naming their ROADMAP items."""
+    """(The name is from when ``lm_loss`` refused both.)  The
+    encoder-decoder model and the vision model (phi-3-vision-4.2b) train:
+    the loss at initialization is finite and near ln(vocab), the
+    gradient reaches every encoder leaf and ``frontend_proj`` (whisper)
+    and ``frontend_proj`` through the patch rows (vision); a whisper batch
+    without ``audio`` raises KeyError naming it, as the reference's loss
+    does (JAX's gradients: ``test_torch_train_parts.py``)."""
     _, tcfg, _, tp = setup
-    batch = {"tokens": torch.zeros((1, 8), dtype=torch.int32),
-             "labels": torch.zeros((1, 8), dtype=torch.int32),
-             "audio": torch.zeros((1, tcfg.encoder_len, tcfg.frontend_dim))}
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item"):
-        TM.lm_loss(tp, tcfg, batch)
-    vision = ModelConfig(**{f.name: getattr(get_config("phi-3-vision-4.2b"),
-                                            f.name)
-                            for f in dataclasses.fields(ModelConfig)})
-    vision = treduced(vision, compute_dtype="float32")
+    grads = loss_at_init(tp, tcfg)
+    assert all(g.abs().max() > 0 for g in
+               [grads["frontend_proj"], *tree_leaves(grads["encoder"])])
+    with pytest.raises(KeyError, match="audio"):
+        loss_at_init(tp, tcfg, frontend=False)
+    vision = treduced(tget("phi-3-vision-4.2b"), compute_dtype="float32")
     vp = TM.init_params(TM.param_specs(vision),
                         torch.Generator().manual_seed(0))
-    with pytest.raises(NotImplementedError,
-                       match="vision.*ROADMAP.md queue 1 item"):
-        TM.lm_loss(vp, vision, {**batch, "patches": torch.zeros(
-            (1, vision.frontend_len, vision.frontend_dim))})
+    assert loss_at_init(vp, vision)["frontend_proj"].abs().max() > 0
