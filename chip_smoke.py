@@ -293,8 +293,8 @@ Phases, each printed as it runs:
    14336 with no shared expert on odd ones; untied 65536-row head;
    25.998 B parameters, 48.43 GiB), drawn cast on the card from a
    generator seeded 0, on the fixed-slot ``ServingEngine`` (the
-   reference serves hybrid archs there only; the paged engine and
-   ``lm_loss`` refuse it on the card as they do in the reference).  Run
+   reference serves hybrid archs there only; the paged engine refuses
+   it on the card as it does in the reference).  Run
    A: 8 slots, max_len 1056, 16 requests of 255-1024 prompt tokens and
    32 new, every second at temperature 0.9: all finished in the
    vocabulary, logits finite, launch counts exact (per prefill K5 causal
@@ -392,9 +392,18 @@ Phases, each printed as it runs:
    wall time and peak memory; then steady steps through the train cell
    (step time by CUDA events, tokens/s), one of them profiled (device
    busy time, idle share, kernel groups) and its parts timed (forward,
-   forward + backward, AdamW); three train steps of the reduced f32
-   config on the card and on the CPU from the same params and batches,
-   held to the CPU parity tests' tolerances; a checkpoint restart on the
+   forward + backward, AdamW); mamba2-130m, whisper-base and
+   phi-3-vision-4.2b at full width, and qwen2-moe-a2.7b at full width
+   cut to 4 of its 24 layers (10 steps on one batch of 8 x 1024, its
+   ``wq``/``wk`` and MoE blocks at their true fan-in; each step's loss,
+   xent, aux loss and grad norm, the dropped (token, expert) pairs of
+   each MoE layer at the first and last step, AdamW's time), each with
+   falling losses, 0 launches, a profiled steady step and the peak
+   memory; three train steps of each reduced f32 config of
+   ``TRAIN_VS_CPU`` (the three MoE configs at capacity factor 0.5, so
+   that pairs drop) on the card and on the CPU from the same params and
+   batches, held to the CPU parity tests' tolerances; a checkpoint
+   restart on the
    card (an injected failure at step 6 after the step-4 checkpoint, the
    resumed losses and final params, mu, nu and count against an
    uninterrupted run, and a ``save_async`` whose restored tensors equal
@@ -5439,8 +5448,7 @@ def _hybrid_steady(cfg, params) -> None:
 def _hybrid_refusals(cfg, params) -> None:
     """What the reference refuses for this config, refused on the card
     too: no paged KV layout (``paged_cache_supported``; the paged engine
-    raises its message), and no training (``lm_loss`` stops at the MoE
-    check, queue 1 item 8, before the SSM one)."""
+    raises its message)."""
     from repro_torch.models import model as M
     from repro_torch.runtime.serving import PagedServingEngine
     assert not M.paged_cache_supported(cfg)
@@ -5451,17 +5459,8 @@ def _hybrid_refusals(cfg, params) -> None:
     else:
         raise AssertionError("hybrid: the paged engine took the hybrid")
     assert "use ServingEngine for ssm" in paged, paged
-    batch = {k: torch.zeros((1, 8), dtype=torch.int32, device="cuda")
-             for k in ("tokens", "labels")}
-    try:
-        M.lm_loss(params, cfg, batch)
-    except NotImplementedError as e:
-        loss = str(e)
-    else:
-        raise AssertionError("hybrid: lm_loss took the hybrid")
-    assert "item 8" in loss, loss
     log("hybrid", f"refused as the reference refuses: PagedServingEngine "
-        f"({paged!r}); lm_loss ({loss!r})")
+        f"({paged!r})")
 
 
 def _hybrid_f32(layers: int) -> None:
@@ -6141,7 +6140,7 @@ def _f32_engines(cfg, params, prompts, phase: str = "f32") -> dict:
         gp, gf = streams["paged"][a], streams["fixed"][a]
         seq = torch.from_numpy(np.concatenate(
             [prompt, np.asarray(gp[:-1], np.int32)]))[None].cuda()
-        h, _ = M.backbone(params, cfg, M._embed_inputs(
+        h, _, _ = M.backbone(params, cfg, M._embed_inputs(
             params, cfg, {"tokens": seq})[0], opts)
         top = (h[0, len(prompt) - 1:] @ out_w).topk(2, dim=-1).values
         gaps = (top[:, 0] - top[:, 1]).tolist()
@@ -6271,6 +6270,21 @@ TRAIN_GROUPS = tuple(
                  "copy, fill", "elementwise, other"))
 
 
+def _events(fn, iters: int = 3) -> float:
+    """Median ms of ``fn()`` by CUDA events, after one warm-up."""
+    fn()
+    times = []
+    for _ in range(iters):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
 def _profile_train_step() -> None:
     """Steady full-width train steps through ``build_cell(...).fn``: step
     time by CUDA events, tokens/s, then one step profiled (wall, device
@@ -6292,21 +6306,7 @@ def _profile_train_step() -> None:
         lr_peak=TRAIN_LR, total_steps=10 * TRAIN_STEPS)
     batch = TokenPipeline(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH,
                           device="cuda").get_batch(0)
-
-    def events(fn, iters: int = 3) -> float:
-        """Median ms of ``fn()`` by CUDA events, after one warm-up."""
-        fn()
-        times = []
-        for _ in range(iters):
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            fn()
-            end.record()
-            end.synchronize()
-            times.append(start.elapsed_time(end))
-        return statistics.median(times)
-    steady = events(lambda: cell.fn(params, opt, batch), iters=5)
+    steady = _events(lambda: cell.fn(params, opt, batch), iters=5)
     n_params = M.count_params(M.param_specs(cfg))
     tokens = TRAIN_BATCH * TRAIN_SEQ
     log("train", f"steady train step (full width, {n_params / 1e9:.3f} B "
@@ -6323,36 +6323,47 @@ def _profile_train_step() -> None:
     _profile_steady("train", "steady train step (full width)", step,
                     steps=2, groups=TRAIN_GROUPS, top=12)
     with torch.no_grad():
-        fwd = events(lambda: M.lm_loss(params, cfg, batch, opts))
-    fwd_bwd = events(lambda: value_and_grad(params, cfg, batch, opts))
+        fwd = _events(lambda: M.lm_loss(params, cfg, batch, opts))
+    fwd_bwd = _events(lambda: value_and_grad(params, cfg, batch, opts))
     _, grads = value_and_grad(params, cfg, batch, opts)
     lr = torch.tensor(TRAIN_LR, device="cuda")
-    adam = events(lambda: adamw_update(grads, opt, params, lr))
+    adam = _events(lambda: adamw_update(grads, opt, params, lr))
     log("train", f"steady train step parts (CUDA events, median of 3): "
         f"forward {fwd:.1f} ms (no grad), forward + backward with remat "
         f"{fwd_bwd:.1f} ms, AdamW {adam:.1f} ms")
 
 
-# the reduced f32 configs held card against CPU over three train steps;
-# the vision and encoder-decoder models' wq/wk scaled to their true fan-in
-# first (_true_fan_in), as the CPU parity tests do
-# (tests/_torch_train_inputs.py) and as their full-width runs do
-TRAIN_VS_CPU = (ARCH, "phi-3-vision-4.2b", "whisper-base", "mamba2-130m")
-TRUE_FAN_IN = ("phi-3-vision-4.2b", "whisper-base")
+# the reduced f32 configs held card against CPU over three train steps,
+# the MoE configs at capacity factor 0.5 (MOE_VS_CPU_CF) so that pairs
+# drop in every MoE layer; the leaves of TRUE_FAN_IN scaled to their true
+# fan-in first (_true_fan_in), as the CPU parity tests do
+# (tests/_torch_train_inputs.py says why)
+TRAIN_VS_CPU = (ARCH, "phi-3-vision-4.2b", "whisper-base", "mamba2-130m",
+                "qwen2-moe-a2.7b", "jamba-v0.1-52b", "grok-1-314b")
+TRUE_FAN_IN = {"phi-3-vision-4.2b": ("wq", "wk"),
+               "whisper-base": ("wq", "wk"),
+               "qwen2-moe-a2.7b": ("wq", "wk"),
+               "grok-1-314b": ("wq", "wk"),
+               "jamba-v0.1-52b": ("wq", "wk", "in_proj")}
+MOE_VS_CPU_CF = 0.5
 
 
-def _true_fan_in(tree, d_model: int):
-    """Scale each attention block's stacked ``wq`` and ``wk`` (G, d_model,
-    heads, hd) in place by sqrt(G / d_model): the reference's
-    ``init_params`` takes a stacked leaf's fan-in to be G, which without
-    qk-norm makes these models' softmax nearly one-hot, their reduced f32
-    trajectories part by more than rounding, and their full-width losses
-    barely move (PERF.md §6)."""
+def _true_fan_in(tree, d_model: int, leaves=("wq", "wk")):
+    """Scale each stacked leaf named in ``leaves`` in place by sqrt(G /
+    fan-in), its true fan-in being d_model (an attention block's
+    ``wq``/``wk`` (G, d_model, heads, hd), an SSM block's ``in_proj``, an
+    MoE block's ``router`` and ``wg``/``wu``) or, for a down projection
+    ``wd`` (..., F, d_model), F: the reference's ``init_params`` takes a
+    stacked leaf's fan-in to be G, which without qk-norm makes these
+    models' softmax nearly one-hot, their reduced f32 trajectories part
+    by more than rounding, and their full-width losses barely move
+    (PERF.md §6)."""
     for k, v in tree.items():
         if isinstance(v, dict):
-            _true_fan_in(v, d_model)
-        elif k in ("wq", "wk"):
-            v.mul_((v.shape[0] / d_model) ** 0.5)
+            _true_fan_in(v, d_model, leaves)
+        elif k in leaves:
+            fan_in = v.shape[-2] if k == "wd" else d_model
+            v.mul_((v.shape[0] / fan_in) ** 0.5)
     return tree
 
 
@@ -6393,47 +6404,99 @@ def _family_batches(cfg, batch: int, seq: int, device: str):
 FAMILY_TRAIN = (("mamba2-130m", 8, 1024, 20, 3e-3),
                 ("whisper-base", 8, 448, 10, TRAIN_LR),
                 ("phi-3-vision-4.2b", 8, 1024, 10, TRAIN_LR))
+# the leaves each full-width run through build_cell(...).fn scales to its
+# true fan-in (_true_fan_in): the frontend models' wq/wk, and
+# qwen2-moe-a2.7b's wq/wk and MoE blocks (router and experts, the shared
+# experts too).  At the reference's init (std 0.5 for 4 stacked layers)
+# its grad norm reached 1e7, clipping left AdamW's steps at eps and the
+# loss fell 0.021 in 10 steps; with the MoE blocks alone scaled it rose
+# 0.010; with wq/wk alone it fell, but the routing collapsed (a third of
+# the pairs dropped by step 9) (PERF.md §6)
+FULL_WIDTH_FAN_IN = {"whisper-base": ("wq", "wk"),
+                     "phi-3-vision-4.2b": ("wq", "wk"),
+                     "qwen2-moe-a2.7b": ("wq", "wk", "router", "wg", "wu",
+                                         "wd")}
+# full-width MoE training (arch, batch, seq, steps, peak lr, layers):
+# qwen2-moe-a2.7b, the only MoE config whose f32 training state fits one
+# card, cut in depth only: 4 of its 24 layers hold 2.905 B parameters,
+# 43.3 GiB of f32 params, grads and AdamW moments (24 layers: 229 GB;
+# one layer of grok-1-314b alone 78.7 GB, jamba-v0.1-52b's smallest whole
+# depth, one period of 8 layers, 204 GB); 8 x 1024 tokens route 32 768
+# (token, expert) pairs a layer into 60 experts of 688 slots; one batch
+# repeated, as the frontend models
+MOE_TRAIN = ("qwen2-moe-a2.7b", 8, 1024, 10, TRAIN_LR, 4)
 
 
-def _train_family(arch: str, batch: int, seq: int, steps: int,
-                  lr: float) -> None:
-    """``arch`` trained at its published width, f32 master weights and
+def _train_family(arch: str, batch: int, seq: int, steps: int, lr: float,
+                  **overrides) -> None:
+    """``arch`` trained at its published width (its config with
+    ``overrides``: a depth cut to fit the card), f32 master weights and
     AdamW, bf16 compute, remat: mamba2-130m through ``train()``, the
-    frontend models through ``build_cell(...).fn`` (``train()``'s
-    options and schedule; ``wq``/``wk`` at their true fan-in) on one
-    batch of ``_family_batches`` repeated; losses finite and falling and
-    no kernel launched (``_trained``), then the steady step under
-    ``_profile_steady`` (wall, tokens/s, busy time, idle share, the
-    kernel groups) and the peak memory of the whole."""
+    frontend and MoE models through ``build_cell(...).fn`` (``train()``'s
+    options and schedule; the leaves of ``FULL_WIDTH_FAN_IN`` at their
+    true fan-in) on one batch of ``_family_batches`` repeated; losses
+    finite and falling and no kernel launched (``_trained``), then the
+    steady step under ``_profile_steady`` (wall, tokens/s, busy time,
+    idle share, the kernel groups) and the peak memory of the whole.  An
+    MoE model also logs each step's loss, xent, aux loss and grad norm,
+    the dropped (token, expert) pairs of each MoE layer at the first and
+    the last step (``_capacity_calls``: the forward's calls, before
+    remat's recomputation) and AdamW's time by CUDA events."""
+    import dataclasses
     from repro_torch.configs import ShapeConfig, get_config
     from repro_torch.kernels import ops
-    from repro_torch.launch.steps import build_cell
+    from repro_torch.launch.steps import build_cell, value_and_grad
     from repro_torch.launch.train import make_train_state, train
     from repro_torch.models import model as M
-    cfg = get_config(arch)
-    cell = build_cell(cfg, ShapeConfig("custom", seq, batch, "train"),
-                      M.RunOptions(q_chunk=min(seq, 512),
-                                   xent_chunk=min(seq, 512)),
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.optim.adamw import adamw_update
+    cfg = dataclasses.replace(get_config(arch), **overrides)
+    opts = M.RunOptions(q_chunk=min(seq, 512), xent_chunk=min(seq, 512))
+    cell = build_cell(cfg, ShapeConfig("custom", seq, batch, "train"), opts,
                       lr_peak=lr, total_steps=max(10 * steps, 100))
     b = _family_batches(cfg, batch, seq, "cuda")(0)
+    streamed = cfg.frontend is None and cfg.moe is None
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launches()
     t0 = time.perf_counter()
-    if cfg.frontend is None:
+    if streamed:
         losses = train(arch, steps=steps, batch=batch, seq=seq,
                        reduced=False, log_every=steps, lr_peak=lr,
                        device="cuda")
     params, opt = make_train_state(
         cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
-    if cfg.frontend is not None:
-        _true_fan_in(params, cfg.d_model)
-        losses = []
+    if not streamed:
+        if arch in FULL_WIDTH_FAN_IN:
+            _true_fan_in(params, cfg.d_model, FULL_WIDTH_FAN_IN[arch])
+        metrics, calls = [], []
         for _ in range(steps):
-            params, opt, m = cell.fn(params, opt, b)
-            losses.append(m["loss"])
-        losses = torch.stack(losses).tolist()
+            seen = []
+            with _capacity_calls(seen):
+                params, opt, m = cell.fn(params, opt, b)
+            metrics.append(torch.stack([m[k] for k in (
+                "loss", "xent", "aux_loss", "grad_norm")]))
+            calls.append(seen)
+        metrics = torch.stack(metrics).tolist()
+        losses = [row[0] for row in metrics]
     wall = time.perf_counter() - t0
     log("train", f"{arch} losses " + " ".join(f"{x:.4f}" for x in losses))
+    if cfg.moe is not None:
+        log("train", f"{arch} per step (loss, xent, aux_loss, grad_norm): "
+            + "; ".join(f"{i}: {x:.4f} {y:.4f} {a:.4f} {g:.4g}"
+                        for i, (x, y, a, g) in enumerate(metrics)))
+        layers = (cfg.num_layers // cfg.scan_period()
+                  * cfg.mlp_kinds().count("moe"))
+        tk = batch * seq * cfg.moe.top_k
+        C = moe_mod.capacity(cfg.moe, tk)
+        for i in (0, steps - 1):
+            fwd = calls[i][:layers]
+            assert [(t, c) for t, c, _ in fwd] == [(tk, C)] * layers, \
+                f"train {arch} step {i}: capacity calls {fwd}"
+            drops = [int(d) for _, _, d in fwd]
+            log("train", f"{arch} step {i}: dropped (token, expert) pairs "
+                f"per MoE layer {drops} of {tk} routed into "
+                f"{cfg.moe.num_experts} experts of {C} slots "
+                f"({sum(drops) / (tk * layers):.4f} of all)")
     first, last = _trained(losses, steps)
 
     def step():
@@ -6442,11 +6505,22 @@ def _train_family(arch: str, batch: int, seq: int, steps: int,
     ms, busy = _profile_steady("train", f"{arch} steady train step", step,
                                steps=1, groups=TRAIN_GROUPS, top=8)
     _trained(losses, steps)                    # the profiled steps too
+    if cfg.moe is not None:
+        _, grads = value_and_grad(params, cfg, b, opts)
+        lr_t = torch.tensor(lr, device="cuda")
+        adam = _events(lambda: adamw_update(grads, opt, params, lr_t))
+        del grads
+        log("train", f"{arch} AdamW over "
+            f"{M.count_params(M.param_specs(cfg))} params: {adam:.1f} ms "
+            "(CUDA events, median of 3 after one warm-up)")
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     inputs = {k: tuple(v.shape) for k, v in b.items() if k != "labels"}
-    how = ("train(), streamed" if cfg.frontend is None
+    how = ("train(), streamed" if streamed
            else "build_cell.fn, one batch repeated")
-    log("train", f"{arch} full width ({M.count_params(M.param_specs(cfg))} "
+    depth = (f", {cfg.num_layers} of its {get_config(arch).num_layers} "
+             "layers" if "num_layers" in overrides else "")
+    log("train", f"{arch} full width{depth} "
+        f"({M.count_params(M.param_specs(cfg))} "
         f"params; {how}, inputs {inputs}, peak lr {lr}): {steps} steps in "
         f"{wall:.1f} s, "
         f"loss {first:.4f} -> {last:.4f} (means of the first and last 5); "
@@ -6456,11 +6530,14 @@ def _train_family(arch: str, batch: int, seq: int, steps: int,
 
 
 def _train_families() -> None:
-    """``_train_family`` for each of ``FAMILY_TRAIN``, the card's memory
-    freed between them."""
-    for arch, *run in FAMILY_TRAIN:
+    """``_train_family`` for each of ``FAMILY_TRAIN`` and then
+    ``MOE_TRAIN``, the card's memory freed between them."""
+    moe_arch, *moe_run, layers = MOE_TRAIN
+    runs = [(arch, run, {}) for arch, *run in FAMILY_TRAIN]
+    runs.append((moe_arch, moe_run, {"num_layers": layers}))
+    for arch, run, cut in runs:
         t0 = time.perf_counter()
-        _train_family(arch, *run)
+        _train_family(arch, *run, **cut)
         gc.collect()
         torch.cuda.empty_cache()
         log("train", f"{arch}: {time.perf_counter() - t0:.1f} s")
@@ -6474,13 +6551,18 @@ def _train_card_vs_cpu() -> None:
 
 def _card_vs_cpu(arch: str) -> None:
     """Three train steps of the reduced f32 ``arch`` on the card and on
-    the CPU from the same params and batches (``_family_batches``)."""
+    the CPU from the same params and batches (``_family_batches``); an
+    MoE config at capacity factor ``MOE_VS_CPU_CF``."""
+    import dataclasses
     from repro_torch.configs import ShapeConfig, get_config, reduced_config
     from repro_torch.launch.steps import build_cell
     from repro_torch.launch.train import make_train_state
     from repro_torch.models import model as M
     from repro_torch.tree import tree_leaves, tree_map
     cfg = reduced_config(get_config(arch), compute_dtype="float32")
+    if cfg.moe is not None:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=MOE_VS_CPU_CF))
     batch, seq = 8, 64
     cell = build_cell(cfg, ShapeConfig("custom", seq, batch, "train"),
                       M.RunOptions(q_chunk=seq, xent_chunk=seq),
@@ -6490,7 +6572,7 @@ def _card_vs_cpu(arch: str) -> None:
         params, opt = make_train_state(cfg, torch.Generator().manual_seed(0),
                                        "cpu")
         if arch in TRUE_FAN_IN:
-            _true_fan_in(params, cfg.d_model)
+            _true_fan_in(params, cfg.d_model, TRUE_FAN_IN[arch])
         return params, opt
     p0, _ = state()
     runs = {}
@@ -6522,7 +6604,8 @@ def _card_vs_cpu(arch: str) -> None:
                              f"{worst_p:.3e}, update error {worst_u:.3e}")
     gn_err = max(abs(a["grad_norm"] - b["grad_norm"]) / a["grad_norm"]
                  for a, b in zip(mc, mg))
-    log("train", f"reduced f32 {arch}, 3 steps, card vs CPU: losses "
+    cf = f" at capacity factor {MOE_VS_CPU_CF}" if cfg.moe else ""
+    log("train", f"reduced f32 {arch}{cf}, 3 steps, card vs CPU: losses "
         + ", ".join(f"{a['loss']:.6f}/{b['loss']:.6f}" for a, b in
                     zip(mc, mg))
         + f"; grad norms within {gn_err:.2e} relative; params max |Δ| "
@@ -6621,9 +6704,10 @@ def _train_restart(device: str = "cuda") -> None:
 
 def phase_train() -> None:
     """Training on the card: qwen3-1.7b at full width through ``train()``
-    and its steady step, the frontend and SSM families at full width
-    (``_train_families``), the reduced f32 steps against the CPU, and a
-    checkpoint restart."""
+    and its steady step, the frontend, SSM and MoE families at full width
+    (``_train_families``; qwen2-moe-a2.7b cut in depth), the reduced f32
+    steps against the CPU (the MoE configs with drops), and a checkpoint
+    restart."""
     t0 = time.perf_counter()
     _train_full_width()
     gc.collect()

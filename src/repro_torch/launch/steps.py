@@ -2,10 +2,13 @@
 "train"`` branch of ``repro.launch.steps.build_cell``), on one device.
 
 ``build_cell(cfg, shape, opts)`` returns a :class:`Cell` whose ``fn(params,
-opt_state, batch)`` takes one AdamW step on the mean next-token
-cross-entropy (``models.model.lm_loss``), with ``opts.microbatches``
-gradient accumulation and the lr from ``wsd_schedule`` at the optimizer's
-count.  Where the reference's jitted step donates params and optimizer
+opt_state, batch)`` takes one AdamW step on ``models.model.lm_loss`` (the
+mean next-token cross-entropy, plus the weighted load-balancing aux loss
+of an MoE config), with ``opts.microbatches`` gradient accumulation (the
+loss, ``xent`` and ``aux_loss`` averaged over the microbatches, as the
+reference's scan does) and the lr from ``wsd_schedule`` at the
+optimizer's count.  Its metrics carry the reference's keys: ``xent``,
+``aux_loss``, AdamW's ``grad_norm``, ``loss`` and ``lr``.  Where the reference's jitted step donates params and optimizer
 state and returns new ones, the port updates them in place and returns
 them.  Serving needs no cell: it calls ``models.model`` directly.
 """

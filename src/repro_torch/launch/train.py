@@ -16,8 +16,21 @@ reference's jitted step refuses a batch without ``patches`` the same
 way).  A caller with frames or patches adds them to the batch of
 ``launch.steps.build_cell(...).fn``.
 
+Every config of the registry trains, the MoE family included (its loss
+adds the load-balancing aux loss).  At full width (``--full``) f32
+params, grads and both AdamW moments take 16 bytes a parameter on one
+card: qwen3-1.7b, minicpm-2b, mamba2-130m, whisper-base and
+phi-3-vision-4.2b (61 GB, the largest) fit an 80 GB card at batch 8;
+llama3-8b (128 GB), gemma3-12b (188 GB) and the MoE configs
+(qwen2-moe-a2.7b 229 GB, jamba-v0.1-52b 823 GB, grok-1-314b 5.1 TB) do
+not: they train reduced, or through ``build_cell(...).fn`` on a config
+cut in depth (qwen2-moe-a2.7b at 4 of its 24 layers: 46.5 GB), until
+the state is sharded.
+
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
       --steps 3 --batch 4 --seq 64
+  PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
+      --arch qwen2-moe-a2.7b --steps 3 --batch 2 --seq 32
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-1.7b \\
       --full --steps 12 --batch 8 --seq 1024
 """

@@ -61,7 +61,9 @@ class RunOptions:
       keeps ``min(seq, W)`` rows, slot = position mod W (``init_cache``,
       ``prefill``), and ``decode_step`` attends to it with
       ``attention.ring_decode_attention``.  A model-level option, as in
-      the reference: the serving engines never set it.
+      the reference: the serving engines never set it;
+    - ``aux_loss_weight``: the weight of the MoE load-balancing aux loss
+      in ``lm_loss`` (the reference's default, 0.01).
     """
     remat: bool = True
     remat_policy: str = "nothing"
@@ -71,6 +73,7 @@ class RunOptions:
     bf16_weights: bool = False
     moe_impl: str = "capacity"
     ring_local_cache: bool = False
+    aux_loss_weight: float = 0.01
 
 
 def _dtype(name: str) -> torch.dtype:
@@ -195,7 +198,7 @@ def _mlp(p, cfg: ModelConfig, h, moe_impl: str):
 
 def _residual_stream(params, cfg: ModelConfig, x, mixer, *, cross=None,
                      impl: str, remat: bool = False,
-                     moe_impl: str = "capacity"):
+                     moe_impl: str = "capacity", aux: bool = False):
     """Run the residual stream ``x`` (B, S, D) through every layer of
     ``params["blocks"]`` and ``params["final_norm"]``;
     ``mixer(g, i, kind, p, h)`` returns the mixer output (attention or
@@ -212,14 +215,21 @@ def _residual_stream(params, cfg: ModelConfig, x, mixer, *, cross=None,
     ln2, the MLP add into the next layer's ln1 or, after the last layer,
     into ``final_norm``; in a layer without an MLP (no ``ln2``) the
     mixer's add into that next norm.  Only layer 0's ln1 is a lone norm.
-    Returns the final norm's output.
+    Returns ``(h, aux)``: ``h`` the final norm's output; ``aux`` with
+    ``aux=True`` (the loss's forward) the 0-d f32 sum, from zero in layer
+    order, of each MoE layer's load-balancing loss
+    (``moe.aux_load_balance_loss`` on the MLP's normed input, which
+    routes a second time, as the reference does; a layer without an MoE
+    block adds nothing), else None.
 
-    ``remat`` runs each layer — ``(x, h)`` in, ``(x, h)`` out — under
-    ``torch.utils.checkpoint``, so backward recomputes it from its two
-    inputs instead of keeping its activations."""
+    ``remat`` runs each layer — ``(x, h)`` in, ``(x, h)`` and its aux
+    loss out — under ``torch.utils.checkpoint``, so backward recomputes
+    it from its two inputs instead of keeping its activations."""
     eps = cfg.norm_eps
     layers = _layers(params, cfg)
     h = ops.rmsnorm(x, layers[0][3]["ln1"], eps=eps, impl=impl)
+    total = (torch.zeros((), dtype=torch.float32, device=x.device) if aux
+             else None)
     for j, (g, i, kind, p) in enumerate(layers):
         w_next = (layers[j + 1][3]["ln1"] if j + 1 < len(layers)
                   else params["final_norm"])
@@ -231,31 +241,39 @@ def _residual_stream(params, cfg: ModelConfig, x, mixer, *, cross=None,
                                        impl=impl)
                 mix = cross(g, i, p, h)
             if "ln2" not in p:
-                return ops.add_rmsnorm(x, mix, w_next, eps=eps, impl=impl)
+                return (*ops.add_rmsnorm(x, mix, w_next, eps=eps, impl=impl),
+                        None)
             x, h = ops.add_rmsnorm(x, mix, p["ln2"], eps=eps, impl=impl)
-            return ops.add_rmsnorm(x, _mlp(p, cfg, h, moe_impl), w_next,
-                                   eps=eps, impl=impl)
-        x, h = (checkpoint(layer, x, h, use_reentrant=False) if remat
-                else layer(x, h))
-    return h
+            a = (moe_mod.aux_load_balance_loss(p["moe"], cfg, h)
+                 if aux and "moe" in p else None)
+            return (*ops.add_rmsnorm(x, _mlp(p, cfg, h, moe_impl), w_next,
+                                     eps=eps, impl=impl), a)
+        x, h, a = (checkpoint(layer, x, h, use_reentrant=False) if remat
+                   else layer(x, h))
+        if a is not None:
+            total = total + a
+    return h, total
 
 
 def backbone(params, cfg: ModelConfig, x, opts: RunOptions, *,
              enc_out=None, want_cache: bool = False, impl: str = "auto",
              train: bool = False):
     """Forward through the layer stack at positions ``0..S-1`` and the
-    final norm (``_residual_stream``; MoE blocks by ``opts.moe_impl``, no
-    aux loss), an encoder-decoder model's decoder layers attending to
-    ``enc_out`` (B, L, D), the encoder's output.  ``train`` is the loss's
-    forward: layers remat'd when ``opts.remat``.  Returns ``(h,
-    caches)``: ``h`` the final norm's output (B, S, D), ``caches``
-    ``{posN: {k, v: (G, B, S, KVH, hd)}}`` (an SSM layer's ``{conv: (G,
-    B, W - 1, C), ssm: (G, B, H, N, P)}``, the conv tail in the compute
-    dtype and the state in f32; an encoder-decoder model's layers add the
-    cross K/V ``ck``/``cv`` (G, B, L, KVH, hd)) when ``want_cache``, else
-    None.  With ``opts.ring_local_cache`` a sliding-window layer of a
-    prompt longer than its window W keeps its last W rows at slot =
-    position mod W (``_ring_rows``).
+    final norm (``_residual_stream``; MoE blocks by ``opts.moe_impl``),
+    an encoder-decoder model's decoder layers attending to ``enc_out``
+    (B, L, D), the encoder's output.  ``train`` is the loss's forward:
+    layers remat'd when ``opts.remat``, and the MoE layers' aux loss
+    summed.  Returns ``(h, caches, aux)``: ``h`` the final norm's output
+    (B, S, D); ``caches`` ``{posN: {k, v: (G, B, S, KVH, hd)}}`` (an SSM
+    layer's ``{conv: (G, B, W - 1, C), ssm: (G, B, H, N, P)}``, the conv
+    tail in the compute dtype and the state in f32; an encoder-decoder
+    model's layers add the cross K/V ``ck``/``cv`` (G, B, L, KVH, hd))
+    when ``want_cache``, else None; ``aux`` with ``train`` the 0-d f32
+    sum of the MoE layers' load-balancing losses (0 without MoE layers),
+    else None (serving computes no aux loss).  With
+    ``opts.ring_local_cache`` a sliding-window layer of a prompt longer
+    than its window W keeps its last W rows at slot = position mod W
+    (``_ring_rows``).
 
     Raises:
       NotImplementedError: ``train`` with ``remat_policy="dots"``."""
@@ -292,13 +310,14 @@ def backbone(params, cfg: ModelConfig, x, opts: RunOptions, *,
         if want_cache:
             per_layer[f"pos{i}"][-1].update(ck=ck, cv=cv)
         return mix
-    h = _residual_stream(params, cfg, x, mixer, cross=cross, impl=impl,
-                         remat=remat, moe_impl=opts.moe_impl)
+    h, aux = _residual_stream(params, cfg, x, mixer, cross=cross,
+                              impl=impl, remat=remat, moe_impl=opts.moe_impl,
+                              aux=train)
     if not want_cache:
-        return h, None
+        return h, None, aux
     return h, {pos: {key: torch.stack([c[key] for c in cs])
                      for key in cs[0]}
-               for pos, cs in per_layer.items()}
+               for pos, cs in per_layer.items()}, aux
 
 
 def _ring(cfg: ModelConfig, kind: str, opts: RunOptions) -> bool:
@@ -358,7 +377,7 @@ def _embed_inputs(params, cfg: ModelConfig, batch, *, impl: str = "auto"):
     def mixer(g, i, kind, p, h):
         return attn_mod.attention(p["mixer"], enc_cfg, h, causal=False,
                                   impl=impl)[0]
-    return x, _residual_stream(enc, enc_cfg, e, mixer, impl=impl)
+    return x, _residual_stream(enc, enc_cfg, e, mixer, impl=impl)[0]
 
 
 def _maybe_bf16(params, opts: RunOptions):
@@ -378,9 +397,11 @@ def lm_loss(params, cfg: ModelConfig, batch,
     (B, S) int32; labels < 0 are masked; a vision model's batch may
     carry ``patches`` (B, frontend_len, frontend_dim) f32, an
     encoder-decoder model's must carry ``audio`` (B, encoder_len,
-    frontend_dim) f32).  Returns ``(loss, {"xent", "aux_loss"})``, 0-d
-    f32 tensors; ``aux_loss`` is the reference's sum over no MoE layer,
-    0.
+    frontend_dim) f32), plus ``opts.aux_loss_weight`` times the MoE
+    layers' summed load-balancing loss in an MoE config (a hybrid one
+    too).  Returns ``(loss, {"xent", "aux_loss"})``, 0-d f32 tensors:
+    ``xent`` the cross-entropy alone, ``aux_loss`` the unweighted sum (0
+    without MoE layers), as the reference returns them.
 
     The forward is the reference's, in plain PyTorch throughout
     (``impl="plain"``: no kernel of the port has a backward, and neither
@@ -388,35 +409,30 @@ def lm_loss(params, cfg: ModelConfig, batch,
     (``_embed_inputs``; the encoder is not remat'd, as in the
     reference), the dense query-chunked attention (non-causal against
     the encoder's output in a decoder's cross-attention), the SSM
-    block's chunked SSD, each residual add fused into the norm that
-    reads it (the plain ``add_rmsnorm``, bit-equal to the reference's
-    add, then norm), the decoder's layers remat'd per ``opts``, and the
-    chunked cross-entropy against the output weight in the compute dtype
+    block's chunked SSD, the MoE blocks by ``opts.moe_impl`` (the
+    capacity path's drops included: backward runs through the stable
+    sort, the capacity windows and the fixed-order combine), each
+    residual add fused into the norm that reads it (the plain
+    ``add_rmsnorm``, bit-equal to the reference's add, then norm), the
+    decoder's layers remat'd per ``opts``, and the chunked cross-entropy
+    against the output weight in the compute dtype
     (``softmax_xent_chunked`` then rounds it to bf16, as the reference
     does even in f32 configs).
 
     Raises:
-      NotImplementedError: an MoE config (a hybrid one too): its loss
-          adds the weighted load-balancing aux loss and backpropagates
-          through the dispatch, which the MoE training slice (ROADMAP.md
-          queue 1 item 8) ports.
       KeyError: an encoder-decoder batch without ``audio``, as in the
           reference."""
-    if cfg.moe is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: training an MoE model (the aux load-balancing "
-            "loss, backward through the dispatch) is not ported yet: "
-            "ROADMAP.md queue 1 item 8")
     params = _maybe_bf16(params, opts)
     x, enc_out = _embed_inputs(params, cfg, batch, impl="plain")
-    h, _ = backbone(params, cfg, x, opts, enc_out=enc_out, impl="plain",
-                    train=True)
+    h, _, aux = backbone(params, cfg, x, opts, enc_out=enc_out,
+                         impl="plain", train=True)
     total, count = softmax_xent_chunked(
         h, _output_weight(params, cfg).to(h.dtype), batch["labels"],
         chunk=opts.xent_chunk)
-    loss = total / torch.clamp(count, min=1.0)
-    aux = torch.zeros((), dtype=torch.float32, device=loss.device)
-    return loss, {"xent": loss, "aux_loss": aux}
+    xent = total / torch.clamp(count, min=1.0)
+    loss = (xent + opts.aux_loss_weight * aux if cfg.moe is not None
+            else xent)
+    return loss, {"xent": xent, "aux_loss": aux}
 
 
 def prefill(params, cfg: ModelConfig, batch, opts: RunOptions = RunOptions(),
@@ -431,8 +447,8 @@ def prefill(params, cfg: ModelConfig, batch, opts: RunOptions = RunOptions(),
     f32 ``ssm`` state; an encoder-decoder model's ``ck``/``cv`` too, see
     ``backbone``)."""
     x, enc_out = _embed_inputs(params, cfg, batch, impl=impl)
-    h, caches = backbone(params, cfg, x, opts, enc_out=enc_out,
-                         want_cache=True, impl=impl)
+    h, caches, _ = backbone(params, cfg, x, opts, enc_out=enc_out,
+                            want_cache=True, impl=impl)
     logits = h[:, -1:] @ _output_weight(params, cfg).to(h.dtype)
     return logits.float(), caches
 
@@ -538,7 +554,7 @@ def decode_step(params, cfg: ModelConfig, cache, tokens, pos,
         return attn_mod.decode_attention(p["cross"], cfg, h, c["ck"],
                                          c["cv"], pos, cross=True,
                                          lengths=enc_len, impl=impl)[0]
-    h = _residual_stream(params, cfg, x, mixer, cross=cross, impl=impl)
+    h, _ = _residual_stream(params, cfg, x, mixer, cross=cross, impl=impl)
     logits = h @ _output_weight(params, cfg).to(h.dtype)
     return logits.float(), cache
 
@@ -639,7 +655,7 @@ def paged_decode_step(params, cfg: ModelConfig, cache, tokens, pos,
         return attn_mod.paged_attention(
             p["mixer"], cfg, h, _layer(cache[f"pos{i}"], g), page_table,
             qpos, n_valid, kind=kind, impl=impl)
-    h = _residual_stream(params, cfg, x, mixer, impl=impl)
+    h, _ = _residual_stream(params, cfg, x, mixer, impl=impl)
     logits = h @ _output_weight(params, cfg).to(h.dtype)
     return logits.float(), cache
 

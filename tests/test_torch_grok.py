@@ -442,12 +442,3 @@ def test_bf16_steps_lie_as_near_f32_as_jaxs():
         scale = np.abs(want).max()
         assert mine <= 1.5 * theirs and mine <= 0.1 * scale, \
             (mine, theirs, scale)
-
-
-def test_lm_loss_refuses_grok_at_the_moe_item(setup):
-    """Training an MoE is queue 1 item 8: ``lm_loss`` names it."""
-    _, tcfg, _, tp = setup
-    batch = {"tokens": torch.zeros((1, 8), dtype=torch.int32),
-             "labels": torch.zeros((1, 8), dtype=torch.int32)}
-    with pytest.raises(NotImplementedError, match="item 8"):
-        TM.lm_loss(tp, tcfg, batch)

@@ -220,12 +220,3 @@ def test_norm_launches_per_layer(setup, monkeypatch):
     assert sorted(calls) == sorted([("rmsnorm", 64)]
                                    + [("add_rmsnorm", 64)] * (2 * L)
                                    + [("rmsnorm", 128)] * n_ssm)
-
-
-def test_lm_loss_refuses_the_hybrid_at_the_moe_item(setup):
-    """The MoE check comes first: the message names queue 1 item 8."""
-    _, tcfg, _, tp = setup
-    batch = {"tokens": torch.zeros((1, 8), dtype=torch.int32),
-             "labels": torch.zeros((1, 8), dtype=torch.int32)}
-    with pytest.raises(NotImplementedError, match="item 8"):
-        TM.lm_loss(tp, tcfg, batch)

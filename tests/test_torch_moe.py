@@ -305,15 +305,6 @@ def test_model_specs_match_jax_and_convert_one_to_one():
     assert 14.30e9 < n < 14.35e9
 
 
-def test_lm_loss_refuses_moe():
-    tcfg = treduced(tget("qwen2-moe-a2.7b"), compute_dtype="float32")
-    tp = TM.init_params(TM.param_specs(tcfg), torch.Generator().manual_seed(0))
-    batch = {"tokens": torch.zeros((1, 8), dtype=torch.int32),
-             "labels": torch.zeros((1, 8), dtype=torch.int32)}
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TM.lm_loss(tp, tcfg, batch)
-
-
 def test_encoder_decoder_and_frontend_archs_stay_refused():
     """(The name is from when training a vision model was refused.)  A
     vision config builds ``frontend_proj`` and no encoder, and trains:

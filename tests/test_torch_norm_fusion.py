@@ -197,7 +197,7 @@ def test_residual_stream_is_bit_identical_to_the_unfused_composition(dtype):
 
     def mixer(g, i, kind, p, h):
         return attn_mod.attention(p["mixer"], cfg, h, kind=kind)[0]
-    fused = M._residual_stream(params, cfg, x, mixer, impl="auto")
+    fused, _ = M._residual_stream(params, cfg, x, mixer, impl="auto")
     assert torch.equal(fused, _unfused_stream(params, cfg, x, mixer))
 
 

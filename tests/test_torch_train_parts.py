@@ -38,7 +38,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from _torch_train_inputs import TRUE_FAN_IN, frontend_inputs, true_fan_in
+from _torch_train_inputs import (TRUE_FAN_IN, assert_grads, frontend_inputs,
+                                 true_fan_in)
 
 from repro.configs import get_config, reduced_config
 from repro.configs.base import ShapeConfig
@@ -82,8 +83,8 @@ def _setup(arch):
     assert dataclasses.asdict(cfg) == dataclasses.asdict(tcfg)
     jp = JM.init_params(JM.param_specs(cfg), jax.random.PRNGKey(0))
     if arch in TRUE_FAN_IN:
-        jp = jax.tree.map(jnp.asarray, true_fan_in(_np_tree(jp),
-                                                   cfg.d_model))
+        jp = jax.tree.map(jnp.asarray, true_fan_in(
+            _np_tree(jp), cfg.d_model, TRUE_FAN_IN[arch]))
     return cfg, tcfg, jp, params_from_jax(_np_tree(jp))
 
 
@@ -97,22 +98,6 @@ def _batch(cfg, step=0):
 
 def _tb(batch):
     return {k: torch.from_numpy(np.array(v)) for k, v in batch.items()}
-
-
-def _assert_grads(jgrads, tgrads, head: str):
-    """Every leaf within 1e-4 of its largest magnitude; the output
-    weight's leaf (``head``) within one bf16 step per element."""
-    flat, _ = jax.tree_util.tree_flatten_with_path(jgrads)
-    tleaves = tree_leaves(tgrads)
-    assert len(flat) == len(tleaves)
-    for (path, a), t in zip(flat, tleaves):
-        name = "/".join(str(p.key) for p in path)
-        a, t = np.asarray(a), t.numpy()
-        assert a.shape == t.shape, name
-        big = np.abs(a).max()
-        lim = 1e-4 * big + (2.0 ** -7 * np.abs(a) if name == head else 0)
-        err = np.abs(a - t)
-        assert (err <= lim).all(), (name, err.max(), big)
 
 
 # ---------------------------------------------------------------------------
@@ -263,7 +248,7 @@ def test_count_and_abstract_params_match_jax():
 
 def _loss_and_grads_vs_jax(arch, head, *, remat=True):
     """``lm_loss`` and its gradients at ``_setup(arch)``'s params and
-    ``_batch``: loss rtol 1e-5 and ``_assert_grads``.  Returns the
+    ``_batch``: loss rtol 1e-5 and ``assert_grads``.  Returns the
     port's ``(loss, grads)``."""
     cfg, tcfg, jp, tp = _setup(arch)
     assert cfg.tie_embeddings == (head == "embed")
@@ -279,7 +264,7 @@ def _loss_and_grads_vs_jax(arch, head, *, remat=True):
     np.testing.assert_allclose(float(tm["xent"]), float(jm["xent"]),
                                rtol=1e-5)
     assert float(tm["aux_loss"]) == float(jm["aux_loss"]) == 0.0
-    _assert_grads(jg, tg, head)
+    assert_grads(jg, tg, head)
     return tl, tg
 
 
