@@ -399,7 +399,9 @@ Phases, each printed as it runs:
    xent, aux loss and grad norm, the dropped (token, expert) pairs of
    each MoE layer at the first and last step, AdamW's time), each with
    falling losses, 0 launches, a profiled steady step and the peak
-   memory; three train steps of each reduced f32 config of
+   memory; qwen3-1.7b's step time and peak memory under
+   ``remat_policy="nothing"`` and ``"dots"`` (losses bit-equal); three
+   train steps of each reduced f32 config of
    ``TRAIN_VS_CPU`` (the three MoE configs at capacity factor 0.5, so
    that pairs drop) on the card and on the CPU from the same params and
    batches, held to the CPU parity tests' tolerances; a checkpoint
@@ -408,7 +410,21 @@ Phases, each printed as it runs:
    resumed losses and final params, mu, nu and count against an
    uninterrupted run, and a ``save_async`` whose restored tensors equal
    the saved ones bit for bit);
-18. hpc — the fp8 GEMM kernel (K6) against its plain version, held to
+18. dist — the train step over a mesh at world size 1 (one card: NCCL
+   refuses two ranks on one GPU): a NCCL process group on a
+   ``FileStore`` of the phase's own, the (1, 1, 1) pod × data × model
+   mesh, qwen3-1.7b at full width with phase train's batch (8 × 1024)
+   and ``train()``'s options: 3 ``"auto"`` steps of
+   ``build_cell(mesh=)`` bit-equal to 3 meshless steps from the same
+   state (losses, grad norms, every param leaf); 3 ``"compressed"``
+   steps, each step's synced leaves bit-equal to the plain int8
+   quantize-dequantize of ``g + ef`` and the new ``ef`` to ``g + ef -
+   deq``; at full width cut to 2 layers, a checkpoint saved from the
+   mesh run after 2 steps and restored into a meshless state, whose
+   step 3 loss equals the uninterrupted one bit for bit; the step time
+   (CUDA events) and peak memory of the meshless, ``"auto"`` and
+   ``"compressed"`` steps, 0 launches; the group destroyed at the end;
+19. hpc — the fp8 GEMM kernel (K6) against its plain version, held to
    ``fp8_matmul.error_bound`` (f32 sums plus the tensor-core term of sums
    promoted every 128 products), through ``ops.fp8_matmul`` (aligned,
    ragged, bm/bn != 128) and through the per-tensor call at the n = 256,
@@ -426,13 +442,13 @@ Phases, each printed as it runs:
    kernel and with the plain version (first trailing update and refined
    solutions held); HPCG at 256³ (50 iterations, the true residual
    recomputed) and at 48³ (90 iterations, converged);
-19. cli — ``python -m repro_torch.launch.serve`` as phases 7-15 queued it
+20. cli — ``python -m repro_torch.launch.serve`` as phases 7-15 queued it
    (``--fleet``; ``--arch <arch>`` on both engines for qwen2-moe-a2.7b,
    gemma3-12b and grok-1-314b; for mamba2-130m, whisper-base,
    phi-3-vision-4.2b and jamba-v0.1-52b ``--engine batch`` and
    ``--engine paged``, which must exit with the paged engine's refusal),
    six processes at a time, each checked as its phase asked;
-20. summary — one JSON line listing the kernels, the card's name and power
+21. summary — one JSON line listing the kernels, the card's name and power
     limit, and as the last line ``{"ok": true, "device": {...}}``.
 
 Any failure raises: the script exits non-zero and prints no ``ok`` line.
@@ -6531,16 +6547,26 @@ def _train_family(arch: str, batch: int, seq: int, steps: int, lr: float,
 
 def _train_families() -> None:
     """``_train_family`` for each of ``FAMILY_TRAIN`` and then
-    ``MOE_TRAIN``, the card's memory freed between them."""
+    ``MOE_TRAIN``, the card's memory freed between them, on expandable
+    allocator segments: phi-3-vision-4.2b's state (61.8 GiB, leaves of 3
+    GiB) peaks at 67.06 GiB of the card's 79.18, and with fixed segments
+    its AdamW once found 12.76 GiB reserved but in pieces too small for
+    a 3 GiB temporary (PERF.md §6)."""
     moe_arch, *moe_run, layers = MOE_TRAIN
     runs = [(arch, run, {}) for arch, *run in FAMILY_TRAIN]
     runs.append((moe_arch, moe_run, {"num_layers": layers}))
-    for arch, run, cut in runs:
-        t0 = time.perf_counter()
-        _train_family(arch, *run, **cut)
-        gc.collect()
-        torch.cuda.empty_cache()
-        log("train", f"{arch}: {time.perf_counter() - t0:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.memory._set_allocator_settings("expandable_segments:True")
+    try:
+        for arch, run, cut in runs:
+            t0 = time.perf_counter()
+            _train_family(arch, *run, **cut)
+            gc.collect()
+            torch.cuda.empty_cache()
+            log("train", f"{arch}: {time.perf_counter() - t0:.1f} s")
+    finally:
+        torch.cuda.memory._set_allocator_settings("expandable_segments:False")
 
 
 def _train_card_vs_cpu() -> None:
@@ -6718,6 +6744,9 @@ def phase_train() -> None:
     t1 = time.perf_counter()
     _train_families()
     t2 = time.perf_counter()
+    _train_remat_policies()
+    gc.collect()
+    torch.cuda.empty_cache()
     _train_card_vs_cpu()
     _train_restart()
     gc.collect()
@@ -6725,6 +6754,276 @@ def phase_train() -> None:
     log("train", f"phase times: qwen3-1.7b full width {t1 - t0:.1f} s, "
         f"the families at full width {t2 - t1:.1f} s, reduced checks "
         f"{time.perf_counter() - t2:.1f} s")
+
+
+def _step_timed(fn, steps: int):
+    """``steps`` calls of ``fn()``, each timed by CUDA events; returns the
+    results and the median ms."""
+    out, times = [], []
+    for _ in range(steps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out.append(fn())
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return out, statistics.median(times)
+
+
+def _train_remat_policies() -> None:
+    """qwen3-1.7b at full width with ``remat_policy="nothing"`` and
+    ``"dots"`` (the matmul outputs kept): the step time (CUDA events,
+    median of 3 after one warm-up) and the peak memory of each, the two
+    steps' losses bit-equal."""
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.launch.steps import build_cell
+    from repro_torch.launch.train import make_train_state
+    from repro_torch.models import model as M
+    cfg = get_config(ARCH)
+    batch = TokenPipeline(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH,
+                          device="cuda").get_batch(0)
+    res = {}
+    for policy in ("nothing", "dots"):
+        opts = M.RunOptions(q_chunk=min(TRAIN_SEQ, 512),
+                            xent_chunk=min(TRAIN_SEQ, 512),
+                            remat_policy=policy)
+        cell = build_cell(cfg, ShapeConfig("custom", TRAIN_SEQ, TRAIN_BATCH,
+                                           "train"), opts,
+                          lr_peak=TRAIN_LR, total_steps=10 * TRAIN_STEPS)
+        params, opt = make_train_state(
+            cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+        torch.cuda.reset_peak_memory_stats()
+        first = cell.fn(params, opt, batch)[2]["loss"]
+        losses, ms = _step_timed(
+            lambda: cell.fn(params, opt, batch)[2]["loss"], 3)
+        res[policy] = (torch.stack([first, *losses]), ms,
+                       torch.cuda.max_memory_allocated() / 2 ** 30)
+        del params, opt, cell
+        gc.collect()
+        torch.cuda.empty_cache()
+    (ln, tn, pn), (ld, td, pd) = res["nothing"], res["dots"]
+    if not _bits_equal(ln, ld):
+        raise AssertionError(f"remat 'dots' losses {ld.tolist()} against "
+                             f"'nothing' {ln.tolist()}")
+    log("train", f"remat policy at full width (batch {TRAIN_BATCH} x seq "
+        f"{TRAIN_SEQ}, one batch, CUDA events, median of 3 steps after "
+        f"one, from the same state): 'nothing' {tn:.1f} ms, peak {pn:.2f} GiB; 'dots' "
+        f"{td:.1f} ms, peak {pd:.2f} GiB ({td / tn:.3f}x the time, "
+        f"{pd - pn:+.2f} GiB); losses bit-equal; {smi_line()}")
+
+
+# phase dist: the train step over a mesh at world size 1, full width
+# (the sharded step against the meshless one) and, for the checkpoint
+# round trip, qwen3-1.7b at full width cut to DIST_ELASTIC_LAYERS of its 28
+# layers (its f32 state 4.9 GB, written and read back; the whole model's
+# would be 27.6 GB)
+DIST_STEPS, DIST_ELASTIC_LAYERS = 3, 2
+
+
+def _dist_run(cell, params, opt, batch, steps: int = DIST_STEPS) -> tuple:
+    """``steps`` steps of ``cell.fn`` on one batch: the stacked (loss,
+    grad norm) per step, the median step ms (CUDA events) and the peak
+    GiB allocated."""
+    torch.cuda.reset_peak_memory_stats()
+    rows, ms = _step_timed(lambda: torch.stack([
+        (m := cell.fn(params, opt, batch)[2])["loss"],
+        m["grad_norm"]]), steps)
+    return (torch.stack(rows), ms,
+            torch.cuda.max_memory_allocated() / 2 ** 30)
+
+
+def _dist_compressed(cfg, mesh, make_cell, batch) -> tuple:
+    """``DIST_STEPS`` compressed steps; before each, ``cell.grads`` with
+    the in-pod gradient ``g`` kept, and every leaf's synced gradient
+    held bit for bit to the plain int8 quantize-dequantize of ``g + ef``
+    (one pod, one scale per tensor) and the new ``ef`` to ``g + ef -
+    deq``.  Returns the (loss, grad norm) rows, the median step ms, the
+    largest of the steps' peaks (GiB allocated during ``cell.fn``, the
+    checks' copies freed) and the leaves checked."""
+    from repro_torch.launch.train import make_train_state
+    from repro_torch.tree import tree_leaves
+    cell = make_cell("compressed")
+    params, opt = cell.shard_state(*make_train_state(
+        cfg, torch.Generator(device="cuda").manual_seed(0), "cuda"))
+    rows, times, peaks, leaves = [], [], [], 0
+    for step in range(DIST_STEPS):
+        _, _, extra = cell.grads(params, opt, batch, keep=True)
+        for g, e, got, new in zip(*(tree_leaves(t) for t in (
+                extra["grad"], opt["ef"], extra["synced"], extra["ef"]))):
+            x = g.float() / 1 + e
+            scale = (torch.max(torch.abs(x)) + 1e-12) / 127.0
+            q = torch.clamp(torch.round(x / scale), -127, 127).to(torch.int8)
+            deq = q.float() * scale
+            if not (_bits_equal(got, deq.to(g.dtype))
+                    and _bits_equal(new, x - deq)):
+                raise AssertionError(f"compressed step {step}: a synced "
+                                     "leaf or its error feedback is not the "
+                                     "plain int8 composition")
+            leaves += 1
+        del extra, g, e, got, new, x, q, deq
+        torch.cuda.reset_peak_memory_stats()
+        (row,), ms = _step_timed(lambda: torch.stack([
+            (m := cell.fn(params, opt, batch)[2])["loss"],
+            m["grad_norm"]]), 1)
+        peaks.append(torch.cuda.max_memory_allocated() / 2 ** 30)
+        rows.append(row)
+        times.append(ms)
+    return torch.stack(rows), statistics.median(times), max(peaks), leaves
+
+
+def _dist_elastic(mesh, opts, tmp: str) -> float:
+    """At full width cut to ``DIST_ELASTIC_LAYERS`` layers: a mesh run
+    saves its state after 2 steps (gathered, rank 0 writes), the state
+    is restored into a meshless state and takes step 3, whose loss must
+    equal the uninterrupted mesh run's step 3 bit for bit.  Returns the
+    save + restore seconds."""
+    import dataclasses
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.launch.steps import build_cell
+    from repro_torch.launch.train import make_train_state
+    cfg = dataclasses.replace(get_config(ARCH),
+                              num_layers=DIST_ELASTIC_LAYERS)
+    shape = ShapeConfig("custom", TRAIN_SEQ, TRAIN_BATCH, "train")
+    kw = dict(lr_peak=TRAIN_LR, total_steps=10 * TRAIN_STEPS)
+    pipe = TokenPipeline(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH,
+                         device="cuda")
+
+    def state():
+        return make_train_state(
+            cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    cell = build_cell(cfg, shape, opts, mesh=mesh, **kw)
+    params, opt = cell.shard_state(*state())
+    losses = []
+    mgr = CheckpointManager(os.path.join(tmp, "elastic"))
+    for step in range(3):
+        losses.append(cell.fn(params, opt, pipe.get_batch(step))[2]["loss"])
+        if step == 1:
+            t0 = time.perf_counter()
+            mgr.save(2, {"params": params, "opt": opt},
+                     shardings=cell.state_shardings())
+            save_s = time.perf_counter() - t0
+    del params, opt
+    like = dict(zip(("params", "opt"), state()))
+    t0 = time.perf_counter()
+    step, restored = mgr.restore(like)
+    load_s = time.perf_counter() - t0
+    mgr.close()
+    one = build_cell(cfg, shape, opts, **kw)
+    loss = one.fn(restored["params"], restored["opt"],
+                  pipe.get_batch(step))[2]["loss"]
+    if step != 2 or not _bits_equal(loss, losses[2]):
+        raise AssertionError(f"elastic restore at step {step}: loss "
+                             f"{float(loss)!r} against the uninterrupted "
+                             f"{float(losses[2])!r}")
+    log("dist", f"elastic restore (qwen3-1.7b full width, "
+        f"{DIST_ELASTIC_LAYERS} of 28 layers): saved from the mesh run "
+        f"after 2 steps ({save_s:.2f} s), restored into a meshless state "
+        f"({load_s:.2f} s); step 3 loss {float(loss):.6f} bit-equal to the "
+        f"uninterrupted step 3; {smi_line()}")
+    return save_s + load_s
+
+
+def phase_dist() -> None:
+    """The train step over a mesh on the card, world size 1: a NCCL
+    process group on a store of its own, the (1, 1, 1) pod × data × model
+    mesh, qwen3-1.7b at full width with phase train's batch and
+    ``train()``'s options; 3 ``"auto"`` steps of ``build_cell(mesh=)``
+    bit-equal to 3 meshless steps from the same state (losses, grad
+    norms, every param leaf); 3 ``"compressed"`` steps, each step's sync
+    held bit for bit to the plain int8 composition; an elastic restore
+    (``_dist_elastic``); the step times and peaks of the three paths,
+    and no kernel launched.  Every collective is a copy at world size 1:
+    the times show what the sync path costs on the card."""
+    import tempfile
+    import torch.distributed as dist
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.steps import build_cell
+    from repro_torch.launch.train import make_train_state
+    from repro_torch.models import model as M
+    from repro_torch.tree import tree_leaves
+    t0 = time.perf_counter()
+    cfg = get_config(ARCH)
+    shape = ShapeConfig("custom", TRAIN_SEQ, TRAIN_BATCH, "train")
+    kw = dict(lr_peak=TRAIN_LR, total_steps=10 * TRAIN_STEPS)
+    batch = TokenPipeline(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH,
+                          device="cuda").get_batch(0)
+
+    def opts(sync: str = "auto"):
+        return M.RunOptions(q_chunk=min(TRAIN_SEQ, 512),
+                            xent_chunk=min(TRAIN_SEQ, 512), grad_sync=sync)
+
+    def state():
+        return make_train_state(
+            cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    ops.reset_launches()
+    plain = build_cell(cfg, shape, opts(), **kw)
+    params, opt = state()
+    m_plain, ms_plain, peak_plain = _dist_run(plain, params, opt, batch)
+    want = tree_leaves(params)
+    del opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group(
+            "nccl", store=dist.FileStore(os.path.join(tmp, "store"), 1),
+            rank=0, world_size=1)
+        try:
+            assert dist.get_backend() == "nccl"
+            mesh = make_mesh((1, 1, 1), ("pod", "data", "model"))
+
+            def make_cell(sync):
+                return build_cell(cfg, shape, opts(sync), mesh=mesh, **kw)
+            cell = make_cell("auto")
+            params, opt = cell.shard_state(*state())
+            gc.collect()
+            torch.cuda.empty_cache()
+            m_auto, ms_auto, peak_auto = _dist_run(cell, params, opt, batch)
+            bad = [i for i, (a, b) in enumerate(zip(tree_leaves(params),
+                                                    want))
+                   if not _bits_equal(a, b)]
+            if not _bits_equal(m_auto, m_plain) or bad:
+                raise AssertionError(
+                    f"mesh 'auto' steps against meshless: (loss, grad "
+                    f"norm) {m_auto.tolist()} vs {m_plain.tolist()}, "
+                    f"{len(bad)} param leaves differ")
+            del params, opt, want
+            gc.collect()
+            torch.cuda.empty_cache()
+            m_comp, ms_comp, peak_comp, n_leaves = _dist_compressed(
+                cfg, mesh, make_cell, batch)
+            gc.collect()
+            torch.cuda.empty_cache()
+            io_s = _dist_elastic(mesh, opts(), tmp)
+        finally:
+            dist.destroy_process_group()
+    launched = {k: n for k, n in ops.launches.items() if n}
+    if launched:
+        raise AssertionError(f"kernels launched by the train steps: "
+                             f"{launched}")
+    fmt = lambda m: ", ".join(f"{a:.6f}/{b:.4f}"  # noqa: E731
+                              for a, b in m.tolist())
+    log("dist", f"NCCL world size 1, mesh (1, 1, 1) pod x data x model; "
+        f"qwen3-1.7b full width, batch {TRAIN_BATCH} x seq {TRAIN_SEQ}, "
+        f"{DIST_STEPS} steps from one state on one batch; (loss/grad "
+        f"norm) meshless {fmt(m_plain)}; 'auto' bit-equal (losses, grad "
+        f"norms, all {len(tree_leaves(M.param_specs(cfg)))} param leaves); "
+        f"'compressed' {fmt(m_comp)} ({n_leaves} leaf syncs bit-equal to "
+        f"the plain int8 composition, error feedback exact); {smi_line()}")
+    log("dist", f"step time (CUDA events, median of {DIST_STEPS}) and peak "
+        f"allocated: meshless {ms_plain:.1f} ms, {peak_plain:.2f} GiB; "
+        f"'auto' {ms_auto:.1f} ms ({ms_auto / ms_plain:.3f}x), "
+        f"{peak_auto:.2f} GiB; 'compressed' {ms_comp:.1f} ms "
+        f"({ms_comp / ms_plain:.3f}x), {peak_comp:.2f} GiB; kernel "
+        f"launches 0; {smi_line()}")
+    log("dist", f"phase time {time.perf_counter() - t0:.1f} s (checkpoint "
+        f"write + read {io_s:.1f} s); {smi_line()}")
 
 
 def check_fp8(name: str, got: torch.Tensor, want: torch.Tensor, a_q, b_q,
@@ -7203,6 +7502,11 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     phase_train()
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_dist()
+    gc.collect()
+    torch.cuda.empty_cache()
     hpc_results, hpc_counts = phase_hpc()
     results.update(hpc_results)
     counts["hplmxp_fp8"] = hpc_counts["fp8"]

@@ -18,6 +18,14 @@ mixer/wq``, keys sorted as ``jax.tree_util.tree_flatten_with_path`` sorts
 them) and carry numpy's dtype name.  A bfloat16 leaf is written and read
 as its 16-bit patterns under the label ``"bfloat16"`` (the reference's
 ``ml_dtypes`` name), so the port needs no ``ml_dtypes``.
+
+Sharded trees (a train step over a mesh, ``launch.steps.Cell``) pass
+their placement as ``shardings``, a tree like the state whose leaves are
+``parallel.fsdp.Split``s (None for a whole leaf): ``save`` gathers each
+split leaf on every rank and global rank 0 writes the same manifest and
+files as a single device; ``restore`` reads the whole leaf and keeps
+this rank's slice.  So a checkpoint saved on 4 ranks restores onto 1
+and the reverse (elastic restore, the reference's recovery contract).
 """
 from __future__ import annotations
 
@@ -30,8 +38,10 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
-from repro_torch.tree import tree_flatten_with_paths, tree_unflatten
+from repro_torch.tree import (tree_flatten_with_paths, tree_leaves,
+                              tree_unflatten)
 
 MANIFEST = "MANIFEST.json"
 BF16 = "bfloat16"
@@ -105,19 +115,39 @@ class CheckpointManager:
         return final
 
     @staticmethod
-    def _host_leaves(tree):
-        return [(name, *_to_host(t))
-                for name, t in tree_flatten_with_paths(tree)]
+    def _host_leaves(tree, shardings=None):
+        """Host copies of the whole leaves; with ``shardings``, None on
+        every rank but global rank 0, which writes (every rank gathers)."""
+        items = tree_flatten_with_paths(tree)
+        if shardings is None:
+            return [(name, *_to_host(t)) for name, t in items]
+        splits = _split_leaves(shardings, len(items))
+        whole = [(name, t if s is None else s.gather(t))
+                 for (name, t), s in zip(items, splits)]
+        if dist.get_rank() != 0:
+            return None
+        return [(name, *_to_host(t)) for name, t in whole]
 
-    def save(self, step: int, tree, *, extra: Optional[Dict] = None) -> str:
-        """Blocking save. Returns the committed directory."""
-        return self._commit(step, self._host_leaves(tree), extra)
+    def save(self, step: int, tree, *, extra: Optional[Dict] = None,
+             shardings=None) -> Optional[str]:
+        """Blocking save. Returns the committed directory (with
+        ``shardings``: on rank 0, and every rank returns once it is
+        committed; None on the others)."""
+        host = self._host_leaves(tree, shardings)
+        out = None if host is None else self._commit(step, host, extra)
+        if shardings is not None:
+            dist.barrier()
+        return out
 
-    def save_async(self, step: int, tree, *,
-                   extra: Optional[Dict] = None) -> Future:
-        """Non-blocking save: the device -> host copy happens before
-        returning, so training can update the tensors in place at once."""
-        host = self._host_leaves(tree)
+    def save_async(self, step: int, tree, *, extra: Optional[Dict] = None,
+                   shardings=None) -> Optional[Future]:
+        """Non-blocking save: the device -> host copy (with ``shardings``,
+        the gathers) happens before returning, so training can update the
+        tensors in place at once.  With ``shardings`` only rank 0 writes;
+        the others get None."""
+        host = self._host_leaves(tree, shardings)
+        if host is None:
+            return None
         with self._lock:
             self.wait()
             self._pending = self._writer.submit(self._commit, step, host,
@@ -152,11 +182,13 @@ class CheckpointManager:
         return s[-1] if s else None
 
     def restore(self, tree_like, step: Optional[int] = None, *,
-                device=None) -> Tuple[int, Any]:
+                shardings=None, device=None) -> Tuple[int, Any]:
         """Restore the leaves named by ``tree_like``'s paths from ``step``
         (default: the latest), with the dtypes and shapes the manifest
-        records.  Each leaf goes to ``device``, or, when that is None, to
-        the device of its counterpart in ``tree_like``."""
+        records; with ``shardings`` (see the module's docstring) each
+        split leaf's slice for this rank.  Each leaf goes to ``device``,
+        or, when that is None, to the device of its counterpart in
+        ``tree_like``."""
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoints under {self.root}")
@@ -166,14 +198,19 @@ class CheckpointManager:
         by_name = {r["name"]: r for r in manifest["leaves"]}
 
         def load(item) -> torch.Tensor:
-            name, ref = item
+            (name, ref), split = item
             rec = by_name[name]
             data = b"".join(_read(os.path.join(cdir, f))
                             for f in rec["files"])
             t = _from_host(data, rec["dtype"], rec["shape"])
+            if split is not None:
+                t = split.slice(t)
             return t.to(ref.device if device is None else device)
 
-        leaves = self._pool.map(load, tree_flatten_with_paths(tree_like))
+        items = tree_flatten_with_paths(tree_like)
+        splits = (_split_leaves(shardings, len(items)) if shardings
+                  is not None else [None] * len(items))
+        leaves = self._pool.map(load, zip(items, splits))
         return step, tree_unflatten(tree_like, leaves)
 
     # -- gc -----------------------------------------------------------------
@@ -183,6 +220,14 @@ class CheckpointManager:
         for s in steps[:-self.keep]:
             shutil.rmtree(os.path.join(self.root, f"step_{s}"),
                           ignore_errors=True)
+
+
+def _split_leaves(shardings, n: int) -> list:
+    """The leaves of a shardings tree (Splits or None) in leaf order."""
+    out = tree_leaves(shardings)
+    if len(out) != n:
+        raise ValueError(f"shardings hold {len(out)} leaves, the tree {n}")
+    return out
 
 
 def _read(path: str) -> bytes:

@@ -1,12 +1,12 @@
 """Deterministic synthetic token pipeline (counterpart of
-``repro.data.pipeline``), on one device.
+``repro.data.pipeline``), shard-aware and restart-safe.
 
 Tokens are keyed by (step, row) through numpy's Philox, so a restarted
 job resumes the exact stream and the port's batches are bit-equal to the
-reference's for the same step.  The reference's sharded branch (each host
-builds only its slice through ``jax.make_array_from_callback``) belongs
-to the parallelism slice; here the whole batch is built on the host and
-copied to the device.
+reference's for the same step.  Over a mesh each rank builds only its
+rows of the global batch (the reference's ``make_array_from_callback``
+branch builds each host's slice the same way), so the ranks' batches
+concatenated are the global batch, bit for bit.
 """
 from __future__ import annotations
 
@@ -14,6 +14,8 @@ from typing import Dict
 
 import numpy as np
 import torch
+
+from repro_torch.parallel.fsdp import local_rows
 
 
 def _tokens_for_slice(step: int, lo: int, hi: int, seq: int, vocab: int,
@@ -42,21 +44,30 @@ def _tokens_for_slice(step: int, lo: int, hi: int, seq: int, vocab: int,
 
 
 class TokenPipeline:
-    """``get_batch(step)`` -> ``{"tokens", "labels"}``: (batch, seq) int32
-    tensors on ``device``, the labels the tokens shifted by one."""
+    """``get_batch(step)`` -> ``{"tokens", "labels"}``: (rows, seq) int32
+    tensors on ``device``, the labels the tokens shifted by one; the rows
+    the whole global batch, or over ``mesh`` this rank's rows of it by
+    ``batch_spec`` (a spec whose first entry names the mesh axes the
+    batch is split over, ``parallel.sharding.batch_spec``)."""
 
     def __init__(self, vocab_size: int, seq_len: int, global_batch: int, *,
-                 device):
+                 device, mesh=None, batch_spec=()):
         self.vocab = vocab_size
         self.seq = seq_len
         self.batch = global_batch
         self.device = torch.device(device)
-
-    def _global(self, step: int) -> np.ndarray:
-        return _tokens_for_slice(step, 0, self.batch, self.seq, self.vocab)
+        self.mesh = mesh
+        self.spec = tuple(batch_spec)
+        self.rows = (0, global_batch)
+        if mesh is not None and self.spec and self.spec[0] is not None:
+            axes = self.spec[0]
+            self.rows = local_rows(mesh, (axes,) if isinstance(axes, str)
+                                   else axes, global_batch)
 
     def get_batch(self, step: int) -> Dict[str, torch.Tensor]:
-        arr = torch.from_numpy(self._global(step).astype(np.int32))
+        lo, hi = self.rows
+        arr = torch.from_numpy(_tokens_for_slice(
+            step, lo, hi, self.seq, self.vocab).astype(np.int32))
         cuda = self.device.type == "cuda"
         if cuda:
             arr = arr.pin_memory()      # the copy below then needs no sync

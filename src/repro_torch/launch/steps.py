@@ -1,5 +1,6 @@
 """The train step of the port (counterpart of the ``shape.kind ==
-"train"`` branch of ``repro.launch.steps.build_cell``), on one device.
+"train"`` branch of ``repro.launch.steps.build_cell``), on one device or
+over a mesh of ranks.
 
 ``build_cell(cfg, shape, opts)`` returns a :class:`Cell` whose ``fn(params,
 opt_state, batch)`` takes one AdamW step on ``models.model.lm_loss`` (the
@@ -8,32 +9,110 @@ of an MoE config), with ``opts.microbatches`` gradient accumulation (the
 loss, ``xent`` and ``aux_loss`` averaged over the microbatches, as the
 reference's scan does) and the lr from ``wsd_schedule`` at the
 optimizer's count.  Its metrics carry the reference's keys: ``xent``,
-``aux_loss``, AdamW's ``grad_norm``, ``loss`` and ``lr``.  Where the reference's jitted step donates params and optimizer
-state and returns new ones, the port updates them in place and returns
-them.  Serving needs no cell: it calls ``models.model`` directly.
+``aux_loss``, AdamW's ``grad_norm``, ``loss`` and ``lr``.  Where the
+reference's jitted step donates params and optimizer state and returns
+new ones, the port updates them in place and returns them.  Serving
+needs no cell: it calls ``models.model`` directly.
+
+``build_cell(..., mesh=mesh)`` is the data-parallel step over a
+``launch.mesh.Mesh`` with ``"data"`` (and ``"pod"``) axes, the model
+axis at 1: the params, the AdamW moments (and the error feedback) are
+sharded over "data" by the rules (``parallel.fsdp``); each rank takes
+its rows of the global batch (``Cell.rows``; ``fn`` takes those rows)
+and the loss is their mean.  Two gradient syncs, by
+``opts.grad_sync``:
+
+- ``"auto"``: the gathers' backward reduce-scatters the gradients over
+  "data", an all-reduce over "pod" sums the shards across pods, and the
+  sum is divided by the data-parallel size: the hierarchical schedule
+  of ``core.collectives.hierarchical_psum`` with the shard kept for the
+  optimizer.  AdamW runs on the shards.
+- ``"compressed"`` (a mesh with "pod"): the reference's rail-optimized
+  step.  The in-pod mean of each leaf is divided by the number of pods,
+  the error feedback ``ef`` added, and the sum quantized to int8 with
+  one scale per whole tensor; the int8 payloads and scales cross the
+  pods (an all-gather) and are dequantized and summed; the new ``ef`` is
+  what quantization left out.  The token embedding is gathered outside
+  the synced gradient (``tok_embeds``) and its input-path gradient is
+  summed exactly and added to the embedding's.  Loss and metrics are
+  averaged over the pods.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Optional
+import math
+from typing import Any, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs.base import ModelConfig, ShapeConfig
+from repro_torch.core.collectives import all_gather, int8_compress
 from repro_torch.models import model as M
 from repro_torch.optim.adamw import AdamWConfig, adamw_update
 from repro_torch.optim.schedules import wsd_schedule
+from repro_torch.parallel.fsdp import Fsdp, local_rows
+from repro_torch.parallel.sharding import (DEFAULT_RULES, LogicalRules,
+                                           activation_rules, rules_for_mesh)
 from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 
 
 @dataclasses.dataclass(frozen=True)
 class Cell:
     """One (arch × shape) train step: ``fn(params, opt_state, batch) ->
-    (params, opt_state, metrics)``."""
+    (params, opt_state, metrics)``.  On a mesh also: ``rules``; ``fsdp``,
+    the params' placement; ``rows``, this rank's rows ``(lo, hi)`` of the
+    global batch; ``grads(params, opt_state, batch, keep=False)``, the
+    step's loss and synced gradients before AdamW (``fn`` is ``grads``
+    then AdamW)."""
     name: str
     fn: Any
     cfg: ModelConfig
     shape: ShapeConfig
+    mesh: Any = None
+    rules: Optional[LogicalRules] = None
+    fsdp: Optional[Fsdp] = None
+    rows: Optional[Tuple[int, int]] = None
+    grads: Any = None
+    compressed: bool = False
+
+    def shard_state(self, params, opt_state):
+        """This rank's slices of a whole params tree and AdamW state
+        (``optim.adamw.init_opt_state``), and, for the compressed sync,
+        a zero error feedback ``ef`` (f32) sharded like the params."""
+        opt = {"mu": self.fsdp.shard(opt_state["mu"]),
+               "nu": self.fsdp.shard(opt_state["nu"]),
+               "count": opt_state["count"].clone()}
+        params = self.fsdp.shard(params)
+        if self.compressed:
+            opt["ef"] = tree_map(
+                lambda p: torch.zeros_like(p, dtype=torch.float32), params)
+        return params, opt
+
+    def state_shardings(self):
+        """The placement of ``{"params", "opt"}`` for
+        ``CheckpointManager.save``/``restore``."""
+        splits = self.fsdp.splits()
+        opt = {"mu": splits, "nu": splits, "count": None}
+        if self.compressed:
+            opt["ef"] = splits
+        return {"params": splits, "opt": opt}
+
+
+def _grads(params, cfg: ModelConfig, batch, opts: M.RunOptions, *,
+           shard=None, wrt=()):
+    """``((loss, metrics), grads, wrt_grads)`` of ``lm_loss`` at
+    ``params`` (sharded by ``shard`` where given), and the gradients of
+    the extra inputs ``wrt`` (name -> tensor, added to the batch)."""
+    leaves = tree_map(lambda p: p.detach().requires_grad_(True), params)
+    extra = {k: v.detach().requires_grad_(True) for k, v in wrt}
+    loss, metrics = M.lm_loss(leaves, cfg, {**batch, **extra}, opts,
+                              shard=shard)
+    inputs = tree_leaves(leaves) + list(extra.values())
+    gs = torch.autograd.grad(loss, inputs, materialize_grads=True)
+    n = len(inputs) - len(extra)
+    return ((loss.detach(), {k: v.detach() for k, v in metrics.items()}),
+            tree_unflatten(leaves, gs[:n]), list(gs[n:]))
 
 
 def value_and_grad(params, cfg: ModelConfig, batch, opts: M.RunOptions):
@@ -41,55 +120,205 @@ def value_and_grad(params, cfg: ModelConfig, batch, opts: M.RunOptions):
     grads a tree like ``params``, everything detached; a leaf the loss
     does not read (a vision model's ``frontend_proj`` on a batch without
     ``patches``) gets zeros, as ``jax.grad`` gives it."""
-    leaves = tree_map(lambda p: p.detach().requires_grad_(True), params)
-    loss, metrics = M.lm_loss(leaves, cfg, batch, opts)
-    grads = tree_unflatten(leaves, torch.autograd.grad(
-        loss, tree_leaves(leaves), materialize_grads=True))
-    return ((loss.detach(), {k: v.detach() for k, v in metrics.items()}),
-            grads)
+    out, grads, _ = _grads(params, cfg, batch, opts)
+    return out, grads
+
+
+def _accumulated(params, cfg, batch, opts, k: int, rows: int, shard=None):
+    """Loss and grads, accumulated over ``k`` microbatches when the
+    ``rows`` rows divide: grads and metrics summed ``/k``, the loss
+    too."""
+    if k <= 1 or rows % k != 0:
+        out, grads, _ = _grads(params, cfg, batch, opts, shard=shard)
+        return out, grads
+    mb = rows // k
+    acc_g = tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32),
+                     params)
+    zero = lambda: torch.zeros((), dtype=torch.float32,  # noqa: E731
+                               device=batch["tokens"].device)
+    acc_l, acc_m = zero(), {"xent": zero(), "aux_loss": zero()}
+    for j in range(k):
+        mbatch = {key: v[j * mb:(j + 1) * mb] for key, v in batch.items()}
+        (loss, metrics), grads, _ = _grads(params, cfg, mbatch, opts,
+                                           shard=shard)
+        for a, g in zip(tree_leaves(acc_g), tree_leaves(grads)):
+            a.add_(g / k)
+        acc_l = acc_l + loss / k
+        acc_m = {key: acc_m[key] + v / k for key, v in metrics.items()}
+    return (acc_l, acc_m), acc_g
 
 
 def build_cell(cfg: ModelConfig, shape: ShapeConfig,
-               opts: Optional[M.RunOptions] = None, *,
+               opts: Optional[M.RunOptions] = None, *, mesh=None,
+               base_rules: Optional[LogicalRules] = None,
                lr_peak: float = 3e-4, total_steps: int = 10_000,
                adamw: AdamWConfig = AdamWConfig()) -> Cell:
-    """The train step of ``cfg`` at ``shape`` (``kind == "train"``).
+    """The train step of ``cfg`` at ``shape`` (``kind == "train"``), on
+    one device, or over ``mesh`` with the rules ``base_rules`` (default
+    ``DEFAULT_RULES``) restricted to it.
 
     Raises:
-      ValueError: a prefill or decode shape (serving calls the model)."""
+      ValueError: a prefill or decode shape (serving calls the model), an
+          unknown ``grad_sync``, or a mesh without "data".
+      NotImplementedError: ``opts.pipeline``, a mesh whose "model" axis
+          is larger than 1, or a batch too small for the data-parallel
+          axes (sequence sharding): ROADMAP.md queue 1 items 6b, 6c."""
     if shape.kind != "train":
         raise ValueError(f"{shape.name}: the port builds train cells only; "
                          "serving runs models.model.prefill/decode_step")
     opts = opts or M.RunOptions()
+    if opts.grad_sync not in ("auto", "compressed"):
+        raise ValueError(f"grad_sync={opts.grad_sync!r}: 'auto' or "
+                         "'compressed'")
+    if opts.pipeline:
+        raise NotImplementedError(
+            "pipeline parallelism over 'pod' is not ported yet: ROADMAP.md "
+            "queue 1 item 6c")
+    schedule = dict(peak=lr_peak, warmup_steps=total_steps // 100,
+                    total_steps=total_steps)
+    if mesh is not None:
+        return _sharded_cell(cfg, shape, opts, mesh, base_rules, schedule,
+                             adamw)
     k = opts.microbatches
 
-    def _value_and_grad_mb(params, batch):
-        """Loss and grads, accumulated over ``k`` microbatches when the
-        batch divides: grads and metrics summed ``/k``, the loss too."""
-        if k <= 1 or shape.global_batch % k != 0:
-            return value_and_grad(params, cfg, batch, opts)
-        mb = shape.global_batch // k
-        acc_g = tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32),
-                         params)
-        zero = lambda: torch.zeros((), dtype=torch.float32,  # noqa: E731
-                                   device=batch["tokens"].device)
-        acc_l, acc_m = zero(), {"xent": zero(), "aux_loss": zero()}
-        for j in range(k):
-            mbatch = {key: v[j * mb:(j + 1) * mb] for key, v in batch.items()}
-            (loss, metrics), grads = value_and_grad(params, cfg, mbatch, opts)
-            for a, g in zip(tree_leaves(acc_g), tree_leaves(grads)):
-                a.add_(g / k)
-            acc_l = acc_l + loss / k
-            acc_m = {key: acc_m[key] + v / k for key, v in metrics.items()}
-        return (acc_l, acc_m), acc_g
-
     def train_step(params, opt_state, batch):
-        (loss, metrics), grads = _value_and_grad_mb(params, batch)
-        lr = wsd_schedule(opt_state["count"], peak=lr_peak,
-                          warmup_steps=total_steps // 100,
-                          total_steps=total_steps)
+        (loss, metrics), grads = _accumulated(params, cfg, batch, opts, k,
+                                              shape.global_batch)
+        lr = wsd_schedule(opt_state["count"], **schedule)
         params, opt_state, om = adamw_update(grads, opt_state, params, lr,
                                              adamw)
         return params, opt_state, {**metrics, **om, "loss": loss, "lr": lr}
 
     return Cell(f"{cfg.name}:{shape.name}", train_step, cfg, shape)
+
+
+def _mean_over(values, groups, size: int):
+    """The mean over ``groups`` of 0-d tensors, each rank's own."""
+    t = torch.stack(values)
+    for g in groups:
+        dist.all_reduce(t, group=g)
+    return (t / size).unbind()
+
+
+def _sharded_cell(cfg, shape, opts, mesh, base_rules, schedule,
+                  adamw) -> Cell:
+    if mesh.shape.get("model", 1) > 1:
+        raise NotImplementedError(
+            f"a 'model' axis of {mesh.shape['model']}: tensor parallelism "
+            "is not ported yet (ROADMAP.md queue 1 item 6b)")
+    if "data" not in mesh.axis_names:
+        raise ValueError(f"{mesh}: the sharded train step needs a 'data' "
+                         "axis")
+    rules = rules_for_mesh(mesh, base_rules or DEFAULT_RULES)
+    rules, seq_sharded = activation_rules(rules, shape.global_batch, mesh)
+    if seq_sharded:
+        raise NotImplementedError(
+            f"a global batch of {shape.global_batch} over {mesh.shape}: "
+            "sequence sharding is not ported yet (ROADMAP.md queue 1 "
+            "item 6b)")
+    b = rules.mesh_axes("batch")
+    batch_axes = (b,) if isinstance(b, str) else tuple(b or ())
+    if "data" not in batch_axes:
+        raise ValueError(f"rules put the batch on {batch_axes}; the "
+                         "sharded train step needs 'data' among them")
+    dp = math.prod(mesh.shape[a] for a in batch_axes)
+    batch_groups = [mesh.group(a) for a in batch_axes]
+    rows = local_rows(mesh, batch_axes, shape.global_batch)
+    pod = mesh.group("pod") if "pod" in batch_axes else None
+    compressed = opts.grad_sync == "compressed" and pod is not None
+    fsdp = Fsdp.for_specs(M.param_specs(cfg), mesh, rules,
+                          mean_axes=("data",) if compressed else batch_axes)
+    sharded = fsdp.sharded()
+    data = mesh.group("data")
+    ndata = mesh.shape["data"]
+    k = opts.microbatches
+    keys = ("loss", "xent", "aux_loss")
+
+    def _averaged(loss, metrics):
+        vals = _mean_over([loss, metrics["xent"], metrics["aux_loss"]],
+                          batch_groups, dp)
+        out = dict(zip(keys, vals))
+        return out.pop("loss"), out
+
+    def grads_auto(params, opt_state, batch, keep=False):
+        (loss, metrics), grads = _accumulated(params, cfg, batch, opts, k,
+                                              rows[1] - rows[0], shard=fsdp)
+        for g, split in zip(tree_leaves(grads), sharded):
+            if not split:                    # a whole leaf's local part
+                dist.all_reduce(g, group=data)
+            if pod is not None:
+                dist.all_reduce(g, group=pod)
+            g.div_(dp)
+        return _averaged(loss, metrics), grads, {}
+
+    npods = mesh.shape["pod"] if pod is not None else 1
+    emb_dim = fsdp.dims["embed"]
+
+    def grads_compressed(params, opt_state, batch, keep=False):
+        tokens = batch["tokens"].long()
+        with torch.no_grad():
+            x_emb = fsdp.full(params["embed"], emb_dim)[tokens]
+        (loss, metrics), gp, (gx,) = _grads(
+            params, cfg, batch, opts, shard=fsdp, wrt=(("tok_embeds",
+                                                        x_emb),))
+        del x_emb
+        raw, synced, new_ef = [], [], []
+        for g, e, split in zip(tree_leaves(gp), tree_leaves(opt_state["ef"]),
+                               sharded):
+            if not split:
+                dist.all_reduce(g, group=data)
+            g = g / ndata                            # the in-pod mean
+            g32 = g.float() / npods + e
+            q, s = int8_compress(g32, group=data if split else None)
+            qs = [q] if npods == 1 else all_gather(q, pod).unbind()
+            ss = [s] if npods == 1 else all_gather(s, pod).unbind()
+            total = qs[0].float() * ss[0]
+            for qp, sp in zip(qs[1:], ss[1:]):
+                total += qp.float() * sp
+            synced.append(total.to(g.dtype))
+            new_ef.append(g32 - q.float() * s)
+            if keep:
+                raw.append(g)
+        # the input-path embedding gradient, summed exactly over all ranks
+        emb = params["embed"]
+        contrib = (gx / ndata / npods).reshape(-1, gx.shape[-1]).to(emb.dtype)
+        emb_in = torch.zeros((emb.shape[0], contrib.shape[-1]),
+                             dtype=emb.dtype, device=emb.device)
+        emb_in.index_put_((tokens.reshape(-1),), contrib, accumulate=True)
+        if emb_dim is None:
+            dist.all_reduce(emb_in, group=data)
+        else:
+            emb_in = fsdp.reduce_scatter(emb_in, emb_dim)
+        if pod is not None:
+            dist.all_reduce(emb_in, group=pod)
+        grads = tree_unflatten(gp, synced)
+        grads["embed"] = grads["embed"] + emb_in
+        extra = {"ef": tree_unflatten(gp, new_ef)}
+        if keep:
+            extra.update(grad=tree_unflatten(gp, raw),
+                         synced=tree_unflatten(gp, synced), emb_in=emb_in)
+        return _averaged(loss, metrics), grads, extra
+
+    grads_fn = grads_compressed if compressed else grads_auto
+
+    def train_step(params, opt_state, batch):
+        n = batch["tokens"].shape[0]
+        if n != rows[1] - rows[0]:
+            raise ValueError(f"a batch of {n} rows; this rank's share of "
+                             f"the global {shape.global_batch} is "
+                             f"{rows[1] - rows[0]} (Cell.rows {rows})")
+        (loss, metrics), grads, extra = grads_fn(params, opt_state, batch)
+        lr = wsd_schedule(opt_state["count"], **schedule)
+        base = {key: opt_state[key] for key in ("mu", "nu", "count")}
+        params, _, om = adamw_update(grads, base, params, lr, adamw,
+                                     sharded=sharded, group=data)
+        if compressed:
+            for e, new in zip(tree_leaves(opt_state["ef"]),
+                              tree_leaves(extra["ef"])):
+                e.copy_(new)
+        return params, opt_state, {**metrics, **om, "loss": loss, "lr": lr}
+
+    return Cell(f"{cfg.name}:{shape.name}", train_step, cfg, shape,
+                mesh=mesh, rules=rules, fsdp=fsdp, rows=rows,
+                grads=grads_fn, compressed=compressed)
+

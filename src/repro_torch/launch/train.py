@@ -23,9 +23,16 @@ card: qwen3-1.7b, minicpm-2b, mamba2-130m, whisper-base and
 phi-3-vision-4.2b (61 GB, the largest) fit an 80 GB card at batch 8;
 llama3-8b (128 GB), gemma3-12b (188 GB) and the MoE configs
 (qwen2-moe-a2.7b 229 GB, jamba-v0.1-52b 823 GB, grok-1-314b 5.1 TB) do
-not: they train reduced, or through ``build_cell(...).fn`` on a config
-cut in depth (qwen2-moe-a2.7b at 4 of its 24 layers: 46.5 GB), until
-the state is sharded.
+not on one card: they train reduced, through ``build_cell(...).fn`` on
+a config cut in depth (qwen2-moe-a2.7b at 4 of its 24 layers: 46.5
+GB), or over ranks.
+
+Under torchrun or Slurm (``runtime.launcher.bootstrap``) ``train()``
+trains over the host mesh, ``(world, 1)`` data × model: params and
+AdamW state sharded over "data" (every rank draws the whole
+initialization and keeps its slice), each rank on its rows of the token
+pipeline, checkpoints gathered to rank 0's files and restored onto any
+number of ranks.  A single process runs as before, on no mesh.
 
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
       --steps 3 --batch 4 --seq 64
@@ -33,6 +40,8 @@ the state is sharded.
       --arch qwen2-moe-a2.7b --steps 3 --batch 2 --seq 32
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-1.7b \\
       --full --steps 12 --batch 8 --seq 1024
+  PYTHONPATH=src torchrun --standalone --nproc_per_node 4 -m repro_torch.launch.train \\
+      --device cpu --steps 3 --batch 8 --seq 64
 """
 from __future__ import annotations
 
@@ -41,6 +50,7 @@ import time
 from typing import List
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.checkpoint.manager import CheckpointManager
 from repro_torch.configs import get_config, reduced_config
@@ -49,8 +59,10 @@ from repro_torch.data.pipeline import TokenPipeline
 from repro_torch.launch.steps import build_cell
 from repro_torch.models import model as M
 from repro_torch.optim.adamw import init_opt_state
+from repro_torch.parallel.sharding import batch_spec
 from repro_torch.runtime.elastic import ElasticCoordinator
-from repro_torch.runtime.serving import resolve_device
+from repro_torch.runtime.launcher import (bootstrap, detect_cluster,
+                                          device_for)
 
 
 def make_train_state(cfg, generator: torch.Generator, device):
@@ -72,33 +84,63 @@ def train(arch: str, *, steps: int = 20, batch: int = 8, seq: int = 128,
     more at the end; ``fail_at_step`` raises at that step (an injected
     failure: the pending save is flushed first).  Loss, grad norm and lr
     are read from the device once per ``log_every`` steps.  Returns the
-    steps' losses.
+    steps' losses (over ranks: the global batch's, on every rank).
+
+    Under torchrun or Slurm each process calls ``bootstrap`` (which opens
+    the process group: NCCL on the card, gloo with ``device="cpu"``) and
+    trains on its rank of the host mesh; the group is closed on return
+    if ``train()`` opened it.
 
     Raises:
       RuntimeError: no CUDA device and ``device`` not given (the port
         runs on the card unless the caller asks for the CPU), or the
         injected failure."""
-    dev = resolve_device(device)
+    opened = not dist.is_initialized()
+    mesh, cluster = bootstrap(device=device)
+    try:
+        return _train(arch, mesh, device_for(cluster, device),
+                      cluster.process_id == 0, steps=steps, batch=batch,
+                      seq=seq, reduced=reduced, ckpt_dir=ckpt_dir,
+                      ckpt_every=ckpt_every, resume=resume,
+                      fail_at_step=fail_at_step, log_every=log_every,
+                      opts=opts, lr_peak=lr_peak, total_steps=total_steps)
+    finally:
+        if mesh is not None and opened:
+            dist.destroy_process_group()
+
+
+def _train(arch, mesh, dev, main_rank: bool, *, steps, batch, seq, reduced,
+           ckpt_dir, ckpt_every, resume, fail_at_step, log_every, opts,
+           lr_peak, total_steps) -> List[float]:
     cfg = get_config(arch)
     if reduced:
         cfg = reduced_config(cfg)
     shape = ShapeConfig("custom", seq, batch, "train")
     opts = opts or M.RunOptions(q_chunk=min(seq, 512),
                                 xent_chunk=min(seq, 512))
-    cell = build_cell(cfg, shape, opts, lr_peak=lr_peak,
+    cell = build_cell(cfg, shape, opts, mesh=mesh, lr_peak=lr_peak,
                       total_steps=total_steps or max(10 * steps, 100))
-    pipe = TokenPipeline(cfg.vocab_size, seq, batch, device=dev)
+    pipe = TokenPipeline(cfg.vocab_size, seq, batch, device=dev, mesh=mesh,
+                         batch_spec=() if mesh is None else
+                         batch_spec(cell.rules))
     mgr = CheckpointManager(ckpt_dir) if ckpt_dir else None
-    coord = ElasticCoordinator(hosts=["host0"], devices_per_host=1,
-                               model_parallel=1, num_pods=1)
+    world = 1 if mesh is None else mesh.size
+    coord = ElasticCoordinator(hosts=[f"host{i}" for i in range(world)],
+                               devices_per_host=1, model_parallel=1,
+                               num_pods=1)
+    shardings = None if mesh is None else cell.state_shardings()
 
     start = 0
     params, opt = make_train_state(
         cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    if mesh is not None:
+        params, opt = cell.shard_state(params, opt)
     if mgr and resume and mgr.latest_step() is not None:
-        start, state = mgr.restore({"params": params, "opt": opt})
+        start, state = mgr.restore({"params": params, "opt": opt},
+                                   shardings=shardings)
         params, opt = state["params"], state["opt"]
-        print(f"[train] restored from step {start}")
+        if main_rank:
+            print(f"[train] restored from step {start}")
 
     losses = []
     try:
@@ -115,14 +157,16 @@ def train(arch: str, *, steps: int = 20, batch: int = 8, seq: int = 128,
             dt = time.perf_counter() - t0
             coord.straggle.record("host0", dt)
             coord.hb.beat("host0")
-            if logged:
+            if logged and main_rank:
                 print(f"[train] step={step} loss={loss:.4f} gnorm={gnorm:.3f} "
                       f"lr={lr:.2e} {dt * 1e3:.0f}ms")
             if mgr and (step + 1) % ckpt_every == 0:
-                mgr.save_async(step + 1, {"params": params, "opt": opt})
+                mgr.save_async(step + 1, {"params": params, "opt": opt},
+                               shardings=shardings)
         if mgr:
             mgr.wait()
-            mgr.save(steps, {"params": params, "opt": opt})
+            mgr.save(steps, {"params": params, "opt": opt},
+                     shardings=shardings)
     finally:
         # a failed step must not lose an in-flight async save: flush it,
         # so a restart sees the last checkpoint issued
@@ -150,6 +194,8 @@ def main(argv=None):
                    seq=args.seq, reduced=args.reduced,
                    ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every,
                    fail_at_step=args.fail_at_step, device=args.device)
+    if detect_cluster().process_id != 0:
+        return
     if losses:
         print(f"[train] done; loss {losses[0]:.4f} -> {losses[-1]:.4f}")
     else:

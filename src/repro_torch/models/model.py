@@ -15,10 +15,12 @@ it.  Where JAX returns a new KV pool, the port writes the pool in place.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Dict, Optional
 
 import torch
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import mixed_precision
@@ -45,10 +47,13 @@ class RunOptions:
     - ``q_chunk``: query rows per chunk of the dense attention (training,
       and prefill on the CPU; the flash kernel tiles on its own);
     - ``remat``: recompute each layer in backward (``train=True`` only);
-      ``remat_policy``: ``"dots"`` (save the matmul outputs) is not
-      ported yet and raises; any other value recomputes everything, as
-      the reference's code does (its ``"none"`` too: only ``remat=False``
-      turns remat off);
+      ``remat_policy``: ``"dots"`` saves the outputs of the matmuls that
+      have no batch dimensions (``mm``/``addmm``: the projections and the
+      MLP; attention's and the experts' batched products are recomputed),
+      as ``jax.checkpoint_policies.dots_with_no_batch_dims_saveable``
+      does; any other value recomputes everything, as the reference's
+      code does (its ``"none"`` too: only ``remat=False`` turns remat
+      off);
     - ``xent_chunk``: sequence positions per cross-entropy chunk;
     - ``microbatches``: gradient-accumulation microbatches of a train
       step; ``bf16_weights``: cast the f32 params to bf16 once at the
@@ -63,7 +68,13 @@ class RunOptions:
       ``attention.ring_decode_attention``.  A model-level option, as in
       the reference: the serving engines never set it;
     - ``aux_loss_weight``: the weight of the MoE load-balancing aux loss
-      in ``lm_loss`` (the reference's default, 0.01).
+      in ``lm_loss`` (the reference's default, 0.01);
+    - ``grad_sync``: the gradient synchronization of a train step on a
+      mesh with a "pod" axis (``launch.steps.build_cell(mesh=)``):
+      ``"auto"`` (reduce-scatter in-pod, all-reduce across pods, full
+      precision) or ``"compressed"`` (int8 with error feedback on the
+      cross-pod hop); ``pipeline``: pipeline stages over "pod", which
+      ``build_cell`` refuses (ROADMAP.md queue 1 item 6c).
     """
     remat: bool = True
     remat_policy: str = "nothing"
@@ -74,6 +85,8 @@ class RunOptions:
     moe_impl: str = "capacity"
     ring_local_cache: bool = False
     aux_loss_weight: float = 0.01
+    grad_sync: str = "auto"
+    pipeline: bool = False
 
 
 def _dtype(name: str) -> torch.dtype:
@@ -196,9 +209,27 @@ def _mlp(p, cfg: ModelConfig, h, moe_impl: str):
     return swiglu(h, mlp["wg"], mlp["wu"], mlp["wd"], h.dtype)
 
 
+def _save_dots(ctx, op, *args, **kwargs) -> CheckpointPolicy:
+    """The ``"dots"`` remat policy: keep the outputs of the matmuls with
+    no batch dimensions, recompute everything else."""
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat_kwargs(policy: str) -> dict:
+    """``checkpoint``'s keywords for a remat policy."""
+    if policy == "dots":
+        return dict(context_fn=functools.partial(
+            create_selective_checkpoint_contexts, _save_dots))
+    return {}
+
+
 def _residual_stream(params, cfg: ModelConfig, x, mixer, *, cross=None,
                      impl: str, remat: bool = False,
-                     moe_impl: str = "capacity", aux: bool = False):
+                     remat_policy: str = "nothing",
+                     moe_impl: str = "capacity", aux: bool = False,
+                     gather=None, aux_mean=None):
     """Run the residual stream ``x`` (B, S, D) through every layer of
     ``params["blocks"]`` and ``params["final_norm"]``;
     ``mixer(g, i, kind, p, h)`` returns the mixer output (attention or
@@ -224,17 +255,39 @@ def _residual_stream(params, cfg: ModelConfig, x, mixer, *, cross=None,
 
     ``remat`` runs each layer — ``(x, h)`` in, ``(x, h)`` and its aux
     loss out — under ``torch.utils.checkpoint``, so backward recomputes
-    it from its two inputs instead of keeping its activations."""
+    it from its two inputs instead of keeping its activations (all of
+    them, or with ``remat_policy="dots"`` all but the saved matmul
+    outputs).
+
+    ``gather(i, p)``, where given, returns the leaves ``p`` of a layer at
+    period position ``i`` (views of the stacked leaves of
+    ``params["blocks"]``, sharded) whole: each layer gathers its leaves
+    where it runs (inside the checkpointed function, so backward gathers
+    again), and the next layer's ln1 with them.  ``aux_mean``, where
+    given, averages the aux loss's routing statistics over the
+    data-parallel ranks (``moe.aux_load_balance_loss``)."""
     eps = cfg.norm_eps
     layers = _layers(params, cfg)
-    h = ops.rmsnorm(x, layers[0][3]["ln1"], eps=eps, impl=impl)
+
+    def ln1(j):
+        """Layer ``j``'s ln1 weight, whole; past the last layer the final
+        norm's."""
+        if j == len(layers):
+            return params["final_norm"]
+        _, i, _, p = layers[j]
+        if gather is None:
+            return p["ln1"]
+        return gather(i, {"ln1": p["ln1"]})["ln1"]
+
+    h = ops.rmsnorm(x, ln1(0), eps=eps, impl=impl)
     total = (torch.zeros((), dtype=torch.float32, device=x.device) if aux
              else None)
     for j, (g, i, kind, p) in enumerate(layers):
-        w_next = (layers[j + 1][3]["ln1"] if j + 1 < len(layers)
-                  else params["final_norm"])
 
-        def layer(x, h, g=g, i=i, kind=kind, p=p, w_next=w_next):
+        def layer(x, h, g=g, i=i, kind=kind, p=p, j=j):
+            w_next = ln1(j + 1)
+            if gather is not None:
+                p = gather(i, {k: v for k, v in p.items() if k != "ln1"})
             mix = mixer(g, i, kind, p, h)
             if "cross" in p:
                 x, h = ops.add_rmsnorm(x, mix, p["ln_cross"], eps=eps,
@@ -244,11 +297,14 @@ def _residual_stream(params, cfg: ModelConfig, x, mixer, *, cross=None,
                 return (*ops.add_rmsnorm(x, mix, w_next, eps=eps, impl=impl),
                         None)
             x, h = ops.add_rmsnorm(x, mix, p["ln2"], eps=eps, impl=impl)
-            a = (moe_mod.aux_load_balance_loss(p["moe"], cfg, h)
-                 if aux and "moe" in p else None)
+            a = None
+            if aux and "moe" in p:
+                kw = {} if aux_mean is None else {"mean": aux_mean}
+                a = moe_mod.aux_load_balance_loss(p["moe"], cfg, h, **kw)
             return (*ops.add_rmsnorm(x, _mlp(p, cfg, h, moe_impl), w_next,
                                      eps=eps, impl=impl), a)
-        x, h, a = (checkpoint(layer, x, h, use_reentrant=False) if remat
+        x, h, a = (checkpoint(layer, x, h, use_reentrant=False,
+                              **_remat_kwargs(remat_policy)) if remat
                    else layer(x, h))
         if a is not None:
             total = total + a
@@ -257,7 +313,7 @@ def _residual_stream(params, cfg: ModelConfig, x, mixer, *, cross=None,
 
 def backbone(params, cfg: ModelConfig, x, opts: RunOptions, *,
              enc_out=None, want_cache: bool = False, impl: str = "auto",
-             train: bool = False):
+             train: bool = False, gather=None, aux_mean=None):
     """Forward through the layer stack at positions ``0..S-1`` and the
     final norm (``_residual_stream``; MoE blocks by ``opts.moe_impl``),
     an encoder-decoder model's decoder layers attending to ``enc_out``
@@ -273,15 +329,9 @@ def backbone(params, cfg: ModelConfig, x, opts: RunOptions, *,
     else None (serving computes no aux loss).  With
     ``opts.ring_local_cache`` a sliding-window layer of a prompt longer
     than its window W keeps its last W rows at slot = position mod W
-    (``_ring_rows``).
-
-    Raises:
-      NotImplementedError: ``train`` with ``remat_policy="dots"``."""
+    (``_ring_rows``).  ``gather`` and ``aux_mean`` are
+    ``_residual_stream``'s (a sharded train step's)."""
     remat = train and opts.remat
-    if remat and opts.remat_policy == "dots":
-        raise NotImplementedError(
-            "remat_policy='dots' (save the matmul outputs) is not ported "
-            "yet: ROADMAP.md queue 1 item 4")
     per_layer = {f"pos{i}": [] for i in range(cfg.scan_period())}
 
     def mixer(g, i, kind, p, h):
@@ -311,8 +361,10 @@ def backbone(params, cfg: ModelConfig, x, opts: RunOptions, *,
             per_layer[f"pos{i}"][-1].update(ck=ck, cv=cv)
         return mix
     h, aux = _residual_stream(params, cfg, x, mixer, cross=cross,
-                              impl=impl, remat=remat, moe_impl=opts.moe_impl,
-                              aux=train)
+                              impl=impl, remat=remat,
+                              remat_policy=opts.remat_policy,
+                              moe_impl=opts.moe_impl, aux=train,
+                              gather=gather, aux_mean=aux_mean)
     if not want_cache:
         return h, None, aux
     return h, {pos: {key: torch.stack([c[key] for c in cs])
@@ -341,7 +393,10 @@ def _ring_rows(k, window: int):
 
 def _embed_inputs(params, cfg: ModelConfig, batch, *, impl: str = "auto"):
     """Token embedding of ``batch["tokens"]`` (B, S): x (B, S, D) in the
-    compute dtype.  In a vision model, where the batch holds the stub
+    compute dtype; where the batch holds ``tok_embeds`` (B, S, D), those
+    precomputed embeddings in the compute dtype instead (the compressed
+    train step gathers them outside the synced gradient, as the
+    reference's does).  In a vision model, where the batch holds the stub
     patch embeddings ``batch["patches"]`` (B, P, frontend_dim), the
     patches in the compute dtype through ``frontend_proj`` are written
     over rows ``[0, P)`` of x, as the reference's
@@ -359,7 +414,10 @@ def _embed_inputs(params, cfg: ModelConfig, batch, *, impl: str = "auto"):
       ValueError: patches longer than the prompt (the reference's
           ``dynamic_update_slice`` refuses them too, with a TypeError)."""
     dt = compute_dtype(cfg)
-    x = params["embed"][batch["tokens"].long()].to(dt)
+    if "tok_embeds" in batch:
+        x = batch["tok_embeds"].to(dt, copy=True)
+    else:
+        x = params["embed"][batch["tokens"].long()].to(dt)
     if cfg.frontend == "vision" and "patches" in batch:
         patches = batch["patches"]
         n, S = patches.shape[1], x.shape[1]
@@ -392,7 +450,7 @@ def _maybe_bf16(params, opts: RunOptions):
 
 
 def lm_loss(params, cfg: ModelConfig, batch,
-            opts: RunOptions = RunOptions()):
+            opts: RunOptions = RunOptions(), *, shard=None):
     """Mean next-token cross-entropy of ``batch`` (``tokens``, ``labels``:
     (B, S) int32; labels < 0 are masked; a vision model's batch may
     carry ``patches`` (B, frontend_len, frontend_dim) f32, an
@@ -419,13 +477,23 @@ def lm_loss(params, cfg: ModelConfig, batch,
     (``softmax_xent_chunked`` then rounds it to bf16, as the reference
     does even in f32 configs).
 
+    ``shard`` (a ``parallel.fsdp.Fsdp``), where given, holds the
+    placement of ``params``, sharded over the mesh's "data" axis: every
+    leaf outside the decoder's ``blocks`` is gathered at entry, each
+    decoder layer's leaves where the layer runs, and the aux loss's
+    routing statistics are averaged over the data-parallel ranks.
+
     Raises:
       KeyError: an encoder-decoder batch without ``audio``, as in the
           reference."""
+    if shard is not None:
+        params = shard.outside_blocks(params)
     params = _maybe_bf16(params, opts)
     x, enc_out = _embed_inputs(params, cfg, batch, impl="plain")
-    h, _, aux = backbone(params, cfg, x, opts, enc_out=enc_out,
-                         impl="plain", train=True)
+    h, _, aux = backbone(
+        params, cfg, x, opts, enc_out=enc_out, impl="plain", train=True,
+        gather=None if shard is None else shard.layer,
+        aux_mean=None if shard is None else shard.mean)
     total, count = softmax_xent_chunked(
         h, _output_weight(params, cfg).to(h.dtype), batch["labels"],
         chunk=opts.xent_chunk)

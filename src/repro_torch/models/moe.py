@@ -199,13 +199,19 @@ def moe_block(p, cfg, x, mesh=None, impl: str = "capacity"):
     return _moe_local(p, cfg, x, impl=impl)
 
 
-def aux_load_balance_loss(p, cfg, x) -> torch.Tensor:
+def aux_load_balance_loss(p, cfg, x, *, mean=None) -> torch.Tensor:
     """Switch-style load-balancing auxiliary loss (fraction ×
-    probability), 0-d f32."""
+    probability), 0-d f32.  ``mean``, where given, averages the expert
+    counts and the mean router probabilities over the data-parallel
+    ranks (a differentiable all-reduce, each rank holding as many
+    tokens), so each rank computes the loss of the global batch, as
+    the reference's GSPMD step does."""
     m = cfg.moe
     xt = x.reshape(-1, x.shape[-1])
     probs, _, idx = route(p, m, xt)
     counts = group_sizes(idx.reshape(-1), m.num_experts).float()
-    frac = counts / torch.clamp(counts.sum(), min=1.0)
     imp = probs.mean(dim=0)
+    if mean is not None:
+        counts, imp = mean(counts), mean(imp)
+    frac = counts / torch.clamp(counts.sum(), min=1.0)
     return m.num_experts * torch.sum(frac * imp)

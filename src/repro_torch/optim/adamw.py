@@ -14,6 +14,7 @@ import dataclasses
 from typing import Any, Dict, Optional
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.tree import tree_leaves, tree_map
 
@@ -34,14 +35,26 @@ def init_opt_state(params) -> Dict[str, Any]:
             "count": torch.zeros((), dtype=torch.int32, device=device)}
 
 
-def global_norm(tree) -> torch.Tensor:
-    return torch.sqrt(sum(torch.sum(torch.square(x.float()))
-                          for x in tree_leaves(tree)))
+def global_norm(tree, *, sharded=None, group=None) -> torch.Tensor:
+    """The 2-norm of every leaf of ``tree`` together.  Over a sharded
+    tree (``sharded``: per leaf, in ``tree_leaves`` order, whether it is
+    this rank's slice of a leaf split over ``group``) the split leaves'
+    sums of squares are summed over ``group`` and a whole (replicated)
+    leaf counts once, so every rank gets the norm of the whole tree; the
+    leaves' sums are added in leaf order either way."""
+    sums = [torch.sum(torch.square(x.float())) for x in tree_leaves(tree)]
+    if sharded is not None and any(sharded):
+        split = torch.stack([s for s, sh in zip(sums, sharded) if sh])
+        dist.all_reduce(split, group=group)
+        split = iter(split.unbind())
+        sums = [next(split) if sh else s for s, sh in zip(sums, sharded)]
+    return torch.sqrt(sum(sums))
 
 
 @torch.no_grad()
 def adamw_update(grads, opt_state, params, lr,
-                 cfg: AdamWConfig = AdamWConfig()):
+                 cfg: AdamWConfig = AdamWConfig(), *, sharded=None,
+                 group=None):
     """One AdamW step: clip ``grads`` to ``cfg.clip_norm`` by their global
     norm, advance the moments, and move every leaf of ``params`` (the
     norms included, as in the reference) by
@@ -51,12 +64,15 @@ def adamw_update(grads, opt_state, params, lr,
 
     ``params`` and ``opt_state`` are updated in place and returned:
     ``(params, opt_state, {"grad_norm"})``, the norm before clipping.
+    Over a sharded tree (``sharded``, ``group``: see ``global_norm``)
+    the norm, and so the clipping, is the whole tree's, and each leaf's
+    update is the whole leaf's update restricted to its slice.
     Each product and sum is rounded as in the reference's expression;
     the moments and f32 params are updated in place, so a leaf's
     update holds at most two temporaries of its size (a full-width
     phi-3-vision-4.2b's largest leaf is 3 GiB in f32)."""
     count = opt_state["count"].add_(1)
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads, sharded=sharded, group=group)
     scale = None
     if cfg.clip_norm is not None:
         scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-12),

@@ -1,0 +1,117 @@
+"""Inputs shared by the data-parallel tests and their subprocess
+scripts (``tests/_torch_dist.py`` runs the port's ranks over gloo,
+``tests/_jax_mesh_ref.py`` the JAX package on a virtual mesh): the
+configs, the sizes and numpy-drawn params, so that both sides start from
+the same weights without either importing the other's package; and
+the tests' way of running those scripts.  numpy and the standard
+library only.
+"""
+import dataclasses
+import os
+import socket
+import subprocess
+import sys
+
+import numpy as np
+
+#: The mesh of the sharded train tests: 2 pods × 2 data × model 1 (4
+#: ranks), and of the collectives tests: 2 × 2 × 2 (8 ranks).
+TRAIN_MESH = ((2, 2, 1), ("pod", "data", "model"))
+COLLECTIVES_MESH = ((2, 2, 2), ("pod", "data", "model"))
+SINGLE_POD_MESH = ((4, 2), ("data", "model"))
+
+#: Reduced f32 configs: (arch, MoE capacity factor or None).  The MoE
+#: config at capacity factor 0.5, so that (token, expert) pairs drop on
+#: every rank (capacity is per rank's rows, as in the reference, whose
+#: GSPMD step keeps the batch sharded inside the MoE block).
+CONFIGS = {"dense": ("qwen3-1.7b", None), "moe": ("qwen2-moe-a2.7b", 0.5)}
+#: Leaves drawn at their true fan-in (``tests/_torch_train_inputs.py``'s
+#: ``TRUE_FAN_IN`` says why).
+FAN_IN = {"moe": ("wq", "wk")}
+BATCH, SEQ, STEPS, LR, TOTAL = 8, 32, 3, 3e-3, 300
+SEED = 0
+
+
+def config(name: str, get_config, reduced_config):
+    """The reduced f32 config ``name`` of ``CONFIGS`` through a package's
+    own ``get_config``/``reduced_config``."""
+    arch, cf = CONFIGS[name]
+    cfg = reduced_config(get_config(arch), compute_dtype="float32")
+    if cf is not None:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=cf))
+    return cfg
+
+
+def run_options_kw(**kw) -> dict:
+    return dict(q_chunk=32, xent_chunk=32, **kw)
+
+
+def np_params(specs, name: str, seed: int = SEED) -> dict:
+    """A params tree drawn with numpy from a ParamSpec tree of either
+    package, in sorted-key order: ``normal`` leaves N(0, (scale /
+    sqrt(shape[0]))²) as both packages' ``init_params`` scale them, the
+    leaves of ``FAN_IN[name]`` at their true fan-in, ``zeros`` and
+    ``ones`` as named.  f32 arrays."""
+    rng = np.random.default_rng(seed)
+    fan_in = FAN_IN.get(name, ())
+
+    def draw(tree, key=None):
+        if isinstance(tree, dict):
+            return {k: draw(tree[k], k) for k in sorted(tree)}
+        shape = tuple(tree.shape)
+        if tree.init == "zeros":
+            return np.zeros(shape, np.float32)
+        if tree.init == "ones":
+            return np.ones(shape, np.float32)
+        std = tree.scale / np.sqrt(max(shape[0] if shape else 1, 1))
+        a = (rng.standard_normal(shape) * std).astype(np.float32)
+        if key in fan_in:
+            a *= np.float32(np.sqrt(shape[0] / shape[1]))
+        return a
+
+    return draw(specs)
+
+
+# -- subprocesses of the tests -------------------------------------------------
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+
+
+def free_port() -> int:
+    """A TCP port on 127.0.0.1 that the OS picked (for torchrun's
+    ``MASTER_PORT``: no fixed port collides between test workers)."""
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def start(args, out_dir):
+    """Start ``python *args`` with its output to a log in ``out_dir``,
+    one thread per rank, the port's sources on the path."""
+    env = {**os.environ, "OMP_NUM_THREADS": "1",
+           "PYTHONPATH": os.path.join(HERE, "..", "src")}
+    env.pop("XLA_FLAGS", None)
+    log = open(os.path.join(out_dir, os.path.basename(args[0]) + "."
+                            + args[1] + ".log"), "w")
+    return subprocess.Popen([sys.executable, *args], stdout=log,
+                            stderr=subprocess.STDOUT, env=env), log
+
+
+def finish(procs, timeout: float = 240) -> None:
+    """Wait for every subprocess of ``start`` (killing them all when one
+    outlives ``timeout``) and raise with a log's tail if one failed."""
+    try:
+        for proc, _ in procs:
+            proc.wait(timeout=timeout)
+    finally:
+        for proc, log in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            log.close()
+    for proc, log in procs:
+        if proc.returncode != 0:
+            with open(log.name) as f:
+                raise AssertionError(f"{log.name}: exit {proc.returncode}\n"
+                                     + f.read()[-4000:])

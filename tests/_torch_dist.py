@@ -1,0 +1,335 @@
+"""The port's side of the data-parallel tests: ranks over gloo on the CPU.
+
+  python tests/_torch_dist.py CASE OUTDIR [PORT]
+
+starts the case's ranks with ``torch.multiprocessing`` spawn.  They meet
+on a ``FileStore`` in OUTDIR (``launcher`` and ``train``, which go
+through ``runtime.launcher.bootstrap``, on torchrun's variables with
+the port the caller picked), each with its own collective timeout, and
+each writes its results to ``OUTDIR/CASE.rank<r>.pt``.  A rank that
+raises ends the run with a non-zero exit.  numpy and the port only.
+
+- ``collectives`` (8 ranks, the (2, 2, 2) mesh): the cases of
+  ``tests/subproc/check_collectives.py`` items 1-5;
+- ``sharded`` (4 ranks, the (2, 2, 1) mesh): three steps of the
+  ``"auto"`` cell (dense and MoE; dense with 2 microbatches too), of
+  the meshless cell (rank 0) and of
+  the ``"compressed"`` cell (with its sync against the plain int8
+  composition, bit for bit), elastic restores 4 -> 1 and 1 -> 4 ranks,
+  the token pipeline's rows;
+- ``launcher`` (2 ranks): ``bootstrap(device="cpu")`` under torchrun's
+  variables, the ``require_chips`` guard;
+- ``train`` (2 ranks): ``train()`` under torchrun's variables with
+  checkpoints; then rank 0 alone on a world of 1: the sharded cell
+  against the meshless one bit for bit.
+"""
+import datetime
+import os
+import sys
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, os.path.join(HERE, "..", "src"))
+
+import torch  # noqa: E402
+import torch.distributed as dist  # noqa: E402
+import torch.multiprocessing as mp  # noqa: E402
+
+import _mesh_inputs as MI  # noqa: E402
+
+TIMEOUT = datetime.timedelta(seconds=90)
+
+
+def _init(rank: int, world: int, outdir: str, name: str = "store") -> None:
+    torch.set_num_threads(1)
+    dist.init_process_group(
+        "gloo", store=dist.FileStore(os.path.join(outdir, name), world),
+        rank=rank, world_size=world, timeout=TIMEOUT)
+
+
+def _mesh(spec):
+    from repro_torch.launch.mesh import make_mesh
+    return make_mesh(*spec)
+
+
+# -- collectives -------------------------------------------------------------
+
+def collectives(rank, world, outdir) -> dict:
+    from repro_torch.core import collectives as C
+    _init(rank, world, outdir)
+    mesh = _mesh(MI.COLLECTIVES_MESH)
+    x = torch.arange(24.0).reshape(2, 12) / 7.0
+    flat = x.clone()
+    dist.all_reduce(flat)
+    flat /= mesh.shape["model"]          # the model replicas add copies
+    comp, err = C.compressed_cross_pod_psum_local(
+        x, torch.zeros(x.numel() // 2), mesh)
+    out = {"flat": flat, "hier": C.hierarchical_psum_local(x, mesh),
+           "wrapper": C.hierarchical_psum(x, mesh), "comp": comp,
+           "err": err}
+    dist.barrier()
+    mesh2 = _mesh(MI.SINGLE_POD_MESH)
+    out["fallback"] = C.hierarchical_psum(x, mesh2)
+    out["flat2"] = x * mesh2.shape["data"]
+    dist.destroy_process_group()
+    return out
+
+
+# -- sharded train step --------------------------------------------------------
+
+def _setup(name):
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.models import model as M
+    from repro_torch.optim.adamw import init_opt_state
+    from repro_torch.tree import tree_map
+    cfg = MI.config(name, get_config, reduced_config)
+    params = tree_map(torch.from_numpy, MI.np_params(M.param_specs(cfg), name))
+    return cfg, params, init_opt_state(params)
+
+
+def _cell(cfg, mesh=None, **kw):
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.launch.steps import build_cell
+    from repro_torch.models import model as M
+    return build_cell(cfg, ShapeConfig("t", MI.SEQ, MI.BATCH, "train"),
+                      M.RunOptions(**MI.run_options_kw(**kw)), mesh=mesh,
+                      lr_peak=MI.LR, total_steps=MI.TOTAL)
+
+
+def _pipe(cfg, cell=None):
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.parallel.sharding import batch_spec
+    if cell is None:
+        return TokenPipeline(cfg.vocab_size, MI.SEQ, MI.BATCH, device="cpu")
+    return TokenPipeline(cfg.vocab_size, MI.SEQ, MI.BATCH, device="cpu",
+                         mesh=cell.mesh, batch_spec=batch_spec(cell.rules))
+
+
+def _metrics(m) -> torch.Tensor:
+    return torch.tensor([float(m[k]) for k in ("loss", "xent", "aux_loss",
+                                               "grad_norm", "lr")])
+
+
+def _whole(cell, tree):
+    """The whole leaves of a sharded tree like the params, by path."""
+    from repro_torch.tree import tree_flatten_with_paths, tree_leaves
+    dims = tree_leaves(cell.fsdp.dims)
+    return {name: cell.fsdp.full(t, d) for (name, t), d in
+            zip(tree_flatten_with_paths(tree), dims)}
+
+
+def _run(cell, params, opt, pipe, steps, start=0):
+    out = []
+    for step in range(start, start + steps):
+        params, opt, m = cell.fn(params, opt, pipe.get_batch(step))
+        out.append(_metrics(m))
+    return params, opt, torch.stack(out)
+
+
+def _plain_sync(cell, g, ef, synced) -> bool:
+    """Whether every leaf of the compressed sync equals the plain
+    composition on whole tensors, bit for bit: ``x = g / npods + ef``
+    quantized with one scale per tensor on each pod, every pod's codes
+    dequantized and summed in pod order; and the new error feedback
+    ``x - deq``."""
+    from repro_torch.core.collectives import all_gather
+    from repro_torch.tree import tree_leaves
+    mesh, pod = cell.mesh, cell.mesh.group("pod")
+    npods = cell.mesh.shape["pod"]
+    ok = True
+    for gl, el, sl, d in zip(tree_leaves(g), tree_leaves(ef),
+                             tree_leaves(synced),
+                             tree_leaves(cell.fsdp.dims)):
+        x = cell.fsdp.full(gl, d).float() / npods + cell.fsdp.full(el, d)
+        amax = torch.max(torch.abs(x)) + 1e-12
+        s = amax / 127.0
+        q = torch.clamp(torch.round(x / s), -127, 127).to(torch.int8)
+        qs, ss = all_gather(q, pod), all_gather(s, pod)
+        total = qs[0].float() * ss[0]
+        for p in range(1, npods):
+            total += qs[p].float() * ss[p]
+        ok &= torch.equal(total.to(gl.dtype), cell.fsdp.full(sl, d))
+    return bool(ok) and mesh.size > 1
+
+
+def sharded(rank, world, outdir) -> dict:
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.tree import tree_map
+    _init(rank, world, outdir)
+    mesh = _mesh(MI.TRAIN_MESH)
+    out = {}
+    for name in ("dense", "moe"):
+        cfg, p0, o0 = _setup(name)
+        cell = _cell(cfg, mesh)
+        params, opt = cell.shard_state(p0, o0)
+        params, opt, out[f"{name}/auto/metrics"] = _run(
+            cell, params, opt, _pipe(cfg, cell), MI.STEPS)
+        out[f"{name}/auto/params"] = _whole(cell, params)
+    cfg, p0, o0 = _setup("dense")
+    # gradient accumulation over 2 microbatches of each rank's rows
+    cell = _cell(cfg, mesh, microbatches=2)
+    params, opt = cell.shard_state(p0, o0)
+    params, opt, out["dense/micro/metrics"] = _run(
+        cell, params, opt, _pipe(cfg, cell), MI.STEPS)
+    out["dense/micro/params"] = _whole(cell, params)
+    if rank == 0:
+        cell = _cell(cfg)
+        params, opt, out["dense/meshless/metrics"] = _run(
+            cell, *_setup("dense")[1:], _pipe(cfg), MI.STEPS)
+        out["dense/meshless/params"] = params
+    # compressed: each step's sync against the plain composition
+    cell = _cell(cfg, mesh, grad_sync="compressed")
+    params, opt = cell.shard_state(p0, o0)
+    pipe = _pipe(cfg, cell)
+    rows, ok = [], []
+    for step in range(MI.STEPS):
+        batch = pipe.get_batch(step)
+        _, _, extra = cell.grads(params, opt, batch, keep=True)
+        ok.append(_plain_sync(cell, extra["grad"], opt["ef"],
+                              extra["synced"]))
+        params, opt, m = cell.fn(params, opt, batch)
+        rows.append(_metrics(m))
+        out[f"dense/compressed/ef/{step}"] = _whole(cell, opt["ef"])
+        out[f"dense/compressed/grad/{step}"] = _whole(cell, extra["grad"])
+    out["dense/compressed/metrics"] = torch.stack(rows)
+    out["dense/compressed/plain_sync"] = torch.tensor(ok)
+    # elastic: 4 ranks save after 2 steps, 1 rank restores and steps
+    ck = os.path.join(outdir, "ck4")
+    cell = _cell(cfg, mesh)
+    params, opt = cell.shard_state(p0, o0)
+    params, opt, _ = _run(cell, params, opt, _pipe(cfg, cell), 2)
+    CheckpointManager(ck).save(2, {"params": params, "opt": opt},
+                               shardings=cell.state_shardings())
+    ck1 = os.path.join(outdir, "ck1")
+    if rank == 0:
+        _, p1, o1 = _setup("dense")
+        step, state = CheckpointManager(ck).restore({"params": p1,
+                                                     "opt": o1})
+        one = _cell(cfg)
+        params1, opt1, out["elastic/4to1/metrics"] = _run(
+            one, state["params"], state["opt"], _pipe(cfg), 1, start=step)
+        out["elastic/4to1/count"] = opt1["count"].clone()
+        # and the reverse: one rank saves after 2 steps
+        params1, opt1, _ = _run(one, *_setup("dense")[1:], _pipe(cfg), 2)
+        CheckpointManager(ck1).save(2, {"params": params1, "opt": opt1})
+    dist.barrier()
+    like = cell.shard_state(*_setup("dense")[1:])
+    step, state = CheckpointManager(ck1).restore(
+        {"params": like[0], "opt": like[1]},
+        shardings=cell.state_shardings())
+    params, opt, out["elastic/1to4/metrics"] = _run(
+        cell, state["params"], state["opt"], _pipe(cfg, cell), 1, start=step)
+    out["elastic/1to4/count"] = opt["count"].clone()
+    # the token pipeline's rows of the global batch
+    pipe = _pipe(cfg, cell)
+    out["pipeline/rows"] = torch.tensor(pipe.rows)
+    for step in range(MI.STEPS):
+        out[f"pipeline/{step}"] = tree_map(lambda t: t, pipe.get_batch(step))
+    dist.destroy_process_group()
+    return out
+
+
+# -- launcher and train() over ranks -----------------------------------------
+
+def _torchrun_env(rank, world, port):
+    os.environ.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
+                      WORLD_SIZE=str(world), RANK=str(rank),
+                      LOCAL_RANK=str(rank))
+    for k in [k for k in os.environ if k.startswith("SLURM_")]:
+        del os.environ[k]
+
+
+def launcher(rank, world, outdir, port) -> dict:
+    from repro_torch.runtime.launcher import bootstrap, detect_cluster
+    torch.set_num_threads(1)
+    _torchrun_env(rank, world, port)
+    cluster = detect_cluster()
+    mesh, got = bootstrap(device="cpu")
+    t = torch.tensor([float(rank + 1)])
+    dist.all_reduce(t, group=mesh.group("data"))
+    try:
+        bootstrap(device="cpu", require_chips=world + 1)
+        guard = ""
+    except RuntimeError as e:
+        guard = str(e)
+    out = {"cluster": (cluster.coordinator, cluster.num_processes,
+                       cluster.process_id, cluster.local_rank),
+           "same": got == cluster, "backend": dist.get_backend(),
+           "mesh": (mesh.axis_names, mesh.shape, mesh.device_type,
+                    mesh.coordinate("data")),
+           "sum": float(t), "guard": guard}
+    dist.destroy_process_group()
+    return out
+
+
+TRAIN_KW = dict(steps=4, batch=8, seq=32, reduced=True, log_every=1000,
+                lr_peak=3e-3, total_steps=300, device="cpu")
+
+
+def train(rank, world, outdir, port) -> dict:
+    from repro_torch.launch import train as T
+    _torchrun_env(rank, world, port)
+    torch.set_num_threads(1)
+    out = {"losses": T.train("qwen3-1.7b", ckpt_dir=os.path.join(
+        outdir, "train_ck"), ckpt_every=2, **TRAIN_KW),
+        "initialized_after": dist.is_initialized()}
+    if rank == 0:
+        out.update(world1(outdir))
+    return out
+
+
+def world1(outdir) -> dict:
+    """On a world of one rank, the (1, 1, 1) mesh: three ``"auto"`` steps
+    against three meshless steps, and the ``"compressed"`` sync against
+    the plain composition, bit for bit (every collective a copy)."""
+    from repro_torch.tree import tree_leaves
+    _init(0, 1, outdir, name="store1")
+    mesh = _mesh(((1, 1, 1), ("pod", "data", "model")))
+    cfg, p0, o0 = _setup("moe")
+    sharded_cell = _cell(cfg, mesh)
+    params, opt = sharded_cell.shard_state(p0, o0)
+    params, opt, m_mesh = _run(sharded_cell, params, opt,
+                               _pipe(cfg, sharded_cell), MI.STEPS)
+    ref, oref, m_ref = _run(_cell(cfg), *_setup("moe")[1:], _pipe(cfg),
+                            MI.STEPS)
+    same = torch.equal(m_mesh, m_ref) and all(
+        torch.equal(a, b) for a, b in zip(tree_leaves(params),
+                                          tree_leaves(ref)))
+    cell = _cell(cfg, mesh, grad_sync="compressed")
+    params, opt = cell.shard_state(*_setup("moe")[1:])
+    pipe = _pipe(cfg, cell)
+    ok = True
+    for step in range(2):
+        batch = pipe.get_batch(step)
+        _, _, extra = cell.grads(params, opt, batch, keep=True)
+        for g, e, s, new in zip(*(tree_leaves(t) for t in (
+                extra["grad"], opt["ef"], extra["synced"], extra["ef"]))):
+            x = g.float() / 1 + e
+            amax = torch.max(torch.abs(x)) + 1e-12
+            q = torch.clamp(torch.round(x / (amax / 127.0)), -127, 127)
+            deq = q.to(torch.int8).float() * (amax / 127.0)
+            ok &= torch.equal(s, deq.to(g.dtype)) and torch.equal(new,
+                                                                   x - deq)
+        params, opt, _ = cell.fn(params, opt, batch)
+    dist.destroy_process_group()
+    return {"world1/auto_equals_meshless": same,
+            "world1/compressed_plain": bool(ok)}
+
+
+CASES = {"collectives": (8, collectives), "sharded": (4, sharded),
+         "launcher": (2, launcher), "train": (2, train)}
+
+
+def _rank(rank, name, outdir, port):
+    world, fn = CASES[name]
+    args = (rank, world, outdir) + ((port,) if name in ("launcher", "train")
+                                    else ())
+    torch.save(fn(*args), os.path.join(outdir, f"{name}.rank{rank}.pt"))
+
+
+if __name__ == "__main__":
+    name, outdir = sys.argv[1], sys.argv[2]
+    port = int(sys.argv[3]) if len(sys.argv) > 3 else 0
+    os.makedirs(outdir, exist_ok=True)
+    mp.spawn(_rank, args=(name, outdir, port), nprocs=CASES[name][0],
+             join=True)
+    print("ALL_OK", name)

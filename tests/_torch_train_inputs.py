@@ -139,17 +139,19 @@ def assert_grads(jgrads, tgrads, head: str):
 
 def train_steps_vs_jax(cfg, tcfg, jp, tol, *, steps: int = 3,
                        microbatches: int = 1, batch: int = 4,
-                       seq: int = 32):
+                       seq: int = 32, **run_kw):
     """``steps`` train steps of the port's ``build_cell(...).fn`` against
     JAX's from the JAX params ``jp`` (carried across by
     ``params_from_jax``) on the token pipelines' batches (bit-equal) with
     the frontend's inputs at seed ``step``: lr 3e-3 peak with warmup over
-    3 of 300 steps.  Each step's loss, xent and aux loss within
+    3 of 300 steps (``run_kw``: more ``RunOptions`` fields, on both
+    sides).  Each step's loss, xent and aux loss within
     ``tol["loss"]``, grad norm within ``tol["grad_norm"]`` and lr within
     1e-6 relative; then each param within ``tol["param"]`` (unless None)
     and its update within ``tol["update"]`` of the update's norm."""
     mesh = make_host_mesh()
-    kw = dict(q_chunk=16, xent_chunk=16, microbatches=microbatches)
+    kw = dict(q_chunk=16, xent_chunk=16, microbatches=microbatches,
+              **run_kw)
     cell = jbuild_cell(cfg, ShapeConfig("custom", seq, batch, "train"), mesh,
                        opts=JM.RunOptions(**kw), lr_peak=3e-3,
                        total_steps=300)

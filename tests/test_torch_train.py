@@ -65,12 +65,17 @@ def test_train_step_matches_jax_over_three_steps(arch, dtype):
 
 
 def test_train_cell_refuses_multi_device_modes_and_serving_shapes():
-    # the multi-device modes come with the parallelism slice: until then
-    # the port's RunOptions has no field to ask for them
-    for field in (dict(grad_sync="compressed"), dict(pipeline=True)):
-        with pytest.raises(TypeError, match="unexpected keyword"):
-            TM.RunOptions(**field)
+    # the data-parallel modes run on a mesh (tests/test_torch_sharded_
+    # train.py); pipeline stages and an unknown sync are refused
     cfg = treduced(tget("qwen3-1.7b"))
+    shape = TShapeConfig("t", S, B, "train")
+    with pytest.raises(NotImplementedError, match="item 6c"):
+        build_cell(cfg, shape, TM.RunOptions(pipeline=True))
+    with pytest.raises(ValueError, match="grad_sync"):
+        build_cell(cfg, shape, TM.RunOptions(grad_sync="ring"))
+    # without a mesh (no "pod") the compressed sync is the plain step, as
+    # in the reference
+    build_cell(cfg, shape, TM.RunOptions(grad_sync="compressed"))
     with pytest.raises(ValueError, match="train"):
         build_cell(cfg, TShapeConfig("p", S, B, "prefill"))
 
