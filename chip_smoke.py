@@ -6933,7 +6933,10 @@ def phase_dist() -> None:
     mesh, qwen3-1.7b at full width with phase train's batch and
     ``train()``'s options; 3 ``"auto"`` steps of ``build_cell(mesh=)``
     bit-equal to 3 meshless steps from the same state (losses, grad
-    norms, every param leaf); 3 ``"compressed"`` steps, each step's sync
+    norms, every param leaf), through the tensor-parallel placement and
+    functions (``parallel.tensor``: the heads, ff and vocabulary slices
+    of a model axis of one, its ``copy``/``reduce`` and the
+    vocab-parallel logsumexp counted); 3 ``"compressed"`` steps, each step's sync
     held bit for bit to the plain int8 composition; an elastic restore
     (``_dist_elastic``); the step times and peaks of the three paths,
     and no kernel launched.  Every collective is a copy at world size 1:
@@ -6947,6 +6950,7 @@ def phase_dist() -> None:
     from repro_torch.launch.steps import build_cell
     from repro_torch.launch.train import make_train_state
     from repro_torch.models import model as M
+    from repro_torch.parallel import tensor
     from repro_torch.tree import tree_leaves
     t0 = time.perf_counter()
     cfg = get_config(ARCH)
@@ -6981,10 +6985,18 @@ def phase_dist() -> None:
             def make_cell(sync):
                 return build_cell(cfg, shape, opts(sync), mesh=mesh, **kw)
             cell = make_cell("auto")
+            local = sum(tree_leaves(cell.fsdp.local))
             params, opt = cell.shard_state(*state())
             gc.collect()
             torch.cuda.empty_cache()
+            tensor.reset_calls()
             m_auto, ms_auto, peak_auto = _dist_run(cell, params, opt, batch)
+            calls = dict(tensor.calls)
+            if not (local and calls.get("copy") and calls.get("reduce")
+                    and calls.get("lse")):
+                raise AssertionError(
+                    f"the mesh step did not run the tensor-parallel path: "
+                    f"{local} model-local leaves, calls {calls}")
             bad = [i for i, (a, b) in enumerate(zip(tree_leaves(params),
                                                     want))
                    if not _bits_equal(a, b)]
@@ -7013,7 +7025,9 @@ def phase_dist() -> None:
         f"qwen3-1.7b full width, batch {TRAIN_BATCH} x seq {TRAIN_SEQ}, "
         f"{DIST_STEPS} steps from one state on one batch; (loss/grad "
         f"norm) meshless {fmt(m_plain)}; 'auto' bit-equal (losses, grad "
-        f"norms, all {len(tree_leaves(M.param_specs(cfg)))} param leaves); "
+        f"norms, all {len(tree_leaves(M.param_specs(cfg)))} param leaves) "
+        f"through the tensor-parallel path ({local} leaves held as model "
+        f"slices; {DIST_STEPS} steps' calls {calls}); "
         f"'compressed' {fmt(m_comp)} ({n_leaves} leaf syncs bit-equal to "
         f"the plain int8 composition, error feedback exact); {smi_line()}")
     log("dist", f"step time (CUDA events, median of {DIST_STEPS}) and peak "

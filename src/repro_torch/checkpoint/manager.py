@@ -21,11 +21,12 @@ as its 16-bit patterns under the label ``"bfloat16"`` (the reference's
 
 Sharded trees (a train step over a mesh, ``launch.steps.Cell``) pass
 their placement as ``shardings``, a tree like the state whose leaves are
-``parallel.fsdp.Split``s (None for a whole leaf): ``save`` gathers each
+``parallel.fsdp.Split``s (None for a whole leaf; a leaf may be split
+over "data" and "model" at once): ``save`` gathers each
 split leaf on every rank and global rank 0 writes the same manifest and
 files as a single device; ``restore`` reads the whole leaf and keeps
-this rank's slice.  So a checkpoint saved on 4 ranks restores onto 1
-and the reverse (elastic restore, the reference's recovery contract).
+this rank's slice.  So a checkpoint saved on 4 or 8 ranks restores onto
+1 and the reverse (elastic restore, the reference's recovery contract).
 """
 from __future__ import annotations
 

@@ -66,15 +66,16 @@ def hierarchical_psum_local(x: torch.Tensor, mesh, *, in_axis: str = "data",
     return flat.reshape(x.shape)
 
 
-def int8_compress(x: torch.Tensor, *, group=None
+def int8_compress(x: torch.Tensor, *, groups=()
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Symmetric per-tensor int8 quantization. Returns ``(q, scale)``,
     ``scale`` a 0-d tensor; ``torch.round`` rounds half to even, as
     ``jnp.round`` does.  Where ``x`` is this rank's slice of a tensor
-    split over ``group``, the scale is the whole tensor's (the largest
-    magnitude taken over the group)."""
+    split over the process ``groups`` (a leaf split over "data" and
+    "model"), the scale is the whole tensor's (the largest magnitude
+    taken over every group)."""
     amax = torch.max(torch.abs(x))
-    if group is not None:
+    for group in groups:
         dist.all_reduce(amax, op=dist.ReduceOp.MAX, group=group)
     amax = amax + 1e-12
     scale = amax / 127.0

@@ -14,13 +14,18 @@ reference's jitted step donates params and optimizer state and returns
 new ones, the port updates them in place and returns them.  Serving
 needs no cell: it calls ``models.model`` directly.
 
-``build_cell(..., mesh=mesh)`` is the data-parallel step over a
-``launch.mesh.Mesh`` with ``"data"`` (and ``"pod"``) axes, the model
-axis at 1: the params, the AdamW moments (and the error feedback) are
-sharded over "data" by the rules (``parallel.fsdp``); each rank takes
-its rows of the global batch (``Cell.rows``; ``fn`` takes those rows)
-and the loss is their mean.  Two gradient syncs, by
-``opts.grad_sync``:
+``build_cell(..., mesh=mesh)`` is the step over a ``launch.mesh.Mesh``
+with ``"data"`` (and ``"pod"``, ``"model"``) axes: the params, the
+AdamW moments (and the error feedback) are sharded over "data" and
+"model" by the rules (``parallel.fsdp``); each rank takes its rows of
+the global batch (``Cell.rows``; ``fn`` takes those rows; the ranks of
+one "model" group take the same rows) and the loss is their mean.  The
+layers split over "model" (attention heads, MLP and expert ff, the
+vocabulary of the embedding and the cross-entropy) run tensor-parallel
+(``parallel.tensor``), so every gradient comes out whole, or as this
+rank's slice, on each model rank and needs no sum over "model"; the
+grad norm sums each leaf's squares over the axes that split it.  Two
+gradient syncs, by ``opts.grad_sync``:
 
 - ``"auto"``: the gathers' backward reduce-scatters the gradients over
   "data", an all-reduce over "pod" sums the shards across pods, and the
@@ -152,20 +157,26 @@ def build_cell(cfg: ModelConfig, shape: ShapeConfig,
                opts: Optional[M.RunOptions] = None, *, mesh=None,
                base_rules: Optional[LogicalRules] = None,
                lr_peak: float = 3e-4, total_steps: int = 10_000,
-               adamw: AdamWConfig = AdamWConfig()) -> Cell:
+               adamw: AdamWConfig = AdamWConfig(),
+               pad_heads: Optional[int] = None) -> Cell:
     """The train step of ``cfg`` at ``shape`` (``kind == "train"``), on
     one device, or over ``mesh`` with the rules ``base_rules`` (default
-    ``DEFAULT_RULES``) restricted to it.
+    ``DEFAULT_RULES``) restricted to it.  ``pad_heads`` pads the
+    attention heads to that count (``cfg.pad_heads_to``: the padded
+    heads are masked to zero, so the function is the unpadded model's)
+    so that they divide the model axis, as the reference's does.
 
     Raises:
       ValueError: a prefill or decode shape (serving calls the model), an
           unknown ``grad_sync``, or a mesh without "data".
-      NotImplementedError: ``opts.pipeline``, a mesh whose "model" axis
-          is larger than 1, or a batch too small for the data-parallel
-          axes (sequence sharding): ROADMAP.md queue 1 items 6b, 6c."""
+      NotImplementedError: ``opts.pipeline`` (ROADMAP.md queue 1 item
+          6c), or a batch too small for the data-parallel axes
+          (sequence sharding, item 6b-ii)."""
     if shape.kind != "train":
         raise ValueError(f"{shape.name}: the port builds train cells only; "
                          "serving runs models.model.prefill/decode_step")
+    if pad_heads is not None:
+        cfg = dataclasses.replace(cfg, pad_heads_to=pad_heads)
     opts = opts or M.RunOptions()
     if opts.grad_sync not in ("auto", "compressed"):
         raise ValueError(f"grad_sync={opts.grad_sync!r}: 'auto' or "
@@ -202,10 +213,6 @@ def _mean_over(values, groups, size: int):
 
 def _sharded_cell(cfg, shape, opts, mesh, base_rules, schedule,
                   adamw) -> Cell:
-    if mesh.shape.get("model", 1) > 1:
-        raise NotImplementedError(
-            f"a 'model' axis of {mesh.shape['model']}: tensor parallelism "
-            "is not ported yet (ROADMAP.md queue 1 item 6b)")
     if "data" not in mesh.axis_names:
         raise ValueError(f"{mesh}: the sharded train step needs a 'data' "
                          "axis")
@@ -215,7 +222,7 @@ def _sharded_cell(cfg, shape, opts, mesh, base_rules, schedule,
         raise NotImplementedError(
             f"a global batch of {shape.global_batch} over {mesh.shape}: "
             "sequence sharding is not ported yet (ROADMAP.md queue 1 "
-            "item 6b)")
+            "item 6b-ii)")
     b = rules.mesh_axes("batch")
     batch_axes = (b,) if isinstance(b, str) else tuple(b or ())
     if "data" not in batch_axes:
@@ -229,6 +236,7 @@ def _sharded_cell(cfg, shape, opts, mesh, base_rules, schedule,
     fsdp = Fsdp.for_specs(M.param_specs(cfg), mesh, rules,
                           mean_axes=("data",) if compressed else batch_axes)
     sharded = fsdp.sharded()
+    groups = fsdp.groups()
     data = mesh.group("data")
     ndata = mesh.shape["data"]
     k = opts.microbatches
@@ -244,7 +252,7 @@ def _sharded_cell(cfg, shape, opts, mesh, base_rules, schedule,
         (loss, metrics), grads = _accumulated(params, cfg, batch, opts, k,
                                               rows[1] - rows[0], shard=fsdp)
         for g, split in zip(tree_leaves(grads), sharded):
-            if not split:                    # a whole leaf's local part
+            if not split:             # a leaf whole over "data": its part
                 dist.all_reduce(g, group=data)
             if pod is not None:
                 dist.all_reduce(g, group=pod)
@@ -252,24 +260,28 @@ def _sharded_cell(cfg, shape, opts, mesh, base_rules, schedule,
         return _averaged(loss, metrics), grads, {}
 
     npods = mesh.shape["pod"] if pod is not None else 1
-    emb_dim = fsdp.dims["embed"]
+    emb_split = fsdp.splits()["embed"]
+    emb_dim, emb_mdim = fsdp.dims["embed"], fsdp.mdims["embed"]
 
     def grads_compressed(params, opt_state, batch, keep=False):
         tokens = batch["tokens"].long()
         with torch.no_grad():
-            x_emb = fsdp.full(params["embed"], emb_dim)[tokens]
+            emb = params["embed"]
+            x_emb = (emb if emb_split is None
+                     else emb_split.gather(emb))[tokens]
         (loss, metrics), gp, (gx,) = _grads(
             params, cfg, batch, opts, shard=fsdp, wrt=(("tok_embeds",
                                                         x_emb),))
         del x_emb
         raw, synced, new_ef = [], [], []
-        for g, e, split in zip(tree_leaves(gp), tree_leaves(opt_state["ef"]),
-                               sharded):
+        for g, e, split, gs in zip(tree_leaves(gp),
+                                   tree_leaves(opt_state["ef"]), sharded,
+                                   groups):
             if not split:
                 dist.all_reduce(g, group=data)
             g = g / ndata                            # the in-pod mean
             g32 = g.float() / npods + e
-            q, s = int8_compress(g32, group=data if split else None)
+            q, s = int8_compress(g32, groups=gs)
             qs = [q] if npods == 1 else all_gather(q, pod).unbind()
             ss = [s] if npods == 1 else all_gather(s, pod).unbind()
             total = qs[0].float() * ss[0]
@@ -279,16 +291,20 @@ def _sharded_cell(cfg, shape, opts, mesh, base_rules, schedule,
             new_ef.append(g32 - q.float() * s)
             if keep:
                 raw.append(g)
-        # the input-path embedding gradient, summed exactly over all ranks
-        emb = params["embed"]
-        contrib = (gx / ndata / npods).reshape(-1, gx.shape[-1]).to(emb.dtype)
-        emb_in = torch.zeros((emb.shape[0], contrib.shape[-1]),
+        # the input-path embedding gradient of the whole table, summed
+        # exactly over the data-parallel ranks (every model rank holds
+        # the same ``gx``), then this rank's slice
+        contrib = (gx / ndata / npods).reshape(-1, gx.shape[-1]).to(
+            emb.dtype)
+        emb_in = torch.zeros((cfg.vocab_size, contrib.shape[-1]),
                              dtype=emb.dtype, device=emb.device)
         emb_in.index_put_((tokens.reshape(-1),), contrib, accumulate=True)
         if emb_dim is None:
             dist.all_reduce(emb_in, group=data)
         else:
             emb_in = fsdp.reduce_scatter(emb_in, emb_dim)
+        if emb_mdim is not None:
+            emb_in = emb_in.chunk(fsdp.tp.n, emb_mdim)[fsdp.tp.rank]
         if pod is not None:
             dist.all_reduce(emb_in, group=pod)
         grads = tree_unflatten(gp, synced)
@@ -311,7 +327,7 @@ def _sharded_cell(cfg, shape, opts, mesh, base_rules, schedule,
         lr = wsd_schedule(opt_state["count"], **schedule)
         base = {key: opt_state[key] for key in ("mu", "nu", "count")}
         params, _, om = adamw_update(grads, base, params, lr, adamw,
-                                     sharded=sharded, group=data)
+                                     groups=groups)
         if compressed:
             for e, new in zip(tree_leaves(opt_state["ef"]),
                               tree_leaves(extra["ef"])):

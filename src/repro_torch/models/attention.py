@@ -51,12 +51,14 @@ def attn_specs(cfg, *, cross: bool = False) -> dict:
     return specs
 
 
-def _head_mask(cfg, out):
+def _head_mask(cfg, out, first: int = 0):
     """Zero the padded heads (cfg.pad_heads_to), keeping the padded model
-    exactly equal to the assigned config."""
+    exactly equal to the assigned config; ``out``'s heads are heads
+    ``first, first + 1, ...`` of the padded model (a tensor-parallel
+    rank's slice)."""
     if cfg.pad_heads_to is None:
         return out
-    mask = (torch.arange(cfg.padded_heads, device=out.device)
+    mask = (torch.arange(first, first + out.shape[2], device=out.device)
             < cfg.num_heads).to(out.dtype)
     return out * mask[None, None, :, None]
 
@@ -105,16 +107,43 @@ def _window(cfg, kind: str):
     return cfg.sliding_window if kind == "attn_local" else None
 
 
-def _out_proj(p, cfg, x, out):
+def _out_proj(p, cfg, x, out, first: int = 0):
     """The attention output (rows, C, H, hd) in x's dtype, padded heads
-    zeroed, through ``wo``: (rows, C, D)."""
-    out = _head_mask(cfg, out.to(x.dtype))
+    zeroed (``first``: see ``_head_mask``), through ``wo``: (rows, C,
+    D)."""
+    out = _head_mask(cfg, out.to(x.dtype), first)
     wo = p["wo"].to(x.dtype)
     return out.reshape(*x.shape[:2], -1) @ wo.reshape(-1, wo.shape[-1])
 
 
+def _split_heads(p, cfg, tp):
+    """A tensor-parallel block's leaves as this rank's heads read them,
+    and the index of its first q head: the q/k-norms, whole on every
+    rank, through ``tp.copy`` (their gradients are summed over the
+    ranks); where "model" does not divide the KV heads (``wk``/``wv``
+    whole, the GQA fallback) the KV heads that q heads ``first ..`` read
+    (head h reads KV head h // group), through ``tp.copy`` too: a
+    contiguous slice where each is read by as many of them, else one KV
+    head per q head."""
+    hl = p["wq"].shape[1]
+    first = tp.offset(hl)
+    p = dict(p)
+    for key in ("q_norm", "k_norm"):
+        if key in p:
+            p[key] = tp.copy(p[key])
+    if tp.split(p["wk"].shape[1], cfg.padded_kv_heads) is None:
+        group = cfg.padded_heads // cfg.padded_kv_heads
+        kv = [(first + j) // group for j in range(hl)]
+        lo, n = kv[0], kv[-1] + 1 - kv[0]
+        even = hl % n == 0 and kv == [lo + j // (hl // n) for j in range(hl)]
+        for key in ("wk", "wv"):
+            w = tp.copy(p[key])
+            p[key] = w[:, lo:lo + n] if even else w[:, kv]
+    return p, first
+
+
 def attention(p, cfg, x, *, kind: str = "attn", causal: bool = True,
-              x_kv=None, q_chunk: int = 1024, impl: str = "auto"):
+              x_kv=None, q_chunk: int = 1024, impl: str = "auto", tp=None):
     """Full-sequence (prefill) attention of queries at positions
     ``0..S-1``.
 
@@ -126,10 +155,23 @@ def attention(p, cfg, x, *, kind: str = "attn", causal: bool = True,
     ``impl`` picks the flash kernel (``kernels.ops``; ``auto`` = the
     kernel on CUDA) or the query-chunked dense path of the JAX model.
 
+    ``tp`` (a ``parallel.tensor.TensorParallel``), where given and the
+    block's ``wq`` holds this rank's slice of the heads, runs the block
+    tensor-parallel: ``x`` enters through ``tp.copy`` (``x_kv`` is the
+    caller's to pass through it, once for every block that reads it),
+    this rank's q heads attend (``_split_heads``), and the output
+    projection of its heads is summed over the ranks (``tp.reduce``).
+
     Returns ``(out (B, S, D), (k, v))``, k/v ``(B, S or L, KVH, hd)`` to
-    seed the cache."""
+    seed the cache (this rank's KV heads under ``tp``)."""
     B, S, _ = x.shape
     cross = x_kv is not None
+    if tp is not None:
+        tp = tp.split(p["wq"].shape[1], cfg.padded_heads)
+    first = 0
+    if tp is not None:
+        p, first = _split_heads(p, cfg, tp)
+        x = tp.copy(x)
     xkv = x_kv if cross else x
     positions = torch.arange(S, dtype=torch.int32,
                              device=x.device).expand(B, S)
@@ -159,7 +201,8 @@ def attention(p, cfg, x, *, kind: str = "attn", causal: bool = True,
             _gqa_attend(qc, k, v, keep(pc), hd ** -0.5)
             for qc, pc in zip(q.chunk(n_chunks, dim=1),
                               positions.chunk(n_chunks, dim=1))], dim=1)
-    return _out_proj(p, cfg, x, out), (k, v)
+    out = _out_proj(p, cfg, x, out, first)
+    return (out if tp is None else tp.reduce(out)), (k, v)
 
 
 def decode_attention(p, cfg, x, cache_k, cache_v, pos, *, kind: str = "attn",

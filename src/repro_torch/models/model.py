@@ -31,6 +31,7 @@ from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.modules import (ParamSpec, abstract_params,
                                         count_params, init_params, mlp_specs,
                                         softmax_xent_chunked, swiglu)
+from repro_torch.parallel.tensor import embed_lookup
 from repro_torch.runtime import sampler as sampler_mod
 from repro_torch.tree import tree_map
 
@@ -200,13 +201,27 @@ def _layers(params, cfg: ModelConfig):
     return out
 
 
-def _mlp(p, cfg: ModelConfig, h, moe_impl: str):
+def _tp(shard, local: int, whole: int):
+    """The "model" group of a sharded step (``shard``, a
+    ``parallel.fsdp.Fsdp``) where a dimension of ``whole`` is held as
+    slices of ``local``, else None."""
+    if shard is None or shard.tp is None:
+        return None
+    return shard.tp.split(local, whole)
+
+
+def _mlp(p, cfg: ModelConfig, h, moe_impl: str, shard=None):
     """The layer's MLP on its normed input ``h`` (B, S, D): the MoE block
-    where the layer has one, else the dense SwiGLU."""
+    where the layer has one, else the dense SwiGLU; in a sharded step
+    (``shard``) tensor-parallel over "model" where "model" splits its
+    ff."""
     if "moe" in p:
-        return moe_mod.moe_block(p["moe"], cfg, h, impl=moe_impl)
+        return moe_mod.moe_block(p["moe"], cfg, h,
+                                 mesh=None if shard is None else shard.mesh,
+                                 impl=moe_impl)
     mlp = p["mlp"]
-    return swiglu(h, mlp["wg"], mlp["wu"], mlp["wd"], h.dtype)
+    return swiglu(h, mlp["wg"], mlp["wu"], mlp["wd"], h.dtype,
+                  tp=_tp(shard, mlp["wg"].shape[1], cfg.d_ff))
 
 
 def _save_dots(ctx, op, *args, **kwargs) -> CheckpointPolicy:
@@ -229,7 +244,7 @@ def _residual_stream(params, cfg: ModelConfig, x, mixer, *, cross=None,
                      impl: str, remat: bool = False,
                      remat_policy: str = "nothing",
                      moe_impl: str = "capacity", aux: bool = False,
-                     gather=None, aux_mean=None):
+                     shard=None):
     """Run the residual stream ``x`` (B, S, D) through every layer of
     ``params["blocks"]`` and ``params["final_norm"]``;
     ``mixer(g, i, kind, p, h)`` returns the mixer output (attention or
@@ -259,15 +274,16 @@ def _residual_stream(params, cfg: ModelConfig, x, mixer, *, cross=None,
     them, or with ``remat_policy="dots"`` all but the saved matmul
     outputs).
 
-    ``gather(i, p)``, where given, returns the leaves ``p`` of a layer at
-    period position ``i`` (views of the stacked leaves of
-    ``params["blocks"]``, sharded) whole: each layer gathers its leaves
-    where it runs (inside the checkpointed function, so backward gathers
-    again), and the next layer's ln1 with them.  ``aux_mean``, where
-    given, averages the aux loss's routing statistics over the
-    data-parallel ranks (``moe.aux_load_balance_loss``)."""
+    ``shard`` (a ``parallel.fsdp.Fsdp``), where given, holds the
+    placement of ``params["blocks"]``: each layer gathers its leaves
+    where it runs (``shard.layer``, inside the checkpointed function, so
+    backward gathers again), and the next layer's ln1 with them; the MLP
+    runs tensor-parallel where "model" splits it (``_mlp``); the aux
+    loss's routing statistics are averaged over the data-parallel ranks
+    (``shard.mean``, ``moe.aux_load_balance_loss``)."""
     eps = cfg.norm_eps
     layers = _layers(params, cfg)
+    gather = None if shard is None else shard.layer
 
     def ln1(j):
         """Layer ``j``'s ln1 weight, whole; past the last layer the final
@@ -299,10 +315,10 @@ def _residual_stream(params, cfg: ModelConfig, x, mixer, *, cross=None,
             x, h = ops.add_rmsnorm(x, mix, p["ln2"], eps=eps, impl=impl)
             a = None
             if aux and "moe" in p:
-                kw = {} if aux_mean is None else {"mean": aux_mean}
+                kw = {} if shard is None else {"mean": shard.mean}
                 a = moe_mod.aux_load_balance_loss(p["moe"], cfg, h, **kw)
-            return (*ops.add_rmsnorm(x, _mlp(p, cfg, h, moe_impl), w_next,
-                                     eps=eps, impl=impl), a)
+            return (*ops.add_rmsnorm(x, _mlp(p, cfg, h, moe_impl, shard),
+                                     w_next, eps=eps, impl=impl), a)
         x, h, a = (checkpoint(layer, x, h, use_reentrant=False,
                               **_remat_kwargs(remat_policy)) if remat
                    else layer(x, h))
@@ -313,7 +329,7 @@ def _residual_stream(params, cfg: ModelConfig, x, mixer, *, cross=None,
 
 def backbone(params, cfg: ModelConfig, x, opts: RunOptions, *,
              enc_out=None, want_cache: bool = False, impl: str = "auto",
-             train: bool = False, gather=None, aux_mean=None):
+             train: bool = False, shard=None):
     """Forward through the layer stack at positions ``0..S-1`` and the
     final norm (``_residual_stream``; MoE blocks by ``opts.moe_impl``),
     an encoder-decoder model's decoder layers attending to ``enc_out``
@@ -329,10 +345,19 @@ def backbone(params, cfg: ModelConfig, x, opts: RunOptions, *,
     else None (serving computes no aux loss).  With
     ``opts.ring_local_cache`` a sliding-window layer of a prompt longer
     than its window W keeps its last W rows at slot = position mod W
-    (``_ring_rows``).  ``gather`` and ``aux_mean`` are
-    ``_residual_stream``'s (a sharded train step's)."""
+    (``_ring_rows``).  ``shard`` is ``_residual_stream``'s (a sharded
+    train step's placement); under it the attention blocks run
+    tensor-parallel where "model" splits their heads
+    (``attention.attention``'s ``tp``), the SSM blocks whole."""
     remat = train and opts.remat
     per_layer = {f"pos{i}": [] for i in range(cfg.scan_period())}
+    tp = None if shard is None else shard.tp
+    if enc_out is not None and tp is not None:
+        # the encoder's output enters the split cross-attention blocks
+        # through one copy: its gradient sums every layer's reads
+        heads = params["blocks"]["pos0"]["cross"]["wq"].shape[2]
+        if tp.split(heads, cfg.padded_heads) is not None:
+            enc_out = tp.copy(enc_out)
 
     def mixer(g, i, kind, p, h):
         if kind == "ssm":
@@ -345,7 +370,8 @@ def backbone(params, cfg: ModelConfig, x, opts: RunOptions, *,
                                              "ssm": ssm})
             return mix
         mix, (k, v) = attn_mod.attention(p["mixer"], cfg, h, kind=kind,
-                                         q_chunk=opts.q_chunk, impl=impl)
+                                         q_chunk=opts.q_chunk, impl=impl,
+                                         tp=tp)
         if want_cache:
             if _ring(cfg, kind, opts):
                 k, v = _ring_rows(k, cfg.sliding_window), \
@@ -356,7 +382,8 @@ def backbone(params, cfg: ModelConfig, x, opts: RunOptions, *,
     def cross(g, i, p, h):
         mix, (ck, cv) = attn_mod.attention(p["cross"], cfg, h, x_kv=enc_out,
                                            causal=False,
-                                           q_chunk=opts.q_chunk, impl=impl)
+                                           q_chunk=opts.q_chunk, impl=impl,
+                                           tp=tp)
         if want_cache:
             per_layer[f"pos{i}"][-1].update(ck=ck, cv=cv)
         return mix
@@ -364,7 +391,7 @@ def backbone(params, cfg: ModelConfig, x, opts: RunOptions, *,
                               impl=impl, remat=remat,
                               remat_policy=opts.remat_policy,
                               moe_impl=opts.moe_impl, aux=train,
-                              gather=gather, aux_mean=aux_mean)
+                              shard=shard)
     if not want_cache:
         return h, None, aux
     return h, {pos: {key: torch.stack([c[key] for c in cs])
@@ -391,7 +418,8 @@ def _ring_rows(k, window: int):
     return torch.roll(k[:, -window:], shifts=S % window, dims=1)
 
 
-def _embed_inputs(params, cfg: ModelConfig, batch, *, impl: str = "auto"):
+def _embed_inputs(params, cfg: ModelConfig, batch, *, impl: str = "auto",
+                  shard=None):
     """Token embedding of ``batch["tokens"]`` (B, S): x (B, S, D) in the
     compute dtype; where the batch holds ``tok_embeds`` (B, S, D), those
     precomputed embeddings in the compute dtype instead (the compressed
@@ -408,7 +436,10 @@ def _embed_inputs(params, cfg: ModelConfig, batch, *, impl: str = "auto"):
     the frames through ``frontend_proj`` in the compute dtype, the encoder
     stack (non-causal self-attention at positions 0..L-1, the dense MLP)
     and its final norm.  Returns ``(x, enc_out)``, ``enc_out`` (B, L, D)
-    or None.
+    or None.  In a sharded step (``shard``) whose "model" axis splits the
+    vocabulary, ``params["embed"]`` is this rank's rows and the lookup is
+    vocab-parallel (``parallel.tensor.embed_lookup``); the encoder runs
+    whole on every rank (its leaves gathered at the loss's entry).
 
     Raises:
       ValueError: patches longer than the prompt (the reference's
@@ -417,7 +448,10 @@ def _embed_inputs(params, cfg: ModelConfig, batch, *, impl: str = "auto"):
     if "tok_embeds" in batch:
         x = batch["tok_embeds"].to(dt, copy=True)
     else:
-        x = params["embed"][batch["tokens"].long()].to(dt)
+        emb, tokens = params["embed"], batch["tokens"].long()
+        tp = _tp(shard, emb.shape[0], cfg.vocab_size)
+        x = (emb[tokens] if tp is None else embed_lookup(emb, tokens,
+                                                         tp)).to(dt)
     if cfg.frontend == "vision" and "patches" in batch:
         patches = batch["patches"]
         n, S = patches.shape[1], x.shape[1]
@@ -478,10 +512,13 @@ def lm_loss(params, cfg: ModelConfig, batch,
     does even in f32 configs).
 
     ``shard`` (a ``parallel.fsdp.Fsdp``), where given, holds the
-    placement of ``params``, sharded over the mesh's "data" axis: every
-    leaf outside the decoder's ``blocks`` is gathered at entry, each
-    decoder layer's leaves where the layer runs, and the aux loss's
-    routing statistics are averaged over the data-parallel ranks.
+    placement of ``params``, sharded over the mesh's "data" and "model"
+    axes: every leaf outside the decoder's ``blocks`` is gathered at
+    entry (the embedding's and the head's vocabulary slices kept), each
+    decoder layer's leaves where the layer runs; the layers that "model"
+    splits run tensor-parallel, the embedding and the cross-entropy
+    vocab-parallel; the aux loss's routing statistics are averaged over
+    the data-parallel ranks.
 
     Raises:
       KeyError: an encoder-decoder batch without ``audio``, as in the
@@ -489,14 +526,14 @@ def lm_loss(params, cfg: ModelConfig, batch,
     if shard is not None:
         params = shard.outside_blocks(params)
     params = _maybe_bf16(params, opts)
-    x, enc_out = _embed_inputs(params, cfg, batch, impl="plain")
-    h, _, aux = backbone(
-        params, cfg, x, opts, enc_out=enc_out, impl="plain", train=True,
-        gather=None if shard is None else shard.layer,
-        aux_mean=None if shard is None else shard.mean)
+    x, enc_out = _embed_inputs(params, cfg, batch, impl="plain",
+                               shard=shard)
+    h, _, aux = backbone(params, cfg, x, opts, enc_out=enc_out,
+                         impl="plain", train=True, shard=shard)
+    w = _output_weight(params, cfg)
     total, count = softmax_xent_chunked(
-        h, _output_weight(params, cfg).to(h.dtype), batch["labels"],
-        chunk=opts.xent_chunk)
+        h, w.to(h.dtype), batch["labels"], chunk=opts.xent_chunk,
+        tp=_tp(shard, w.shape[1], cfg.vocab_size))
     xent = total / torch.clamp(count, min=1.0)
     loss = (xent + opts.aux_loss_weight * aux if cfg.moe is not None
             else xent)

@@ -18,6 +18,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels.ref import rmsnorm_ref
+from repro_torch.parallel.tensor import target_logit
 
 
 @dataclasses.dataclass(frozen=True)
@@ -102,10 +103,18 @@ def rope(x: torch.Tensor, positions: torch.Tensor,
     return out.to(x.dtype)
 
 
-def swiglu(x, wg, wu, wd, compute_dtype: torch.dtype):
+def swiglu(x, wg, wu, wd, compute_dtype: torch.dtype, tp=None):
+    """``(silu(x·wg) ⊙ x·wu)·wd``.  ``tp`` (a
+    ``parallel.tensor.TensorParallel``), where given, runs it
+    tensor-parallel on this rank's ff slice (``wg``/``wu`` columns,
+    ``wd`` rows): ``x`` through ``tp.copy``, the output summed over the
+    ranks."""
+    if tp is not None:
+        x = tp.copy(x)
     g = x @ wg.to(compute_dtype)
     u = x @ wu.to(compute_dtype)
-    return (F.silu(g) * u) @ wd.to(compute_dtype)
+    out = (F.silu(g) * u) @ wd.to(compute_dtype)
+    return out if tp is None else tp.reduce(out)
 
 
 def mlp_specs(d_model: int, d_ff: int, prefix_axes=("embed", "ff")) -> dict:
@@ -117,20 +126,27 @@ def mlp_specs(d_model: int, d_ff: int, prefix_axes=("embed", "ff")) -> dict:
     }
 
 
-def _xent_chunk(xc, w_out, lc, compute_dtype: torch.dtype):
+def _xent_chunk(xc, w_out, lc, compute_dtype: torch.dtype, tp=None):
     """Summed cross-entropy and token count of one chunk: xc (B, cs, D),
-    w_out (D, V), lc (B, cs) with labels < 0 masked out."""
+    w_out (D, V) (under ``tp``, this rank's vocabulary columns), lc (B,
+    cs) with labels < 0 masked out."""
     w = w_out.to(compute_dtype).to(torch.promote_types(xc.dtype,
                                                         compute_dtype))
     logits = (xc @ w).float()
-    lse = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, lc.clamp(min=0).long()[..., None])[..., 0]
+    target = lc.clamp(min=0).long()
+    if tp is None:
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, target[..., None])[..., 0]
+    else:
+        lse = tp.logsumexp(logits)
+        gold = target_logit(logits, target, tp)
     mask = (lc >= 0).float()
     return torch.sum((lse - gold) * mask), torch.sum(mask)
 
 
 def softmax_xent_chunked(x, w_out, labels, *, chunk: int = 512,
-                         compute_dtype: torch.dtype = torch.bfloat16):
+                         compute_dtype: torch.dtype = torch.bfloat16,
+                         tp=None):
     """Cross-entropy without materializing full (B, S, V) logits.
 
     x: (B, S, D) final hidden; w_out: (D, V); labels: (B, S) int32.
@@ -141,8 +157,14 @@ def softmax_xent_chunked(x, w_out, labels, *, chunk: int = 512,
     the chunks' gradients are summed.  Each chunk runs under
     ``torch.utils.checkpoint``: backward recomputes it, so only one
     chunk's (B, chunk, V) logits are alive at a time in either pass.
+    ``tp`` (a ``parallel.tensor.TensorParallel``), where given, makes it
+    vocab-parallel: ``w_out`` is this rank's vocabulary slice, ``x``
+    enters through ``tp.copy``, the logsumexp and the target's logit are
+    taken over the ranks' logits (``tp.logsumexp``, ``target_logit``).
     Returns (sum_loss, sum_tokens), 0-d f32.
     """
+    if tp is not None:
+        x = tp.copy(x)
     B, S, D = x.shape
     n = max(S // chunk, 1)
     cs = S // n
@@ -152,7 +174,7 @@ def softmax_xent_chunked(x, w_out, labels, *, chunk: int = 512,
     count = torch.zeros((), dtype=torch.float32, device=x.device)
     for xc, lc in zip(xs, ls):
         loss, cnt = checkpoint(_xent_chunk, xc, w_out, lc, compute_dtype,
-                               use_reentrant=False)
+                               tp, use_reentrant=False)
         total = total + loss
         count = count + cnt
     return total, count

@@ -1,5 +1,6 @@
 """Mixture-of-experts block of the port (counterpart of
-``repro.models.moe``), on one device.
+``repro.models.moe``), on one device or tensor-parallel over a mesh's
+"model" axis.
 
 Tokens are routed top-k, replicated k times, sorted by expert id (a
 stable sort, so within an expert lower flat slots come first), and pushed
@@ -17,6 +18,12 @@ with a boolean mask or calls ``.item()``.  The combine takes each token's
 k contributions in ascending expert id (the reference's sorted-slot
 order) and sums them one after another from zeros in the compute dtype,
 instead of ``index_add_``, whose atomics add in no fixed order on CUDA.
+
+Over a mesh (``moe_block(mesh=)``, the reference's ``shard_map`` body)
+every model rank routes its data shard's tokens whole, so the capacity
+and the drops are per data shard; the expert FFNs run on this rank's
+``expert_ff`` slice and the shared expert on its ``ff`` slice, and the
+summed output is reduced over "model" once.
 """
 from __future__ import annotations
 
@@ -24,6 +31,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.modules import ParamSpec, swiglu
+from repro_torch.parallel.tensor import TensorParallel
 
 
 def moe_specs(cfg) -> dict:
@@ -39,7 +47,7 @@ def moe_specs(cfg) -> dict:
                         ("expert", "expert_ff", "embed")),
     }
     if m.num_shared_experts:
-        f_sh = m.d_ff_shared or m.num_shared_experts * m.d_ff_expert
+        f_sh = _shared_ff(m)
         specs["shared"] = {
             "wg": ParamSpec((d, f_sh), ("embed", "ff")),
             "wu": ParamSpec((d, f_sh), ("embed", "ff")),
@@ -152,21 +160,35 @@ def combine(y, weights, idx, sort_idx):
     return out
 
 
-def _moe_local(p, cfg, x, *, impl: str = "capacity"):
-    """MoE on one device. x: (B, S, D) -> (B, S, D).
+def _moe_local(p, cfg, x, *, impl: str = "capacity", tp=None):
+    """MoE on one device, or with ``tp`` (a
+    ``parallel.tensor.TensorParallel``) tensor-parallel: x: (B, S, D) ->
+    (B, S, D).
 
     impl: 'capacity' (the reference's default: capacity drops) or
-    'ragged' (dropless per-expert dense products)."""
+    'ragged' (dropless per-expert dense products).
+
+    Under ``tp``, a part whose weights hold this rank's slice (the
+    experts' ``expert_ff``, the shared expert's ``ff``) reads ``x``
+    through ``tp.copy`` and its whole leaves (the router, the gate)
+    through ``tp.copy``, so their gradients are summed over the ranks;
+    the split parts' sum is reduced over the ranks, a part whose leaves
+    are whole is added after."""
     m = cfg.moe
     B, S, D = x.shape
     dt = x.dtype
     xt = x.reshape(B * S, D)
+    etp = tp and tp.split(p["wg"].shape[2], m.d_ff_expert)
 
-    _, weights, idx = route(p, m, xt)
+    def into(part_tp, t):
+        return t if part_tp is None else part_tp.copy(t)
+
+    xe = into(etp, xt)
+    _, weights, idx = route({"router": into(etp, p["router"])}, m, xe)
     flat_expert = idx.reshape(-1)                              # (T*k,)
     sort_idx = torch.argsort(flat_expert, stable=True)
     tok_ids = sort_idx // m.top_k                              # source token
-    xs = xt[tok_ids]                                           # (T*k, D)
+    xs = xe[tok_ids]                                           # (T*k, D)
     sizes = group_sizes(flat_expert, m.num_experts)
 
     if impl == "ragged":
@@ -179,24 +201,38 @@ def _moe_local(p, cfg, x, *, impl: str = "capacity"):
     out = combine(y, weights, idx, sort_idx)
     if "shared" in p:
         sh = p["shared"]
-        ys = swiglu(xt, sh["wg"], sh["wu"], sh["wd"], dt)
-        gate = torch.sigmoid((xt @ sh["gate"].to(dt)).float())
-        out = out + ys * gate.to(dt)
-    return out.reshape(B, S, D)
+        stp = tp and tp.split(sh["wg"].shape[1], _shared_ff(m))
+        # one copy of x where both parts are split: its gradient sums
+        # every read in the order of the meshless block's
+        xs_ = xe if (stp is not None and etp is not None) else into(stp, xt)
+        ys = swiglu(xs_, sh["wg"], sh["wu"], sh["wd"], dt)
+        gate = torch.sigmoid((xs_ @ into(stp, sh["gate"]).to(dt)).float())
+        shared = ys * gate.to(dt)
+        if (etp is None) != (stp is None):    # one part split: reduce it
+            return (_reduced(etp, out) + _reduced(stp, shared)).reshape(
+                B, S, D)
+        out = out + shared
+    return _reduced(etp, out).reshape(B, S, D)
+
+
+def _shared_ff(m) -> int:
+    """The shared experts' ff width (``moe_specs``)."""
+    return m.d_ff_shared or m.num_shared_experts * m.d_ff_expert
+
+
+def _reduced(tp, t):
+    return t if tp is None else tp.reduce(t)
 
 
 def moe_block(p, cfg, x, mesh=None, impl: str = "capacity"):
-    """The MoE block on one device (``_moe_local``).
-
-    Raises:
-      NotImplementedError: a ``mesh``: the sharded block (expert FFNs
-          tensor-parallel, routing local to each data shard) belongs to
-          the parallelism slice, ROADMAP.md queue 1."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "moe_block over a mesh is not ported yet (the sharded MoE "
-            "belongs to the parallelism slice, ROADMAP.md queue 1)")
-    return _moe_local(p, cfg, x, impl=impl)
+    """The MoE block: on one device (``_moe_local``), or over ``mesh`` (a
+    ``launch.mesh.Mesh`` with a "model" axis, ``p`` this rank's leaves:
+    gathered over "data", ``expert_ff`` and ``ff`` this rank's slices)
+    the reference's sharded body: routing and capacity on this rank's
+    tokens, the expert FFNs tensor-parallel, one sum over "model"."""
+    tp = (TensorParallel.over(mesh) if mesh is not None
+          and "model" in mesh.axis_names else None)
+    return _moe_local(p, cfg, x, impl=impl, tp=tp)
 
 
 def aux_load_balance_loss(p, cfg, x, *, mean=None) -> torch.Tensor:

@@ -35,26 +35,30 @@ def init_opt_state(params) -> Dict[str, Any]:
             "count": torch.zeros((), dtype=torch.int32, device=device)}
 
 
-def global_norm(tree, *, sharded=None, group=None) -> torch.Tensor:
+def global_norm(tree, *, groups=None) -> torch.Tensor:
     """The 2-norm of every leaf of ``tree`` together.  Over a sharded
-    tree (``sharded``: per leaf, in ``tree_leaves`` order, whether it is
-    this rank's slice of a leaf split over ``group``) the split leaves'
-    sums of squares are summed over ``group`` and a whole (replicated)
-    leaf counts once, so every rank gets the norm of the whole tree; the
-    leaves' sums are added in leaf order either way."""
+    tree (``groups``: per leaf, in ``tree_leaves`` order, the process
+    groups of the mesh axes it is split over, empty for a whole leaf)
+    each split leaf's sum of squares is summed over its groups and a
+    leaf whole over an axis counts once along it, so every rank gets the
+    norm of the whole tree; the leaves' sums are added in leaf order
+    either way."""
     sums = [torch.sum(torch.square(x.float())) for x in tree_leaves(tree)]
-    if sharded is not None and any(sharded):
-        split = torch.stack([s for s, sh in zip(sums, sharded) if sh])
-        dist.all_reduce(split, group=group)
-        split = iter(split.unbind())
-        sums = [next(split) if sh else s for s, sh in zip(sums, sharded)]
+    # each set of groups in the order of its first leaf: the same
+    # collectives in the same order on every rank
+    for key in dict.fromkeys(gs for gs in groups or () if gs):
+        at = [i for i, gs in enumerate(groups) if gs == key]
+        part = torch.stack([sums[i] for i in at])
+        for g in key:
+            dist.all_reduce(part, group=g)
+        for i, s in zip(at, part.unbind()):
+            sums[i] = s
     return torch.sqrt(sum(sums))
 
 
 @torch.no_grad()
 def adamw_update(grads, opt_state, params, lr,
-                 cfg: AdamWConfig = AdamWConfig(), *, sharded=None,
-                 group=None):
+                 cfg: AdamWConfig = AdamWConfig(), *, groups=None):
     """One AdamW step: clip ``grads`` to ``cfg.clip_norm`` by their global
     norm, advance the moments, and move every leaf of ``params`` (the
     norms included, as in the reference) by
@@ -64,7 +68,7 @@ def adamw_update(grads, opt_state, params, lr,
 
     ``params`` and ``opt_state`` are updated in place and returned:
     ``(params, opt_state, {"grad_norm"})``, the norm before clipping.
-    Over a sharded tree (``sharded``, ``group``: see ``global_norm``)
+    Over a sharded tree (``groups``: see ``global_norm``)
     the norm, and so the clipping, is the whole tree's, and each leaf's
     update is the whole leaf's update restricted to its slice.
     Each product and sum is rounded as in the reference's expression;
@@ -72,7 +76,7 @@ def adamw_update(grads, opt_state, params, lr,
     update holds at most two temporaries of its size (a full-width
     phi-3-vision-4.2b's largest leaf is 3 GiB in f32)."""
     count = opt_state["count"].add_(1)
-    gnorm = global_norm(grads, sharded=sharded, group=group)
+    gnorm = global_norm(grads, groups=groups)
     scale = None
     if cfg.clip_norm is not None:
         scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-12),

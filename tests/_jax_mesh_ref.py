@@ -3,6 +3,7 @@ multi-device CPU mesh (the method of ``tests/subproc/``):
 
   python tests/_jax_mesh_ref.py collectives OUT.npz   # 8 devices
   python tests/_jax_mesh_ref.py train OUT.npz         # 4 devices
+  python tests/_jax_mesh_ref.py tp OUT.npz            # 8 devices
 
 ``collectives``: the cases of ``tests/subproc/check_collectives.py``
 items 1-5 on ``x = arange(24) / 7``.  ``train``: from the params of
@@ -10,14 +11,19 @@ items 1-5 on ``x = arange(24) / 7``.  ``train``: from the params of
 cell (the dense config), of the compressed cell on the (2, 2, 1) mesh
 (the dense config) and of the sharded cell on that mesh (the MoE config,
 whose capacity is per data shard); each step's metrics, the error
-feedback after each compressed step and the final params.
+feedback after each compressed step and the final params.  ``tp``: on
+the (2, 2, 2) pod × data × model mesh, three f32 steps of the sharded
+cell for each config of ``_mesh_inputs.TP_CONFIGS``: the metrics, the first moment after step 1
+(``mu_1 = (1 - b1)·c·g``, ``c`` the clip factor: the step-1 gradient),
+the final params, and each device's shard of the initial params with
+its mesh coordinate.
 """
 import os
 import sys
 
 CASE, OUT = sys.argv[1], sys.argv[2]
 os.environ["XLA_FLAGS"] = ("--xla_force_host_platform_device_count="
-                           + ("8" if CASE == "collectives" else "4"))
+                           + ("4" if CASE == "train" else "8"))
 os.environ["JAX_PLATFORMS"] = "cpu"
 HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(HERE, "..", "src"))
@@ -61,14 +67,20 @@ def collectives() -> dict:
             "fallback": hierarchical_psum(x, mesh2)}
 
 
-def _steps(cfg, name, mesh, opts, *, compressed=False) -> dict:
+def _key(path) -> str:
+    return "/".join(str(p.key) for p in path)
+
+
+def _steps(cfg, name, mesh, opts, *, compressed=False,
+           tp=False) -> dict:
     from repro.configs.base import ShapeConfig
     from repro.data.pipeline import TokenPipeline
     from repro.launch.steps import build_cell
     from repro.models import model as M
     from repro.optim.adamw import init_opt_state
     cell = build_cell(cfg, ShapeConfig("t", MI.SEQ, MI.BATCH, "train"), mesh,
-                      opts=opts, lr_peak=MI.LR, total_steps=MI.TOTAL)
+                      opts=opts, lr_peak=MI.LR, total_steps=MI.TOTAL,
+                      pad_heads=MI.PAD_HEADS.get(name))
     fn = jax.jit(cell.fn, in_shardings=cell.in_shardings)
     pipe = TokenPipeline(cfg.vocab_size, MI.SEQ, MI.BATCH)
     out = {}
@@ -80,6 +92,13 @@ def _steps(cfg, name, mesh, opts, *, compressed=False) -> dict:
             opt["ef"] = jax.tree.map(jnp.zeros_like, params)
         params = jax.device_put(params, cell.in_shardings[0])
         opt = jax.device_put(opt, cell.in_shardings[1])
+        if tp:
+            devices = cell.in_shardings[0]["embed"].mesh.devices
+            for path, p in jax.tree_util.tree_flatten_with_path(params)[0]:
+                for shard in p.addressable_shards:
+                    at = "".join(map(str, np.argwhere(
+                        devices == shard.device)[0]))
+                    out[f"shard/{at}/{_key(path)}"] = np.asarray(shard.data)
         for step in range(MI.STEPS):
             params, opt, m = fn(params, opt, pipe.get_batch(step))
             out[f"metrics/{step}"] = np.array(
@@ -88,10 +107,13 @@ def _steps(cfg, name, mesh, opts, *, compressed=False) -> dict:
             if compressed:
                 for path, e in jax.tree_util.tree_flatten_with_path(
                         opt["ef"])[0]:
-                    key = "/".join(str(p.key) for p in path)
-                    out[f"ef/{step}/{key}"] = np.asarray(e)
+                    out[f"ef/{step}/{_key(path)}"] = np.asarray(e)
+            if tp and step == 0:
+                for path, mu in jax.tree_util.tree_flatten_with_path(
+                        opt["mu"])[0]:
+                    out[f"mu1/{_key(path)}"] = np.asarray(mu)
     for path, p in jax.tree_util.tree_flatten_with_path(params)[0]:
-        out["params/" + "/".join(str(q.key) for q in path)] = np.asarray(p)
+        out["params/" + _key(path)] = np.asarray(p)
     return out
 
 
@@ -115,7 +137,23 @@ def train() -> dict:
     return out
 
 
+def tp() -> dict:
+    """The (2, 2, 2) cells of ``TP_CONFIGS`` by ``"auto"``.  (The
+    compressed cell does not compile on this mesh: XLA's SPMD
+    partitioner aborts on a failed check.)"""
+    from repro.configs import get_config, reduced_config
+    from repro.models import model as M
+    out = {}
+    mesh = _make_mesh(*MI.TP_MESH)
+    for name in MI.TP_CONFIGS:
+        cfg = MI.config(name, get_config, reduced_config)
+        opts = M.RunOptions(**MI.run_options_kw(remat=False))
+        res = _steps(cfg, name, mesh, opts, tp=True)
+        out.update({f"{name}/{k}": v for k, v in res.items()})
+    return out
+
+
 if __name__ == "__main__":
-    res = collectives() if CASE == "collectives" else train()
+    res = {"collectives": collectives, "train": train, "tp": tp}[CASE]()
     np.savez(OUT, **{k: np.asarray(v) for k, v in res.items()})
     print("ALL_OK", len(res))

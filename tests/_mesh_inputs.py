@@ -15,19 +15,41 @@ import sys
 import numpy as np
 
 #: The mesh of the sharded train tests: 2 pods × 2 data × model 1 (4
-#: ranks), and of the collectives tests: 2 × 2 × 2 (8 ranks).
+#: ranks), and of the collectives and tensor-parallel tests: 2 × 2 × 2
+#: (8 ranks).
 TRAIN_MESH = ((2, 2, 1), ("pod", "data", "model"))
 COLLECTIVES_MESH = ((2, 2, 2), ("pod", "data", "model"))
+TP_MESH = COLLECTIVES_MESH
 SINGLE_POD_MESH = ((4, 2), ("data", "model"))
 
 #: Reduced f32 configs: (arch, MoE capacity factor or None).  The MoE
 #: config at capacity factor 0.5, so that (token, expert) pairs drop on
 #: every rank (capacity is per rank's rows, as in the reference, whose
 #: GSPMD step keeps the batch sharded inside the MoE block).
-CONFIGS = {"dense": ("qwen3-1.7b", None), "moe": ("qwen2-moe-a2.7b", 0.5)}
+CONFIGS = {"dense": ("qwen3-1.7b", None), "moe": ("qwen2-moe-a2.7b", 0.5),
+           "ssm": ("mamba2-130m", None), "kv1": ("qwen3-1.7b", None),
+           "pad": ("qwen3-1.7b", None), "whisper": ("whisper-base", None),
+           "vision": ("phi-3-vision-4.2b", None),
+           "jamba": ("jamba-v0.1-52b", None), "odd": ("minicpm-2b", None)}
+#: Fields set over the reduced config: one KV head (every rank of a
+#: model axis of 2 reads it: the KV fallback), and 3 heads padded to 4
+#: (``PAD_HEADS``) so that they split over the model axis; minicpm-2b's
+#: odd vocabulary (tied head), which no axis divides.
+OVERRIDES = {"kv1": dict(num_kv_heads=1),
+             "pad": dict(num_heads=3, num_kv_heads=3),
+             "odd": dict(vocab_size=251)}
+PAD_HEADS = {"pad": 4}
+#: The configs held to JAX's (2, 2, 2) cell, and those held to the
+#: port's own meshless step on that mesh (jamba-v0.1-52b at its reduced
+#: capacity factor, 4 = E: no drops, so that capacity per data shard
+#: and per batch agree).
+TP_CONFIGS = ("dense", "moe", "ssm", "kv1", "pad")
+TP_FAMILIES = ("whisper", "vision", "jamba", "odd")
 #: Leaves drawn at their true fan-in (``tests/_torch_train_inputs.py``'s
 #: ``TRUE_FAN_IN`` says why).
-FAN_IN = {"moe": ("wq", "wk")}
+FAN_IN = {"moe": ("wq", "wk"), "whisper": ("wq", "wk"),
+          "vision": ("wq", "wk"), "jamba": ("wq", "wk", "in_proj"),
+          "odd": ("wq", "wk")}
 BATCH, SEQ, STEPS, LR, TOTAL = 8, 32, 3, 3e-3, 300
 SEED = 0
 
@@ -36,7 +58,10 @@ def config(name: str, get_config, reduced_config):
     """The reduced f32 config ``name`` of ``CONFIGS`` through a package's
     own ``get_config``/``reduced_config``."""
     arch, cf = CONFIGS[name]
-    cfg = reduced_config(get_config(arch), compute_dtype="float32")
+    cfg = reduced_config(get_config(arch), compute_dtype="float32",
+                         **OVERRIDES.get(name, {}))
+    if name in PAD_HEADS:
+        cfg = dataclasses.replace(cfg, pad_heads_to=PAD_HEADS[name])
     if cf is not None:
         cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
             cfg.moe, capacity_factor=cf))
@@ -45,6 +70,20 @@ def config(name: str, get_config, reduced_config):
 
 def run_options_kw(**kw) -> dict:
     return dict(q_chunk=32, xent_chunk=32, **kw)
+
+
+def np_frontend(cfg, seed: int = SEED) -> dict:
+    """A vision model's ``patches`` (BATCH, frontend_len, frontend_dim) or
+    an encoder-decoder model's ``audio`` (BATCH, encoder_len,
+    frontend_dim), f32 from numpy; {} for a text model."""
+    rng = np.random.default_rng(seed + 1)
+    if cfg.frontend == "vision":
+        return {"patches": rng.standard_normal(
+            (BATCH, cfg.frontend_len, cfg.frontend_dim)).astype(np.float32)}
+    if cfg.encoder_decoder:
+        return {"audio": rng.standard_normal(
+            (BATCH, cfg.encoder_len, cfg.frontend_dim)).astype(np.float32)}
+    return {}
 
 
 def np_params(specs, name: str, seed: int = SEED) -> dict:

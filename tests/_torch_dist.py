@@ -17,6 +17,8 @@ raises ends the run with a non-zero exit.  numpy and the port only.
   the ``"compressed"`` cell (with its sync against the plain int8
   composition, bit for bit), elastic restores 4 -> 1 and 1 -> 4 ranks,
   the token pipeline's rows;
+- ``tp`` (8 ranks, the (2, 2, 2) mesh): ``tp``'s docstring;
+- ``moe`` (2 ranks): ``moe``'s docstring;
 - ``launcher`` (2 ranks): ``bootstrap(device="cpu")`` under torchrun's
   variables, the ``require_chips`` guard;
 - ``train`` (2 ranks): ``train()`` under torchrun's variables with
@@ -35,6 +37,7 @@ import torch.distributed as dist  # noqa: E402
 import torch.multiprocessing as mp  # noqa: E402
 
 import _mesh_inputs as MI  # noqa: E402
+from repro_torch.tree import tree_flatten_with_paths  # noqa: E402
 
 TIMEOUT = datetime.timedelta(seconds=90)
 
@@ -86,13 +89,14 @@ def _setup(name):
     return cfg, params, init_opt_state(params)
 
 
-def _cell(cfg, mesh=None, **kw):
+def _cell(cfg, mesh=None, pad_heads=None, **kw):
     from repro_torch.configs import ShapeConfig
     from repro_torch.launch.steps import build_cell
     from repro_torch.models import model as M
     return build_cell(cfg, ShapeConfig("t", MI.SEQ, MI.BATCH, "train"),
                       M.RunOptions(**MI.run_options_kw(**kw)), mesh=mesh,
-                      lr_peak=MI.LR, total_steps=MI.TOTAL)
+                      lr_peak=MI.LR, total_steps=MI.TOTAL,
+                      pad_heads=pad_heads)
 
 
 def _pipe(cfg, cell=None):
@@ -112,9 +116,13 @@ def _metrics(m) -> torch.Tensor:
 def _whole(cell, tree):
     """The whole leaves of a sharded tree like the params, by path."""
     from repro_torch.tree import tree_flatten_with_paths, tree_leaves
-    dims = tree_leaves(cell.fsdp.dims)
-    return {name: cell.fsdp.full(t, d) for (name, t), d in
-            zip(tree_flatten_with_paths(tree), dims)}
+    return {name: t if s is None else s.gather(t) for (name, t), s in
+            zip(tree_flatten_with_paths(tree),
+                tree_leaves(cell.fsdp.splits()))}
+
+
+def _full(split, t):
+    return t if split is None else split.gather(t)
 
 
 def _run(cell, params, opt, pipe, steps, start=0):
@@ -136,10 +144,10 @@ def _plain_sync(cell, g, ef, synced) -> bool:
     mesh, pod = cell.mesh, cell.mesh.group("pod")
     npods = cell.mesh.shape["pod"]
     ok = True
-    for gl, el, sl, d in zip(tree_leaves(g), tree_leaves(ef),
-                             tree_leaves(synced),
-                             tree_leaves(cell.fsdp.dims)):
-        x = cell.fsdp.full(gl, d).float() / npods + cell.fsdp.full(el, d)
+    for gl, el, sl, sp in zip(tree_leaves(g), tree_leaves(ef),
+                              tree_leaves(synced),
+                              tree_leaves(cell.fsdp.splits())):
+        x = _full(sp, gl).float() / npods + _full(sp, el)
         amax = torch.max(torch.abs(x)) + 1e-12
         s = amax / 127.0
         q = torch.clamp(torch.round(x / s), -127, 127).to(torch.int8)
@@ -147,7 +155,7 @@ def _plain_sync(cell, g, ef, synced) -> bool:
         total = qs[0].float() * ss[0]
         for p in range(1, npods):
             total += qs[p].float() * ss[p]
-        ok &= torch.equal(total.to(gl.dtype), cell.fsdp.full(sl, d))
+        ok &= torch.equal(total.to(gl.dtype), _full(sp, sl))
     return bool(ok) and mesh.size > 1
 
 
@@ -226,6 +234,174 @@ def sharded(rank, world, outdir) -> dict:
         out[f"pipeline/{step}"] = tree_map(lambda t: t, pipe.get_batch(step))
     dist.destroy_process_group()
     return out
+
+
+# -- tensor parallelism -------------------------------------------------------
+
+def _batch(pipe, cfg, step):
+    """The pipeline's batch of ``step`` with the frontend's input (this
+    rank's rows of it on a mesh)."""
+    b = pipe.get_batch(step)
+    lo, hi = getattr(pipe, "rows", (0, MI.BATCH))
+    return {**b, **{k: torch.from_numpy(v[lo:hi])
+                    for k, v in MI.np_frontend(cfg).items()}}
+
+
+def _unpadded(cfg):
+    import dataclasses
+    return dataclasses.replace(cfg, pad_heads_to=None)
+
+
+def tp(rank, world, outdir) -> dict:
+    """On the (2, 2, 2) mesh: for each config of ``TP_CONFIGS`` this
+    rank's slices of the initial params, the step-1 gradients (whole),
+    three ``"auto"`` steps' metrics and the final params (whole); the
+    dense config's compressed steps against the plain int8 composition;
+    one step of each of ``TP_FAMILIES`` against the meshless step (rank
+    0); the elastic round trip (2, 2, 2) -> 1 -> (2, 2, 2)."""
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.parallel import tensor
+    _init(rank, world, outdir)
+    mesh = _mesh(MI.TP_MESH)
+    out = {"coords": tuple(mesh.coordinate(a) for a in mesh.axis_names)}
+    for name in MI.TP_CONFIGS:
+        cfg, p0, o0 = _setup(name)
+        cell = _cell(_unpadded(cfg), mesh, pad_heads=MI.PAD_HEADS.get(name))
+        assert cell.cfg == cfg
+        params, opt = cell.shard_state(p0, o0)
+        out[f"{name}/shard"] = {k: v.clone() for k, v in
+                                tree_flatten_with_paths(params)}
+        pipe = _pipe(cfg, cell)
+        tensor.reset_calls()
+        _, grads, _ = cell.grads(params, opt, _batch(pipe, cfg, 0))
+        out[f"{name}/calls"] = dict(tensor.calls)
+        out[f"{name}/grad1"] = _whole(cell, grads)
+        del grads
+        rows = []
+        for step in range(MI.STEPS):
+            params, opt, m = cell.fn(params, opt, _batch(pipe, cfg, step))
+            rows.append(_metrics(m))
+        out[f"{name}/metrics"] = torch.stack(rows)
+        out[f"{name}/params"] = _whole(cell, params)
+    # compressed: each step's sync against the plain composition
+    cfg, p0, o0 = _setup("dense")
+    cell = _cell(cfg, mesh, grad_sync="compressed")
+    params, opt = cell.shard_state(p0, o0)
+    pipe = _pipe(cfg, cell)
+    rows, ok = [], []
+    for step in range(MI.STEPS):
+        batch = pipe.get_batch(step)
+        _, _, extra = cell.grads(params, opt, batch, keep=True)
+        ok.append(_plain_sync(cell, extra["grad"], opt["ef"],
+                              extra["synced"]))
+        params, opt, m = cell.fn(params, opt, batch)
+        rows.append(_metrics(m))
+    out["compressed/metrics"] = torch.stack(rows)
+    out["compressed/plain_sync"] = torch.tensor(ok)
+    # the families' first step, on the mesh and (rank 0) meshless
+    for name in MI.TP_FAMILIES:
+        cfg, p0, o0 = _setup(name)
+        cell = _cell(cfg, mesh)
+        params, opt = cell.shard_state(p0, o0)
+        params, opt, m = cell.fn(params, opt, _batch(_pipe(cfg, cell), cfg,
+                                                     0))
+        out[f"{name}/metrics"] = _metrics(m)[None]
+        out[f"{name}/params"] = _whole(cell, params)
+        if rank == 0:
+            one = _cell(cfg)
+            params, opt, m = one.fn(p0, o0, _batch(_pipe(cfg), cfg, 0))
+            out[f"{name}/meshless/metrics"] = _metrics(m)[None]
+            out[f"{name}/meshless/params"] = dict(
+                tree_flatten_with_paths(params))
+    # elastic: (2, 2, 2) saves after 2 steps; 1 rank restores it, takes
+    # step 3 and saves its state again; (2, 2, 2) restores that
+    cfg, p0, o0 = _setup("dense")
+    cell = _cell(cfg, mesh)
+    params, opt = cell.shard_state(p0, o0)
+    params, opt, m = _run(cell, params, opt, _pipe(cfg, cell), 3)
+    out["elastic/mesh/metrics"] = m
+    params, opt = cell.shard_state(*_setup("dense")[1:])
+    params, opt, _ = _run(cell, params, opt, _pipe(cfg, cell), 2)
+    ck, ck1 = (os.path.join(outdir, d) for d in ("ck8", "ck1"))
+    CheckpointManager(ck).save(2, {"params": params, "opt": opt},
+                               shardings=cell.state_shardings())
+    if rank == 0:
+        _, p1, o1 = _setup("dense")
+        step, state = CheckpointManager(ck).restore({"params": p1,
+                                                     "opt": o1})
+        CheckpointManager(ck1).save(step, state)
+        _, _, out["elastic/8to1/metrics"] = _run(
+            _cell(cfg), state["params"], state["opt"], _pipe(cfg), 1,
+            start=step)
+    dist.barrier()
+    like = cell.shard_state(*_setup("dense")[1:])
+    step, state = CheckpointManager(ck1).restore(
+        {"params": like[0], "opt": like[1]},
+        shardings=cell.state_shardings())
+    _, opt, out["elastic/1to8/metrics"] = _run(
+        cell, state["params"], state["opt"], _pipe(cfg, cell), 1, start=step)
+    out["elastic/1to8/count"] = opt["count"].clone()
+    dist.destroy_process_group()
+    return out
+
+
+# -- the MoE block's sharded body ----------------------------------------------
+
+def moe(rank, world, outdir) -> dict:
+    """``moe_block(mesh=)`` on the (1, 2) data × model mesh, this rank
+    holding its ``expert_ff`` and shared ``ff`` slices, and ``_moe_local``
+    on the whole params, on the same input (4 experts top-2, 2 shared,
+    capacity factor 0.5: pairs drop): outputs, and the gradients of a
+    fixed projection of them (the input's, the router's, the gate's and
+    this rank's slices of the expert weights, whole)."""
+    import numpy as np
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.models import moe as tmoe
+    from repro_torch.tree import tree_map
+    _init(rank, world, outdir)
+    mesh = _mesh(((1, 2), ("data", "model")))
+    cfg = reduced_config(get_config("qwen2-moe-a2.7b"),
+                         compute_dtype="float32")
+    cfg = dict_replace(cfg, moe=dict_replace(cfg.moe, capacity_factor=0.5))
+    whole = tree_map(torch.from_numpy, MI.np_params(tmoe.moe_specs(cfg),
+                                                    "moe"))
+    rng = np.random.default_rng(1)
+    x = torch.from_numpy((rng.standard_normal((4, 16, cfg.d_model)) + 0.3)
+                         .astype(np.float32))
+    proj = torch.from_numpy(rng.standard_normal((4, 16, cfg.d_model))
+                            .astype(np.float32))
+    cut = {"wg": 2, "wu": 2, "wd": 1, "shared/wg": 1, "shared/wu": 1,
+           "shared/wd": 0}
+
+    def local(path, t):
+        return (t.chunk(2, cut[path])[rank] if path in cut else t).clone()
+
+    def grads(fn, params):
+        leaves = {k: v.clone().requires_grad_(True)
+                  for k, v in tree_flatten_with_paths(params)}
+        xx = x.clone().requires_grad_(True)
+        tree = {k: v for k, v in leaves.items() if "/" not in k}
+        tree["shared"] = {k[7:]: v for k, v in leaves.items()
+                          if k.startswith("shared/")}
+        out = fn(tree, xx)
+        gs = torch.autograd.grad((out * proj).sum(),
+                                 [xx, *leaves.values()])
+        return out.detach(), dict(zip(["x", *leaves], gs))
+
+    mine = {k: local(k, v) for k, v in tree_flatten_with_paths(whole)}
+    out, g = grads(lambda p, xx: tmoe.moe_block(p, cfg, xx, mesh=mesh),
+                   mine)
+    out1, g1 = grads(lambda p, xx: tmoe._moe_local(p, cfg, xx), dict(
+        tree_flatten_with_paths(whole)))
+    dist.destroy_process_group()
+    return {"out": out, "grads": g, "out1": out1,
+            "grads1": {k: (local(k, v) if k in cut else v)
+                       for k, v in g1.items()}}
+
+
+def dict_replace(obj, **kw):
+    import dataclasses
+    return dataclasses.replace(obj, **kw)
 
 
 # -- launcher and train() over ranks -----------------------------------------
@@ -316,6 +492,7 @@ def world1(outdir) -> dict:
 
 
 CASES = {"collectives": (8, collectives), "sharded": (4, sharded),
+         "tp": (8, tp), "moe": (2, moe),
          "launcher": (2, launcher), "train": (2, train)}
 
 

@@ -197,3 +197,52 @@ def test_local_rows_follow_the_batch_spec():
     assert rows == [(0, 2), (2, 4), (4, 6), (6, 8)]
     assert local_rows(_RankMesh((2, 2, 1), names, (1, 0, 0)), ("data",),
                       8) == (0, 4)
+
+
+@pytest.mark.parametrize("arch", ["qwen3-1.7b", "minicpm-2b", "mamba2-130m",
+                                  "whisper-base", "qwen2-moe-a2.7b"])
+def test_fsdp_places_leaves_over_data_and_model(arch):
+    """On the (1, 2, 2) mesh each leaf is split along the dimensions that
+    the reference's ``spec_for_shape`` gives "data" and "model" (an axis
+    that does not divide a dimension leaves it whole: minicpm-2b's odd
+    vocabulary of 251), its "model" slice kept local only where a
+    tensor-parallel layer of the decoder, the embedding or the head
+    reads it (not the SSM's, not an encoder's); the four ranks' slices,
+    put back together, are the single-device init bit for bit."""
+    odd = {"vocab_size": 251} if arch == "minicpm-2b" else {}
+    cfg = reduced_config(get_config(arch), **odd)
+    jcfg = jreduced(jget(arch), **odd)
+    specs = M.param_specs(cfg)
+    whole = M.init_params(specs, torch.Generator().manual_seed(0))
+    names = ("pod", "data", "model")
+    jmesh = fake_mesh((1, 2, 2), names)
+    jrules = J.rules_for_mesh(jmesh, J.DEFAULT_RULES)
+    parts = {}
+    for d, m in itertools.product(range(2), range(2)):
+        mesh = _RankMesh((1, 2, 2), names, (0, d, m))
+        fsdp = Fsdp.for_specs(specs, mesh, T.rules_for_mesh(mesh))
+        parts[d, m] = tree_leaves(fsdp.shard(whole))
+    jspecs = jax.tree.leaves(JM.param_specs(jcfg),
+                             is_leaf=lambda s: hasattr(s, "axes"))
+    for i, ((name, w), spec, jspec, d, m, loc) in enumerate(zip(
+            tree_flatten_with_paths(whole), tree_leaves(specs), jspecs,
+            tree_leaves(fsdp.dims), tree_leaves(fsdp.mdims),
+            tree_leaves(fsdp.local))):
+        want = tuple(J.spec_for_shape(jspec.axes, jspec.shape, jrules,
+                                      jmesh))
+        want += (None,) * (len(spec.shape) - len(want))
+        got = [None] * len(spec.shape)
+        for axis, dim in (("data", d), ("model", m)):
+            if dim is not None:
+                got[dim] = axis
+        assert tuple(got) == want, name
+        assert loc == (m is not None and name.split("/")[0] in (
+            "blocks", "embed", "lm_head") and spec.axes[m] in (
+            "heads", "kv_heads", "ff", "expert_ff", "vocab")), name
+        rows = [torch.cat([parts[dd, mm][i] for mm in range(2)],
+                          m) if m is not None else parts[dd, 0][i]
+                for dd in range(2)]
+        back = torch.cat(rows, d) if d is not None else rows[0]
+        assert torch.equal(back, w), name
+    if arch == "minicpm-2b":
+        assert fsdp.mdims["embed"] is None and not fsdp.local["embed"]
