@@ -424,7 +424,21 @@ Phases, each printed as it runs:
    step 3 loss equals the uninterrupted one bit for bit; the step time
    (CUDA events) and peak memory of the meshless, ``"auto"`` and
    ``"compressed"`` steps, 0 launches; the group destroyed at the end;
-19. hpc — the fp8 GEMM kernel (K6) against its plain version, held to
+19. cells — the serving cells over a mesh at world size 1: a NCCL group on
+   a ``FileStore`` of its own, the (1, 1, 1) mesh, qwen3-1.7b at full
+   width in bf16: the prefill cell at 1 x 4096 (logits and cache
+   bit-equal to the meshless prefill); the decode cell with
+   ``decode_kv_seq_axis`` (the cache's sequence on "model", its
+   attention through K4 with ``lse=`` and the ranks' merge of
+   ``parallel.sequence``) for 3 greedy steps of 8 seats over 16 384
+   drawn rows, logits, tokens and cache bit-equal to the meshless
+   decode from a copy of the cache, K4 ``lse=`` launches exactly 28 a
+   step; K4 with ``lse=`` over a (8, 32 768, 8, 128) bf16 cache cut
+   into 4 slices (some seats' slices empty), merged, held to K4 and to
+   plain over the whole cache, also with windows (``starts=``) that cross
+   the slices' edges, each slice's output and lse held to plain; K4
+   ``lse=`` timed at full length beside plain and SDPA;
+20. hpc — the fp8 GEMM kernel (K6) against its plain version, held to
    ``fp8_matmul.error_bound`` (f32 sums plus the tensor-core term of sums
    promoted every 128 products), through ``ops.fp8_matmul`` (aligned,
    ragged, bm/bn != 128) and through the per-tensor call at the n = 256,
@@ -442,13 +456,13 @@ Phases, each printed as it runs:
    kernel and with the plain version (first trailing update and refined
    solutions held); HPCG at 256³ (50 iterations, the true residual
    recomputed) and at 48³ (90 iterations, converged);
-20. cli — ``python -m repro_torch.launch.serve`` as phases 7-15 queued it
+21. cli — ``python -m repro_torch.launch.serve`` as phases 7-15 queued it
    (``--fleet``; ``--arch <arch>`` on both engines for qwen2-moe-a2.7b,
    gemma3-12b and grok-1-314b; for mamba2-130m, whisper-base,
    phi-3-vision-4.2b and jamba-v0.1-52b ``--engine batch`` and
    ``--engine paged``, which must exit with the paged engine's refusal),
    six processes at a time, each checked as its phase asked;
-21. summary — one JSON line listing the kernels, the card's name and power
+22. summary — one JSON line listing the kernels, the card's name and power
     limit, and as the last line ``{"ok": true, "device": {...}}``.
 
 Any failure raises: the script exits non-zero and prints no ``ok`` line.
@@ -6845,8 +6859,9 @@ def _dist_compressed(cfg, mesh, make_cell, batch) -> tuple:
     from repro_torch.launch.train import make_train_state
     from repro_torch.tree import tree_leaves
     cell = make_cell("compressed")
-    params, opt = cell.shard_state(*make_train_state(
-        cfg, torch.Generator(device="cuda").manual_seed(0), "cuda"))
+    params, opt = make_train_state(
+        cfg, torch.Generator(device="cuda").manual_seed(0), "cuda",
+        cell=cell)
     rows, times, peaks, leaves = [], [], [], 0
     for step in range(DIST_STEPS):
         _, _, extra = cell.grads(params, opt, batch, keep=True)
@@ -6892,11 +6907,12 @@ def _dist_elastic(mesh, opts, tmp: str) -> float:
     pipe = TokenPipeline(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH,
                          device="cuda")
 
-    def state():
+    def state(cell=None):
         return make_train_state(
-            cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+            cfg, torch.Generator(device="cuda").manual_seed(0), "cuda",
+            cell=cell)
     cell = build_cell(cfg, shape, opts, mesh=mesh, **kw)
-    params, opt = cell.shard_state(*state())
+    params, opt = state(cell)
     losses = []
     mgr = CheckpointManager(os.path.join(tmp, "elastic"))
     for step in range(3):
@@ -6938,7 +6954,8 @@ def phase_dist() -> None:
     of a model axis of one, its ``copy``/``reduce`` and the
     vocab-parallel logsumexp counted); 3 ``"compressed"`` steps, each step's sync
     held bit for bit to the plain int8 composition; an elastic restore
-    (``_dist_elastic``); the step times and peaks of the three paths,
+    (``_dist_elastic``); every mesh state built as ``train()`` builds it,
+    the AdamW state on the shards (``make_train_state(cell=)``); the step times and peaks of the three paths,
     and no kernel launched.  Every collective is a copy at world size 1:
     the times show what the sync path costs on the card."""
     import tempfile
@@ -6963,9 +6980,10 @@ def phase_dist() -> None:
         return M.RunOptions(q_chunk=min(TRAIN_SEQ, 512),
                             xent_chunk=min(TRAIN_SEQ, 512), grad_sync=sync)
 
-    def state():
+    def state(cell=None):
         return make_train_state(
-            cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+            cfg, torch.Generator(device="cuda").manual_seed(0), "cuda",
+            cell=cell)
     ops.reset_launches()
     plain = build_cell(cfg, shape, opts(), **kw)
     params, opt = state()
@@ -6986,7 +7004,7 @@ def phase_dist() -> None:
                 return build_cell(cfg, shape, opts(sync), mesh=mesh, **kw)
             cell = make_cell("auto")
             local = sum(tree_leaves(cell.fsdp.local))
-            params, opt = cell.shard_state(*state())
+            params, opt = state(cell)
             gc.collect()
             torch.cuda.empty_cache()
             tensor.reset_calls()
@@ -7038,6 +7056,319 @@ def phase_dist() -> None:
         f"launches 0; {smi_line()}")
     log("dist", f"phase time {time.perf_counter() - t0:.1f} s (checkpoint "
         f"write + read {io_s:.1f} s); {smi_line()}")
+
+
+# phase cells: the serving cells over a mesh at world size 1 (a prefill
+# of CELLS_PROMPT tokens; CELLS_STEPS decode steps of CELLS_SEATS seats
+# over CELLS_ROWS rows, the cache's sequence split by decode_kv_seq_axis),
+# and K4 with lse= over a cache of SPLIT_ROWS rows cut into SPLIT_PARTS
+# slices, merged as the ranks' states are (parallel.sequence)
+CELLS_PROMPT, CELLS_SEATS, CELLS_ROWS, CELLS_STEPS = 4096, 8, 16384, 3
+CELLS_POS = (0, 1, 4095, 8191, 8192, 12000, 16000, 16380)
+SPLIT_ROWS, SPLIT_PARTS = 32768, 4
+SPLIT_LENGTHS = (1, 100, 8192, 8193, 16000, 24577, 30000, 32768)
+SPLIT_WINDOWS = (5000, 9000)
+
+
+def _cells_prefill(cfg, params, opts, mesh) -> dict:
+    """The prefill cell over the mesh against the meshless prefill cell at
+    1 x CELLS_PROMPT: logits and every cache leaf bit-equal, the same
+    kernel launches; then its kernels at its shapes against plain
+    (``_cells_prefill_kernels``).  Returns the mesh run's launch
+    counts."""
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.kernels import ops
+    from repro_torch.launch.steps import build_cell
+    from repro_torch.models.convert import COMPUTE_CAST
+    from repro_torch.tree import tree_flatten_with_paths
+    shape = ShapeConfig("cells_prefill", CELLS_PROMPT, 1, "prefill")
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (1, CELLS_PROMPT),
+                                     generator=gen, device="cuda",
+                                     dtype=torch.int32)}
+    one = build_cell(cfg, shape, opts)
+    cell = build_cell(cfg, shape, opts, mesh=mesh)
+    dtypes = {t.dtype for name, t in tree_flatten_with_paths(params)
+              if name.split("/")[-1] in COMPUTE_CAST}
+    if dtypes != {cell.param_dtype}:
+        raise AssertionError(f"serving weights in {dtypes}; the cells lay "
+                             f"them out in {cell.param_dtype}")
+    ops.reset_launches()
+    want, wcache = one.fn(params, batch)
+    meshless = {k: n for k, n in ops.launches.items() if n}
+    shard = cell.shard_params(params)
+    ops.reset_launches()
+    got, gcache = cell.fn(shard, batch)
+    torch.cuda.synchronize()
+    counts = {k: n for k, n in ops.launches.items() if n}
+    bad = [k for (k, a), (_, b) in zip(tree_flatten_with_paths(gcache),
+                                       tree_flatten_with_paths(wcache))
+           if not _bits_equal(a, b)]
+    if not _bits_equal(got, want) or bad:
+        raise AssertionError(
+            f"prefill cell vs meshless prefill: logits max diff "
+            f"{(got - want).abs().max().item():.3e}, cache leaves that "
+            f"differ {bad}")
+    if counts != meshless or not counts.get("flash_attention[causal]"):
+        raise AssertionError(f"the prefill cell's launches {counts}; the "
+                             f"meshless prefill's {meshless}")
+    n_leaves = len(tree_flatten_with_paths(gcache))
+    del shard, gcache, wcache
+    errs = _cells_prefill_kernels(gen)
+    log("cells", f"prefill cell 1 x {CELLS_PROMPT} over the (1, 1, 1) "
+        f"mesh: logits and all {n_leaves} "
+        f"cache leaves bit-equal to the meshless prefill; launches "
+        f"{counts}; its kernels at its shapes vs plain: {errs}; "
+        f"{smi_line()}")
+    return counts
+
+
+def _cells_prefill_kernels(gen: torch.Generator) -> dict:
+    """The prefill cell's kernels at its shapes against their plain
+    versions, bf16: K5 causal over CELLS_PROMPT tokens (16 heads over 8
+    of 128), K3 and the fused add + norm at CELLS_PROMPT rows of D_MODEL,
+    the q/k norm at its rows of HEAD_DIM.  Returns each max |err|."""
+    from repro_torch.kernels import ops
+    S = CELLS_PROMPT
+    q, k, v = (torch.randn((1, S, n, HEAD_DIM), generator=gen,
+                           device="cuda").bfloat16() for n in (H, KVH, KVH))
+    got, want = (ops.flash_attention(q, k, v, causal=True, impl=impl)
+                 for impl in ("kernel", "plain"))
+    torch.cuda.synchronize()
+    errs = {"flash_attention[causal]": check_close(
+        f"flash_attention[causal, S={S}]", got, want, BF16_ATOL, BF16_RTOL)}
+    del got, want
+    wq, wk = (0.1 * torch.randn((HEAD_DIM,), generator=gen, device="cuda")
+              for _ in range(2))
+    (gq, gk), (pq, pk) = (ops.rmsnorm_qk(q, k, wq, wk, impl=impl)
+                          for impl in ("kernel", "plain"))
+    torch.cuda.synchronize()
+    errs["rmsnorm_qk"] = max(
+        check_close(f"rmsnorm_qk[S={S}] q", gq, pq, BF16_ATOL, BF16_RTOL),
+        check_close(f"rmsnorm_qk[S={S}] k", gk, pk, BF16_ATOL, BF16_RTOL))
+    _norms_vs_plain("cells", 14, (D_MODEL,), ((S, torch.bfloat16),), (),
+                    None)
+    return {key: f"{e:.3e}" for key, e in errs.items()}
+
+
+def _cells_decode(cfg, params, opts, mesh) -> dict:
+    """The decode cell with ``decode_kv_seq_axis`` over the mesh against
+    the meshless decode cell, CELLS_STEPS greedy steps of CELLS_SEATS
+    seats at CELLS_POS over a drawn cache of CELLS_ROWS rows (each cell
+    on its own copy): logits, tokens and the whole cache bit-equal (at
+    one rank the merge's weight is exactly 1).  Then K4 with lse= at the
+    cell's shape (layer 0's cache) against its plain version.  Returns
+    the mesh run's launch counts and that check's error."""
+    import dataclasses
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.kernels import ops
+    from repro_torch.launch.steps import build_cell
+    from repro_torch.parallel import tensor
+    from repro_torch.tree import tree_leaves
+    shape = ShapeConfig("cells_decode", CELLS_ROWS, CELLS_SEATS, "decode")
+    sopts = dataclasses.replace(opts, decode_kv_seq_axis=True)
+    one = build_cell(cfg, shape, sopts)
+    cell = build_cell(cfg, shape, sopts, mesh=mesh)
+    seq = cell.layout["pos0"]["k"].seq
+    if seq is None or seq.axes != ("model",):
+        raise AssertionError(f"decode_kv_seq_axis put the sequence on "
+                             f"{seq}; the rules give it 'model'")
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    cache_a = one.init_cache(device="cuda")
+    for t in tree_leaves(cache_a):
+        t.normal_(generator=gen)
+    cache_b = cell.shard_cache(cache_a)
+    gib = sum(t.numel() * t.element_size() for t in tree_leaves(cache_a))
+    tok0 = torch.randint(0, cfg.vocab_size, (CELLS_SEATS, 1), generator=gen,
+                         device="cuda", dtype=torch.int32)
+    pos0 = torch.tensor(CELLS_POS, dtype=torch.int32, device="cuda")
+    shard = cell.shard_params(params)
+
+    def run(c, p, cache):
+        tok, pos, rows = tok0, pos0, []
+        for _ in range(CELLS_STEPS):
+            logits, cache = c.fn(p, cache, tok, pos)
+            tok = logits[:, -1].argmax(-1).to(torch.int32)[:, None]
+            rows.append((logits, tok))
+            pos = pos + 1
+        return rows
+    want = run(one, params, cache_a)
+    ops.reset_launches()
+    tensor.reset_calls()
+    t0 = time.perf_counter()
+    got = run(cell, shard, cache_b)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {k: n for k, n in ops.launches.items() if n}
+    calls = dict(tensor.calls)
+    for step, ((gl, gt), (wl, wt)) in enumerate(zip(got, want)):
+        if not (_bits_equal(gl, wl) and torch.equal(gt, wt)):
+            raise AssertionError(
+                f"decode cell step {step} vs meshless: logits max diff "
+                f"{(gl - wl).abs().max().item():.3e}, tokens "
+                f"{gt.flatten().tolist()} vs {wt.flatten().tolist()}")
+    bad = [i for i, (a, b) in enumerate(zip(tree_leaves(cache_b),
+                                            tree_leaves(cache_a)))
+           if not torch.equal(a, b)]
+    if bad:
+        raise AssertionError(f"decode cell cache leaves {bad} differ from "
+                             "the meshless decode's")
+    n_layers = cfg.num_layers * CELLS_STEPS
+    if counts.get("decode_attention[bf16,lse]") != n_layers or \
+            counts.get("decode_attention[bf16]"):
+        raise AssertionError(f"the decode cell's attention launches "
+                             f"{counts}; want {n_layers} of "
+                             "decode_attention[bf16,lse] and no other")
+    # K4 with lse= at the cell's shape: layer 0 after the steps
+    q = torch.randn((CELLS_SEATS, 1, H, HEAD_DIM), generator=gen,
+                    device="cuda").bfloat16()
+    k, v = cache_b["pos0"]["k"][0], cache_b["pos0"]["v"][0]
+    lens = (pos0 + CELLS_STEPS).int()
+    err = _lse_vs_plain("decode cell shape", q, k, v, lens, None)
+    log("cells", f"decode cell, decode_kv_seq_axis (the sequence on "
+        f"{seq.axes}, {seq.n} rank): {CELLS_STEPS} greedy steps of "
+        f"{CELLS_SEATS} seats at positions {CELLS_POS} over {CELLS_ROWS} "
+        f"rows ({gib / 2 ** 30:.2f} GiB of drawn cache each): logits, "
+        f"tokens and cache bit-equal to the meshless decode_step; launches "
+        f"{counts}; tensor-parallel calls {calls}; {wall * 1e3:.1f} ms "
+        f"wall for the steps; K4 lse= at (8, {CELLS_ROWS}, 8, 128) vs plain "
+        f"max|err| {err:.3e}; {smi_line()}")
+    del cache_a, cache_b, shard
+    return counts, err
+
+
+def _lse_vs_plain(what: str, q, k, v, lengths, starts) -> float:
+    """K4 with lse= (and starts=) against its plain version: the f32
+    outputs within F32_TOL, the lse values within 1e-4 absolute (-inf
+    where the plain one is).  Returns the outputs' max |err|."""
+    from repro_torch.kernels import ops
+    B, _, Hq, _ = q.shape
+    lk, lp = (torch.empty((B, Hq), device="cuda") for _ in range(2))
+    got = ops.decode_attention(q, k, v, lengths, starts=starts, lse=lk,
+                               impl="kernel")
+    want = ops.decode_attention(q, k, v, lengths, starts=starts, lse=lp,
+                                impl="plain")
+    torch.cuda.synchronize()
+    err = check_close(f"decode_attention[lse] {what}", got, want, *F32_TOL)
+    fin = torch.isfinite(lp)
+    if not torch.equal(fin, torch.isfinite(lk)) or not bool(
+            torch.isneginf(lk[~fin]).all()) or bool(
+            ((lk - lp).abs()[fin] > 1e-4).any()):
+        raise AssertionError(f"decode_attention[lse] {what}: lse parts "
+                             "from the plain version's")
+    return err
+
+
+def _cells_split(flush: torch.Tensor) -> dict:
+    """K4 with lse= over a (8, SPLIT_ROWS, 8, 128) bf16 cache cut into
+    SPLIT_PARTS slices (seats of SPLIT_LENGTHS keys: some slices empty),
+    each slice's states merged by ``parallel.sequence.merge``, against K4
+    and the plain version over the whole cache; again with windows
+    (``starts=``) that cross the slices' edges; each slice's call held to
+    plain.  Then K4 with lse= timed over the whole cache at full length
+    beside the plain version and SDPA.  Returns the kernels-line row."""
+    from repro_torch.kernels import ops
+    from repro_torch.parallel import sequence as S
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    B, T, n = len(SPLIT_LENGTHS), SPLIT_ROWS, SPLIT_ROWS // SPLIT_PARTS
+    q = torch.randn((B, 1, H, HEAD_DIM), generator=gen,
+                    device="cuda").bfloat16()
+    k = torch.randn((B, T, KVH, HEAD_DIM), generator=gen,
+                    device="cuda").bfloat16()
+    v = torch.randn((B, T, KVH, HEAD_DIM), generator=gen,
+                    device="cuda").bfloat16()
+    lengths = torch.tensor(SPLIT_LENGTHS, dtype=torch.int32, device="cuda")
+    errs, empty = [], 0
+    for window in (None,) + SPLIT_WINDOWS:
+        outs, lses = [], []
+        for r in range(SPLIT_PARTS):
+            lo = r * n
+            lens, starts = S.local_bounds(lengths - 1, lo, n, window)
+            lse = torch.empty((B, H), device="cuda")
+            kr, vr = k[:, lo:lo + n], v[:, lo:lo + n]
+            outs.append(ops.decode_attention(q, kr, vr, lens, starts=starts,
+                                             lse=lse, impl="kernel")[:, 0])
+            lses.append(lse)
+            errs.append(_lse_vs_plain(f"slice {r}, window {window}", q, kr,
+                                      vr, lens, starts))
+            empty += int(torch.isneginf(lse[:, 0]).sum())
+        merged, _ = S.merge(torch.stack(outs), torch.stack(lses))
+        merged = merged[:, None].to(q.dtype)
+        for impl in ("kernel", "plain"):
+            whole = ops.decode_attention(q, k, v, lengths, window=window,
+                                         impl=impl)
+            errs.append(check_close(
+                f"split-and-merge vs {impl}, window {window}", merged, whole,
+                BF16_ATOL, BF16_RTOL))
+    err = max(errs)
+    full = torch.full((B,), T, dtype=torch.int32, device="cuda")
+    lse = torch.empty((B, H), device="cuda")
+    ms = cuda_ms(lambda: ops.decode_attention(q, k, v, full, lse=lse,
+                                              impl="kernel"), flush)
+    plain_ms = cuda_ms(lambda: ops.decode_attention(
+        q, k, v, full, lse=lse, impl="plain"), flush, iters=3)
+    kg = k.transpose(1, 2).repeat_interleave(H // KVH, dim=1).contiguous()
+    vg = v.transpose(1, 2).repeat_interleave(H // KVH, dim=1).contiguous()
+    qs = q.transpose(1, 2)
+    lib_ms = cuda_ms(lambda: sdpa(SDPBackend.EFFICIENT_ATTENTION, qs, kg, vg),
+                     flush)
+    del kg, vg
+    nbytes = (2 * B * T * KVH * HEAD_DIM * 2 + q.numel() * 2
+              + q.numel() * 4 + lse.numel() * 4 + full.numel() * 4)
+    b_ms, b_by = bound(nbytes, 4.0 * B * T * H * HEAD_DIM)
+    log("cells", f"K4 lse= split over {SPLIT_PARTS} slices of {n} rows "
+        f"(lengths {SPLIT_LENGTHS}; windows None, {SPLIT_WINDOWS}; "
+        f"{empty} empty (seat, slice) states, lse -inf): merged held to "
+        f"K4 and to plain over the whole cache, each slice held to plain; "
+        f"max|err| {err:.3e}")
+    log("cells", f"decode_attention[lse] at ({B}, {T}, {KVH}, {HEAD_DIM}) "
+        f"bf16, full lengths: kernel {ms:.4f} ms plain {plain_ms:.4f} ms "
+        f"{SDPA_EFF} {lib_ms:.4f} ms bound {b_ms:.5f} ms ({b_by}, "
+        f"{nbytes / 1e9:.3f} GB); {smi_line()}")
+    return {"decode_attention[lse]": dict(
+        name="decode_attention", max_abs_err=err, ms=ms, plain_ms=plain_ms,
+        bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms, library=SDPA_EFF)}
+
+
+def phase_cells() -> tuple:
+    """The serving cells on the card, world size 1: a NCCL process group
+    on a store of its own, the (1, 1, 1) pod × data × model mesh,
+    qwen3-1.7b at full width in bf16 (drawn cast); the prefill cell
+    (``_cells_prefill``) and the decode cell with ``decode_kv_seq_axis``
+    (``_cells_decode``) bit-equal to the meshless cells, the decode
+    cell's attention through K4 with ``lse=`` (its launches the main
+    path's count); then K4's split-and-merge (``_cells_split``), timed.
+    Returns the kernels-line rows and the decode cell's launch counts."""
+    import tempfile
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import model as M
+    t0 = time.perf_counter()
+    cfg, params = _draw_cast(ARCH, "cells")
+    opts = M.RunOptions()
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group(
+            "nccl", store=dist.FileStore(os.path.join(tmp, "store"), 1),
+            rank=0, world_size=1)
+        try:
+            mesh = make_mesh((1, 1, 1), ("pod", "data", "model"))
+            _cells_prefill(cfg, params, opts, mesh)
+            gc.collect()
+            torch.cuda.empty_cache()
+            counts, cell_err = _cells_decode(cfg, params, opts, mesh)
+        finally:
+            dist.destroy_process_group()
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device="cuda")
+    rows = _cells_split(flush)
+    rows["decode_attention[lse]"]["max_abs_err"] = max(
+        rows["decode_attention[lse]"]["max_abs_err"], cell_err)
+    del flush
+    log("cells", f"phase time {time.perf_counter() - t0:.1f} s; "
+        f"{smi_line()}")
+    return rows, counts
 
 
 def check_fp8(name: str, got: torch.Tensor, want: torch.Tensor, a_q, b_q,
@@ -7521,6 +7852,10 @@ def main() -> int:
     phase_dist()
     gc.collect()
     torch.cuda.empty_cache()
+    cells_rows, counts["cells"] = phase_cells()
+    results.update(cells_rows)
+    gc.collect()
+    torch.cuda.empty_cache()
     hpc_results, hpc_counts = phase_hpc()
     results.update(hpc_results)
     counts["hplmxp_fp8"] = hpc_counts["fp8"]
@@ -7626,6 +7961,8 @@ def main() -> int:
                       "flash_attention[causal]"),
                      ("decode_attention[G=6]", "grok_fixed",
                       "decode_attention[bf16]"),
+                     ("decode_attention[lse]", "cells",
+                      "decode_attention[bf16,lse]"),
                      ("fp8_matmul[e4m3]", "hplmxp_fp8")):
         r = results[key]
         route, src, replaces = meta[r["name"]]

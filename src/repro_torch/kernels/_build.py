@@ -40,9 +40,11 @@ SIGNATURES: Dict[str, tuple] = {
                                _LL, _LL, _LL, _LL, _LL, _LL,
                                _P, _P, _I, _I, _I, _P),
     # q_dtype, kv_dtype, q, k, v, lengths, out, B, H, KVH, d,
-    # 3 cache strides, part, tickets, splits, chunk, window, stream
+    # 3 cache strides, part, tickets, splits, chunk, window, starts, lse,
+    # out32, stream
     "decode_attention": (_I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                         _LL, _LL, _LL, _P, _P, _I, _I, _I, _P),
+                         _LL, _LL, _LL, _P, _P, _I, _I, _I, _P, _P, _P,
+                         _P),
     # dtype, q, k, v, out, B, Sq, Skv, H, KVH, d, causal, window,
     # 3 strides each of q, k/v and out, stream (the CUDA-core route)
     "flash_attention": (_I,) + _FLASH,

@@ -49,11 +49,13 @@ cudaError_t dispatch_kv(int kv_dtype, const void* q, const void* k,
                         const void* v, const void* lengths, void* out,
                         int B, int H, int KVH, int d, const DenseAddr& addr,
                         float* part, int* tickets, int splits, int chunk,
-                        int window, cudaStream_t stream) {
+                        int window, const int* starts, float* out32,
+                        float* lse, cudaStream_t stream) {
 #define REPRO_KV(KT_)                                                        \
   return launch<QT, KT_, DenseAddr>(q, k, v, nullptr, nullptr, lengths,     \
                                     out, B, H, KVH, d, addr, part, tickets, \
-                                    splits, chunk, window, stream)
+                                    splits, chunk, window, starts, out32,   \
+                                    lse, stream)
   switch (kv_dtype) {
     case 0: REPRO_KV(float);
     case 1: REPRO_KV(__nv_bfloat16);
@@ -72,7 +74,13 @@ cudaError_t dispatch_kv(int kv_dtype, const void* q, const void* k,
 // (B·KVH·splits·(H/KVH)·(d + 2) f32) and one ticket per (seat, kv head)
 // in `tickets` (B·KVH int32, zero before the launch and after it;
 // launches that share them must not overlap).  window > 0 keeps only each
-// slot's last `window` keys (a sliding-window layer), 0 all of them.  d,
+// slot's last `window` keys (a sliding-window layer), 0 all of them;
+// `starts` (B,) int32, where not null, keeps keys t >= starts[b] instead
+// (a rank's slice of a split cache).  `lse` (B, H) f32 and `out32`
+// (B, H, d) f32, both null or both given: with them the output is written
+// to out32 in f32 (out is not written) and each (slot, head)'s natural-log
+// log-sum-exp of its scaled scores to lse (-inf, and an output of 0, for
+// a slot with no key in range).  d,
 // the strides and the k/v addresses must allow one load per lane
 // (decode_attention.cuh :: launch_e).  Returns the launch's
 // cudaGetLastError() (0 = success), or cudaErrorInvalidValue for a
@@ -83,19 +91,24 @@ extern "C" int decode_attention(int q_dtype, int kv_dtype, const void* q,
                                 int KVH, int d, long long kv_seat,
                                 long long kv_tok, long long kv_head,
                                 void* part, void* tickets, int splits,
-                                int chunk, int window, void* stream) {
+                                int chunk, int window, const void* starts,
+                                void* lse, void* out32, void* stream) {
   const DenseAddr addr{kv_seat, kv_tok, kv_head};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* p = static_cast<float*>(part);
   int* t = static_cast<int*>(tickets);
+  const int* st = static_cast<const int*>(starts);
+  float* o32 = static_cast<float*>(out32);
+  float* ls = static_cast<float*>(lse);
   cudaError_t err;
   if (q_dtype == 0) {
     err = dispatch_kv<float>(kv_dtype, q, k, v, lengths, out, B, H, KVH, d,
-                             addr, p, t, splits, chunk, window, s);
+                             addr, p, t, splits, chunk, window, st, o32, ls,
+                             s);
   } else if (q_dtype == 1) {
     err = dispatch_kv<__nv_bfloat16>(kv_dtype, q, k, v, lengths, out, B, H,
                                      KVH, d, addr, p, t, splits, chunk,
-                                     window, s);
+                                     window, st, o32, ls, s);
   } else {
     err = cudaErrorInvalidValue;
   }

@@ -63,7 +63,16 @@
 // which block came last), writes out and resets its ticket for the next
 // launch: one launch per call.  -1e30 and not -inf keeps a seat whose
 // every split is empty at out = 0 (all weights exp(0) = 1 times l = 0)
-// where exp(-inf - -inf) would be NaN.  The output address is formed only
+// where exp(-inf - -inf) would be NaN.
+// Two optional arguments serve a cache whose sequence is split over ranks
+// (parallel/sequence.py): `starts` (B,) int32, a lower bound per seat that
+// replaces lengths[a] - window (a rank's slice of a window that ends past
+// the slice cannot be told with one scalar), and `lse` (A, H) f32 with an
+// f32 output `out32`: the merge then writes each (seat, head)'s output
+// normalized over its keys in f32, and the natural-log log-sum-exp of its
+// scaled scores, mx + log(l), or -inf where the seat has no key in range
+// (whose output is 0), for the ranks' merge.  The output address is
+// formed only
 // in the merge: a pointer held across the token walk cost the dense
 // kernel registers and a tenth of its time.  The register arrays are
 // sized for the real group G (one instantiation each for G <= 1, 2, 4,
@@ -166,11 +175,13 @@ __device__ __forceinline__ void load_lane(const KT* p, int idx0, int d,
 }
 
 // Merges the splits' partial states of one (seat, kv head) in split order
-// and writes out; run by the last block to finish.  `part` holds, per
-// split, G·d accumulators, then G maxima, then G sums.
+// and writes out, or, where out32 is given, the f32 output to out32 and
+// each head's log-sum-exp to lse; run by the last block to finish.
+// `part` holds, per split, G·d accumulators, then G maxima, then G sums.
 template <typename QT>
 __device__ __forceinline__ void merge_splits(const float* part, int splits,
-                                             int G, int d, QT* out) {
+                                             int G, int d, QT* out,
+                                             float* out32, float* lse) {
   const int stride = G * (d + 2);
   for (int i = threadIdx.x; i < G * d; i += blockDim.x) {
     const int g = i / d;
@@ -184,7 +195,14 @@ __device__ __forceinline__ void merge_splits(const float* part, int splits,
       lsum += __ldcg(p + G * d + G + g) * c;
       o += __ldcg(p + i) * c;
     }
-    out[i] = from_f32<QT>(o / fmaxf(lsum, 1e-30f));
+    const float r = o / fmaxf(lsum, 1e-30f);
+    if (out32 == nullptr) {
+      out[i] = from_f32<QT>(r);
+    } else {
+      out32[i] = r;
+      if (i % d == 0)
+        lse[g] = lsum > 0.f ? mx + logf(lsum) : -__int_as_float(0x7f800000);
+    }
   }
 }
 
@@ -195,7 +213,9 @@ __device__ __forceinline__ void merge_splits(const float* part, int splits,
 // [s·chunk, (s+1)·chunk) of seat a, writes its partial state to `part`
 // and counts itself on the ticket of (a, kvh) in `tickets` (zero between
 // launches); the last of the gridDim.z splits merges.  window > 0 keeps
-// only the last `window` tokens of each seat (0: every token).
+// only the last `window` tokens of each seat (0: every token); `starts`,
+// where given, keeps tokens t >= starts[a] instead.  `out32` and `lse`,
+// both given or both null, take the f32 output and the log-sum-exp.
 template <typename QT, typename KT, int E, typename Addr, int MG>
 __global__ void __launch_bounds__(kWarps * 32)
 decode_kernel(const QT* __restrict__ q, const KT* __restrict__ k,
@@ -203,7 +223,8 @@ decode_kernel(const QT* __restrict__ q, const KT* __restrict__ k,
               const float* __restrict__ vs, const int* __restrict__ lengths,
               QT* __restrict__ out, int H, int KVH, int d, Addr addr,
               float scale, float* __restrict__ part, int* tickets,
-              int chunk, int window) {
+              int chunk, int window, const int* __restrict__ starts,
+              float* __restrict__ out32, float* __restrict__ lse) {
   const int kvh = blockIdx.x;
   const int a = blockIdx.y;
   const int G = H / KVH;
@@ -214,7 +235,8 @@ decode_kernel(const QT* __restrict__ q, const KT* __restrict__ k,
   // addressed only after the walk, so no pointer is held across it
   const int len = lengths[a];
   const int split0 = blockIdx.z * chunk;
-  const int start = window > 0 ? max(split0, len - window) : split0;
+  const int start = starts != nullptr ? max(split0, starts[a])
+                    : window > 0 ? max(split0, len - window) : split0;
   const int end = min(split0 + chunk, len);
   auto partial = [&]() {
     return part + (static_cast<long long>(a * KVH + kvh) * gridDim.z +
@@ -346,17 +368,21 @@ decode_kernel(const QT* __restrict__ q, const KT* __restrict__ k,
   __syncthreads();
   if (!last) return;
   __threadfence();
+  const long long head0 = static_cast<long long>(a) * H + kvh * G;
   merge_splits(part + static_cast<long long>(a * KVH + kvh) * gridDim.z *
                           (G * (d + 2)),
-               gridDim.z, G, d,
-               out + (static_cast<long long>(a) * H + kvh * G) * d);
+               gridDim.z, G, d, out + head0 * d,
+               out32 == nullptr ? nullptr : out32 + head0 * d,
+               lse == nullptr ? nullptr : lse + head0);
 }
 
 // Launches the instantiation for E lanes' elements and the group G =
 // H/KVH (register arrays for MG = 1, 2, 4 or 8) over gridDim.z = splits
 // blocks of `chunk` tokens, with the scratch `part` (A·KVH·splits·G·(d + 2)
 // f32) and `tickets` (A·KVH int32, zero), keeping the last `window`
-// tokens of each seat (0: all).  The layout must allow one load per lane
+// tokens of each seat (0: all), or those from starts[a] where `starts` is
+// given; with out32 and lse, the f32 output and the log-sum-exp.  The
+// layout must allow one load per lane
 // (load_lane): d a multiple of E, every K/V stride of `addr` a multiple
 // of E, and k and v aligned to the load's word; otherwise
 // cudaErrorInvalidValue.
@@ -365,7 +391,8 @@ cudaError_t launch_e(const void* q, const void* k, const void* v,
                      const void* ks, const void* vs, const void* lengths,
                      void* out, int A, int H, int KVH, int d, Addr addr,
                      float* part, int* tickets, int splits, int chunk,
-                     int window, cudaStream_t stream) {
+                     int window, const int* starts, float* out32,
+                     float* lse, cudaStream_t stream) {
   const int G = H / KVH;
   const size_t smem =
       sizeof(float) * static_cast<size_t>(kWarps) * G * (2 + 32 * E);
@@ -389,7 +416,7 @@ cudaError_t launch_e(const void* q, const void* k, const void* v,
         static_cast<const KT*>(v), static_cast<const float*>(ks),
         static_cast<const float*>(vs), static_cast<const int*>(lengths),
         static_cast<QT*>(out), H, KVH, d, addr, scale, part, tickets,
-        chunk, window);
+        chunk, window, starts, out32, lse);
     return cudaGetLastError();
   };
   if (G <= 1) return run(decode_kernel<QT, KT, E, Addr, 1>);
@@ -406,16 +433,18 @@ cudaError_t launch(const void* q, const void* k, const void* v,
                    const void* ks, const void* vs, const void* lengths,
                    void* out, int A, int H, int KVH, int d, Addr addr,
                    float* part, int* tickets, int splits, int chunk,
-                   int window, cudaStream_t stream) {
+                   int window, const int* starts, float* out32, float* lse,
+                   cudaStream_t stream) {
   if (KVH <= 0 || H % KVH != 0 || H / KVH > kMaxG || A <= 0 ||
       part == nullptr || tickets == nullptr || chunk <= 0 || splits <= 0 ||
-      splits > 65535 || window < 0) {
+      splits > 65535 || window < 0 || (out32 == nullptr) != (lse == nullptr)) {
     return cudaErrorInvalidValue;
   }
 #define REPRO_LAUNCH(E_)                                                    \
   return launch_e<QT, KT, E_, Addr>(q, k, v, ks, vs, lengths, out, A, H,    \
                                     KVH, d, addr, part, tickets, splits,    \
-                                    chunk, window, stream)
+                                    chunk, window, starts, out32, lse,      \
+                                    stream)
   if (d <= 32) REPRO_LAUNCH(1);
   if (d <= 64) REPRO_LAUNCH(2);
   if (d <= 128) REPRO_LAUNCH(4);

@@ -50,7 +50,8 @@ cudaError_t dispatch_kv(int kv_dtype, const void* q, const void* k,
 #define REPRO_KV(KT_)                                                        \
   return launch<QT, KT_, PagedAddr>(q, k, v, ks, vs, lengths, out, A, H,    \
                                     KVH, d, addr, part, tickets, splits,    \
-                                    chunk, window, stream)
+                                    chunk, window, nullptr, nullptr,        \
+                                    nullptr, stream)
   switch (kv_dtype) {
     case 0: REPRO_KV(float);
     case 1: REPRO_KV(__nv_bfloat16);

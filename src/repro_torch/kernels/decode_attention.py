@@ -20,7 +20,12 @@ GQA repeat (``repro/kernels/ops.py :: decode_attention``) followed by
 
 Both kernels take an optional sliding window W: a seat keeps only its
 last W tokens (``t >= lengths - W``), the mask of the JAX model's local
-layers, which it computes with jnp on every backend.
+layers, which it computes with jnp on every backend.  The dense kernel
+also serves one rank's slice of a cache whose sequence is split over
+ranks (``parallel.sequence``): ``starts`` (B,) int32 keeps keys ``t >=
+starts[b]`` in place of the window, and ``lse`` (B, H) f32 receives each
+(seat, head)'s natural-log log-sum-exp of its scaled scores, the output
+then normalized over the slice's keys in f32, for the ranks' merge.
 
 Both kernels share one per-token loop (``csrc/decode_attention.cuh``) and
 are bound by memory: they read each valid token's K and V once.  Both
@@ -199,30 +204,47 @@ def paged_decode_attention_cuda(q, k_pages, v_pages, page_table, lengths,
                            f"CUDA error {err}")
 
 
-def decode_attention_plain(q, k, v, lengths, window: Optional[int] = None):
+def decode_attention_plain(q, k, v, lengths, window: Optional[int] = None,
+                           starts: Optional[torch.Tensor] = None,
+                           lse: Optional[torch.Tensor] = None):
     """Plain version: repeat each kv head G times, flatten to
     ``(B·H, T, d)``, then the dense oracle, keeping each slot's last
-    ``window`` keys when a window is given.  Returns (B, H, d).  (The
-    TPU wrapper also pads T to its key tile; the oracle masks by length,
-    so the padding changes nothing and is left out.)"""
+    ``window`` keys when a window is given, or its keys from
+    ``starts[b]`` on.  Returns (B, H, d); with ``lse`` (a (B, H) f32
+    buffer, filled with each (slot, head)'s log-sum-exp) the output in
+    f32 (``ref.decode_attention_lse_ref``).  (The TPU wrapper also pads T
+    to its key tile; the oracle masks by length, so the padding changes
+    nothing and is left out.)"""
     B, H, d = q.shape
     T, KVH = k.shape[1], k.shape[2]
     rep = H // KVH
     kf = k.repeat_interleave(rep, dim=2).transpose(1, 2).reshape(B * H, T, d)
     vf = v.repeat_interleave(rep, dim=2).transpose(1, 2).reshape(B * H, T, d)
-    out = ref.decode_attention_ref(q.reshape(B * H, d), kf, vf,
-                                   lengths.repeat_interleave(H), window)
+    lens = lengths.repeat_interleave(H)
+    sts = None if starts is None else starts.repeat_interleave(H)
+    if lse is not None:
+        out, s = ref.decode_attention_lse_ref(q.reshape(B * H, d), kf, vf,
+                                              lens, sts)
+        lse.copy_(s.reshape(B, H))
+        return out.reshape(B, H, d)
+    out = ref.decode_attention_ref(q.reshape(B * H, d), kf, vf, lens, window,
+                                   starts=sts)
     return out.reshape(B, H, d)
 
 
 def decode_attention_cuda(q, k, v, lengths, out: torch.Tensor,
-                          window: Optional[int] = None) -> None:
+                          window: Optional[int] = None,
+                          starts: Optional[torch.Tensor] = None,
+                          lse: Optional[torch.Tensor] = None) -> None:
     """Launch the dense kernel on the current stream, writing ``out``
     (B, H, d), split over the sequence as ``split_plan`` says for the
     cache width T (known here, so the lengths stay on the card), with
     the partial states in scratch allocated here and the per-device
     tickets it shares with the paged kernel (safe on one stream: see
-    ``_tickets``); ``window`` keeps each slot's last ``window`` keys.
+    ``_tickets``); ``window`` keeps each slot's last ``window`` keys,
+    ``starts`` (B,) int32 its keys from ``starts[b]`` on instead; with
+    ``lse`` (B, H) f32, ``out`` is f32 and ``lse`` receives each (slot,
+    head)'s log-sum-exp.
     The caller (``kernels.ops``) has checked devices, dtypes, shapes,
     strides and ``one_load_per_lane``.
 
@@ -234,9 +256,13 @@ def decode_attention_cuda(q, k, v, lengths, out: torch.Tensor,
     lib = _build.library("decode_attention")
     err = lib.decode_attention(
         Q_CODES[q.dtype], KV_CODES[k.dtype], q.data_ptr(), k.data_ptr(),
-        v.data_ptr(), lengths.data_ptr(), out.data_ptr(), B, H, KVH, d,
+        v.data_ptr(), lengths.data_ptr(),
+        None if lse is not None else out.data_ptr(), B, H, KVH, d,
         k.stride(0), k.stride(1), k.stride(2), part.data_ptr(),
         tickets.data_ptr(), splits, chunk, window or 0,
+        None if starts is None else starts.data_ptr(),
+        None if lse is None else lse.data_ptr(),
+        None if lse is None else out.data_ptr(),
         torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"decode_attention kernel launch failed: "

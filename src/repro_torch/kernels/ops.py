@@ -236,20 +236,42 @@ def paged_decode_attention(q, k_pages, v_pages, page_table, lengths, *,
 
 
 def decode_attention(q, k, v, lengths, *, window: Optional[int] = None,
+                     starts: Optional[torch.Tensor] = None,
+                     lse: Optional[torch.Tensor] = None,
                      impl: str = "auto") -> torch.Tensor:
     """Single-token decode attention against a dense KV cache (the
     fixed-slot layout).
 
     q: (B, 1, H, d); k/v: (B, T, KVH, d) one layer's cache; lengths: (B,)
     int32 valid-key counts (keys ``t < lengths[b]`` attend, and with a
-    ``window`` only ``t >= lengths[b] - window``).  Returns (B, 1, H, d)
-    in q.dtype."""
+    ``window`` only ``t >= lengths[b] - window``, with ``starts`` (B,)
+    int32 only ``t >= starts[b]``).  Returns (B, 1, H, d) in q.dtype.
+
+    ``lse``, a (B, H) f32 buffer, makes it one rank's part of attention
+    over a sequence split over ranks (``parallel.sequence``): ``lse``
+    receives each (seat, head)'s natural-log log-sum-exp of its scaled
+    scores (``-inf`` with no key in range) and the output, normalized
+    over these keys, is f32 (0 with no key).  The launch counts as
+    ``decode_attention[<cache>,lse]`` (``,starts`` where given)."""
     _check(window is None or window >= 1,
            f"decode_attention: window {window} < 1")
+    _check(window is None or starts is None,
+           "decode_attention: a window or starts, not both")
     B, C, H, d = q.shape
+    _check(lse is None or (lse.dtype == torch.float32
+                           and lse.shape == (B, H) and lse.is_contiguous()
+                           and lse.device == q.device),
+           f"decode_attention: lse must be a contiguous f32 ({B}, {H}) "
+           f"buffer on {q.device}")
+    _check(starts is None or (starts.dtype == torch.int32
+                              and starts.shape == (B,)
+                              and starts.is_contiguous()
+                              and starts.device == q.device),
+           f"decode_attention: starts must be contiguous int32 ({B},) on "
+           f"{q.device}")
     if not use_kernel(impl, q):
-        return da.decode_attention_plain(q[:, 0], k, v, lengths,
-                                         window)[:, None]
+        return da.decode_attention_plain(q[:, 0], k, v, lengths, window,
+                                         starts=starts, lse=lse)[:, None]
     name = "decode_attention"
     _, T, KVH, dk = k.shape
     _check(C == 1, f"{name}: one query token per seat, got C={C}")
@@ -276,11 +298,15 @@ def decode_attention(q, k, v, lengths, *, window: Optional[int] = None,
     _check(da.one_load_per_lane(k) and da.one_load_per_lane(v),
            f"{name}: head dim {d}, cache strides {k.stride()} and "
            f"addresses must allow {da.lane_elems(d)} elements per load")
-    out = torch.empty_like(q)
+    out = torch.empty(q.shape, device=q.device,
+                      dtype=q.dtype if lse is None else torch.float32)
+    split = {key: t for key, t in (("starts", starts), ("lse", lse))
+             if t is not None}
     with torch.cuda.device(q.device):
         da.decode_attention_cuda(q[:, 0], k, v, lengths, out[:, 0],
-                                 window=window)
-    launches[f"{name}[{_POOL_TAGS[k.dtype]}{_window_tag(window)}]"] += 1
+                                 window=window, **split)
+    tags = "".join(f",{key}" for key in ("lse", "starts") if key in split)
+    launches[f"{name}[{_POOL_TAGS[k.dtype]}{_window_tag(window)}{tags}]"] += 1
     return out
 
 

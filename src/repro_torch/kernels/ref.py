@@ -82,21 +82,49 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return torch.einsum("bqk,bkd->bqd", p, v.float()).to(q.dtype)
 
 
-def decode_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                         lengths: torch.Tensor, window=None) -> torch.Tensor:
-    """Oracle for single-query decode. q: (BH, d); k/v: (BH, T, d);
-    lengths: (BH,) valid-key counts; ``window`` keeps only the last
-    ``window`` of them (keys ``t >= lengths - window``, the sliding-window
-    mask of the query at ``lengths - 1``).  Returns (BH, d) in q.dtype."""
-    d = q.shape[-1]
-    s = torch.einsum("bd,btd->bt", q.float(), k.float()) * (d ** -0.5)
+def _decode_keep(k, lengths, window=None, starts=None):
+    """(BH, T) bool: keys ``t < lengths``, and ``t >= lengths - window``
+    with a window or ``t >= starts`` with starts."""
     t = torch.arange(k.shape[1], device=k.device)[None, :]
     keep = t < lengths[:, None]
     if window is not None:
         keep &= t >= lengths[:, None] - window
-    s = torch.where(keep, s, NEG_INF)
+    if starts is not None:
+        keep &= t >= starts[:, None]
+    return keep
+
+
+def decode_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         lengths: torch.Tensor, window=None,
+                         starts=None) -> torch.Tensor:
+    """Oracle for single-query decode. q: (BH, d); k/v: (BH, T, d);
+    lengths: (BH,) valid-key counts; ``window`` keeps only the last
+    ``window`` of them (keys ``t >= lengths - window``, the sliding-window
+    mask of the query at ``lengths - 1``), ``starts`` (BH,) only keys
+    ``t >= starts``.  Returns (BH, d) in q.dtype."""
+    d = q.shape[-1]
+    s = torch.einsum("bd,btd->bt", q.float(), k.float()) * (d ** -0.5)
+    s = torch.where(_decode_keep(k, lengths, window, starts), s, NEG_INF)
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bt,btd->bd", p, v.float()).to(q.dtype)
+
+
+def decode_attention_lse_ref(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, lengths: torch.Tensor,
+                             starts=None):
+    """``decode_attention_ref``'s keys (``starts`` as there), with the
+    state a merge over slices of the keys needs: ``(out (BH, d) f32,
+    lse (BH,) f32)``, ``lse`` the natural-log log-sum-exp of the scaled
+    scores of the kept keys and ``out`` the softmax over them times v;
+    a row with no key has ``lse = -inf`` and ``out = 0``."""
+    d = q.shape[-1]
+    s = torch.einsum("bd,btd->bt", q.float(), k.float()) * (d ** -0.5)
+    keep = _decode_keep(k, lengths, starts=starts)
+    s = torch.where(keep, s, -torch.inf)
+    lse = torch.logsumexp(s, dim=-1)
+    safe = torch.where(torch.isfinite(lse), lse, 0.0)
+    p = torch.where(keep, torch.exp(s - safe[:, None]), 0.0)
+    return torch.einsum("bt,btd->bd", p, v.float()), lse
 
 
 def paged_decode_attention_ref(q: torch.Tensor, k_pages: torch.Tensor,

@@ -30,7 +30,8 @@ GB), or over ranks.
 Under torchrun or Slurm (``runtime.launcher.bootstrap``) ``train()``
 trains over the host mesh, ``(world, 1)`` data × model: params and
 AdamW state sharded over "data" (every rank draws the whole
-initialization and keeps its slice), each rank on its rows of the token
+initialization, keeps its slice of the params and builds the AdamW state
+on that slice), each rank on its rows of the token
 pipeline, checkpoints gathered to rank 0's files and restored onto any
 number of ranks.  A single process runs as before, on no mesh.
 
@@ -65,11 +66,20 @@ from repro_torch.runtime.launcher import (bootstrap, detect_cluster,
                                           device_for)
 
 
-def make_train_state(cfg, generator: torch.Generator, device):
+def make_train_state(cfg, generator: torch.Generator, device, cell=None):
     """f32 params drawn from ``generator`` (which lives on ``device``) and
-    a zero AdamW state."""
+    a zero AdamW state.  With ``cell`` (a ``launch.steps.Cell`` over a
+    mesh) the params are drawn whole, in ``init_params``' order, and cut
+    to this rank's slices before the whole tree is dropped; the AdamW
+    state (and the compressed sync's error feedback) is then built on the
+    slices (``Cell.init_opt``), so a rank never holds more than the whole
+    params and its own slices: bit for bit ``cell.shard_state`` of the
+    whole state."""
     params = M.init_params(M.param_specs(cfg), generator, device=device)
-    return params, init_opt_state(params)
+    if cell is None or cell.fsdp is None:
+        return params, init_opt_state(params)
+    params = cell.shard_params(params)
+    return params, cell.init_opt(params)
 
 
 def train(arch: str, *, steps: int = 20, batch: int = 8, seq: int = 128,
@@ -132,9 +142,7 @@ def _train(arch, mesh, dev, main_rank: bool, *, steps, batch, seq, reduced,
 
     start = 0
     params, opt = make_train_state(
-        cfg, torch.Generator(device=dev).manual_seed(0), dev)
-    if mesh is not None:
-        params, opt = cell.shard_state(params, opt)
+        cfg, torch.Generator(device=dev).manual_seed(0), dev, cell=cell)
     if mgr and resume and mgr.latest_step() is not None:
         start, state = mgr.restore({"params": params, "opt": opt},
                                    shardings=shardings)

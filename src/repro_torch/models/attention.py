@@ -22,6 +22,17 @@ with RoPE, optional qk-norm and sliding window, over a paged KV pool
   over the filled slots on the card, the JAX function's mask elsewhere.
 
 Where the JAX functions return new caches, the port writes K/V in place.
+
+The two decode functions also run one rank's part of a serving cell over
+a mesh (``launch.steps.build_cell``): ``tp`` splits the q heads over
+"model" as in training, and ``seq`` (a ``parallel.sequence.SeqSplit``)
+says that the cache holds this rank's slice of each seat's sequence.
+Where the cache holds every KV head while q holds this rank's heads (the
+sequence took "model", or "model" does not divide the KV heads), q and
+the new K/V rows are gathered over "model" first and every head attends;
+over a split sequence the row at ``pos`` is written by its owner, each
+rank attends its rows (K4 with ``lse=``) and the ranks' states are
+merged from their log-sum-exps (``parallel.sequence.merge_over``).
 """
 from __future__ import annotations
 
@@ -30,6 +41,7 @@ import torch
 from repro_torch.core import mixed_precision as mp
 from repro_torch.kernels import ops
 from repro_torch.models.modules import ParamSpec, rope
+from repro_torch.parallel import sequence as seqmod
 
 NEG_INF = -1e30
 
@@ -143,7 +155,8 @@ def _split_heads(p, cfg, tp):
 
 
 def attention(p, cfg, x, *, kind: str = "attn", causal: bool = True,
-              x_kv=None, q_chunk: int = 1024, impl: str = "auto", tp=None):
+              x_kv=None, q_chunk: int = 1024, impl: str = "auto", tp=None,
+              whole_kv: bool = False):
     """Full-sequence (prefill) attention of queries at positions
     ``0..S-1``.
 
@@ -163,13 +176,18 @@ def attention(p, cfg, x, *, kind: str = "attn", causal: bool = True,
     projection of its heads is summed over the ranks (``tp.reduce``).
 
     Returns ``(out (B, S, D), (k, v))``, k/v ``(B, S or L, KVH, hd)`` to
-    seed the cache (this rank's KV heads under ``tp``)."""
+    seed the cache (this rank's KV heads under ``tp``; where "model" does
+    not divide the KV heads, the ones this rank's q heads read, or with
+    ``whole_kv`` every KV head, as a serving cell's cache holds them)."""
     B, S, _ = x.shape
     cross = x_kv is not None
     if tp is not None:
         tp = tp.split(p["wq"].shape[1], cfg.padded_heads)
-    first = 0
+    first, kv_whole = 0, None
     if tp is not None:
+        if whole_kv and tp.split(p["wk"].shape[1],
+                                 cfg.padded_kv_heads) is None:
+            kv_whole = {key: tp.copy(p[key]) for key in ("wk", "wv")}
         p, first = _split_heads(p, cfg, tp)
         x = tp.copy(x)
     xkv = x_kv if cross else x
@@ -202,11 +220,80 @@ def attention(p, cfg, x, *, kind: str = "attn", causal: bool = True,
             for qc, pc in zip(q.chunk(n_chunks, dim=1),
                               positions.chunk(n_chunks, dim=1))], dim=1)
     out = _out_proj(p, cfg, x, out, first)
+    if kv_whole is not None:
+        _, k, v = _project_qkv({**p, **kv_whole}, cfg, x, xkv, positions,
+                               kv_positions, use_rope=not cross, impl=impl)
     return (out if tp is None else tp.reduce(out)), (k, v)
 
 
+def _serving_heads(p, cfg, tp, cache_kv: int):
+    """``(tp, first, gather)`` of a decode block on this rank: ``tp`` the
+    "model" group where it splits the block's q heads (else None),
+    ``first`` the index of this rank's first q head, ``gather`` whether
+    q must be gathered over "model" because the cache holds every KV
+    head (``cache_kv`` of them) while q holds this rank's heads."""
+    if tp is None:
+        return None, 0, False
+    hl = p["wq"].shape[1]
+    tp = tp.split(hl, cfg.padded_heads)
+    if tp is None:
+        return None, 0, False
+    return tp, tp.offset(hl), tp.n > 1 and cache_kv == cfg.padded_kv_heads
+
+
+def _decode_qkv(p, cfg, x, pos, cache_kv: int, tp, gather: bool, impl):
+    """q, k_new, v_new of one decode step with the heads the cache and the
+    attention read: q gathered over "model" where ``gather``, and the new
+    K/V rows wherever this rank projected fewer KV heads than the cache
+    holds."""
+    q, k_new, v_new = _project_qkv(p, cfg, x, x, pos[:, None], pos[:, None],
+                                   impl=impl)
+    if gather:
+        q = tp.gather(q, 2)
+    if k_new.shape[2] != cache_kv:
+        k_new, v_new = tp.gather(k_new, 2), tp.gather(v_new, 2)
+    return q, k_new, v_new
+
+
+def _serving_out(p, cfg, x, out, tp, first: int, gather: bool):
+    """The block's output for the attention output ``out``: this rank's
+    heads of it (all of them were computed where ``gather``), through its
+    ``wo`` slice and summed over "model" where ``tp`` splits the heads."""
+    if gather:
+        out = out[:, :, first:first + p["wq"].shape[1]]
+    out = _out_proj(p, cfg, x, out, first)
+    return out if tp is None else tp.reduce(out)
+
+
+def _write_owned(cache_k, cache_v, rows, seq, k_new, v_new):
+    """The new K/V row of each seat written at global row ``rows`` (B,)
+    of a sequence split over ``seq``'s ranks, where this rank holds it
+    (``parallel.sequence.write_owned``).  Returns ``(lo, n)``: this
+    rank's first row and its count of rows."""
+    n = cache_k.shape[1]
+    lo, _ = seq.rows(n)
+    local, mine = seqmod.owner_rows(rows, lo, n)
+    seqmod.write_owned(cache_k, local, mine, k_new[:, 0])
+    seqmod.write_owned(cache_v, local, mine, v_new[:, 0])
+    return lo, n
+
+
+def _split_attend(q, k, v, lengths, starts, seq, impl: str):
+    """Attention of q (B, 1, H, d) to this rank's rows of a sequence split
+    over ``seq``'s ranks (local ``lengths`` and ``starts``): K4, or its
+    plain version, with ``lse=``, and the ranks' states merged in f32;
+    (B, 1, H, d) in q's dtype."""
+    B, _, H, _ = q.shape
+    lse = torch.empty((B, H), dtype=torch.float32, device=q.device)
+    out = ops.decode_attention(q, k, v, lengths, starts=starts, lse=lse,
+                               impl=impl)
+    out, _ = seqmod.merge_over(out[:, 0], lse, seq)
+    return out[:, None].to(q.dtype)
+
+
 def decode_attention(p, cfg, x, cache_k, cache_v, pos, *, kind: str = "attn",
-                     cross: bool = False, lengths=None, impl: str = "auto"):
+                     cross: bool = False, lengths=None, impl: str = "auto",
+                     tp=None, seq=None):
     """Single-token decode against a dense cache.
 
     x: (B, 1, D); cache_k/cache_v: (B, T, KVH, hd) one layer's cache;
@@ -217,28 +304,45 @@ def decode_attention(p, cfg, x, cache_k, cache_v, pos, *, kind: str = "attn",
     the encoder's K/V (``ck``/``cv``), read and never written: q is
     ``x @ wq``, neither normed nor rotated, and attends to all T rows
     (``pos`` unread); ``lengths`` (B,) int32 of T each, built here when
-    None, lets a caller build it once for all its layers.  Returns
+    None, lets a caller build it once for all its layers.
+
+    ``tp`` and ``seq``: one rank's part of a serving cell over a mesh
+    (the module's docstring): with ``seq`` the cache holds rows ``[lo,
+    hi)`` of each seat's sequence (``seq.rows``); the row at ``pos`` is
+    written where this rank holds it, the query keeps local keys below
+    ``pos + 1 - lo`` (on an ``attn_local`` layer from ``pos + 1 - W -
+    lo`` on, K4's ``starts``) and the ranks' states are merged.  Returns
     ``(out (B, 1, D), cache_k, cache_v)``."""
     B = x.shape[0]
+    tp, first, gather = _serving_heads(p, cfg, tp, cache_k.shape[2])
     if cross:
         q = _proj(x, p["wq"])
+        if gather:
+            q = tp.gather(q, 2)
         if lengths is None:
             lengths = torch.full((B,), cache_k.shape[1], dtype=torch.int32,
                                  device=x.device)
         out = ops.decode_attention(q, cache_k, cache_v, lengths, impl=impl)
-        return _out_proj(p, cfg, x, out), cache_k, cache_v
-    q, k_new, v_new = _project_qkv(p, cfg, x, x, pos[:, None], pos[:, None],
-                                   impl=impl)
-    seat = torch.arange(B, device=x.device)
-    cache_k[seat, pos.long()] = k_new[:, 0].to(cache_k.dtype)
-    cache_v[seat, pos.long()] = v_new[:, 0].to(cache_v.dtype)
-    out = ops.decode_attention(q, cache_k, cache_v, pos + 1,
-                               window=_window(cfg, kind), impl=impl)
-    return _out_proj(p, cfg, x, out), cache_k, cache_v
+        return (_serving_out(p, cfg, x, out, tp, first, gather), cache_k,
+                cache_v)
+    q, k_new, v_new = _decode_qkv(p, cfg, x, pos, cache_k.shape[2], tp,
+                                  gather, impl)
+    window = _window(cfg, kind)
+    if seq is None:
+        seat = torch.arange(B, device=x.device)
+        cache_k[seat, pos.long()] = k_new[:, 0].to(cache_k.dtype)
+        cache_v[seat, pos.long()] = v_new[:, 0].to(cache_v.dtype)
+        out = ops.decode_attention(q, cache_k, cache_v, pos + 1,
+                                   window=window, impl=impl)
+    else:
+        lo, n = _write_owned(cache_k, cache_v, pos, seq, k_new, v_new)
+        lengths, starts = seqmod.local_bounds(pos, lo, n, window)
+        out = _split_attend(q, cache_k, cache_v, lengths, starts, seq, impl)
+    return _serving_out(p, cfg, x, out, tp, first, gather), cache_k, cache_v
 
 
 def ring_decode_attention(p, cfg, x, cache_k, cache_v, pos, *,
-                          impl: str = "auto"):
+                          impl: str = "auto", tp=None, seq=None):
     """Sliding-window decode against a ring buffer of W rows.
 
     x: (B, 1, D); cache_k/cache_v: (B, W, KVH, hd) one local layer's ring,
@@ -248,11 +352,25 @@ def ring_decode_attention(p, cfg, x, cache_k, cache_v, pos, *,
     first ``min(pos + 1, W)`` slots (a softmax over a set does not depend
     on its keys' order, and RoPE was applied before storage); elsewhere,
     or with ``impl="plain"``, the JAX function's mask over the position
-    each slot holds, ``pos - ((pos - j) mod W) >= 0``.  Returns ``(out
-    (B, 1, D), cache_k, cache_v)``."""
-    B, W = x.shape[0], cache_k.shape[1]
-    q, k_new, v_new = _project_qkv(p, cfg, x, x, pos[:, None], pos[:, None],
-                                   impl=impl)
+    each slot holds, ``pos - ((pos - j) mod W) >= 0``.  ``tp`` and
+    ``seq`` as in ``decode_attention``: with ``seq`` this rank holds
+    slots ``[lo, hi)`` of the ring of ``W = (hi - lo) · seq.n``; slot
+    ``pos mod W`` is written by its owner, and the valid slots are those
+    below ``min(pos + 1, W)``.  Returns ``(out (B, 1, D), cache_k,
+    cache_v)``."""
+    B = x.shape[0]
+    tp, first, gather = _serving_heads(p, cfg, tp, cache_k.shape[2])
+    q, k_new, v_new = _decode_qkv(p, cfg, x, pos, cache_k.shape[2], tp,
+                                  gather, impl)
+    if seq is not None:
+        W = cache_k.shape[1] * seq.n
+        lo, n = _write_owned(cache_k, cache_v, torch.remainder(pos, W), seq,
+                             k_new, v_new)
+        lengths, _ = seqmod.local_bounds(torch.clamp(pos, max=W - 1), lo, n)
+        out = _split_attend(q, cache_k, cache_v, lengths, None, seq, impl)
+        return (_serving_out(p, cfg, x, out, tp, first, gather), cache_k,
+                cache_v)
+    W = cache_k.shape[1]
     seat = torch.arange(B, device=x.device)
     slot = torch.remainder(pos, W).long()
     cache_k[seat, slot] = k_new[:, 0].to(cache_k.dtype)
@@ -265,7 +383,7 @@ def ring_decode_attention(p, cfg, x, cache_k, cache_v, pos, *,
         kv_pos = pos[:, None] - torch.remainder(pos[:, None] - j, W)
         out = _gqa_attend(q, cache_k, cache_v, (kv_pos >= 0)[:, None, :],
                           cfg.resolved_head_dim ** -0.5)
-    return _out_proj(p, cfg, x, out), cache_k, cache_v
+    return _serving_out(p, cfg, x, out, tp, first, gather), cache_k, cache_v
 
 
 def paged_attention(p, cfg, x, kv_entry, page_table, qpos, n_valid, *,

@@ -75,7 +75,11 @@ class RunOptions:
       ``"auto"`` (reduce-scatter in-pod, all-reduce across pods, full
       precision) or ``"compressed"`` (int8 with error feedback on the
       cross-pod hop); ``pipeline``: pipeline stages over "pod", which
-      ``build_cell`` refuses (ROADMAP.md queue 1 item 6c).
+      ``build_cell`` refuses (ROADMAP.md queue 1 item 6c);
+    - ``decode_kv_seq_axis``: a decode cell over a mesh
+      (``launch.steps.build_cell``) gives its cache's sequence every mesh
+      axis the batch leaves free, as the reference's does
+      (flash-decoding over ranks: ``parallel.sequence``).
     """
     remat: bool = True
     remat_policy: str = "nothing"
@@ -88,6 +92,7 @@ class RunOptions:
     aux_loss_weight: float = 0.01
     grad_sync: str = "auto"
     pipeline: bool = False
+    decode_kv_seq_axis: bool = False
 
 
 def _dtype(name: str) -> torch.dtype:
@@ -346,9 +351,11 @@ def backbone(params, cfg: ModelConfig, x, opts: RunOptions, *,
     ``opts.ring_local_cache`` a sliding-window layer of a prompt longer
     than its window W keeps its last W rows at slot = position mod W
     (``_ring_rows``).  ``shard`` is ``_residual_stream``'s (a sharded
-    train step's placement); under it the attention blocks run
-    tensor-parallel where "model" splits their heads
-    (``attention.attention``'s ``tp``), the SSM blocks whole."""
+    train step's placement, or a prefill cell's); under it the attention
+    blocks run tensor-parallel where "model" splits their heads
+    (``attention.attention``'s ``tp``; the cache holds this rank's KV
+    heads, or every KV head where "model" does not divide them), the SSM
+    blocks whole."""
     remat = train and opts.remat
     per_layer = {f"pos{i}": [] for i in range(cfg.scan_period())}
     tp = None if shard is None else shard.tp
@@ -371,7 +378,7 @@ def backbone(params, cfg: ModelConfig, x, opts: RunOptions, *,
             return mix
         mix, (k, v) = attn_mod.attention(p["mixer"], cfg, h, kind=kind,
                                          q_chunk=opts.q_chunk, impl=impl,
-                                         tp=tp)
+                                         tp=tp, whole_kv=want_cache)
         if want_cache:
             if _ring(cfg, kind, opts):
                 k, v = _ring_rows(k, cfg.sliding_window), \
@@ -383,7 +390,7 @@ def backbone(params, cfg: ModelConfig, x, opts: RunOptions, *,
         mix, (ck, cv) = attn_mod.attention(p["cross"], cfg, h, x_kv=enc_out,
                                            causal=False,
                                            q_chunk=opts.q_chunk, impl=impl,
-                                           tp=tp)
+                                           tp=tp, whole_kv=want_cache)
         if want_cache:
             per_layer[f"pos{i}"][-1].update(ck=ck, cv=cv)
         return mix
@@ -448,10 +455,7 @@ def _embed_inputs(params, cfg: ModelConfig, batch, *, impl: str = "auto",
     if "tok_embeds" in batch:
         x = batch["tok_embeds"].to(dt, copy=True)
     else:
-        emb, tokens = params["embed"], batch["tokens"].long()
-        tp = _tp(shard, emb.shape[0], cfg.vocab_size)
-        x = (emb[tokens] if tp is None else embed_lookup(emb, tokens,
-                                                         tp)).to(dt)
+        x = _token_embedding(params, cfg, batch["tokens"], shard)
     if cfg.frontend == "vision" and "patches" in batch:
         patches = batch["patches"]
         n, S = patches.shape[1], x.shape[1]
@@ -470,6 +474,28 @@ def _embed_inputs(params, cfg: ModelConfig, batch, *, impl: str = "auto",
         return attn_mod.attention(p["mixer"], enc_cfg, h, causal=False,
                                   impl=impl)[0]
     return x, _residual_stream(enc, enc_cfg, e, mixer, impl=impl)[0]
+
+
+def _token_embedding(params, cfg: ModelConfig, tokens, shard=None):
+    """Rows ``tokens`` of the embedding in the compute dtype; in a sharded
+    step or cell (``shard``) whose "model" axis splits the vocabulary,
+    vocab-parallel over this rank's rows (``embed_lookup``)."""
+    emb, tokens = params["embed"], tokens.long()
+    tp = _tp(shard, emb.shape[0], cfg.vocab_size)
+    x = emb[tokens] if tp is None else embed_lookup(emb, tokens, tp)
+    return x.to(compute_dtype(cfg))
+
+
+def _head_logits(h, params, cfg: ModelConfig, shard=None):
+    """``h @ w_out`` in h's dtype, as f32: where a sharded cell's "model"
+    axis splits the vocabulary, this rank's columns gathered over it, so
+    every rank returns the logits whole."""
+    w = _output_weight(params, cfg)
+    logits = h @ w.to(h.dtype)
+    tp = _tp(shard, w.shape[1], cfg.vocab_size)
+    if tp is not None:
+        logits = tp.gather(logits, logits.dim() - 1)
+    return logits.float()
 
 
 def _maybe_bf16(params, opts: RunOptions):
@@ -541,7 +567,7 @@ def lm_loss(params, cfg: ModelConfig, batch,
 
 
 def prefill(params, cfg: ModelConfig, batch, opts: RunOptions = RunOptions(),
-            *, impl: str = "auto"):
+            *, impl: str = "auto", shard=None):
     """Run the prompts ``batch["tokens"]`` (B, S) through the model (a
     vision model's first rows the projected ``batch["patches"]`` where
     given, an encoder-decoder model's decoder attending to the encoder's
@@ -550,12 +576,21 @@ def prefill(params, cfg: ModelConfig, batch, opts: RunOptions = RunOptions(),
     B, S, KVH, hd)}}`` in the compute dtype (a ring-buffer layer's ``min(S, W)``
     rows with ``opts.ring_local_cache``; an SSM layer's ``conv`` tail and
     f32 ``ssm`` state; an encoder-decoder model's ``ck``/``cv`` too, see
-    ``backbone``)."""
-    x, enc_out = _embed_inputs(params, cfg, batch, impl=impl)
+    ``backbone``).
+
+    ``shard`` (a ``parallel.fsdp.Fsdp``): one rank's part of a prefill
+    cell over a mesh (``launch.steps.build_cell``), ``params`` this
+    rank's slices and ``batch`` its rows: the leaves are gathered where
+    they are used, as in the sharded train step, the layers that "model"
+    splits run tensor-parallel, and the logits come out whole over the
+    vocabulary; the cache holds this rank's rows, and this rank's KV heads
+    where "model" splits them (``backbone``)."""
+    if shard is not None:
+        params = shard.outside_blocks(params)
+    x, enc_out = _embed_inputs(params, cfg, batch, impl=impl, shard=shard)
     h, caches, _ = backbone(params, cfg, x, opts, enc_out=enc_out,
-                            want_cache=True, impl=impl)
-    logits = h[:, -1:] @ _output_weight(params, cfg).to(h.dtype)
-    return logits.float(), caches
+                            want_cache=True, impl=impl, shard=shard)
+    return _head_logits(h[:, -1:], params, cfg, shard), caches
 
 
 def cache_entry_shapes(cfg: ModelConfig, pos_idx: int, batch: int, seq: int,
@@ -617,7 +652,8 @@ def grow_cache(cache, rows: int):
 
 
 def decode_step(params, cfg: ModelConfig, cache, tokens, pos,
-                opts: RunOptions = RunOptions(), *, impl: str = "auto"):
+                opts: RunOptions = RunOptions(), *, impl: str = "auto",
+                shard=None, layout=None):
     """One token for every slot.  tokens: (B, 1) int32; pos: (B,) int32
     next write position (the fixed-slot engine parks idle slots on the
     scratch index ``T - 1``).  A sliding-window layer whose cache holds
@@ -630,24 +666,44 @@ def decode_step(params, cfg: ModelConfig, cache, tokens, pos,
 
     Writes the new K/V, and the new SSM states, into ``cache`` in place
     (``copy_``: a captured step replays on fixed addresses) and returns
-    ``(logits (B, 1, V) f32, cache)``."""
-    x = params["embed"][tokens.long()].to(compute_dtype(cfg))
+    ``(logits (B, 1, V) f32, cache)``.
+
+    ``shard`` and ``layout``: one rank's part of a decode cell over a
+    mesh (``launch.steps.build_cell``): ``params`` this rank's slices
+    (``shard``, a ``parallel.fsdp.Fsdp``, gathers them where they are
+    used), ``tokens``/``pos`` its rows, ``cache`` its slice of the cache
+    and ``layout`` ``{posN: {leaf: parallel.sequence.LeafSplit}}`` how
+    that slice lies: the attention blocks split their heads over "model"
+    and, where a leaf's sequence is split, attend this rank's rows and
+    merge the ranks' states (``attention.decode_attention``'s ``seq``);
+    an SSM block runs whole on states gathered over "model" and keeps
+    this rank's slice of the new ones.  The logits come out whole."""
+    if shard is not None:
+        params = shard.outside_blocks(params)
+    x = _token_embedding(params, cfg, tokens, shard)
+    tp = None if shard is None else shard.tp
 
     def mixer(g, i, kind, p, h):
         c = _layer(cache[f"pos{i}"], g)
+        lay = {} if layout is None else layout[f"pos{i}"]
         if kind == "ssm":
             mix, (conv, ssm) = ssm_mod.ssm_block(
-                p["mixer"], cfg, h, conv_state=c["conv"],
-                ssm_state=c["ssm"], decode=True, impl=impl)
-            c["conv"].copy_(conv)
-            c["ssm"].copy_(ssm)
+                p["mixer"], cfg, h,
+                conv_state=_model_whole(c["conv"], lay.get("conv"), tp),
+                ssm_state=_model_whole(c["ssm"], lay.get("ssm"), tp),
+                decode=True, impl=impl)
+            c["conv"].copy_(_model_slice(conv, lay.get("conv"), tp))
+            c["ssm"].copy_(_model_slice(ssm, lay.get("ssm"), tp))
             return mix
-        if (_ring(cfg, kind, opts)
-                and c["k"].shape[1] == cfg.sliding_window):
+        seq = lay["k"].seq if "k" in lay else None
+        if (_ring(cfg, kind, opts) and c["k"].shape[1] * (
+                1 if seq is None else seq.n) == cfg.sliding_window):
             return attn_mod.ring_decode_attention(
-                p["mixer"], cfg, h, c["k"], c["v"], pos, impl=impl)[0]
+                p["mixer"], cfg, h, c["k"], c["v"], pos, impl=impl, tp=tp,
+                seq=seq)[0]
         return attn_mod.decode_attention(p["mixer"], cfg, h, c["k"], c["v"],
-                                         pos, kind=kind, impl=impl)[0]
+                                         pos, kind=kind, impl=impl, tp=tp,
+                                         seq=seq)[0]
 
     # every slot attends to all encoder_len rows of its ck/cv: one
     # lengths tensor for every layer
@@ -658,10 +714,27 @@ def decode_step(params, cfg: ModelConfig, cache, tokens, pos,
         c = _layer(cache[f"pos{i}"], g)
         return attn_mod.decode_attention(p["cross"], cfg, h, c["ck"],
                                          c["cv"], pos, cross=True,
-                                         lengths=enc_len, impl=impl)[0]
-    h, _ = _residual_stream(params, cfg, x, mixer, cross=cross, impl=impl)
-    logits = h @ _output_weight(params, cfg).to(h.dtype)
-    return logits.float(), cache
+                                         lengths=enc_len, impl=impl,
+                                         tp=tp)[0]
+    h, _ = _residual_stream(params, cfg, x, mixer, cross=cross, impl=impl,
+                            shard=shard)
+    return _head_logits(h, params, cfg, shard), cache
+
+
+def _model_whole(t, split, tp):
+    """A layer's cache leaf whole over "model" where ``split`` (a
+    ``parallel.sequence.LeafSplit``) says "model" splits one of its
+    dimensions."""
+    if split is None or split.model_dim is None:
+        return t
+    return tp.gather(t, split.model_dim)
+
+
+def _model_slice(t, split, tp):
+    """This rank's "model" slice of a whole leaf (see ``_model_whole``)."""
+    if split is None or split.model_dim is None:
+        return t
+    return t.chunk(tp.n, split.model_dim)[tp.rank]
 
 
 # ---------------------------------------------------------------------------

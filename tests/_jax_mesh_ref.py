@@ -4,6 +4,7 @@ multi-device CPU mesh (the method of ``tests/subproc/``):
   python tests/_jax_mesh_ref.py collectives OUT.npz   # 8 devices
   python tests/_jax_mesh_ref.py train OUT.npz         # 4 devices
   python tests/_jax_mesh_ref.py tp OUT.npz            # 8 devices
+  python tests/_jax_mesh_ref.py serve OUT.npz         # 8 devices
 
 ``collectives``: the cases of ``tests/subproc/check_collectives.py``
 items 1-5 on ``x = arange(24) / 7``.  ``train``: from the params of
@@ -16,7 +17,11 @@ the (2, 2, 2) pod × data × model mesh, three f32 steps of the sharded
 cell for each config of ``_mesh_inputs.TP_CONFIGS``: the metrics, the first moment after step 1
 (``mu_1 = (1 - b1)·c·g``, ``c`` the clip factor: the step-1 gradient),
 the final params, and each device's shard of the initial params with
-its mesh coordinate.
+its mesh coordinate.  ``serve``: on the (2, 2, 2) mesh, the prefill and
+decode cells of ``_mesh_inputs.SERVE_CASES`` from the same params and
+inputs (``serve_inputs``): a prefill's logits and cache, and a decode's
+logits and greedy tokens at each of ``SERVE_STEPS`` steps (each step fed
+the last one's argmax) and its cache after them.
 """
 import os
 import sys
@@ -153,7 +158,55 @@ def tp() -> dict:
     return out
 
 
+def serve() -> dict:
+    from repro.configs import get_config, reduced_config
+    from repro.configs.base import ShapeConfig
+    from repro.launch.steps import build_cell
+    from repro.models import model as M
+    out = {}
+    mesh = _make_mesh(*MI.TP_MESH)
+    for tag, name, kind, batch, seq, seq_axis, ring in MI.SERVE_CASES:
+        cfg = MI.config(name, get_config, reduced_config)
+        opts = M.RunOptions(**MI.run_options_kw(
+            remat=False, decode_kv_seq_axis=seq_axis,
+            ring_local_cache=ring))
+        cell = build_cell(cfg, ShapeConfig(tag, seq, batch, kind), mesh,
+                          opts=opts)
+        fn = jax.jit(cell.fn, in_shardings=cell.in_shardings)
+        with mesh:
+            params = jax.device_put(
+                jax.tree.map(jnp.asarray,
+                             MI.np_params(M.param_specs(cfg), name)),
+                cell.in_shardings[0])
+            if kind == "prefill":
+                inp = MI.serve_inputs(tag, cfg, batch, seq)
+                logits, cache = fn(params, {"tokens": jnp.asarray(
+                    inp["tokens"])})
+                out[f"{tag}/logits"] = np.asarray(logits)
+            else:
+                abstract = cell.abstract_args[1]
+                inp = MI.serve_inputs(tag, cfg, batch, seq, {
+                    p: {k: a.shape for k, a in ent.items()}
+                    for p, ent in abstract.items()})
+                cache = jax.device_put(
+                    {p: {k: jnp.asarray(inp[f"cache/{p}/{k}"])
+                         for k in ent} for p, ent in abstract.items()},
+                    cell.in_shardings[1])
+                tok, pos = jnp.asarray(inp["tokens"]), jnp.asarray(inp["pos"])
+                for step in range(MI.SERVE_STEPS):
+                    logits, cache = fn(params, cache, tok, pos)
+                    tok = jnp.argmax(logits[:, -1], axis=-1).astype(
+                        jnp.int32)[:, None]
+                    out[f"{tag}/logits/{step}"] = np.asarray(logits)
+                    out[f"{tag}/tokens/{step}"] = np.asarray(tok)
+                    pos = pos + 1
+        for path, c in jax.tree_util.tree_flatten_with_path(cache)[0]:
+            out[f"{tag}/cache/{_key(path)}"] = np.asarray(c)
+    return out
+
+
 if __name__ == "__main__":
-    res = {"collectives": collectives, "train": train, "tp": tp}[CASE]()
+    res = {"collectives": collectives, "train": train, "tp": tp,
+           "serve": serve}[CASE]()
     np.savez(OUT, **{k: np.asarray(v) for k, v in res.items()})
     print("ALL_OK", len(res))

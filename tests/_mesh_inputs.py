@@ -30,14 +30,16 @@ CONFIGS = {"dense": ("qwen3-1.7b", None), "moe": ("qwen2-moe-a2.7b", 0.5),
            "ssm": ("mamba2-130m", None), "kv1": ("qwen3-1.7b", None),
            "pad": ("qwen3-1.7b", None), "whisper": ("whisper-base", None),
            "vision": ("phi-3-vision-4.2b", None),
-           "jamba": ("jamba-v0.1-52b", None), "odd": ("minicpm-2b", None)}
+           "jamba": ("jamba-v0.1-52b", None), "odd": ("minicpm-2b", None),
+           "gemma": ("gemma3-12b", None)}
 #: Fields set over the reduced config: one KV head (every rank of a
 #: model axis of 2 reads it: the KV fallback), and 3 heads padded to 4
 #: (``PAD_HEADS``) so that they split over the model axis; minicpm-2b's
 #: odd vocabulary (tied head), which no axis divides.
 OVERRIDES = {"kv1": dict(num_kv_heads=1),
              "pad": dict(num_heads=3, num_kv_heads=3),
-             "odd": dict(vocab_size=251)}
+             "odd": dict(vocab_size=251),
+             "gemma": dict(num_layers=6, num_kv_heads=2)}
 PAD_HEADS = {"pad": 4}
 #: The configs held to JAX's (2, 2, 2) cell, and those held to the
 #: port's own meshless step on that mesh (jamba-v0.1-52b at its reduced
@@ -52,6 +54,65 @@ FAN_IN = {"moe": ("wq", "wk"), "whisper": ("wq", "wk"),
           "odd": ("wq", "wk")}
 BATCH, SEQ, STEPS, LR, TOTAL = 8, 32, 3, 3e-3, 300
 SEED = 0
+
+#: The serving cells held to JAX's on the (2, 2, 2) mesh: (tag, config,
+#: kind, global batch, seq_len, decode_kv_seq_axis, ring_local_cache).
+#: Batch 8 puts the batch over "pod" × "data"; without the flag the KV
+#: heads split over "model", with it the sequence does.  Batch 1 puts the
+#: sequence on "data" (and "data" × "model" with the flag).  gemma3-12b
+#: at 64 rows so that its window of 32 bites, with a full-length cache and
+#: with the ring of 32 slots, each split over "model".
+SERVE_CASES = (
+    ("dense/prefill", "dense", "prefill", 8, 16, False, False),
+    ("dense/decode", "dense", "decode", 8, 32, False, False),
+    ("dense/decode_seq", "dense", "decode", 8, 32, True, False),
+    ("dense/b1", "dense", "decode", 1, 32, False, False),
+    ("dense/b1_seq", "dense", "decode", 1, 32, True, False),
+    ("gemma/decode_seq", "gemma", "decode", 8, 64, True, False),
+    ("gemma/ring_seq", "gemma", "decode", 8, 64, True, True),
+    ("moe/prefill", "moe", "prefill", 8, 16, False, False),
+    ("moe/decode_seq", "moe", "decode", 8, 32, True, False),
+    ("ssm/prefill", "ssm", "prefill", 8, 16, False, False),
+    ("ssm/decode", "ssm", "decode", 8, 32, False, False),
+)
+SERVE_STEPS = 3
+#: The serving cells held to the port's own meshless cells on the (2, 2,
+#: 2) mesh (one step): an encoder-decoder and a vision model, the hybrid,
+#: the odd vocabulary, one KV head, padded heads; each a prefill of 8 ×
+#: 32, a decode of 8 × 48 with ``decode_kv_seq_axis`` and of 1 × 48
+#: without.
+SERVE_FAMILIES = ("whisper", "vision", "jamba", "odd", "kv1", "pad")
+FAMILY_CELLS = (("prefill", 8, 32, False), ("decode", 8, 48, True),
+                ("decode", 1, 48, False))
+FAMILY_POS = (3, 20, 23, 24, 25, 30, 40, 47)
+#: Each seat's first decode position, by cache length: over 3 steps
+#: they cross the edges of the slices (16 of 32 rows; 8 of 32 for batch
+#: 1 over 4 ranks; 32 of 64, where gemma3-12b's window also crosses), and
+#: some seats leave a rank's slice empty.
+SERVE_POS = {32: (0, 5, 13, 14, 15, 16, 27, 29),
+             64: (0, 20, 30, 31, 33, 40, 50, 60)}
+SERVE_POS_B1 = (14,)
+
+
+def serve_inputs(tag: str, cfg, batch: int, seq: int,
+                 cache_shapes=None) -> dict:
+    """A serving case's inputs, f32/int32 numpy from one seed: the
+    prefill's ``tokens`` (batch, seq); or the decode's first ``tokens``
+    (batch, 1), ``pos`` (batch,) and ``cache/<posN>/<leaf>`` for each
+    leaf of ``cache_shapes`` (``{posN: {leaf: shape}}``, the whole
+    cache's shapes), drawn in sorted order."""
+    rng = np.random.default_rng(SEED + 7 + sum(map(ord, tag)))
+    if cache_shapes is None:
+        return {"tokens": rng.integers(0, cfg.vocab_size, (batch, seq))
+                .astype(np.int32)}
+    pos = SERVE_POS_B1 if batch == 1 else SERVE_POS[seq]
+    out = {"tokens": rng.integers(0, cfg.vocab_size, (batch, 1))
+           .astype(np.int32), "pos": np.asarray(pos, np.int32)}
+    for p in sorted(cache_shapes):
+        for key in sorted(cache_shapes[p]):
+            out[f"cache/{p}/{key}"] = rng.standard_normal(
+                cache_shapes[p][key]).astype(np.float32)
+    return out
 
 
 def config(name: str, get_config, reduced_config):

@@ -16,9 +16,11 @@ raises ends the run with a non-zero exit.  numpy and the port only.
   the meshless cell (rank 0) and of
   the ``"compressed"`` cell (with its sync against the plain int8
   composition, bit for bit), elastic restores 4 -> 1 and 1 -> 4 ranks,
-  the token pipeline's rows;
+  the token pipeline's rows; on the (1, 2, 2) mesh ``train()``'s init
+  (``make_train_state(cell=)``) against the whole state sharded;
 - ``tp`` (8 ranks, the (2, 2, 2) mesh): ``tp``'s docstring;
 - ``moe`` (2 ranks): ``moe``'s docstring;
+- ``serve`` (8 ranks, the (2, 2, 2) mesh): ``serve``'s docstring;
 - ``launcher`` (2 ranks): ``bootstrap(device="cpu")`` under torchrun's
   variables, the ``require_chips`` guard;
 - ``train`` (2 ranks): ``train()`` under torchrun's variables with
@@ -232,8 +234,49 @@ def sharded(rank, world, outdir) -> dict:
     out["pipeline/rows"] = torch.tensor(pipe.rows)
     for step in range(MI.STEPS):
         out[f"pipeline/{step}"] = tree_map(lambda t: t, pipe.get_batch(step))
+    out.update(_init_on_shards())
     dist.destroy_process_group()
     return out
+
+
+def _init_on_shards() -> dict:
+    """On the (1, 2, 2) mesh, reduced qwen3-1.7b (the bf16 config
+    ``train()`` runs) with the compressed sync (so the error feedback is
+    built too): ``make_train_state(cell=)``, ``train()``'s init, against
+    ``cell.shard_state`` of the whole state, bit for bit; and the shapes
+    of the leaves ``init_opt_state`` was given against this rank's
+    slices."""
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.launch import steps
+    from repro_torch.launch.train import make_train_state
+    from repro_torch.models import model as M
+    from repro_torch.tree import tree_leaves
+    mesh = _mesh(((1, 2, 2), ("pod", "data", "model")))
+    cfg = reduced_config(get_config("qwen3-1.7b"))
+    cell = _cell(cfg, mesh, grad_sync="compressed")
+    old = cell.shard_state(*make_train_state(
+        cfg, torch.Generator().manual_seed(0), "cpu"))
+    seen = []
+    real = steps.init_opt_state
+
+    def spy(params):
+        seen.extend(tuple(t.shape) for t in tree_leaves(params))
+        return real(params)
+    steps.init_opt_state = spy
+    try:
+        new = make_train_state(cfg, torch.Generator().manual_seed(0), "cpu",
+                               cell=cell)
+    finally:
+        steps.init_opt_state = real
+    pairs = list(zip(tree_leaves(dict(zip("po", old))),
+                     tree_leaves(dict(zip("po", new)))))
+    local = [tuple(t.shape) for t in tree_leaves(new[0])]
+    whole = [tuple(s.shape) for s in tree_leaves(M.param_specs(cfg))]
+    return {"init/equal": all(a.dtype == b.dtype and torch.equal(a, b)
+                              for a, b in pairs),
+            "init/leaves": len(pairs), "init/seen": seen,
+            "init/local": local, "init/whole": whole}
+
 
 
 # -- tensor parallelism -------------------------------------------------------
@@ -491,8 +534,141 @@ def world1(outdir) -> dict:
             "world1/compressed_plain": bool(ok)}
 
 
+# -- serving cells -------------------------------------------------------------
+
+def _slice_index(whole, split):
+    """``((lo, hi), ...)`` per dimension: where this rank's slice of a
+    leaf of shape ``whole`` lies in it."""
+    idx = [(0, n) for n in whole]
+    for dim, n, rank, _ in (split.parts if split is not None else ()):
+        lo, hi = idx[dim]
+        size = (hi - lo) // n
+        idx[dim] = (lo + rank * size, lo + (rank + 1) * size)
+    return tuple(idx)
+
+
+def _cache_out(cell, cache) -> dict:
+    """Each leaf of this rank's cache with where it lies in the whole."""
+    wholes = cell.cache_shapes()
+    return {f"{p}/{k}": (t.clone(), _slice_index(wholes[p][k],
+                                                 cell.cache_splits[p][k]))
+            for p, ent in cache.items() for k, t in ent.items()}
+
+
+def serve(rank, world, outdir) -> dict:
+    """On the (2, 2, 2) mesh, each case of ``SERVE_CASES``: the prefill
+    cell's logits of this rank's rows and its cache slice; the decode
+    cell over ``SERVE_STEPS`` greedy steps from the whole drawn cache
+    (``Cell.shard_cache``), each step's logits and tokens of this rank's
+    rows and its cache slice after them; each cache leaf with where it
+    lies in the whole; and (rank 0) the meshless prefill cell's.  Then
+    ``SERVE_FAMILIES``' cells (``_family_cells``).  Also ``Cell.init_cache``'s shapes against the
+    slices, and the tensor-parallel calls of the first decode step."""
+    from repro_torch.configs import ShapeConfig, get_config, reduced_config
+    from repro_torch.launch.steps import build_cell
+    from repro_torch.models import model as M
+    from repro_torch.parallel import tensor
+    from repro_torch.tree import tree_map
+    _init(rank, world, outdir)
+    mesh = _mesh(MI.TP_MESH)
+    out = {"coords": tuple(mesh.coordinate(a) for a in mesh.axis_names)}
+    for tag, name, kind, batch, seq, seq_axis, ring in MI.SERVE_CASES:
+        cfg = MI.config(name, get_config, reduced_config)
+        opts = M.RunOptions(**MI.run_options_kw(
+            decode_kv_seq_axis=seq_axis, ring_local_cache=ring))
+        cell = build_cell(cfg, ShapeConfig(tag, seq, batch, kind), opts,
+                          mesh=mesh)
+        whole = tree_map(torch.from_numpy,
+                         MI.np_params(M.param_specs(cfg), name))
+        params = cell.shard_params(whole)
+        lo, hi = cell.rows
+        out[f"{tag}/rows"] = (lo, hi)
+        if kind == "prefill":
+            inp = MI.serve_inputs(tag, cfg, batch, seq)
+            logits, cache = cell.fn(params, {"tokens": torch.from_numpy(
+                inp["tokens"][lo:hi])})
+            out[f"{tag}/logits"] = logits
+            out[f"{tag}/cache"] = _cache_out(cell, cache)
+            if rank == 0:
+                one = build_cell(cfg, ShapeConfig(tag, seq, batch, kind),
+                                 opts)
+                logits, cache = one.fn(whole, {"tokens": torch.from_numpy(
+                    inp["tokens"])})
+                out[f"{tag}/meshless/logits"] = logits
+                out[f"{tag}/meshless/cache"] = cache
+            continue
+        inp = MI.serve_inputs(tag, cfg, batch, seq, cell.cache_shapes())
+        whole = {p: {k: torch.from_numpy(inp[f"cache/{p}/{k}"]) for k in ent}
+                 for p, ent in cell.cache_shapes().items()}
+        cache = cell.shard_cache(whole)
+        zero = cell.init_cache()
+        out[f"{tag}/init_cache"] = all(
+            zero[p][k].shape == t.shape and zero[p][k].dtype == t.dtype
+            and not zero[p][k].any() for p, ent in cache.items()
+            for k, t in ent.items())
+        tok = torch.from_numpy(inp["tokens"][lo:hi])
+        pos = torch.from_numpy(inp["pos"][lo:hi])
+        for step in range(MI.SERVE_STEPS):
+            tensor.reset_calls()
+            logits, cache = cell.fn(params, cache, tok, pos)
+            if step == 0:
+                out[f"{tag}/calls"] = dict(tensor.calls)
+            tok = logits[:, -1].argmax(-1).to(torch.int32)[:, None]
+            out[f"{tag}/logits/{step}"] = logits
+            out[f"{tag}/tokens/{step}"] = tok
+            pos = pos + 1
+        out[f"{tag}/cache"] = _cache_out(cell, cache)
+    for name in MI.SERVE_FAMILIES:
+        out.update(_family_cells(name, mesh, rank))
+    dist.destroy_process_group()
+    return out
+
+
+def _family_cells(name, mesh, rank) -> dict:
+    """``FAMILY_CELLS`` of config ``name`` on the mesh, one step each from
+    numpy-drawn inputs: this rank's rows of the logits; on rank 0 the
+    meshless cell's logits of every row."""
+    import numpy as np
+    from repro_torch.configs import ShapeConfig, get_config, reduced_config
+    from repro_torch.launch.steps import build_cell
+    from repro_torch.models import model as M
+    from repro_torch.tree import tree_map
+    cfg = MI.config(name, get_config, reduced_config)
+    whole = tree_map(torch.from_numpy, MI.np_params(M.param_specs(cfg), name))
+    out = {}
+    for kind, batch, seq, seq_axis in MI.FAMILY_CELLS:
+        tag = f"family/{name}/{kind}/{batch}"
+        opts = M.RunOptions(**MI.run_options_kw(decode_kv_seq_axis=seq_axis))
+        shape = ShapeConfig(tag, seq, batch, kind)
+        cell = build_cell(cfg, shape, opts, mesh=mesh)
+        lo, hi = cell.rows
+        rng = np.random.default_rng(MI.SEED + 11)
+        tokens = torch.from_numpy(rng.integers(
+            0, cfg.vocab_size, (batch, seq if kind == "prefill" else 1))
+            .astype(np.int32))
+        if kind == "prefill":
+            args = {"tokens": tokens, **{
+                k: torch.from_numpy(v[:batch])
+                for k, v in MI.np_frontend(cfg).items()}}
+            mine = ({k: v[lo:hi] for k, v in args.items()},)
+            args = (args,)
+        else:
+            cache = {p: {k: torch.from_numpy(rng.standard_normal(s).astype(
+                np.float32)) for k, s in ent.items()}
+                for p, ent in cell.cache_shapes().items()}
+            pos = torch.tensor(MI.FAMILY_POS[:batch], dtype=torch.int32)
+            mine = (cell.shard_cache(cache), tokens[lo:hi], pos[lo:hi])
+            args = (cache, tokens, pos)
+        out[f"{tag}/rows"] = (lo, hi)
+        out[f"{tag}/logits"] = cell.fn(cell.shard_params(whole), *mine)[0]
+        if rank == 0:
+            out[f"{tag}/meshless"] = build_cell(cfg, shape, opts).fn(
+                whole, *args)[0]
+    return out
+
+
 CASES = {"collectives": (8, collectives), "sharded": (4, sharded),
-         "tp": (8, tp), "moe": (2, moe),
+         "tp": (8, tp), "moe": (2, moe), "serve": (8, serve),
          "launcher": (2, launcher), "train": (2, train)}
 
 

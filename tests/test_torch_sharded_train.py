@@ -264,6 +264,20 @@ def test_train_over_two_ranks_equals_one_rank(runs, tmp_path):
         assert err < TOL["bfloat16"]["update"], (k, err)
 
 
+def test_train_init_builds_the_optimizer_state_on_the_shards(runs):
+    """``train()``'s init over ranks (``make_train_state(cell=)``) on the
+    (1, 2, 2) mesh: params, AdamW moments, count and the compressed
+    sync's error feedback bit-equal to the whole state cut by
+    ``Cell.shard_state`` (the old init), and ``init_opt_state`` given
+    this rank's slices only: a leaf the placement splits never reaches
+    it whole."""
+    for r in runs["sharded"]:
+        assert r["init/equal"] and r["init/leaves"] > 0
+        assert r["init/seen"] == r["init/local"]
+        split = [a != b for a, b in zip(r["init/local"], r["init/whole"])]
+        assert len(split) == len(r["init/whole"]) and any(split)
+
+
 def test_world_of_one_is_the_meshless_step_bit_for_bit(runs):
     """On one rank (the (1, 1, 1) mesh, every collective a copy) three
     ``"auto"`` steps of the MoE config equal three meshless steps bit

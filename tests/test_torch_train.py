@@ -76,8 +76,11 @@ def test_train_cell_refuses_multi_device_modes_and_serving_shapes():
     # without a mesh (no "pod") the compressed sync is the plain step, as
     # in the reference
     build_cell(cfg, shape, TM.RunOptions(grad_sync="compressed"))
+    # serving shapes build their cells (tests/test_torch_serving_cells.py);
+    # an unknown kind is refused
+    assert build_cell(cfg, TShapeConfig("p", S, B, "prefill")).fn is not None
     with pytest.raises(ValueError, match="train"):
-        build_cell(cfg, TShapeConfig("p", S, B, "prefill"))
+        build_cell(cfg, TShapeConfig("p", S, B, "score"))
 
 
 @pytest.fixture(scope="module")
